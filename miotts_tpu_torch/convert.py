@@ -1,0 +1,69 @@
+"""Carry parameter trees of the JAX package over to the port.
+
+Both functions take the JAX package's params as nested dicts / lists of
+numpy arrays, so the port never needs JAX or its classes: a quantized
+weight arrives as a dict {values, scales, mins, group, n_out, packed} in the
+JAX layout (values / scales / mins transposed to [K(/2), N] and padded to
+128 output lanes).  The padding is cut here, so every QTensor of the port
+has n_out == N.  bf16 arrays (numpy's ml_dtypes bfloat16) convert exactly
+through f32.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .ops.qmat import QTensor
+
+_STACKED_CODEC_BLOCKS = ("prenet_blocks", "prior_blocks", "decoder_blocks",
+                         "post_blocks")
+
+
+def _tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(device, torch.bfloat16)
+    return torch.from_numpy(np.array(a)).to(device)   # an owning copy
+
+
+def _qtensor(d: dict, device) -> QTensor:
+    n = int(d["n_out"]) if int(d["n_out"]) > 0 else np.asarray(d["values"]).shape[1]
+
+    def cut(a):
+        return None if a is None else _tensor(np.asarray(a)[:, :n], device)
+    return QTensor(values=cut(d["values"]), scales=cut(d["scales"]).float(),
+                   mins=None if d["mins"] is None else cut(d["mins"]).float(),
+                   group=int(d["group"]), n_out=n, packed=bool(d["packed"]))
+
+
+def _convert(obj, device):
+    if isinstance(obj, dict):
+        if "values" in obj and "group" in obj:
+            return _qtensor(obj, device)
+        return {k: _convert(v, device) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_convert(v, device) for v in obj]
+    return _tensor(obj, device)
+
+
+def llm_params_from_numpy(tree: dict, device="cpu") -> dict:
+    """JAX `load_llm_params` tree (numpy leaves) -> the port's LLM params."""
+    if "blocks" not in tree:
+        raise ValueError("only dense (non-hybrid) LLM trees are supported")
+    return _convert(tree, device)
+
+
+def codec_params_from_numpy(tree: dict, device="cpu") -> dict:
+    """JAX `load_codec_params` tree (numpy leaves) -> the port's codec
+    params: the stacked per-layer blocks (JAX scans over them) become lists
+    of per-layer dicts."""
+    out = {}
+    for key, val in tree.items():
+        if key in _STACKED_CODEC_BLOCKS:
+            n = len(next(iter(val.values())))
+            out[key] = [{k: _tensor(np.asarray(a)[i], device)
+                         for k, a in val.items()} for i in range(n)]
+        else:
+            out[key] = _convert(val, device)
+    return out

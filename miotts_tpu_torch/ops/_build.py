@@ -1,0 +1,100 @@
+"""Build and load the port's CUDA kernels (plain C interface, ctypes).
+
+Each `csrc/*.cu` source is compiled by `nvcc` for `sm_90a` into its own
+shared library under `build/torch_kernels/` at the repository root (listed
+in .gitignore).  The library name carries a hash of the source, so an edited
+kernel rebuilds and a current one is reused.  Nothing here runs at import:
+the first CUDA `qdot` call builds, and `build_all` lets a calling script
+start every `nvcc` at once.  A failed build raises; there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# name -> (source file, {C function: argtypes}); every function returns the
+# cudaError_t of its launch as an int
+KERNELS = {
+    "qdot": ("qdot.cu", {
+        # x, x_is_bf16, v, packed, s, mins, y, M, K, N, group, stream
+        "qdot_launch": [_P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P],
+    }),
+}
+
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(cand):
+        return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _lib_path(name: str) -> Path:
+    src = CSRC / KERNELS[name][0]
+    digest = hashlib.sha1(src.read_bytes()
+                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}_{digest}.so"
+
+
+def _start_build(name: str) -> subprocess.Popen | None:
+    out = _lib_path(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / KERNELS[name][0])]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    proc.miotts_out, proc.miotts_tmp = out, tmp
+    return proc
+
+
+def _finish_build(name: str, proc: subprocess.Popen) -> str:
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name} (rc {proc.returncode}):\n"
+                           f"{log}")
+    os.replace(proc.miotts_tmp, proc.miotts_out)
+    (BUILD_DIR / f"{name}.log").write_text(log)
+    return log
+
+
+def build_all() -> dict[str, str]:
+    """Compile every kernel that is not built yet, all `nvcc` processes at
+    once.  Returns {name: compiler output} for what was compiled."""
+    procs = {name: _start_build(name) for name in KERNELS}
+    return {name: _finish_build(name, p)
+            for name, p in procs.items() if p is not None}
+
+
+def load_kernels() -> dict[str, ctypes.CDLL]:
+    """{name: loaded library}, building what is missing."""
+    if len(_loaded) < len(KERNELS):
+        build_all()
+        for name, (_, fns) in KERNELS.items():
+            if name in _loaded:
+                continue
+            lib = ctypes.CDLL(str(_lib_path(name)))
+            for fn, argtypes in fns.items():
+                f = getattr(lib, fn)
+                f.argtypes = argtypes
+                f.restype = ctypes.c_int
+            _loaded[name] = lib
+    return _loaded
