@@ -16,11 +16,31 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      GPU's prefill logits and codec output against the CPU reference path;
   4. --skip-llm: a fixed `<|s_N|>` string through the same engine;
   5. profile: torch.profiler over a prefill + one 64-step decode chunk
-     (device time by kernel, device-busy share, launches per step).
+     (device time by kernel, device-busy share, launches per step);
+     phase 7 profiles a 64-request serving run the same way;
+  6. attention kernel vs plain: the batched decode-attention CUDA kernel
+     (`decode_attention_batched`) against its plain version at the serving
+     shapes (0.1B: B=64, H=12/4, D=64, S=128/256/512; 2.6B: B=64, H=32/8,
+     D=80, S=256/512, and B=128, S=256), bf16 and int8 caches with
+     staggered fills and idle rows, with kernel / eager / plain / bound
+     times and, for bf16, the library time of
+     scaled_dot_product_attention (timed only; the port never calls it);
+  7. batched serving at full width: ContinuousBatcher(64 slots, 20-step
+     chunks, serving defaults) over the phase-3 0.1B-Q8_0 files serves 80
+     requests on a bf16 cache, then 16 on an int8 cache; checks every
+     request's audio and that every batched step went through both
+     kernels (12 attention and 49 qdot launches per step, 49 qdot per
+     prefill); prints aggregate x_realtime, time to first audio and the
+     scheduler's stage split;
+  8. GPU vs CPU: one greedy 20-step batched chunk of the f32 model on
+     4 slots, on the card and on the CPU plain path (tokens identical,
+     logits within 1e-4 of their scale);
+  9. HTTP: the port's server on 127.0.0.1 (8 slots) answers /health and
+     four concurrent /synthesize requests (2 wav, 2 pcm), then drains.
 
 Kernel times are device times: the calls are captured in a CUDA graph and
-replayed between CUDA events, cycling over weight copies larger than the
-50 MB L2 (a decode step streams every layer's weights cold); the eager
+replayed between CUDA events, cycling over weight (or KV-cache) copies
+larger than the 50 MB L2 (a decode step streams them cold); the eager
 per-call time, Python wrapper included, is printed beside them.
 
 The second-to-last line is the nvidia-smi name / power-limit line; before
@@ -31,26 +51,38 @@ Imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import http.client
 import json
 import math
 import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (data sheet)
 PEAK_FLOPS = 989e12            # H100 SXM dense bf16 tensor core (data sheet)
+PEAK_INT8_OPS = 1979e12        # H100 SXM dense int8 tensor core (data sheet)
 L2_FLUSH_BYTES = 160 << 20     # weight copies cycled per timing loop (> 50 MB L2)
 KERNEL_TOL_BF16 = 1e-2         # bf16 output: one 2^-8 rounding on either side
 KERNEL_TOL_F32 = 1e-5          # f32 output: summation order only
 REF_TOL = 1e-4                 # GPU vs CPU reference, f32 LLM prefill / codec
+ATTN_TOL = 1e-2                # attention kernel vs plain: bf16 rounding of p;
+                               # int8: of the row scale (one quantized step)
 
 # 0.1B-Q8_0 (the main path's model, bench.py's "0.1b-q8_0" at full width)
 DIM, LAYERS, HEADS, KV_HEADS, HEAD_DIM, FF = 768, 12, 12, 4, 64, 2048
 N_SPEECH = 12800
 MAX_TOKENS = 128
 QDOT_PER_STEP = LAYERS * 4 + 1   # fused QKV, wo, fused gate/up, down; output
+# batched serving (bench_batch.py's flagship mix at the 0.1B model)
+SLOTS, CHUNK, SERVE_TOKENS, N_REQ, N_REQ_INT8 = 64, 20, 96, 80, 16
+# attention kernel shapes (B, H, H_kv, D, S)
+ATTN_SHAPES = [("0.1b", 64, 12, 4, 64, 128), ("0.1b", 64, 12, 4, 64, 256),
+               ("0.1b", 64, 12, 4, 64, 512), ("2.6b", 64, 32, 8, 80, 256),
+               ("2.6b", 64, 32, 8, 80, 512), ("2.6b", 128, 32, 8, 80, 256)]
+ATTN_STEP_SHAPE = ("0.1b", 64, 12, 4, 64, 256)   # the serving phase's shape
 
 
 def log(msg: str) -> None:
@@ -248,6 +280,130 @@ def phase_kernels(torch, qmat, card: str) -> list[dict]:
 
 
 # ---------------------------------------------------------------------------
+# Phase 6: attention kernel vs plain
+# ---------------------------------------------------------------------------
+
+def attn_inputs(torch, B, H, H_kv, D, S, mode, gen):
+    """q, k, v, fill, q_pos, k_scale, v_scale on the card: staggered fills
+    in [1, S], every 7th row idle (fill 0), some q_pos below fill."""
+    from miotts_tpu_torch.models.llm import _kv_quantize
+    dev = "cuda"
+    q = torch.randn((B, H, D), generator=gen, device=dev)
+    k = torch.randn((B, H_kv, S, D), generator=gen, device=dev)
+    v = torch.randn((B, H_kv, S, D), generator=gen, device=dev)
+    fill = torch.randint(1, S + 1, (B,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    fill[::7] = 0
+    q_pos = fill.clone()
+    q_pos[3::5] = fill[3::5] // 2
+    if mode == "int8":
+        (k, ks), (v, vs) = _kv_quantize(k), _kv_quantize(v)
+        return q.bfloat16(), k, v, fill, q_pos, ks, vs
+    return q.bfloat16(), k.bfloat16(), v.bfloat16(), fill, q_pos, None, None
+
+
+def attn_work(torch, B, H, H_kv, D, mode, fill, q_pos, S):
+    """(bytes, ops) the call must move / do for THIS data: the k and v rows
+    of every valid key (plus their scales), q and the f32 output."""
+    limit = torch.minimum(torch.minimum(fill, q_pos + 1),
+                          torch.full_like(fill, S)).clamp(min=0)
+    keys = int(limit.sum()) * H_kv
+    el = 1 if mode == "int8" else 2
+    nbytes = 2 * keys * D * el + B * H * D * 2 + B * H * D * 4
+    if mode == "int8":
+        nbytes += 2 * keys * 4
+    ops = 4 * keys * (H // H_kv) * D
+    return nbytes, ops
+
+
+def phase_attn_kernels(torch, card: str) -> list[dict]:
+    from miotts_tpu_torch.ops import decode_attn as da
+    F = torch.nn.functional
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    rows = []
+    for label, B, H, H_kv, D, S in ATTN_SHAPES:
+        for mode in ("bf16", "int8"):
+            inp = attn_inputs(torch, B, H, H_kv, D, S, mode, gen)
+            q, k, v, fill, q_pos, ks, vs = inp
+            errs = {}
+            for stats in (False, True):
+                got = da.decode_attention_batched(*inp, return_stats=stats)
+                want = da.decode_attention_batched_plain(*inp,
+                                                         return_stats=stats)
+                torch.cuda.synchronize()
+                g0 = got[0] if stats else got
+                w0 = want[0] if stats else want
+                if g0.shape != (B, H, D) or not torch.isfinite(g0).all():
+                    raise AssertionError(f"attn {label} S={S} {mode}: bad "
+                                         f"output {tuple(g0.shape)}")
+                if mode == "int8":
+                    scale = w0.abs().amax(dim=-1, keepdim=True).clamp(min=1e-30)
+                    e = float(((g0 - w0).abs() / scale).max())
+                else:
+                    e = rel_err(g0, w0)
+                if not e < ATTN_TOL:
+                    raise AssertionError(f"attn {label} S={S} {mode} stats="
+                                         f"{stats}: kernel vs plain err {e}")
+                errs[stats] = e
+            abs_err = float((g0 - w0).abs().max())
+            cache_bytes = 2 * k.numel() * k.element_size()
+            n_copies = max(2, min(64, -(-L2_FLUSH_BYTES // cache_bytes)))
+            copies = [(k, v, ks, vs)] + [
+                (k.clone(), v.clone(), None if ks is None else ks.clone(),
+                 None if vs is None else vs.clone())
+                for _ in range(n_copies - 1)]
+
+            def kern(i):
+                c = copies[i % n_copies]
+                return da.decode_attention_batched(q, c[0], c[1], fill, q_pos,
+                                                   c[2], c[3])
+
+            def plain(i):
+                c = copies[i % n_copies]
+                return da.decode_attention_batched_plain(
+                    q, c[0], c[1], fill, q_pos, c[2], c[3])
+            k_ms = graph_ms(torch, kern, max(20, n_copies))
+            p_ms = graph_ms(torch, plain, 4)
+            e_ms = time_ms(torch, kern, 50)
+            l_ms = None
+            if mode == "bf16":
+                # scaled_dot_product_attention over each row's valid keys,
+                # heads expanded beforehand (a yardstick, never the port's)
+                rep_ = H // H_kv
+                limit = torch.minimum(fill, q_pos + 1)
+                mask = (torch.arange(S, device="cuda")[None, :]
+                        < limit[:, None])[:, None, None, :]
+                kx = [c[0].repeat_interleave(rep_, dim=1) for c in copies]
+                vx = [c[1].repeat_interleave(rep_, dim=1) for c in copies]
+                q4 = q[:, :, None, :]
+                l_ms = graph_ms(torch, lambda i: F.scaled_dot_product_attention(
+                    q4, kx[i % n_copies], vx[i % n_copies], attn_mask=mask),
+                    max(20, n_copies))
+                del kx, vx
+            nbytes, ops = attn_work(torch, B, H, H_kv, D, mode, fill, q_pos, S)
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = ops / (PEAK_INT8_OPS if mode == "int8" else PEAK_FLOPS) * 1e3
+            row = dict(shape=label, B=B, H=H, H_kv=H_kv, D=D, S=S, mode=mode,
+                       bytes=nbytes, ops=ops, ms=k_ms, eager_ms=e_ms,
+                       plain_ms=p_ms, library_ms=l_ms,
+                       bound_ms=max(t_bytes, t_ops),
+                       bound_by="bytes" if t_bytes >= t_ops else "operations",
+                       max_abs_err=abs_err, err=errs[False],
+                       err_stats=errs[True])
+            rows.append(row)
+            lib = "none" if l_ms is None else f"{l_ms:.4f} ms"
+            log(f"attn {label} B={B:<3d} H={H}/{H_kv} D={D} S={S:<3d} {mode:4s}"
+                f" kernel {k_ms:.4f} ms (eager {e_ms:.4f})  plain {p_ms:.4f} ms"
+                f"  library {lib}  bound {row['bound_ms']:.4f} ms "
+                f"({row['bound_by']})  err {errs[False]:.2e} / stats "
+                f"{errs[True]:.2e}  [{card}]")
+            del copies
+            torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # Phase 3/4: main path
 # ---------------------------------------------------------------------------
 
@@ -368,17 +524,16 @@ def phase_main_path(torch, qmat, paths: dict, out_dir: str, card: str) -> dict:
     return res
 
 
-def profile_decode(torch, eng, text, Options, card: str) -> dict:
-    """Where one generate_tokens call (prefill + one 64-step chunk) spends
-    its time: torch.profiler device time by kernel, the device-busy share of
-    the wall time and host kernel launches per decode step."""
+def device_profile(torch, fn, label: str, card: str) -> dict:
+    """torch.profiler over fn() (which returns the decode steps it ran):
+    device time by kernel, the device-busy share of the wall time and host
+    kernel launches per step."""
     from torch.profiler import ProfilerActivity, profile
-    eng.generate_tokens(text, Options(temperature=0.0, max_tokens=16))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.generate_tokens(text, Options(temperature=0.0, max_tokens=16))
+        steps = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = prof.key_averages()
@@ -391,22 +546,260 @@ def profile_decode(torch, eng, text, Options, card: str) -> dict:
     busy_s = sum(dev_us(e) for e in kernels) * 1e-6
     launches = sum(e.count for e in events if e.key in (
         "cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
-    # the 12 largest by device time, and every qdot kernel
-    shown = kernels[:12] + [e for e in kernels[12:] if "qdot" in e.key]
-    out = dict(wall_s=wall, device_busy_s=busy_s,
+    # the 12 largest by device time, and every kernel of the port
+    shown = kernels[:12] + [e for e in kernels[12:]
+                            if "qdot" in e.key or "decode_attn" in e.key]
+    out = dict(wall_s=wall, steps=steps, device_busy_s=busy_s,
                busy_share=busy_s / wall if busy_s else None,
-               host_launches_per_step=launches / 65,
+               host_launches_per_step=launches / steps,
                top=[dict(name=e.key[:80], count=e.count, ms=dev_us(e) * 1e-3)
                     for e in shown])
     if not busy_s:
-        log("profile: the profiler reported no device time (not measured)")
+        log(f"profile {label}: the profiler reported no device time "
+            f"(not measured)")
         return out
-    log(f"profile: prefill + 64 decode steps: wall {wall:.4f} s, device busy "
-        f"{busy_s:.4f} s ({100 * busy_s / wall:.1f}%), "
-        f"{out['host_launches_per_step']:.0f} kernel launches per step  [{card}]")
+    log(f"profile {label}: wall {wall:.4f} s, device busy {busy_s:.4f} s "
+        f"({100 * busy_s / wall:.1f}%), {out['host_launches_per_step']:.0f} "
+        f"kernel launches per step over {steps} steps  [{card}]")
     for t in out["top"]:
         log(f"profile:   {t['ms']:9.3f} ms  x{t['count']:<6d} {t['name']}")
     return out
+
+
+def profile_decode(torch, eng, text, Options, card: str) -> dict:
+    """Where one generate_tokens call (prefill + one 64-step chunk) spends
+    its time."""
+    opts = Options(temperature=0.0, max_tokens=16)
+    eng.generate_tokens(text, opts)
+
+    def run():
+        eng.generate_tokens(text, opts)
+        return 65
+    return device_profile(torch, run, "prefill + 64 decode steps", card)
+
+
+# ---------------------------------------------------------------------------
+# Phase 7/8/9: batched serving, GPU vs CPU chunk, HTTP
+# ---------------------------------------------------------------------------
+
+def serve_requests(torch, batcher, voice, n_req: int, Options) -> dict:
+    """Submit n_req requests (bench_batch.py's mix) and run to completion;
+    checks every request's audio.  Returns the run's numbers."""
+    import numpy as np
+    from miotts_tpu_torch.ops import decode_attn, qmat
+    spt = batcher.engine.samples_per_token
+    sr = batcher.engine.sample_rate
+    got = {i: {"samples": 0, "finite": True, "peak": 0.0, "final": False,
+               "req": None} for i in range(n_req)}
+
+    def make_cb(i):
+        def cb(samples, rate, is_last):
+            if samples is not None and len(samples):
+                a = np.asarray(samples)
+                got[i]["samples"] += a.size
+                got[i]["finite"] &= bool(np.isfinite(a).all())
+                got[i]["peak"] = max(got[i]["peak"], float(np.abs(a).max()))
+            got[i]["final"] |= bool(is_last)
+            return True
+        return cb
+
+    decode_attn.decode_attention_batched.kernel_launches = 0
+    qmat.qdot.kernel_launches = 0
+    t0 = time.perf_counter()
+    for i in range(n_req):
+        batcher.submit(f"concurrent utterance number {i} for serving", voice,
+                       make_cb(i), Options(max_tokens=SERVE_TOKENS,
+                                           temperature=0.8, seed=100 + i),
+                       on_finish=lambda r, i=i: got[i].__setitem__("req", r))
+    batcher.run_until_done(max_iters=5000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k6 = decode_attn.decode_attention_batched.kernel_launches
+    qd = qmat.qdot.kernel_launches
+    st = dict(batcher.stage)
+    if batcher.pending:
+        raise AssertionError(f"serving: {batcher.pending} requests pending")
+    for i, g in got.items():
+        r = g["req"]
+        if r is None or not g["final"]:
+            raise AssertionError(f"serving: request {i} got no final callback")
+        # the int16 wire format decodes -32768 to -32768 / 32767
+        if not g["finite"] or g["peak"] > 32768 / 32767:
+            raise AssertionError(f"serving: request {i} audio not finite or "
+                                 f"|x| > 1 (peak {g['peak']})")
+        if not r.failed and g["samples"] != len(r.codes) * spt:
+            raise AssertionError(f"serving: request {i} emitted {g['samples']}"
+                                 f" samples for {len(r.codes)} codes")
+    steps = st["device_steps"]
+    if k6 != LAYERS * steps:
+        raise AssertionError(f"serving: attention kernel launches {k6} != "
+                             f"{LAYERS} x {steps} device steps")
+    if qd != QDOT_PER_STEP * (steps + st["prefills"]):
+        raise AssertionError(f"serving: qdot launches {qd} != "
+                             f"{QDOT_PER_STEP} x ({steps} steps + "
+                             f"{st['prefills']} prefills)")
+    audio_s = sum(g["samples"] for g in got.values()) / sr
+    ttfa = sorted(g["req"].first_audio_at - g["req"].submitted_at
+                  for g in got.values() if g["req"].first_audio_at >= 0)
+    return dict(n_req=n_req, wall_s=wall, audio_s=audio_s,
+                aggregate_x_realtime=audio_s / wall,
+                ttfa_p50_s=ttfa[len(ttfa) // 2] if ttfa else None,
+                ttfa_max_s=ttfa[-1] if ttfa else None,
+                codes=sum(len(g["req"].codes) for g in got.values()),
+                failed=sum(g["req"].failed for g in got.values()),
+                attn_launches=k6, qdot_launches=qd, stage=st)
+
+
+def phase_serving(torch, paths: dict, card: str) -> dict:
+    from miotts_tpu_torch.runtime.batching import ContinuousBatcher
+    from miotts_tpu_torch.runtime.engine import (EngineConfig, Options,
+                                                 TTSEngine, VoiceModel)
+    eng = TTSEngine(EngineConfig(model_path=paths["llm"],
+                                 codec_path=paths["codec"], device="cuda",
+                                 max_tokens=SERVE_TOKENS))
+    voice = VoiceModel(paths["voice"])
+    out = {}
+    for tag, quant, n_req in (("bf16", False, N_REQ),
+                              ("int8", True, N_REQ_INT8)):
+        batcher = ContinuousBatcher(eng, n_slots=SLOTS, chunk_steps=CHUNK,
+                                    quantized_kv=quant)
+        t0 = time.perf_counter()
+        batcher.warmup(prompt_len=16)
+        torch.cuda.synchronize()
+        log(f"serving[{tag}]: warmup {time.perf_counter() - t0:.2f} s")
+        res = serve_requests(torch, batcher, voice, n_req, Options)
+        out[tag] = res
+        st = res["stage"]
+        log(f"serving[{tag}]: {n_req} requests on {SLOTS} slots, wall "
+            f"{res['wall_s']:.4f} s, audio {res['audio_s']:.4f} s, aggregate "
+            f"x_realtime {res['aggregate_x_realtime']:.4f}, TTFA p50 "
+            f"{res['ttfa_p50_s']:.4f} s (max {res['ttfa_max_s']:.4f} s), "
+            f"{res['codes']} codes, {res['failed']} failed  [{card}]")
+        log(f"serving[{tag}]: {st['device_steps']} device steps in "
+            f"{st['chunks']} chunks, {st['prefills']} prefills, "
+            f"{st['decodes']} codec decodes; attention launches "
+            f"{res['attn_launches']}, qdot launches {res['qdot_launches']}")
+        log(f"serving[{tag}]: stage " + json.dumps(
+            {k: (round(v, 6) if isinstance(v, float) else v)
+             for k, v in st.items()}))
+        del batcher
+        torch.cuda.empty_cache()
+    # where a serving run's time goes: 64 requests x 40 tokens, bf16 cache
+    batcher = ContinuousBatcher(eng, n_slots=SLOTS, chunk_steps=CHUNK)
+    batcher.warmup(prompt_len=16)
+
+    def run():
+        for i in range(SLOTS):
+            batcher.submit(f"profiled utterance number {i}", voice,
+                           lambda *a: True,
+                           Options(max_tokens=40, temperature=0.8, seed=i))
+        batcher.run_until_done(max_iters=1000)
+        return batcher.stage["device_steps"]
+    out["profile"] = device_profile(torch, run, "serving 64 x 40 tokens",
+                                    card)
+    out["profile"]["stage"] = dict(batcher.stage)
+    del batcher
+    out["engine"] = eng
+    out["voice"] = voice
+    return out
+
+
+def phase_gpu_vs_cpu(torch, paths: dict) -> dict:
+    """One greedy 20-step batched chunk of the f32 model on 4 slots (3
+    active), on the card (kernels) and on the CPU (plain versions)."""
+    from miotts_tpu_torch.gguf import GGUFReader
+    from miotts_tpu_torch.models.llm import (init_kv_cache,
+                                             llm_generate_chunk_batched,
+                                             llm_prefill_slots,
+                                             load_llm_params)
+    n_vocab = 256 + 3 + N_SPEECH
+    toks = (torch.arange(3 * 40).reshape(3, 40) * 37 + 11) % n_vocab
+    n_real = torch.tensor([40, 23, 31], dtype=torch.int32)
+    slots = torch.tensor([0, 2, 3])
+    res = {}
+    with GGUFReader(paths["llm"]) as r:
+        for dev in ("cuda", "cpu"):
+            params, cfg = load_llm_params(r, dtype=torch.float32, device=dev)
+            cache = init_kv_cache(cfg, 4, 256, dtype=torch.float32, device=dev)
+            last, cache = llm_prefill_slots(params, toks.to(dev), n_real,
+                                            cache, slots, cfg)
+            logits = torch.zeros((4, n_vocab), device=dev)
+            logits[slots.to(dev)] = last
+            active = torch.tensor([True, False, True, True], device=dev)
+            buf, _, last2, cache, _ = llm_generate_chunk_batched(
+                params, logits, cache, active,
+                torch.zeros(4, dtype=torch.int64, device=dev),
+                torch.zeros(4, dtype=torch.int64, device=dev),
+                torch.zeros(4, device=dev),
+                torch.tensor([-1], device=dev), cfg, 20, 128)
+            res[dev] = (last.cpu(), buf.cpu(), last2[slots.to(dev)].cpu())
+            del params, cache
+    e_first = rel_err(res["cuda"][0], res["cpu"][0])
+    e_last = rel_err(res["cuda"][2], res["cpu"][2])
+    same = bool(torch.equal(res["cuda"][1], res["cpu"][1]))
+    log(f"gpu-vs-cpu: batched chunk f32, 4 slots, 20 steps: tokens "
+        f"{'identical' if same else 'DIFFER'}, first-step logits rel err "
+        f"{e_first:.2e} (tol {REF_TOL}), last-step {e_last:.2e}")
+    if not (same and e_first < REF_TOL):
+        raise AssertionError("batched chunk on the card disagrees with the "
+                             "CPU plain path")
+    return dict(tokens_identical=same, first_logits_rel_err=e_first,
+                last_logits_rel_err=e_last)
+
+
+def phase_http(torch, eng, voice) -> dict:
+    from miotts_tpu_torch.runtime.server import TTSServer, make_http_server
+    srv = TTSServer(eng, {"v": voice}, n_slots=8)
+    srv.start_scheduler()
+    httpd = make_http_server(srv, "127.0.0.1", 0)
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    port = httpd.server_address[1]
+    results = {}
+
+    def one(i, fmt):
+        c = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+        c.request("POST", "/synthesize", body=json.dumps(
+            {"text": f"http request number {i}", "max_tokens": 64,
+             "temperature": 0.8, "seed": i, "format": fmt}),
+            headers={"Content-Type": "application/json"})
+        r = c.getresponse()
+        results[i] = (r.status, fmt, len(r.read()))
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=one, args=(i, f))
+               for i, f in enumerate(("wav", "pcm", "wav", "pcm"))]
+    for t in threads:
+        t.start()
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    c.request("GET", "/health")
+    h = c.getresponse()
+    health = (h.status, json.loads(h.read()))
+    for t in threads:
+        t.join(timeout=300)
+    wall = time.perf_counter() - t0
+    drained = srv.shutdown(drain_timeout_sec=60)
+    httpd.shutdown()
+    httpd.server_close()
+    log(f"http: /health {health[0]} {health[1]}; "
+        + ", ".join(f"#{i} {fmt} {st} {n} bytes"
+                    for i, (st, fmt, n) in sorted(results.items()))
+        + f"; wall {wall:.4f} s; drained {drained}")
+    if health[0] != 200 or len(results) != 4 or drained is not True:
+        raise AssertionError("http phase failed")
+    for st, fmt, n in results.values():
+        if st != 200 or n <= (44 if fmt == "wav" else 0):
+            raise AssertionError(f"http: {fmt} response {st} with {n} bytes")
+    return dict(responses=results, wall_s=wall, drained=drained)
+
+
+def attn_step_summary(rows: list[dict], key: str):
+    """One 0.1B serving decode step's attention: 12 layers at the serving
+    phase's shape, bf16 cache."""
+    r = next(r for r in rows if (r["shape"], r["B"], r["H"], r["H_kv"],
+                                 r["D"], r["S"]) == ATTN_STEP_SHAPE
+             and r["mode"] == "bf16")
+    return None if r[key] is None else LAYERS * r[key]
 
 
 def _to_cpu(tree):
@@ -418,10 +811,11 @@ def _to_cpu(tree):
     return tree.cpu() if isinstance(tree, torch.Tensor) else tree
 
 
-def step_summary(rows: list[dict], key: str) -> float:
-    """One 0.1B decode step's worth of qdot work at M = 1: every layer's
-    four linears plus the output head."""
-    by = {r["shape"]: r[key] for r in rows if r["M"] == 1
+def step_summary(rows: list[dict], key: str, m: int = 1) -> float:
+    """One 0.1B decode step's worth of qdot work at M = m (1: a single
+    stream; 64: a 64-slot batched step): every layer's four linears plus
+    the output head."""
+    by = {r["shape"]: r[key] for r in rows if r["M"] == m
           and r["shape"].startswith("0.1b")}
     layer = sum(v for s, v in by.items() if not s.startswith("0.1b output"))
     return LAYERS * layer + by["0.1b output q8_0"]
@@ -455,23 +849,61 @@ def main() -> int:
         paths = write_models(d)
         log(f"models written in {time.perf_counter() - t0:.1f} s")
         main_res = phase_main_path(torch, qmat, paths, d, card)
-    log(f"phase 3/4 done at {time.perf_counter() - t_start:.1f} s")
+        log(f"phase 3/4/5 done at {time.perf_counter() - t_start:.1f} s")
+        attn_rows = phase_attn_kernels(torch, card)
+        log(f"phase 6 done at {time.perf_counter() - t_start:.1f} s")
+        serve_res = phase_serving(torch, paths, card)
+        log(f"phase 7 done at {time.perf_counter() - t_start:.1f} s")
+        ref_res = phase_gpu_vs_cpu(torch, paths)
+        log(f"phase 8 done at {time.perf_counter() - t_start:.1f} s")
+        http_res = phase_http(torch, serve_res.pop("engine"),
+                              serve_res.pop("voice"))
+        log(f"phase 9 done at {time.perf_counter() - t_start:.1f} s")
 
-    entry = dict(
+    qdot_entry = dict(
         name="qdot", route="cuda", source="miotts_tpu_torch/ops/csrc/qdot.cu",
         replaces="miotts_tpu/ops/qmat.py:191",
-        launches=main_res["qdot_launches"],
+        launches=serve_res["bf16"]["qdot_launches"],
         max_abs_err=max(r["max_abs_err"] for r in rows),
-        ms=step_summary(rows, "ms"), plain_ms=step_summary(rows, "plain_ms"),
-        bound_ms=step_summary(rows, "bound_ms"),
-        bound_by=("bytes" if step_summary(rows, "bytes") / HBM_BYTES_PER_S
-                  >= step_summary(rows, "flops") / PEAK_FLOPS
-                  else "operations"),
-        library_ms=step_summary(rows, "library_ms"),
-        unit="one 0.1B-Q8_0 decode step of qdot work (12 x 4 linears + "
-             "output) at M=1, bf16 x",
+        rel_err=max(max(r["rel_err_bf16"], r["rel_err_f32"]) for r in rows),
+        ms=step_summary(rows, "ms", SLOTS),
+        plain_ms=step_summary(rows, "plain_ms", SLOTS),
+        bound_ms=step_summary(rows, "bound_ms", SLOTS),
+        bound_by=("bytes" if step_summary(rows, "bytes", SLOTS)
+                  / HBM_BYTES_PER_S >= step_summary(rows, "flops", SLOTS)
+                  / PEAK_FLOPS else "operations"),
+        library_ms=step_summary(rows, "library_ms", SLOTS),
+        unit="one 0.1B-Q8_0 64-slot batched decode step of qdot work "
+             "(12 x 4 linears + output) at M=64, bf16 x",
+        single_stream_step={k: step_summary(rows, k) for k in
+                            ("ms", "plain_ms", "bound_ms", "library_ms")},
+        launches_by_path={"serving_bf16": serve_res["bf16"]["qdot_launches"],
+                          "serving_int8": serve_res["int8"]["qdot_launches"],
+                          "offline": main_res["qdot_launches"]},
         per_shape=rows, main_path=main_res)
-    print(json.dumps({"kernels": [entry]}))
+    step_rows = [r for r in attn_rows if r["mode"] == "bf16"
+                 and (r["shape"], r["B"], r["H"], r["H_kv"], r["D"],
+                      r["S"]) == ATTN_STEP_SHAPE]
+    attn_entry = dict(
+        name="decode_attention_batched", route="cuda",
+        source="miotts_tpu_torch/ops/csrc/decode_attn.cu",
+        replaces="miotts_tpu/ops/decode_attn.py:181",
+        launches=serve_res["bf16"]["attn_launches"],
+        max_abs_err=max(r["max_abs_err"] for r in attn_rows),
+        rel_err=max(max(r["err"], r["err_stats"]) for r in attn_rows),
+        ms=attn_step_summary(attn_rows, "ms"),
+        plain_ms=attn_step_summary(attn_rows, "plain_ms"),
+        bound_ms=attn_step_summary(attn_rows, "bound_ms"),
+        bound_by=step_rows[0]["bound_by"],
+        library_ms=attn_step_summary(attn_rows, "library_ms"),
+        unit="one 0.1B serving decode step of attention (12 layers) at "
+             "B=64, H=12/4, D=64, S=256, bf16 cache",
+        launches_by_path={"serving_bf16": serve_res["bf16"]["attn_launches"],
+                          "serving_int8": serve_res["int8"]["attn_launches"]},
+        per_shape=attn_rows, serving=serve_res, gpu_vs_cpu=ref_res,
+        http=http_res)
+    log(f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": [qdot_entry, attn_entry]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,12 @@
-"""miotts-torch CLI: offline synthesis on PyTorch / CUDA.
+"""miotts-torch CLI: synthesis and serving on PyTorch / CUDA.
 
   python -m miotts_tpu_torch.cli synth -m LLM.gguf -c CODEC.gguf \\
       -v VOICE.emb.gguf -p "text" -o out.wav [--device cuda]
+  python -m miotts_tpu_torch.cli serve -m LLM.gguf -c CODEC.gguf \\
+      --voices-dir VOICES/ [--port 8080] [--slots 8] [--device cuda]
 
-Flags follow the JAX package's `synth`, plus `--device` (default cuda; the
-command fails when CUDA is asked for and absent).
+Flags follow the JAX package's `synth` and `serve`, plus `--device`
+(default cuda; the command fails when CUDA is asked for and absent).
 """
 
 from __future__ import annotations
@@ -41,6 +43,33 @@ def cmd_synth(args) -> int:
     return 0
 
 
+def cmd_serve(args) -> int:
+    """HTTP TTS server backed by the continuous batcher."""
+    import glob
+    import os
+    from .runtime.engine import EngineConfig, TTSEngine, VoiceModel
+    from .runtime.server import serve
+    voices = {os.path.basename(p)[:-len(".emb.gguf")]: VoiceModel(p)
+              for p in sorted(glob.glob(os.path.join(args.voices_dir,
+                                                     "*.emb.gguf")))}
+    if not voices:
+        print(f"Error: no *.emb.gguf files in {args.voices_dir}",
+              file=sys.stderr)
+        return 1
+    try:
+        engine = TTSEngine(EngineConfig(
+            model_path=args.model, codec_path=args.codec,
+            temperature=args.temp, max_tokens=args.max_tokens, seed=args.seed,
+            device=args.device))
+    except (RuntimeError, ValueError, OSError) as e:
+        print(f"Error: {e}", file=sys.stderr)
+        return 1
+    serve(engine, voices, host=args.host, port=args.port, n_slots=args.slots,
+          request_timeout_sec=(args.request_timeout
+                               if args.request_timeout > 0 else None))
+    return 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="miotts-torch", description=__doc__,
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -59,6 +88,24 @@ def main(argv=None) -> int:
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; 'cpu' on request)")
     p.set_defaults(fn=cmd_synth)
+
+    p = sub.add_parser("serve", help="HTTP TTS server (continuous batching)")
+    p.add_argument("-m", "--model", required=True, help="MioTTS LLM GGUF path")
+    p.add_argument("-c", "--codec", required=True, help="MioCodec GGUF path")
+    p.add_argument("--voices-dir", required=True,
+                   help="directory of *.emb.gguf voice files")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8080)
+    p.add_argument("--slots", type=int, default=8)
+    p.add_argument("--request-timeout", type=float, default=0.0,
+                   help="cancel requests running longer than this many "
+                        "seconds (0 = unlimited)")
+    p.add_argument("-t", "--temp", type=float, default=0.8)
+    p.add_argument("--max-tokens", type=int, default=700)
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; 'cpu' on request)")
+    p.set_defaults(fn=cmd_serve)
     args = parser.parse_args(argv)
     if not getattr(args, "fn", None):
         parser.print_help()

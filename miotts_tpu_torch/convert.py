@@ -1,6 +1,6 @@
-"""Carry parameter trees of the JAX package over to the port.
+"""Carry parameter trees and KV caches of the JAX package over to the port.
 
-Both functions take the JAX package's params as nested dicts / lists of
+The functions take the JAX package's params as nested dicts / lists of
 numpy arrays, so the port never needs JAX or its classes: a quantized
 weight arrives as a dict {values, scales, mins, group, n_out, packed} in the
 JAX layout (values / scales / mins transposed to [K(/2), N] and padded to
@@ -66,4 +66,13 @@ def codec_params_from_numpy(tree: dict, device="cpu") -> dict:
                          for k, a in val.items()} for i in range(n)]
         else:
             out[key] = _convert(val, device)
+    return out
+
+
+def kv_cache_from_numpy(cache: dict, device="cpu") -> dict:
+    """JAX `init_kv_cache` dict (numpy leaves: k, v, optional k_scale /
+    v_scale, fill) -> the port's cache, same layout [L, B, H_kv, S, D] and
+    dtypes (fill as int32)."""
+    out = {k: _tensor(v, device) for k, v in cache.items()}
+    out["fill"] = out["fill"].to(torch.int32)
     return out

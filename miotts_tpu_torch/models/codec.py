@@ -12,9 +12,11 @@
      ResNet], Linear -> Snake
   -> istft_head Linear -> log_mag | phase
 
-Activations are [T, features].  `n_real` masks bucket padding all through
-the forward (attention keys, GroupNorm statistics, conv inputs), so a padded
-decode equals an unpadded one.  Every matmul and convolution is full f32:
+Activations are [B, T, features] (a [T] call runs as B = 1).  `n_real`
+[B] masks each row's bucket padding all through the forward (attention
+keys, GroupNorm statistics, conv inputs), so a padded decode equals an
+unpadded one and rows never see each other; the batch dimension takes the
+place of the JAX package's `jax.vmap` over streams.  Every matmul and convolution is full f32:
 `codec_decode_spec` runs under `exact_f32`, which turns TF32 off for cuBLAS
 and cuDNN (cuDNN convolutions default to TF32 on the GPU).  Per-layer
 weights are lists of dicts, iterated in Python.
@@ -136,7 +138,7 @@ def exact_f32():
 
 
 # ---------------------------------------------------------------------------
-# Primitive ops ([T, features] activations, [T] f32 validity mask)
+# Primitive ops ([B, T, features] activations, [B, T] f32 validity mask)
 # ---------------------------------------------------------------------------
 
 def _linear(x, w, b=None):
@@ -154,7 +156,7 @@ def _layer_norm(x, w, b, eps):
 
 def _rope_interleaved(x, pos, theta):
     """ggml NORMAL-mode RoPE: rotate adjacent pairs (2i, 2i+1) by
-    pos * theta^(-2i/d).  x [T, H, d]."""
+    pos * theta^(-2i/d).  x [B, T, H, d]; pos [T]."""
     d = x.shape[-1]
     inv_freq = theta ** (-torch.arange(0, d, 2, dtype=torch.float32,
                                        device=x.device) / d)
@@ -168,16 +170,18 @@ def _rope_interleaved(x, pos, theta):
 
 
 def _local_attention(x, p, pos, mask_bias, n_head, theta):
-    """Multi-head attention with interleaved RoPE and an additive [T, T]
-    band + key-validity bias."""
-    T, dim = x.shape
+    """Multi-head attention with interleaved RoPE and an additive
+    [B, T, T] band + key-validity bias."""
+    B, T, dim = x.shape
     hd = dim // n_head
-    q = _rope_interleaved(_linear(x, p["wq"]).reshape(T, n_head, hd), pos, theta)
-    k = _rope_interleaved(_linear(x, p["wk"]).reshape(T, n_head, hd), pos, theta)
-    v = _linear(x, p["wv"]).reshape(T, n_head, hd)
-    scores = torch.einsum("qhd,khd->hqk", q, k) / math.sqrt(hd)
-    probs = torch.softmax(scores + mask_bias[None], dim=-1)
-    out = torch.einsum("hqk,khd->qhd", probs, v).reshape(T, dim)
+    q = _rope_interleaved(_linear(x, p["wq"]).reshape(B, T, n_head, hd), pos,
+                          theta)
+    k = _rope_interleaved(_linear(x, p["wk"]).reshape(B, T, n_head, hd), pos,
+                          theta)
+    v = _linear(x, p["wv"]).reshape(B, T, n_head, hd)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(hd)
+    probs = torch.softmax(scores + mask_bias[:, None], dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(B, T, dim)
     return _linear(out, p["wo"])
 
 
@@ -187,7 +191,8 @@ def _swiglu(x, p):
 
 
 def _adaln3(cond, w, b):
-    """SiLU(cond) -> Linear -> (shift, scale, gate)."""
+    """SiLU(cond) -> Linear -> (shift, scale, gate); cond [B, 1, adaln]
+    broadcasts over time."""
     h = _linear(F.silu(cond), w, b)
     dim = h.shape[-1] // 3
     return h[..., :dim], h[..., dim:2 * dim], h[..., 2 * dim:]
@@ -201,29 +206,32 @@ def _adaln_norm(x, shift, scale, eps):
 
 
 def _masked_group_norm(x, w, b, n_groups, eps, mask):
-    """GroupNorm over (seq, channels/group) with statistics over the valid
-    positions only.  x [T, C], mask [T] f32."""
-    T, C = x.shape
-    g = x.reshape(T, n_groups, C // n_groups)
-    m = mask[:, None, None]
-    count = torch.clamp(mask.sum(), min=1.0) * (C // n_groups)
-    mu = (g * m).sum(dim=(0, 2), keepdim=True) / count
-    var = ((g - mu).square() * m).sum(dim=(0, 2), keepdim=True) / count
-    return ((g - mu) * torch.rsqrt(var + eps)).reshape(T, C) * w + b
+    """GroupNorm over (seq, channels/group) with statistics over each row's
+    valid positions only.  x [B, T, C], mask [B, T] f32."""
+    B, T, C = x.shape
+    g = x.reshape(B, T, n_groups, C // n_groups)
+    m = mask[:, :, None, None]
+    count = (torch.clamp(mask.sum(dim=1), min=1.0)
+             * (C // n_groups))[:, None, None, None]
+    mu = (g * m).sum(dim=(1, 3), keepdim=True) / count
+    var = ((g - mu).square() * m).sum(dim=(1, 3), keepdim=True) / count
+    return ((g - mu) * torch.rsqrt(var + eps)).reshape(B, T, C) * w + b
 
 
 def _conv1d_same(x, w, b, mask):
-    """Conv1d k=3, stride 1, pad 1 on [T, C] with torch weight [out, in, k];
-    padded positions are zeroed first (the reference's zero boundary)."""
-    x = x * mask[:, None]
-    return F.conv1d(x.T[None], w, b, padding=1)[0].T
+    """Conv1d k=3, stride 1, pad 1 on [B, T, C] with torch weight
+    [out, in, k]; padded positions are zeroed first (the reference's zero
+    boundary)."""
+    x = x * mask[..., None]
+    return F.conv1d(x.transpose(1, 2), w, b, padding=1).transpose(1, 2)
 
 
 def _conv_transpose1d(x, w, b, stride, mask):
-    """ConvTranspose1d on [T, C_in] with torch weight [in, out, k], VALID
-    padding: output length (T - 1) * stride + k."""
-    x = x * mask[:, None]
-    return F.conv_transpose1d(x.T[None], w, b, stride=stride)[0].T
+    """ConvTranspose1d on [B, T, C_in] with torch weight [in, out, k],
+    VALID padding: output length (T - 1) * stride + k."""
+    x = x * mask[..., None]
+    return F.conv_transpose1d(x.transpose(1, 2), w, b,
+                              stride=stride).transpose(1, 2)
 
 
 def _snake(x, log_alpha, log_beta):
@@ -255,12 +263,13 @@ def _decoder_layer(x, p, cond, pos, bias, n_head, theta, eps):
 
 
 def _band_mask_bias(T: int, window: int, mask) -> torch.Tensor:
-    """0 inside |i - j| <= window // 2 with key j valid, else -1e9 (not
-    -inf: a padded query row with no valid key would softmax to NaN)."""
+    """[B, T, T]: 0 inside |i - j| <= window // 2 with key j valid, else
+    -1e9 (not -inf: a padded query row with no valid key would softmax to
+    NaN).  mask [B, T]."""
     i = torch.arange(T, device=mask.device)
     band = (i[:, None] - i[None, :]).abs() <= window // 2
-    valid = mask[None, :] > 0.5
-    return torch.where(band & valid, 0.0, -1e9).to(torch.float32)
+    valid = mask[:, None, :] > 0.5
+    return torch.where(band[None] & valid, 0.0, -1e9).to(torch.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -268,32 +277,37 @@ def _band_mask_bias(T: int, window: int, mask) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def _codec_forward(params: dict, codes, voice_emb, cfg: CodecConfig, n_real):
+    """codes [B, T]; voice_emb [B, adaln]; n_real [B] int64."""
     dev = codes.device
-    T = codes.shape[0]
-    if n_real is None:
-        n_real = T
-    mask_t = (torch.arange(T, device=dev) < n_real).to(torch.float32)
+    B, T = codes.shape
+    steps = torch.arange(T, device=dev)
+
+    def valid(length, real):
+        return (torch.arange(length, device=dev)[None, :]
+                < real[:, None]).to(torch.float32)
+
+    mask_t = valid(T, n_real)
     eps = cfg.norm_eps
     gn_eps = cfg.group_norm_eps
+    cond = voice_emb[:, None, :]                               # [B, 1, adaln]
 
-    x = params["token_embd"][codes.long()]                         # [T, 768]
+    x = params["token_embd"][codes.long()]                     # [B, T, 768]
 
-    pos_t = torch.arange(T, device=dev)
     bias_t = _band_mask_bias(T, cfg.prenet_window, mask_t)
     for p in params["prenet_blocks"]:
         h = _layer_norm(x, p["attn_norm_w"], p["attn_norm_b"], eps)
-        x = x + _local_attention(h, p, pos_t, bias_t, cfg.prenet_heads,
+        x = x + _local_attention(h, p, steps, bias_t, cfg.prenet_heads,
                                  cfg.rope_theta)
         h = _layer_norm(x, p["ffn_norm_w"], p["ffn_norm_b"], eps)
         x = x + _swiglu(h, p)
     x = _layer_norm(x, params["prenet_norm_w"], params["prenet_norm_b"], eps)
-    x = _linear(x, params["prenet_out_w"], params["prenet_out_b"])  # [T, 512]
+    x = _linear(x, params["prenet_out_w"], params["prenet_out_b"])  # [B, T, 512]
 
     x = _conv_transpose1d(x, params["upsample_w"], params["upsample_b"], 2,
                           mask_t)
     S = 2 * T
     s_real = 2 * n_real
-    mask_s = (torch.arange(S, device=dev) < s_real).to(torch.float32)
+    mask_s = valid(S, s_real)
 
     for p in params["prior_blocks"]:
         x = _resnet_block(x, p, cfg.resnet_groups, gn_eps, mask_s)
@@ -301,12 +315,12 @@ def _codec_forward(params: dict, codes, voice_emb, cfg: CodecConfig, n_real):
     pos_s = torch.arange(S, device=dev)
     bias_s = _band_mask_bias(S, cfg.decoder_window, mask_s)
     for p in params["decoder_blocks"]:
-        x = _decoder_layer(x, p, voice_emb, pos_s, bias_s, cfg.decoder_heads,
+        x = _decoder_layer(x, p, cond, pos_s, bias_s, cfg.decoder_heads,
                            cfg.rope_theta, eps)
 
-    nc = _linear(F.silu(voice_emb), params["norm_cond_w"], params["norm_cond_b"])
+    nc = _linear(F.silu(cond), params["norm_cond_w"], params["norm_cond_b"])
     dd = cfg.decoder_dim
-    x = _adaln_norm(x, nc[:dd], nc[dd:2 * dd], eps)
+    x = _adaln_norm(x, nc[..., :dd], nc[..., dd:2 * dd], eps)
 
     for p in params["post_blocks"]:
         x = _resnet_block(x, p, cfg.resnet_groups, gn_eps, mask_s)
@@ -316,16 +330,14 @@ def _codec_forward(params: dict, codes, voice_emb, cfg: CodecConfig, n_real):
         f = cfg.up_factors[stage]
         trim = (cfg.up_kernels[stage] - f) // 2
         p = params["upsampler_stages"][stage]
-        cur_mask = (torch.arange(x.shape[0], device=dev)
-                    < cur_real).to(torch.float32)
-        x = _conv_transpose1d(x, p["up_w"], p["up_b"], f, cur_mask)
+        x = _conv_transpose1d(x, p["up_w"], p["up_b"], f,
+                              valid(x.shape[1], cur_real))
         if trim > 0:
-            x = x[trim:x.shape[0] - trim]
+            x = x[:, trim:x.shape[1] - trim]
         cur_real = cur_real * f
-        cur_mask = (torch.arange(x.shape[0], device=dev)
-                    < cur_real).to(torch.float32)
         x = _snake(x, p["snake_a"], p["snake_b"])
-        x = _resnet_block(x, p["resnet"], cfg.resnet_groups, gn_eps, cur_mask)
+        x = _resnet_block(x, p["resnet"], cfg.resnet_groups, gn_eps,
+                          valid(x.shape[1], cur_real))
 
     x = _linear(x, params["upsampler_out_w"], params["upsampler_out_b"])
     x = _snake(x, params["upsampler_out_snake_a"],
@@ -333,17 +345,30 @@ def _codec_forward(params: dict, codes, voice_emb, cfg: CodecConfig, n_real):
 
     x = _linear(x, params["istft_head_w"], params["istft_head_b"])
     nf = cfg.n_freq
-    return x[:, :nf], x[:, nf:2 * nf]
+    return x[..., :nf], x[..., nf:2 * nf]
 
 
 @torch.inference_mode()
 def codec_decode_spec(params: dict, codes, voice_emb, cfg: CodecConfig,
                       n_real=None):
-    """codes i32[T], voice_emb f32[adaln_dim] -> (log_mag, phase)
-    [S_final, n_freq], in exact f32.  `n_real` (int or 0-d tensor) marks
-    how many leading codes are real; the rest is masked bucket padding."""
+    """codes i32[T] and voice_emb f32[adaln_dim] -> (log_mag, phase)
+    [S_final, n_freq]; or a batch: codes [B, T], voice_emb [B, adaln_dim],
+    n_real [B] -> [B, S_final, n_freq] each.  Exact f32.  `n_real` (int,
+    0-d or [B] tensor) marks how many leading codes of each row are real;
+    the rest is masked bucket padding."""
+    single = codes.dim() == 1
+    if single:
+        codes, voice_emb = codes[None], voice_emb[None]
+    B, T = codes.shape
+    if n_real is None:
+        n_real = T
+    n_real = torch.as_tensor(n_real, device=codes.device).long().reshape(-1)
+    n_real = n_real.expand(B)
     with exact_f32():
-        return _codec_forward(params, codes, voice_emb, cfg, n_real)
+        log_mag, phase = _codec_forward(params, codes, voice_emb, cfg, n_real)
+    if single:
+        return log_mag[0], phase[0]
+    return log_mag, phase
 
 
 # ---------------------------------------------------------------------------

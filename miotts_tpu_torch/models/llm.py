@@ -18,6 +18,11 @@ The semantics follow the JAX package step for step:
   * Masks use -1e9, scores are f32, probabilities are cast to the compute
     dtype before the PV product (as JAX's einsums with f32 accumulation).
   * Activations default to bf16; logits and sampling are f32.
+
+Batched serving (`llm_prefill_slots`, `llm_generate_chunk_batched`) keeps a
+[L, n_slots, H_kv, S, D] cache, bf16 / f32 or int8 with per-(token, head)
+scales, and reads it through `ops/decode_attn.decode_attention_batched`
+(the hand-written CUDA kernel on a GPU).  Dense architectures only.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from ..gguf.quants import is_quantized
+from ..ops.decode_attn import decode_attention_batched
 from ..ops.qmat import QTensor, concat_qtensors, qdot, qtensor_from_raw
 
 # Per-arch behaviour toggles (llama.cpp build_* graph equivalents).
@@ -198,18 +204,45 @@ def _rope(x, pos, theta, style):
 
 
 def init_kv_cache(cfg: LLMConfig, batch: int, max_len: int | None = None,
-                  dtype=torch.bfloat16, device="cpu") -> dict:
-    """Dense KV cache: k/v [L, B, H_kv, S, D] + fill counts [B] (int32)."""
+                  dtype=torch.bfloat16, device="cpu",
+                  quantized: bool = False) -> dict:
+    """Dense KV cache: k/v [L, B, H_kv, S, D] + fill counts [B] (int32).
+    With `quantized`, k/v are int8 with per-(token, head) f32 scales
+    k_scale / v_scale [L, B, H_kv, S]."""
     S = max_len or cfg.n_ctx
     shape = (cfg.n_layers, batch, cfg.n_kv_heads, S, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device),
-            "fill": torch.zeros((batch,), dtype=torch.int32, device=device)}
+    kv_dtype = torch.int8 if quantized else dtype
+    cache = {"k": torch.zeros(shape, dtype=kv_dtype, device=device),
+             "v": torch.zeros(shape, dtype=kv_dtype, device=device),
+             "fill": torch.zeros((batch,), dtype=torch.int32, device=device)}
+    if quantized:
+        cache["k_scale"] = torch.zeros(shape[:-1], dtype=torch.float32,
+                                       device=device)
+        cache["v_scale"] = torch.zeros(shape[:-1], dtype=torch.float32,
+                                       device=device)
+    return cache
 
 
-def _attend(q, k_cache, v_cache, fill, q_pos, k_cur=None, v_cur=None):
+def _kv_quantize(x):
+    """Per-(.., head) symmetric int8 over the last axis (round half to
+    even, as jnp.round): x [..., D] -> (int8 [..., D], f32 scale [...])."""
+    scale = x.abs().amax(dim=-1).clamp(min=1e-8) / 127.0
+    q = torch.round(x / scale[..., None]).clamp(-127, 127).to(torch.int8)
+    return q, scale.float()
+
+
+def _layer(cache: dict, li: int) -> dict:
+    """Layer li's views {k, v[, k_scale, v_scale]} of a stacked cache."""
+    return {k: v[li] for k, v in cache.items() if k != "fill"}
+
+
+def _attend(q, k_cache, v_cache, fill, q_pos, k_scale=None, v_scale=None,
+            k_cur=None, v_cur=None):
     """Causal attention against the cache.  q [B, S_q, H, D]; k/v_cache
     [B, H_kv, S_max, D]; fill [B] valid entries; q_pos [B, S_q].
+    k_scale / v_scale [B, H_kv, S_max] dequantize an int8 cache: they
+    factor out of both dots and multiply the score and probability matrices
+    instead.
 
     With k_cur / v_cur [B, 1, H_kv, D] (deferred-write decode) the current
     token is NOT in the cache and rides as one extra, always-valid column.
@@ -224,6 +257,8 @@ def _attend(q, k_cache, v_cache, fill, q_pos, k_cur=None, v_cur=None):
     vf = v_cache.to(cdt).float()
     scale = math.sqrt(D)
     scores = torch.einsum("bqgrd,bgkd->bgrqk", qg, kf) / scale
+    if k_scale is not None:
+        scores = scores * k_scale[:, :, None, None, :]
     key_pos = torch.arange(S_max, device=q.device)
     valid = ((key_pos[None, None, :] <= q_pos[:, :, None])
              & (key_pos[None, None, :] < fill[:, None, None]))
@@ -236,6 +271,8 @@ def _attend(q, k_cache, v_cache, fill, q_pos, k_cur=None, v_cur=None):
     if k_cur is not None:
         p_cur = probs[..., -1]
         probs = probs[..., :-1]
+    if v_scale is not None:
+        probs = probs * v_scale[:, :, None, None, :]
     out = torch.einsum("bgrqk,bgkd->bqgrd", probs.to(cdt).float(), vf)
     if k_cur is not None:
         out = out + torch.einsum("bgrq,bqgd->bqgrd", p_cur.to(cdt).float(),
@@ -243,17 +280,77 @@ def _attend(q, k_cache, v_cache, fill, q_pos, k_cur=None, v_cur=None):
     return out.reshape(B, S_q, H * D).to(cdt)
 
 
-def _block_forward(x, blk, lk, lv, fill, pos, cfg: LLMConfig,
-                   defer_write: bool = False):
-    """One transformer block.  x [B, S, dim]; lk / lv this layer's cache
-    [B, H_kv, S_max, D]; pos [B, S] absolute positions.
+def _attend_bkernel(q, k_cache, v_cache, fill, q_pos, k_scale=None,
+                    v_scale=None, k_cur=None, v_cur=None, k_buf=None,
+                    v_buf=None, buf_valid=None):
+    """Batched-decode attention (S_q == 1): the big cache read runs through
+    `decode_attention_batched` (the CUDA kernel on a GPU, its plain version
+    on the CPU) as a flash state (acc, m, l); the chunk-buffer columns
+    k_buf / v_buf [B, H_kv, W, D] (valid where buf_valid [B, W]) and the
+    current-token column k_cur / v_cur [B, 1, H_kv, D] are scored here and
+    folded into the same softmax."""
+    B, S_q, H, D = q.shape
+    H_kv = k_cache.shape[1]
+    rep = H // H_kv
+    cdt = torch.float32 if q.dtype == torch.float32 else torch.bfloat16
+
+    acc, m, l = decode_attention_batched(
+        q[:, 0], k_cache, v_cache, fill, q_pos[:, 0], k_scale, v_scale,
+        return_stats=True)
+    acc = acc.reshape(B, H_kv, rep, D)
+    m = m.reshape(B, H_kv, rep)
+    l = l.reshape(B, H_kv, rep)
+
+    qg = q.to(cdt).float().reshape(B, S_q, H_kv, rep, D)
+    s_buf = s_cur = None
+    if k_buf is not None:
+        s_buf = torch.einsum("bqgrd,bgwd->bgrqw", qg,
+                             k_buf.to(cdt).float())[:, :, :, 0]
+        s_buf = (s_buf / math.sqrt(D)).masked_fill(
+            ~buf_valid[:, None, None, :], -1e9)               # [B, g, r, W]
+    if k_cur is not None:
+        s_cur = torch.einsum("bqgrd,bqgd->bgrq", qg,
+                             k_cur.to(cdt).float())[..., 0]
+        s_cur = s_cur / math.sqrt(D)                          # [B, g, r]
+
+    m_all = m
+    if s_buf is not None:
+        m_all = torch.maximum(m_all, s_buf.amax(dim=-1))
+    if s_cur is not None:
+        m_all = torch.maximum(m_all, s_cur)
+    alpha = torch.exp(m - m_all)
+    out = acc * alpha[..., None]
+    l_all = l * alpha
+    if s_buf is not None:
+        p_buf = torch.exp(s_buf - m_all[..., None])
+        l_all = l_all + p_buf.sum(dim=-1)
+        out = out + torch.einsum("bgrw,bgwd->bgrd", p_buf.to(cdt).float(),
+                                 v_buf.to(cdt).float())
+    if s_cur is not None:
+        p_cur = torch.exp(s_cur - m_all)
+        l_all = l_all + p_cur
+        out = out + p_cur[..., None] * v_cur[:, 0, :, None, :].float()
+    out = out / l_all.clamp(min=1e-20)[..., None]
+    return out.reshape(B, S_q, H * D).to(cdt)
+
+
+def _block_forward(x, blk, lcache: dict, fill, pos, cfg: LLMConfig,
+                   defer_write: bool = False, chunk_buf=None):
+    """One transformer block.  x [B, S, dim]; lcache this layer's cache
+    views {k, v[, k_scale, v_scale]} with k/v [B, H_kv, S_max, D]; pos
+    [B, S] absolute positions.
 
     defer_write (decode): the cache is only read, and the block returns
-    (x, (k, v)) for this token, [B, H_kv, D] each, for the caller's single
-    post-loop write.  Otherwise (prefill) k/v are written into lk / lv in
-    place at their positions first, and the block returns (x, None)."""
+    (x, kv) with this token's {k, v[, k_scale, v_scale]} ([B, H_kv, D] /
+    [B, H_kv]) for the caller's single post-loop write.  With `chunk_buf`
+    = (k_buf, v_buf, buf_valid) (batched decode) attention goes through
+    `_attend_bkernel` and kv holds the raw k / v for the chunk buffer.
+    Otherwise (prefill) k/v are written into lcache in place at their
+    positions first (quantized for an int8 cache), and the block returns
+    (x, None)."""
     B, S, _ = x.shape
     H, H_kv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    quantized = "k_scale" in lcache
 
     h = _rms_norm(x, blk["attn_norm"], cfg.rms_eps)
     qd, kvd = H * D, H_kv * D
@@ -276,18 +373,41 @@ def _block_forward(x, blk, lk, lv, fill, pos, cfg: LLMConfig,
         k = _rms_norm(k, blk["k_norm"], cfg.rms_eps)
     q = _rope(q, pos, cfg.rope_theta, cfg.rope_style)
     k = _rope(k, pos, cfg.rope_theta, cfg.rope_style)
+    ks = lcache.get("k_scale")
+    vs = lcache.get("v_scale")
 
-    if defer_write:
-        kv_out = (k[:, 0].to(lk.dtype), v[:, 0].to(lv.dtype))
-        attn = _attend(q, lk, lv, fill, pos, k_cur=k, v_cur=v)
+    if chunk_buf is not None:
+        kv_out = {"k": k[:, 0], "v": v[:, 0]}
+        k_buf, v_buf, buf_valid = chunk_buf
+        attn = _attend_bkernel(q, lcache["k"], lcache["v"], fill, pos, ks, vs,
+                               k_cur=k, v_cur=v, k_buf=k_buf, v_buf=v_buf,
+                               buf_valid=buf_valid)
+    elif defer_write:
+        if quantized:
+            kq, kss = _kv_quantize(k[:, 0].float())
+            vq, vss = _kv_quantize(v[:, 0].float())
+            kv_out = {"k": kq, "v": vq, "k_scale": kss, "v_scale": vss}
+        else:
+            kv_out = {"k": k[:, 0].to(lcache["k"].dtype),
+                      "v": v[:, 0].to(lcache["v"].dtype)}
+        attn = _attend(q, lcache["k"], lcache["v"], fill, pos, ks, vs,
+                       k_cur=k, v_cur=v)
     else:
         kv_out = None
         b_idx = torch.arange(B, device=x.device)[:, None]
-        p = pos.clamp(max=lk.shape[2] - 1).long()
-        lk[b_idx, :, p] = k.to(lk.dtype)
-        lv[b_idx, :, p] = v.to(lv.dtype)
+        p = pos.clamp(max=lcache["k"].shape[2] - 1).long()
+        if quantized:
+            kq, kss = _kv_quantize(k.float())
+            vq, vss = _kv_quantize(v.float())
+            lcache["k"][b_idx, :, p] = kq
+            lcache["v"][b_idx, :, p] = vq
+            ks[b_idx, :, p] = kss
+            vs[b_idx, :, p] = vss
+        else:
+            lcache["k"][b_idx, :, p] = k.to(lcache["k"].dtype)
+            lcache["v"][b_idx, :, p] = v.to(lcache["v"].dtype)
         new_fill = torch.maximum(fill, pos[:, -1] + 1)
-        attn = _attend(q, lk, lv, new_fill, pos)
+        attn = _attend(q, lcache["k"], lcache["v"], new_fill, pos, ks, vs)
     x = x + qdot(attn.to(x.dtype), blk["wo"])
 
     h = _rms_norm(x, blk["ffn_norm"], cfg.rms_eps)
@@ -299,6 +419,16 @@ def _block_forward(x, blk, lk, lv, fill, pos, cfg: LLMConfig,
         gate, up = F.silu(qdot(h, blk["w_gate"])), qdot(h, blk["w_up"])
     x = x + qdot((gate * up).to(x.dtype), blk["w_down"])
     return x, kv_out
+
+
+def _logits(params, x, cfg: LLMConfig):
+    """Final norm + output head -> f32 logits."""
+    x = _rms_norm(x, params["output_norm"], cfg.rms_eps)
+    out_w = params.get("output")
+    if out_w is None:
+        # tied embeddings: a plain product outside any kernel, f32 sums
+        return x.float() @ params["token_embd"].float().T
+    return qdot(x, out_w).float()
 
 
 @torch.no_grad()
@@ -313,30 +443,22 @@ def llm_forward(params: dict, tokens, pos, cache: dict, cfg: LLMConfig):
     if S == 1:
         kvs = []
         for li, blk in enumerate(params["blocks"]):
-            x, kv = _block_forward(x, blk, cache["k"][li], cache["v"][li],
-                                   fill, pos, cfg, defer_write=True)
+            x, kv = _block_forward(x, blk, _layer(cache, li), fill, pos, cfg,
+                                   defer_write=True)
             kvs.append(kv)
         # ONE write per cache field for every layer's new k/v: dims 1 (batch)
-        # and 3 (position) are indexed, so the update is [B, L, H_kv, D];
+        # and 3 (position) are indexed, so the update is [B, L, H_kv(, D)];
         # like JAX's dynamic_update_slice the position clamps to the end
         b_idx = torch.arange(B, device=x.device)
         p = pos[:, 0].clamp(max=cache["k"].shape[3] - 1).long()
-        cache["k"][:, b_idx, :, p] = torch.stack([kv[0] for kv in kvs], dim=1)
-        cache["v"][:, b_idx, :, p] = torch.stack([kv[1] for kv in kvs], dim=1)
+        for key in kvs[0]:
+            cache[key][:, b_idx, :, p] = torch.stack([kv[key] for kv in kvs],
+                                                     dim=1)
     else:
         for li, blk in enumerate(params["blocks"]):
-            x, _ = _block_forward(x, blk, cache["k"][li], cache["v"][li],
-                                  fill, pos, cfg)
+            x, _ = _block_forward(x, blk, _layer(cache, li), fill, pos, cfg)
     cache["fill"] = torch.maximum(fill, (pos[:, -1] + 1).to(fill.dtype))
-
-    x = _rms_norm(x, params["output_norm"], cfg.rms_eps)
-    out_w = params.get("output")
-    if out_w is None:
-        # tied embeddings: a plain product outside any kernel, f32 sums
-        logits = x.float() @ params["token_embd"].float().T
-    else:
-        logits = qdot(x, out_w)
-    return logits.float(), cache
+    return _logits(params, x, cfg), cache
 
 
 def llm_prefill(params, tokens, n_real, cache, cfg: LLMConfig):
@@ -412,3 +534,174 @@ def llm_generate_chunk(params: dict, last_logits, cache: dict,
         cache["fill"] = torch.where(active, cache["fill"], fill)
         last = torch.where(active, logits, last)
     return buf, count, done, last, cache
+
+
+# ---------------------------------------------------------------------------
+# Batched serving: slot prefill, per-slot sampling, chunked batched decode
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def llm_prefill_slots(params: dict, tokens, n_real, cache: dict, slots,
+                      cfg: LLMConfig):
+    """Prefill SEVERAL sequences into slots of a batched cache in one
+    forward.  tokens [A, S_bucket]; n_real [A]; slots [A] (distinct).  A
+    fresh sub-cache sized to the prompt bucket takes the prefill (the slots'
+    old contents never matter: fill masks them), and its [0, S) positions
+    are then written into the slots.  Updates `cache` in place; returns
+    (last_logits [A, V], cache)."""
+    A, S = tokens.shape
+    dev = tokens.device
+    sub = {k: v.new_zeros(v.shape[:1] + (A,) + v.shape[2:3] + (S,)
+                          + v.shape[4:])
+           for k, v in cache.items() if k != "fill"}
+    sub["fill"] = torch.zeros((A,), dtype=torch.int32, device=dev)
+    pos = torch.arange(S, device=dev).expand(A, S)
+    logits, sub = llm_forward(params, tokens, pos, sub, cfg)
+    slots = slots.to(device=dev, dtype=torch.long)
+    n_real = n_real.to(device=dev, dtype=torch.int32)
+    for k in sub:
+        if k != "fill":
+            cache[k][:, slots, :, :S] = sub[k]
+    cache["fill"][slots] = n_real
+    last = logits[torch.arange(A, device=dev), n_real.long() - 1]
+    return last, cache
+
+
+def _decode_core(params, tok, pos, cache, cfg: LLMConfig, chunk_buf):
+    """One batched decode step against a READ-ONLY cache.  tok [B]; pos
+    [B, 1]; chunk_buf = (k_buf [L, B, H_kv, W, D], v_buf, valid [B, W]).
+    Returns (logits [B, V] f32, kvs) with kvs {k, v} [L, B, H_kv, D], this
+    token's raw k / v of every layer."""
+    x = params["token_embd"][tok.long()][:, None]
+    k_buf, v_buf, valid = chunk_buf
+    kv_list = []
+    for li, blk in enumerate(params["blocks"]):
+        x, kv = _block_forward(x, blk, _layer(cache, li), cache["fill"], pos,
+                               cfg, defer_write=True,
+                               chunk_buf=(k_buf[li], v_buf[li], valid))
+        kv_list.append(kv)
+    kvs = {key: torch.stack([kv[key] for kv in kv_list]) for key in ("k", "v")}
+    return _logits(params, x, cfg)[:, 0], kvs
+
+
+# splitmix64 constants as signed int64 (torch has no uint64 arithmetic)
+_GOLDEN = 0x9E3779B97F4A7C15 - (1 << 64)
+_MIX1 = 0xBF58476D1CE4E5B9 - (1 << 64)
+_MIX2 = 0x94D049BB133111EB - (1 << 64)
+
+
+def _srl(z, s: int):
+    """Logical right shift of int64 (torch's >> is arithmetic)."""
+    return (z >> s) & ((1 << (64 - s)) - 1)
+
+
+def slot_uniform(seed, drawn):
+    """The uniform in [0, 1) of draw number `drawn` of a request seeded with
+    `seed` (int64 tensors of one shape): output drawn + 1 of the splitmix64
+    generator started at `seed`, top 53 bits.  Counter-based, so a
+    request's draws depend on its own seed and count only, never on its
+    neighbours in the batch; int64 products wrap as uint64 ones do."""
+    z = seed + (drawn + 1) * _GOLDEN
+    z = (z ^ _srl(z, 30)) * _MIX1
+    z = (z ^ _srl(z, 27)) * _MIX2
+    z = z ^ _srl(z, 31)
+    return _srl(z, 11).double() * (1.0 / (1 << 53))
+
+
+def sample_tokens_slots(logits, temperature, seed, drawn):
+    """Per-slot temperature sampling in one vectorised draw (no per-row
+    launches, no host sync).  logits [B, V] f32; temperature [B] f32 (<= 0:
+    greedy, argmax with the first index on ties); seed / drawn [B] int64.
+    Sampled rows take the inverse CDF of softmax(logits / t) at
+    slot_uniform(seed, drawn).  JAX's threefry cannot be reproduced here, so
+    sampled tokens are the port's own; greedy rows match the JAX package."""
+    greedy = torch.argmax(logits, dim=-1)
+    probs = torch.softmax(logits / temperature.clamp(min=1e-6)[:, None], -1)
+    cdf = torch.cumsum(probs, dim=-1)
+    u = (slot_uniform(seed, drawn) * cdf[:, -1].double()).float()
+    sampled = torch.searchsorted(cdf, u[:, None], right=True)[:, 0]
+    sampled = sampled.clamp(max=logits.shape[-1] - 1)
+    return torch.where(temperature > 0, sampled, greedy)
+
+
+@torch.no_grad()
+def llm_generate_chunk_batched(params: dict, last_logits, cache: dict,
+                               active, seed, drawn, temperature, stop_ids,
+                               cfg: LLMConfig, n_steps: int,
+                               attn_len: int = 0):
+    """Batched generation of n_steps tokens for every ACTIVE slot, with
+    per-slot stop detection and no host sync: the whole chunk is enqueued
+    on the device and read by the caller once.
+
+    Chunk-buffered cache protocol (the JAX package's): the big cache is
+    read-only through the chunk; each step's raw k/v land in a small
+    [L, B, H_kv, n_steps, D] buffer at the step's column (the same column
+    for every slot), attended through `buf_valid`, and ONE scatter per
+    chunk merges the buffer into the cache (quantized there for an int8
+    cache).  A slot that stops never resumes within a chunk, so its valid
+    columns are its first `adv` ones, positions fill0 .. fill0 + adv - 1.
+    Columns past adv park at the last cache position, which fill never
+    covers before the sequence itself rewrites it.
+
+    `attn_len` (0 = full): attention reads only the first attn_len cache
+    positions (a strided view, never a copy); the caller guarantees every
+    active slot's fill + n_steps <= attn_len.  The merge targets the full
+    cache.  All n_steps steps run even when every slot has stopped (a
+    device-side early exit would need a host sync per step); the extra
+    steps change nothing an active slot reads.
+
+    last_logits [B, V]; active bool [B]; seed / drawn int64 [B] (the
+    sampler's per-slot state, see sample_tokens_slots; `drawn` advances
+    only while the slot is active); temperature f32 [B]; stop_ids [n_stop].
+    Updates `cache` in place.  Returns (buf [B, n_steps] int64 (-1 where
+    the slot was inactive or stopped), active, last_logits, cache, drawn)."""
+    B = last_logits.shape[0]
+    dev = last_logits.device
+    L, _, H_kv, s_max, D = cache["k"].shape
+    if attn_len and attn_len < s_max:
+        view = {k: (v if k == "fill" else v[:, :, :, :attn_len])
+                for k, v in cache.items()}
+    else:
+        view = cache
+    bdt = torch.float32 if cache["k"].dtype == torch.float32 else torch.bfloat16
+    buf = torch.full((B, n_steps), -1, dtype=torch.int64, device=dev)
+    k_buf = torch.zeros((L, B, H_kv, n_steps, D), dtype=bdt, device=dev)
+    v_buf = torch.zeros_like(k_buf)
+    valid = torch.zeros((B, n_steps), dtype=torch.bool, device=dev)
+    adv = torch.zeros((B,), dtype=torch.int32, device=dev)
+    fill0 = cache["fill"]
+    stop_ids = stop_ids.to(dev)
+    last = last_logits
+    for i in range(n_steps):
+        tok = sample_tokens_slots(last, temperature, seed, drawn)
+        drawn = drawn + active.long()
+        is_stop = (tok[:, None] == stop_ids[None, :]).any(dim=-1)
+        active = active & ~is_stop
+        buf[:, i] = torch.where(active, tok, -1)
+        pos = torch.where(active, fill0 + adv, s_max - 1)[:, None]
+        last, kvs = _decode_core(params, tok, pos, view, cfg,
+                                 (k_buf, v_buf, valid))
+        k_buf[:, :, :, i] = kvs["k"].to(bdt)
+        v_buf[:, :, :, i] = kvs["v"].to(bdt)
+        valid[:, i] = active
+        adv = adv + active.int()
+
+    # ONE merge scatter: slot b's column j -> position fill0[b] + j while
+    # j < adv[b], else the parked last position
+    j_idx = torch.arange(n_steps, device=dev)
+    tpos = torch.where(j_idx[None, :] < adv[:, None],
+                       fill0[:, None].long() + j_idx[None, :], s_max - 1)
+    b_idx = torch.arange(B, device=dev)[:, None]
+    if "k_scale" in cache:
+        kq, ks = _kv_quantize(k_buf.float())
+        vq, vs = _kv_quantize(v_buf.float())
+        updates = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+    else:
+        updates = {"k": k_buf, "v": v_buf}
+    for name, upd in updates.items():
+        # [L, B, H, W(, D)] -> [B, W, L, H(, D)]: the advanced indices
+        # (b, tpos) at cache dims 1 and 3 put their broadcast dims first
+        upd = upd.movedim(1, 0).movedim(3, 1)
+        cache[name][:, b_idx, :, tpos] = upd.to(cache[name].dtype)
+    cache["fill"] = fill0 + adv
+    return buf, active, last, cache, drawn

@@ -4,7 +4,7 @@ Each `csrc/*.cu` source is compiled by `nvcc` for `sm_90a` into its own
 shared library under `build/torch_kernels/` at the repository root (listed
 in .gitignore).  The library name carries a hash of the source, so an edited
 kernel rebuilds and a current one is reused.  Nothing here runs at import:
-the first CUDA `qdot` call builds, and `build_all` lets a calling script
+the first CUDA kernel call builds, and `build_all` lets a calling script
 start every `nvcc` at once.  A failed build raises; there is no fallback.
 """
 
@@ -24,12 +24,20 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # name -> (source file, {C function: argtypes}); every function returns the
 # cudaError_t of its launch as an int
 KERNELS = {
     "qdot": ("qdot.cu", {
         # x, x_is_bf16, v, packed, s, mins, y, M, K, N, group, stream
         "qdot_launch": [_P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P],
+    }),
+    "decode_attn": ("decode_attn.cu", {
+        # q, q_scale, k, v, k_scale, v_scale, fill, q_pos, out, out_m, out_l,
+        # B, H, H_kv, S, D, dtype, k/v strides (b, h, s), k/v scale strides
+        # (b, h), scale, stream
+        "decode_attn_launch": [_P] * 11 + [_I] * 6 + [_L] * 10
+                              + [ctypes.c_float, _P],
     }),
 }
 

@@ -1,0 +1,196 @@
+"""Batched single-query decode attention (counterpart of
+`miotts_tpu/ops/decode_attn.py:decode_attention_batched`).
+
+The attention of batched serving: one query per slot against that slot's
+KV cache rows, as a flash state (acc, m, l) that `models/llm.py:
+_attend_bkernel` folds together with the chunk-buffer and current-token
+columns.  A CUDA tensor goes through the hand-written kernel
+`ops/csrc/decode_attn.cu` (and raises if it cannot build or launch); a CPU
+tensor goes through `decode_attention_batched_plain`, the same function in
+plain torch.
+
+Contract: q [B, H, D]; k/v cache [B, H_kv, S, D] bf16 / f32, or int8 with
+f32 scales [B, H_kv, S]; fill / q_pos [B].  Key s is valid iff
+s < min(fill[b], q_pos[b] + 1).  Returns f32 [B, H, D], or
+(acc [B, H, D] unnormalised, m [B, H], l [B, H]) with return_stats.
+
+Float mode computes in the cache's type: q is cast to it, probabilities are
+rounded to it before the PV product, sums are f32.  int8 mode quantizes q
+per (b, h) row, takes int8 x int8 scores and quantizes the probabilities
+(times the v scales) to int8 per query row per tile of S_TILE keys — a
+grouping that is part of the result (~1 % of the row scale).  The TPU grid's
+b_tile and its VMEM-driven tile halving have no counterpart here.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+NEG = -1e9
+S_TILE = 512                      # keys per tile: the int8 quantization group
+HEAD_DIMS = (64, 80, 128)
+MAX_REP = 8
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+
+def quantize_query(q: torch.Tensor):
+    """Per-(b, h) symmetric int8 of q [B, H, D] (round half to even, clip
+    +-127): (int-valued f32 [B, H, D], scale f32 [B, H])."""
+    qf = q.float()
+    qs = qf.abs().amax(dim=-1).clamp(min=1e-20) / 127.0
+    return torch.round(qf / qs[..., None]).clamp(-127, 127), qs
+
+
+def decode_attention_batched_plain(q, k_cache, v_cache, fill, q_pos,
+                                   k_scale=None, v_scale=None,
+                                   return_stats: bool = False):
+    """The kernel's arithmetic in plain torch, tile by tile.  Integer dots
+    run as f32 products of int-valued floats, exact below 2^24 (|q|, |k|,
+    |p|, |v| <= 127, D <= 128, 512 keys a tile)."""
+    B, H, D = q.shape
+    H_kv, S = k_cache.shape[1], k_cache.shape[2]
+    rep = H // H_kv
+    int8 = k_cache.dtype == torch.int8
+    scale = 1.0 / math.sqrt(D)
+    limit = torch.minimum(fill.long(), q_pos.long() + 1)
+    if int8:
+        qq, qs = quantize_query(q)
+        qg = qq.reshape(B, H_kv, rep, D)
+        qss = (qs * scale).reshape(B, H_kv, rep, 1)
+    else:
+        cdt = k_cache.dtype
+        qg = q.to(cdt).float().reshape(B, H_kv, rep, D)
+    acc = q.new_zeros((B, H_kv, rep, D), dtype=torch.float32)
+    m = torch.full((B, H_kv, rep, 1), NEG, dtype=torch.float32, device=q.device)
+    l = torch.zeros_like(m)
+    for t0 in range(0, S, S_TILE):
+        t1 = min(S, t0 + S_TILE)
+        kt = k_cache[:, :, t0:t1].float()
+        vt = v_cache[:, :, t0:t1].float()
+        kpos = torch.arange(t0, t1, device=q.device)
+        mask = (kpos[None, :] < limit[:, None])[:, None, None, :]
+        s = torch.einsum("bgrd,bgtd->bgrt", qg, kt)
+        if int8:
+            s = s * qss * k_scale[:, :, None, t0:t1]
+        else:
+            s = s * scale
+        s = s.masked_fill(~mask, NEG)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.where(mask, torch.exp(s - m_new), 0.0)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        if int8:
+            ps = p * v_scale[:, :, None, t0:t1]
+            psc = ps.amax(dim=-1, keepdim=True).clamp(min=1e-20) / 127.0
+            p8 = torch.trunc(ps / psc + 0.5)
+            pv = torch.einsum("bgrt,bgtd->bgrd", p8, vt) * psc
+        else:
+            pv = torch.einsum("bgrt,bgtd->bgrd", p.to(cdt).float(), vt)
+        acc = acc * alpha + pv
+        m = m_new
+    if return_stats:
+        return (acc.reshape(B, H, D), m.reshape(B, H), l.reshape(B, H))
+    return (acc / l.clamp(min=1e-20)).reshape(B, H, D)
+
+
+def _check_strided(t: torch.Tensor, name: str) -> None:
+    """16-byte-aligned rows: base, and every stride, in whole 16 bytes."""
+    el = t.element_size()
+    if t.stride(-1) != 1:
+        raise ValueError(f"{name}: the last dim must be contiguous")
+    if t.data_ptr() % 16 or any(st * el % 16 for st in t.stride()[:-1]):
+        raise ValueError(f"{name}: rows must be 16-byte aligned "
+                         f"(strides {t.stride()}, {el}-byte elements)")
+
+
+def _decode_attention_cuda(q, k_cache, v_cache, fill, q_pos, k_scale,
+                           v_scale, return_stats):
+    """Launch `decode_attn_launch` (ops/csrc/decode_attn.cu) on the current
+    stream.  The cache may be a strided view; it is never copied."""
+    from ._build import load_kernels
+    B, H, D = q.shape
+    if k_cache.dim() != 4 or k_cache.shape != v_cache.shape:
+        raise ValueError(f"k/v cache must both be [B, H_kv, S, D], got "
+                         f"{tuple(k_cache.shape)} / {tuple(v_cache.shape)}")
+    _, H_kv, S, Dk = k_cache.shape
+    if k_cache.shape[0] != B or Dk != D:
+        raise ValueError(f"cache {tuple(k_cache.shape)} does not match q "
+                         f"{tuple(q.shape)}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"decode_attn kernel takes head dim {HEAD_DIMS}, "
+                         f"got {D}")
+    if H % H_kv or not 1 <= H // H_kv <= MAX_REP:
+        raise ValueError(f"decode_attn kernel takes H / H_kv in 1..{MAX_REP},"
+                         f" got {H} / {H_kv}")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"q must be f32 or bf16, got {q.dtype}")
+    if k_cache.dtype not in _DTYPE_CODE or v_cache.dtype != k_cache.dtype:
+        raise TypeError(f"cache must be f32, bf16 or int8 (k and v alike), "
+                        f"got {k_cache.dtype} / {v_cache.dtype}")
+    int8 = k_cache.dtype == torch.int8
+    if int8 != (k_scale is not None) or (k_scale is None) != (v_scale is None):
+        raise ValueError("an int8 cache needs k_scale and v_scale, and only "
+                         "an int8 cache takes them")
+    tensors = [q, k_cache, v_cache, fill, q_pos]
+    if int8:
+        tensors += [k_scale, v_scale]
+    for t in tensors:
+        if not t.is_cuda or t.device != q.device:
+            raise ValueError("decode_attn kernel: every tensor must be on "
+                             "q's GPU")
+    if tuple(fill.shape) != (B,) or tuple(q_pos.shape) != (B,):
+        raise ValueError("fill and q_pos must be [B]")
+    _check_strided(k_cache, "k_cache")
+    _check_strided(v_cache, "v_cache")
+    if int8:
+        for t, name in ((k_scale, "k_scale"), (v_scale, "v_scale")):
+            if (t.dtype != torch.float32 or tuple(t.shape) != (B, H_kv, S)
+                    or t.stride(-1) != 1):
+                raise ValueError(f"{name} must be f32 [B, H_kv, S] with a "
+                                 f"contiguous last dim")
+        qq, qs = quantize_query(q)
+        q_arg, qs_arg = qq.to(torch.int8).contiguous(), qs.contiguous()
+        kss, vss = k_scale.stride(), v_scale.stride()
+    else:
+        q_arg, qs_arg = q.to(k_cache.dtype).contiguous(), None
+        kss = vss = (0, 0, 0)
+    fill32 = fill.to(torch.int32).contiguous()
+    qpos32 = q_pos.to(torch.int32).contiguous()
+    out = torch.empty((B, H, D), dtype=torch.float32, device=q.device)
+    m = l = None
+    if return_stats:
+        m = torch.empty((B, H), dtype=torch.float32, device=q.device)
+        l = torch.empty((B, H), dtype=torch.float32, device=q.device)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    ks, vs = k_cache.stride(), v_cache.stride()
+    lib = load_kernels()["decode_attn"]
+    err = lib.decode_attn_launch(
+        ptr(q_arg), ptr(qs_arg), ptr(k_cache), ptr(v_cache),
+        ptr(k_scale if int8 else None), ptr(v_scale if int8 else None),
+        ptr(fill32), ptr(qpos32), ptr(out), ptr(m), ptr(l),
+        B, H, H_kv, S, D, _DTYPE_CODE[k_cache.dtype],
+        ks[0], ks[1], ks[2], vs[0], vs[1], vs[2], kss[0], kss[1], vss[0],
+        vss[1], 1.0 / math.sqrt(D),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"decode_attn kernel launch failed: CUDA error "
+                           f"{err}")
+    decode_attention_batched.kernel_launches += 1
+    return (out, m, l) if return_stats else out
+
+
+def decode_attention_batched(q, k_cache, v_cache, fill, q_pos, k_scale=None,
+                             v_scale=None, return_stats: bool = False):
+    """Single-position attention of every slot against its cache rows (see
+    the module docstring).  CUDA tensors: the kernel; CPU tensors: the
+    plain version."""
+    if q.is_cuda:
+        return _decode_attention_cuda(q, k_cache, v_cache, fill, q_pos,
+                                      k_scale, v_scale, return_stats)
+    return decode_attention_batched_plain(q, k_cache, v_cache, fill, q_pos,
+                                          k_scale, v_scale, return_stats)
+
+
+decode_attention_batched.kernel_launches = 0

@@ -50,11 +50,16 @@ def istft(spec_real: torch.Tensor, spec_imag: torch.Tensor,
           frame_mask: torch.Tensor | None = None) -> torch.Tensor:
     """Inverse STFT, Hann^2-normalised overlap-add, edge trim.
 
-    spec_real / spec_imag [S, n_freq] f32; frame_mask optional [S] f32 (1 =
-    real frame): padded frames add neither audio nor window-sum, so the
-    first n_real * hop samples equal an unpadded call.  Returns
-    [S * hop_length] f32."""
-    S = spec_real.shape[0]
+    spec_real / spec_imag [S, n_freq] or [B, S, n_freq] f32; frame_mask
+    optional [S] / [B, S] f32 (1 = real frame): padded frames add neither
+    audio nor window-sum, so the first n_real * hop samples of each row
+    equal an unpadded call.  Returns [S * hop_length] or
+    [B, S * hop_length] f32."""
+    if spec_real.dim() == 2:
+        return istft(spec_real[None], spec_imag[None], cos_basis, sin_basis,
+                     hann, hop_length,
+                     None if frame_mask is None else frame_mask[None])[0]
+    B, S = spec_real.shape[:2]
     n_fft = cos_basis.shape[1]
     win = hann.shape[0]
     if win != n_fft or win % hop_length:
@@ -64,26 +69,26 @@ def istft(spec_real: torch.Tensor, spec_imag: torch.Tensor,
     n_out = (S - 1) * hop_length + win
 
     time = spec_real @ cos_basis + spec_imag @ sin_basis
-    fw = time * hann[None, :]
-    w2 = (hann * hann)[None, :].expand(S, win)
+    fw = time * hann
+    w2 = (hann * hann).expand(B, S, win)
     if frame_mask is not None:
-        fw = fw * frame_mask[:, None]
-        w2 = w2 * frame_mask[:, None]
+        fw = fw * frame_mask[..., None]
+        w2 = w2 * frame_mask[..., None]
 
-    fw_blocks = fw.reshape(S, k_frames, hop_length)
-    w2_blocks = w2.reshape(S, k_frames, hop_length)
+    fw_blocks = fw.reshape(B, S, k_frames, hop_length)
+    w2_blocks = w2.reshape(B, S, k_frames, hop_length)
     n_blocks = n_out // hop_length
-    audio = spec_real.new_zeros((n_blocks, hop_length))
-    wsum = spec_real.new_zeros((n_blocks, hop_length))
+    audio = spec_real.new_zeros((B, n_blocks, hop_length))
+    wsum = spec_real.new_zeros((B, n_blocks, hop_length))
     for c in range(k_frames):
-        audio[c:c + S] += fw_blocks[:, c, :]
-        wsum[c:c + S] += w2_blocks[:, c, :]
-    audio = audio.reshape(-1)
-    wsum = wsum.reshape(-1)
+        audio[:, c:c + S] += fw_blocks[:, :, c, :]
+        wsum[:, c:c + S] += w2_blocks[:, :, c, :]
+    audio = audio.reshape(B, -1)
+    wsum = wsum.reshape(B, -1)
     ok = wsum > 1e-8
     audio = torch.where(ok, audio / torch.where(ok, wsum, torch.ones_like(wsum)),
                         audio)
-    return audio[n_pad:n_out - n_pad]
+    return audio[:, n_pad:n_out - n_pad]
 
 
 def spec_to_audio(log_mag, phase, cos_basis, sin_basis, hann,
@@ -98,11 +103,15 @@ def spec_to_audio(log_mag, phase, cos_basis, sin_basis, hann,
 def spec_to_audio_bucketed(log_mag, phase, cos_basis, sin_basis, hann,
                            hop_length: int, frames_per_code: int,
                            n_real_codes) -> torch.Tensor:
-    """Head -> audio for a bucketed decode; the frame mask is built on the
-    device.  Only the first n_real_codes * frames_per_code * hop samples
-    are valid."""
-    S = log_mag.shape[0]
+    """Head -> audio for a bucketed decode ([S, n_freq] with an int, or
+    [B, S, n_freq] with n_real_codes [B]); the frame mask is built on the
+    device.  Only the first n_real_codes * frames_per_code * hop samples of
+    a row are valid."""
+    S = log_mag.shape[-2]
+    n = torch.as_tensor(n_real_codes, device=log_mag.device)
+    if log_mag.dim() == 3:
+        n = n.reshape(-1, 1)
     frame_mask = (torch.arange(S, device=log_mag.device)
-                  < n_real_codes * frames_per_code).to(torch.float32)
+                  < n * frames_per_code).to(torch.float32)
     return spec_to_audio(log_mag, phase, cos_basis, sin_basis, hann,
                          hop_length, frame_mask)

@@ -1,0 +1,524 @@
+"""Continuous batching on PyTorch (counterpart of
+`miotts_tpu/runtime/batching.py`): many concurrent utterances through one
+batched decode loop.
+
+A slot scheduler over a shared TTSEngine: waiting requests are admitted
+into free slots (one batched prefill per admission wave), every active slot
+steps together in chunks of on-device generation (`llm_generate_chunk_
+batched`, whose attention is the hand-written CUDA kernel on a GPU), and
+each request's audio streams out through the commit-holdback policy with a
+batched, sliced codec decode per scheduler step.
+
+Reading results back without stalling the pipeline: a chunk's tokens and
+stop flags (and a deferred codec decode's samples) are copied into pinned
+host memory right after they are enqueued, behind a CUDA event, so the
+scheduler can read chunk k while chunk k + 1 already runs on the device.
+
+Not ported: the fused batch step (`fused=True`) and sharded serving
+(`mesh`); both raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import sys
+import time
+from collections import deque
+from dataclasses import dataclass, field
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from ..models.llm import (init_kv_cache, llm_generate_chunk_batched,
+                          llm_prefill_slots)
+from ..text import build_prompt, normalize_tts_text
+from .engine import Options, TTSEngine, VoiceModel, _bucket_len, _round_up
+
+
+@dataclass
+class Request:
+    req_id: int
+    text: str
+    voice: VoiceModel
+    callback: Callable[[Optional[np.ndarray], int, bool], bool]
+    options: Options = field(default_factory=Options)
+    on_finish: Optional[Callable] = None
+    # state
+    slot: int = -1
+    token_budget: int = 0
+    codes: list = field(default_factory=list)
+    committed: int = 0
+    tail: np.ndarray = field(default_factory=lambda: np.zeros(0, np.float32))
+    n_tokens: int = 0
+    done: bool = False
+    failed: bool = False
+    submitted_at: float = 0.0
+    first_audio_at: float = -1.0
+    finished_at: float = 0.0
+    emitted_samples: int = 0
+
+
+class _Readback:
+    """Device tensors copied to the host without waiting: on a GPU into
+    pinned memory behind a CUDA event recorded right after the copy, so
+    get() waits only for work enqueued before it."""
+
+    def __init__(self, *tensors: torch.Tensor):
+        self._event = None
+        if tensors[0].is_cuda:
+            self._host = []
+            for t in tensors:
+                h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                h.copy_(t, non_blocking=True)
+                self._host.append(h)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host = [t.clone() for t in tensors]
+
+    def get(self) -> list[np.ndarray]:
+        if self._event is not None:
+            self._event.synchronize()
+        return [h.numpy() for h in self._host]
+
+
+class ContinuousBatcher:
+    """Slot scheduler over a shared TTSEngine.
+
+    Usage:
+        batcher = ContinuousBatcher(engine, n_slots=8)
+        batcher.submit(text, voice, callback)
+        while batcher.pending:
+            batcher.step()
+    """
+
+    def __init__(self, engine: TTSEngine, n_slots: int = 8,
+                 chunk_steps: int = 20, quantized_kv: bool = False,
+                 ctx_len: int | None = None, mesh=None,
+                 fused: bool = False, pipeline_depth: int = 2,
+                 admit_wave: int = 0):
+        """`pipeline_depth`: chunk k + 1 is enqueued BEFORE chunk k's
+        results are read (depth 2), so host bookkeeping overlaps device
+        work; per-slot request snapshots drop a stale in-flight chunk's
+        tokens when a slot is finished or re-admitted before its results
+        arrive.  Depth 1 = the unpipelined loop.
+
+        `admit_wave`: cap on admissions per scheduler step (0 = admit into
+        every free slot at once).  Per-request sampling state makes each
+        request's output independent of the admission schedule."""
+        if engine.llm_params is None:
+            raise ValueError("batching needs the LLM")
+        if fused:
+            raise NotImplementedError("the fused batch step is not ported "
+                                      "(ROADMAP)")
+        if mesh is not None:
+            raise NotImplementedError("sharded serving is not ported "
+                                      "(ROADMAP)")
+        self.engine = engine
+        self.cfg = engine.llm_cfg
+        self.device = engine.device
+        self.n_slots = n_slots
+        self.chunk_steps = chunk_steps
+        self.admit_wave = admit_wave
+        if ctx_len is None:
+            # geometric bucket of prompt bucket + token budget: per-step
+            # attention traffic scales with this length, not n_ctx
+            need = (engine.config.prompt_bucket * 2
+                    + engine.config.max_tokens + chunk_steps + 64)
+            ctx_len = min(_bucket_len(need, 256), engine.config.n_ctx)
+        self.ctx_len = ctx_len
+        self.quantized_kv = quantized_kv
+        self.active = np.zeros(n_slots, bool)
+        # host-side per-slot fill upper bound (prompt + dispatched chunks):
+        # picks each chunk's attention length
+        self._fill_ub = np.zeros(n_slots, np.int64)
+        self.slot_req: list[Optional[Request]] = [None] * n_slots
+        self.waiting: deque[Request] = deque()
+        self._next_id = 0
+        # requests taken from `waiting` whose admission has not finished
+        self._admitting = 0
+        self._stop_ids = engine._stop_ids
+        self._table = engine.code_table
+        self._reset_device_state()
+        # deferred codec emissions: [(readback, items)] with items
+        # [(req, row, sample_offset, n_samples)]
+        self._pending: list = []
+        self._depth = max(1, pipeline_depth)
+        self._inflight: deque = deque()
+        # coarse wall-clock stage accounting, read by benches and /stats
+        self.stage = {"admit_sec": 0.0, "llm_wait_sec": 0.0,
+                      "codec_sync_sec": 0.0, "codec_dispatch_sec": 0.0,
+                      "flush_wait_sec": 0.0, "chunks": 0, "decodes": 0,
+                      "prefills": 0, "device_steps": 0}
+
+    def _reset_device_state(self) -> None:
+        """Fresh cache, logits and per-slot sampling state on the device:
+        temperature, seed and the count of draws made (see
+        models/llm.sample_tokens_slots)."""
+        dev, B = self.device, self.n_slots
+        cfgE = self.engine.config
+        dtype = (torch.bfloat16 if cfgE.llm_dtype == "bfloat16"
+                 else torch.float32)
+        self.cache = init_kv_cache(self.cfg, B, self.ctx_len, dtype=dtype,
+                                   device=dev, quantized=self.quantized_kv)
+        self.last_logits = torch.zeros((B, self.cfg.n_vocab),
+                                       dtype=torch.float32, device=dev)
+        self._slot_temp = torch.full((B,), cfgE.temperature,
+                                     dtype=torch.float32, device=dev)
+        self._slot_seed = torch.full((B,), cfgE.seed, dtype=torch.int64,
+                                     device=dev)
+        self._slot_drawn = torch.zeros((B,), dtype=torch.int64, device=dev)
+        self._active_dev = torch.tensor(self.active, device=dev)   # a copy
+
+    # ------------------------------------------------------------------
+    def warmup(self, prompt_len: int = 64) -> None:
+        """Run each serving shape once before traffic (the batched slot
+        prefill at A = 1 and A = n_slots, a chunk, the batched sliced codec
+        decode at the first-commit shape), so the first admission wave does
+        not pay kernel builds, library handles and allocator growth.
+        Serving state is re-initialized afterwards."""
+        eng = self.engine
+        cfgE = eng.config
+        dev = self.device
+        bucket = _round_up(max(1, prompt_len), cfgE.prompt_bucket)
+        for A in (1, self.n_slots):
+            llm_prefill_slots(
+                eng.llm_params, torch.zeros((A, bucket), dtype=torch.int64,
+                                            device=dev),
+                torch.ones((A,), dtype=torch.int32), self.cache,
+                torch.arange(A), self.cfg)
+        attn_len = min(_bucket_len(bucket + self.chunk_steps, 128),
+                       self.ctx_len)
+        active = torch.zeros((self.n_slots,), dtype=torch.bool, device=dev)
+        active[0] = True
+        buf, *_ = llm_generate_chunk_batched(
+            eng.llm_params, self.last_logits, self.cache, active,
+            self._slot_seed, self._slot_drawn, self._slot_temp,
+            self._stop_ids, self.cfg, self.chunk_steps,
+            0 if attn_len >= self.ctx_len else attn_len)
+        buf.cpu()
+        n0 = cfgE.holdback_codes + eng._first_commit + cfgE.stream_check_interval
+        voices = [VoiceModel(embedding=np.zeros(eng.codec_cfg.adaln_dim,
+                                                np.float32))] * self.n_slots
+        spt = eng.codec_cfg.samples_per_token
+        eng.decode_codes_batch_sliced([[1] * n0] * self.n_slots, voices,
+                                      [0] * self.n_slots,
+                                      [eng._first_commit * spt] * self.n_slots)
+        self._reset_device_state()
+
+    @property
+    def pending(self) -> int:
+        """Requests not finished: waiting, being admitted, active, plus
+        chunks still in flight."""
+        return (len(self.waiting) + self._admitting + int(np.sum(self.active))
+                + len(self._inflight))
+
+    def submit(self, text: str, voice: VoiceModel, callback,
+               options: Options = Options(), on_finish=None) -> int:
+        req = Request(req_id=self._next_id, text=text, voice=voice,
+                      callback=callback, options=options, on_finish=on_finish,
+                      submitted_at=time.perf_counter())
+        self._next_id += 1
+        self.waiting.append(req)
+        return req.req_id
+
+    # ------------------------------------------------------------------
+    def _reject(self, req: Request) -> None:
+        """Fail one request (final callback + on_finish), never the
+        scheduler."""
+        req.done = True
+        req.failed = True
+        req.finished_at = time.perf_counter()
+        for fn, arg in ((req.callback, (None, self.engine.sample_rate, True)),
+                        (req.on_finish, (req,))):
+            if fn is None:
+                continue
+            try:
+                fn(*arg)
+            except Exception:
+                pass
+
+    def _admit(self) -> None:
+        """Fill free slots with waiting requests, all of one scheduler step
+        in ONE batched prefill (`llm_prefill_slots`).  Prompts are
+        right-padded to the longest admitted prompt's bucket; per-slot
+        `fill` masks the padding.  A token budget that does not fit the
+        cache is clamped; a prompt that cannot fit fails that request
+        only."""
+        eng = self.engine
+        admit: list[tuple[int, Request, list[int]]] = []
+        try:
+            for slot in range(self.n_slots):
+                if self.admit_wave > 0 and len(admit) >= self.admit_wave:
+                    break
+                if self.active[slot] or not self.waiting:
+                    continue
+                req = self.waiting.popleft()
+                self._admitting += 1
+                ids = eng.tokenizer.encode(
+                    build_prompt(normalize_tts_text(req.text)))
+                n = len(ids)
+                max_tok = (req.options.max_tokens
+                           if req.options.max_tokens > 0
+                           else eng.config.max_tokens)
+                if n + max_tok + self.chunk_steps > self.ctx_len:
+                    clamped = max(0, self.ctx_len - n - self.chunk_steps)
+                    if clamped < max_tok:
+                        sys.stderr.write(
+                            f"miotts: request {req.req_id}: token budget "
+                            f"{max_tok} -> {clamped} (prompt {n} tokens, "
+                            f"ctx_len {self.ctx_len}; pass ctx_len= to the "
+                            f"batcher for longer utterances)\n")
+                    max_tok = clamped
+                if (max_tok < 1 or _round_up(n, eng.config.prompt_bucket)
+                        > self.ctx_len):
+                    sys.stderr.write(
+                        f"miotts: request {req.req_id}: prompt ({n} tokens) "
+                        f"does not fit ctx_len {self.ctx_len}; rejected\n")
+                    self._admitting -= 1
+                    self._reject(req)
+                    continue
+                req.token_budget = max_tok
+                admit.append((slot, req, ids))
+            if not admit:
+                return
+            t0 = time.perf_counter()
+            dev = self.device
+            bucket = _round_up(max(len(ids) for _, _, ids in admit),
+                               eng.config.prompt_bucket)
+            A = len(admit)
+            toks = np.zeros((A, bucket), np.int64)
+            n_real = np.zeros((A,), np.int32)
+            for i, (_, _, ids) in enumerate(admit):
+                toks[i, :len(ids)] = ids
+                n_real[i] = len(ids)
+            slots = torch.tensor([s for s, _, _ in admit], dtype=torch.int64,
+                                 device=dev)
+            last, self.cache = llm_prefill_slots(
+                eng.llm_params, torch.from_numpy(toks).to(dev),
+                torch.from_numpy(n_real), self.cache, slots, self.cfg)
+            self.last_logits[slots] = last
+            self._active_dev[slots] = True
+            cfgE = eng.config
+            self._slot_temp[slots] = torch.tensor(
+                [r.options.temperature if r.options.temperature >= 0
+                 else cfgE.temperature for _, r, _ in admit],
+                dtype=torch.float32).to(dev)
+            self._slot_seed[slots] = torch.tensor(
+                [r.options.seed if r.options.seed >= 0 else cfgE.seed
+                 for _, r, _ in admit], dtype=torch.int64).to(dev)
+            self._slot_drawn[slots] = 0
+            for slot, req, ids in admit:
+                self.active[slot] = True
+                self.slot_req[slot] = req
+                req.slot = slot
+                self._fill_ub[slot] = len(ids)
+            self.stage["admit_sec"] += time.perf_counter() - t0
+            self.stage["prefills"] += 1
+        finally:
+            self._admitting -= len(admit)
+
+    def _finish(self, req: Request, ok: bool) -> None:
+        req.done = True
+        req.failed = not ok
+        req.finished_at = time.perf_counter()
+        slot = req.slot
+        self.active[slot] = False
+        self.slot_req[slot] = None
+        # budget stops are host-detected: clear the device bit too (an
+        # in-flight chunk may still step this slot; the snapshot check
+        # drops those tokens)
+        self._active_dev[slot] = False
+        if req.on_finish is not None:
+            try:
+                req.on_finish(req)
+            except Exception:
+                pass
+
+    def _emit_policy(self, req: Request, is_final: bool):
+        """Commit-holdback decision.  Returns ("decode", target) when a
+        re-decode + emission is due, ("final_cb", None) when only the final
+        sentinel remains, or ("done", ok)."""
+        cfgE = self.engine.config
+        if not req.codes:
+            return ("done", not is_final)
+        target = (len(req.codes) if is_final
+                  else max(len(req.codes) - cfgE.holdback_codes, 0))
+        if target <= req.committed:
+            return ("final_cb", None) if is_final else ("done", True)
+        # the first emission uses the smaller first-commit threshold
+        min_eff = (self.engine._first_commit if req.committed == 0
+                   else cfgE.min_commit_step_codes)
+        if not is_final and (target - req.committed) < min_eff:
+            return ("done", True)
+        return ("decode", target)
+
+    def _emit_samples(self, req: Request, audio: np.ndarray, begin: int,
+                      end: int, is_final: bool) -> bool:
+        """Chunked emission of audio[begin:end] with a ~30 ms linear
+        crossfade against the previous chunk's tail."""
+        eng = self.engine
+        sr = eng.sample_rate
+        crossfade = min(sr * 3 // 100, 4096)
+        i, first = begin, True
+        while i < end:
+            n = min(eng.config.chunk_samples, end - i)
+            chunk = audio[i:i + n].copy()
+            if first and req.tail.size:
+                xf = min(req.tail.size, chunk.size)
+                a = (np.arange(xf, dtype=np.float32) + 1.0) / (xf + 1.0)
+                chunk[:xf] = (1.0 - a) * req.tail[:xf] + a * chunk[:xf]
+            req.tail = (chunk[-crossfade:].copy() if n >= crossfade
+                        else chunk.copy())
+            last_chunk = is_final and (i + n >= end)
+            if req.first_audio_at < 0:
+                req.first_audio_at = time.perf_counter()
+            if not req.callback(chunk, sr, last_chunk):
+                return False
+            req.emitted_samples += n
+            i += n
+            first = False
+        return True
+
+    # ------------------------------------------------------------------
+    def step(self) -> None:
+        """One scheduler iteration: admit -> enqueue a batched decode chunk
+        -> emit last step's deferred audio -> consume the oldest finished
+        chunk (distribute tokens, commit, emit, finish)."""
+        self._admit()
+        dispatched = False
+        if np.any(self.active):
+            # every active slot's fill stays under fill_ub, so reading only
+            # the first attn_len cache positions is exact
+            need = int(self._fill_ub[self.active].max()) + self.chunk_steps
+            attn_len = min(_bucket_len(need, 128), self.ctx_len)
+            if attn_len >= self.ctx_len:
+                attn_len = 0
+            (buf, self._active_dev, self.last_logits, self.cache,
+             self._slot_drawn) = llm_generate_chunk_batched(
+                self.engine.llm_params, self.last_logits, self.cache,
+                self._active_dev, self._slot_seed, self._slot_drawn,
+                self._slot_temp, self._stop_ids, self.cfg, self.chunk_steps,
+                attn_len)
+            self.stage["device_steps"] += self.chunk_steps
+            self._fill_ub[self.active] += self.chunk_steps
+            self._inflight.append((_Readback(buf, self._active_dev),
+                                   list(self.slot_req)))
+            dispatched = True
+        self._flush_pending()
+        keep = self._depth - 1 if dispatched else 0
+        while len(self._inflight) > keep:
+            self._process_chunk(*self._inflight.popleft())
+
+    def _flush_pending(self) -> None:
+        """Read back and emit deferred (pipelined) codec decodes."""
+        t0 = time.perf_counter()
+        for rb, items in self._pending:
+            audio = rb.get()[0]
+            if audio.dtype == np.int16:
+                audio = audio.astype(np.float32) / 32767.0
+            for req, row, off, n in items:
+                if req.done or n <= 0:
+                    continue
+                if not self._emit_samples(req, audio[row, off:off + n], 0, n,
+                                          False):
+                    self._finish(req, False)
+        if self._pending:
+            self.stage["flush_wait_sec"] += time.perf_counter() - t0
+        self._pending = []
+
+    def _process_chunk(self, rb: _Readback, snapshot) -> None:
+        """Consume one chunk's results.  `snapshot` is the per-slot request
+        list at dispatch time: a slot finished or re-admitted since then
+        drops its stale tokens here."""
+        t0 = time.perf_counter()
+        buf, still_active = rb.get()
+        self.stage["llm_wait_sec"] += time.perf_counter() - t0
+        self.stage["chunks"] += 1
+
+        table = self._table
+        decode_work: list[tuple[Request, int, bool]] = []
+        for slot in range(self.n_slots):
+            req = snapshot[slot]
+            if req is None or req.done or self.slot_req[slot] is not req:
+                continue
+            toks = buf[slot]
+            toks = toks[toks >= 0]
+            # the device chunk is budget-blind: truncate to the budget
+            toks = toks[:max(0, req.token_budget - req.n_tokens)]
+            for tid in toks:
+                req.n_tokens += 1
+                code = table[tid] if 0 <= tid < len(table) else -1
+                if code >= 0:
+                    req.codes.append(int(code))
+            is_final = (not still_active[slot]
+                        or req.n_tokens >= req.token_budget)
+            action, val = self._emit_policy(req, is_final)
+            if action == "decode":
+                decode_work.append((req, val, is_final))
+                continue
+            ok = (req.callback(None, self.engine.sample_rate, True)
+                  if action == "final_cb" else val)
+            if is_final or not ok:
+                self._finish(req, ok)
+        if decode_work:
+            self._decode_and_emit(decode_work)
+
+    def _decode_and_emit(self, decode_work) -> None:
+        """ONE batched codec decode per group of committing streams.  With
+        stream_window_codes > 0 a non-final stream decodes only its trailing
+        window.  With serving_pipeline_codec, non-final commits after a
+        stream's first are enqueued now and emitted at the next step; first
+        commits and finals are decoded synchronously."""
+        eng = self.engine
+        spt = eng.codec_cfg.samples_per_token
+        window = eng.config.stream_window_codes
+        work = []
+        for r, target, is_final in decode_work:
+            s = 0
+            if window > 0 and not is_final:
+                s = max(0, min(r.committed, len(r.codes) - window))
+            work.append((r, target, is_final, s))
+        sync_work = work
+        if eng.config.serving_pipeline_codec:
+            deferred = [w for w in work if not w[2] and w[0].committed > 0]
+            sync_work = [w for w in work if w[2] or w[0].committed == 0]
+            if deferred:
+                t0 = time.perf_counter()
+                audio, offs, n_samp = eng.decode_codes_batch_sliced_async(
+                    [r.codes[s:] for r, _, _, s in deferred],
+                    [r.voice for r, _, _, _ in deferred],
+                    [(r.committed - s) * spt for r, _, _, s in deferred],
+                    [(t - s) * spt for _, t, _, s in deferred])
+                self.stage["codec_dispatch_sec"] += time.perf_counter() - t0
+                self.stage["decodes"] += 1
+                items = []
+                for row, (req, target, _, _) in enumerate(deferred):
+                    req.committed = target
+                    items.append((req, row, offs[row], n_samp[row]))
+                self._pending.append((_Readback(audio), items))
+        if not sync_work:
+            return
+        t0 = time.perf_counter()
+        segs = eng.decode_codes_batch_sliced(
+            [r.codes[s:] for r, _, _, s in sync_work],
+            [r.voice for r, _, _, _ in sync_work],
+            [(r.committed - s) * spt for r, _, _, s in sync_work],
+            [(t - s) * spt for _, t, _, s in sync_work])
+        self.stage["codec_sync_sec"] += time.perf_counter() - t0
+        self.stage["decodes"] += 1
+        for (req, target, is_final, _), seg in zip(sync_work, segs):
+            if seg.size == 0:
+                ok = (req.callback(None, eng.sample_rate, True)
+                      if is_final else True)
+            else:
+                req.committed = target
+                ok = self._emit_samples(req, seg, 0, seg.size, is_final)
+            if is_final or not ok:
+                self._finish(req, ok)
+
+    def run_until_done(self, max_iters: int = 10 ** 6) -> None:
+        it = 0
+        while self.pending and it < max_iters:
+            self.step()
+            it += 1

@@ -5,7 +5,10 @@ Counterpart of the offline path of `miotts_tpu/runtime/engine.py`
 normalisation, greedy / temperature sampling with on-device chunks of 64
 tokens, token -> code mapping through the vocab table, a bucketed codec
 decode with exact output length T * samples_per_token, and peak
-normalisation to 0.95 on the host.
+normalisation to 0.95 on the host.  For batched serving
+(`runtime/batching.py`) it adds the streaming-policy fields of
+`EngineConfig` and a batched codec decode that returns only each stream's
+emission slice (`decode_codes_batch_sliced[_async]`).
 
 Everything runs on `EngineConfig.device` ("cuda" by default).  Asking for
 the GPU when none is available raises; the engine never carries on quietly
@@ -27,6 +30,7 @@ from ..models.llm import (LLMConfig, init_kv_cache, llm_generate_chunk,
 from ..ops.istft import spec_to_audio_bucketed
 from ..text import build_prompt, normalize_tts_text, parse_speech_tokens
 from ..text.tokenizer import Tokenizer
+from .profile import StreamProfile
 
 # tokens per on-device generation chunk (one host read per chunk)
 OFFLINE_CHUNK = 64
@@ -67,10 +71,33 @@ class EngineConfig:
     max_tokens: int = 700
     seed: int = 42
     n_ctx: int = 2048
+    # streaming policy (commit holdback) of batched serving
+    stream_check_interval: int = 20
+    holdback_codes: int = 32
+    min_commit_step_codes: int = 24
+    # smaller threshold for a stream's FIRST commit only (<= 0: uniform)
+    first_commit_codes: int = 8
+    chunk_samples: int = 4096
+    # 0 = full-prefix re-decode per commit; W > 0 re-decodes only the last
+    # W codes (O(T) streaming; the final flush stays full-prefix)
+    stream_window_codes: int = 0
     prompt_bucket: int = 64
     code_bucket: int = 32
     llm_dtype: str = "bfloat16"
+    # batched serving: defer each non-final commit's audio read-back by one
+    # scheduler step (None = on), and ship emission slices as int16 (None =
+    # on; False keeps them float-exact)
+    pipeline_codec: bool | None = None
+    i16_transfer: bool | None = None
     device: str = "cuda"
+
+    @property
+    def serving_pipeline_codec(self) -> bool:
+        return True if self.pipeline_codec is None else bool(self.pipeline_codec)
+
+    @property
+    def serving_i16_transfer(self) -> bool:
+        return True if self.i16_transfer is None else bool(self.i16_transfer)
 
 
 @dataclass
@@ -83,11 +110,13 @@ class Options:
 
 
 class VoiceModel:
-    """Voice embedding holder (a `.emb.gguf` file)."""
+    """Voice embedding holder: a `.emb.gguf` file, or an embedding array."""
 
-    def __init__(self, path: str):
+    def __init__(self, path: str = "", embedding: np.ndarray | None = None):
         self.path = path
-        self.embedding = load_voice_embedding(path)
+        self.embedding = (np.asarray(embedding, np.float32)
+                          if embedding is not None
+                          else load_voice_embedding(path))
         self._dev_emb: dict[torch.device, torch.Tensor] = {}
 
     def device_embedding(self, device) -> torch.Tensor:
@@ -107,6 +136,12 @@ class TTSEngine:
     def __init__(self, config: EngineConfig):
         self.config = config
         self.device = resolve_device(config.device)
+        # effective first-commit threshold: <= 0 disables the early first
+        # emission; never above min_commit
+        self._first_commit = (
+            min(config.first_commit_codes, config.min_commit_step_codes)
+            if config.first_commit_codes > 0
+            else config.min_commit_step_codes)
         self.llm_params = None
         self.llm_cfg: LLMConfig | None = None
         self.tokenizer: Tokenizer | None = None
@@ -217,10 +252,11 @@ class TTSEngine:
     # ------------------------------------------------------------------
 
     def decode_codes(self, codes, voice: VoiceModel,
-                     profile: dict | None = None) -> np.ndarray:
+                     profile: dict | None = None,
+                     apply_peak_normalization: bool = True) -> np.ndarray:
         """codes -> float PCM of exactly T * samples_per_token samples,
         decoded in a power-of-2 bucket with the padding masked out and
-        peak-normalised to 0.95 on the host."""
+        (unless told otherwise) peak-normalised to 0.95 on the host."""
         if not voice.is_ready:
             raise RuntimeError("voice model is not ready")
         codes = np.asarray(codes, np.int32).reshape(-1)
@@ -243,10 +279,96 @@ class TTSEngine:
         if profile is not None:
             profile["codec_sec"] = profile.get("codec_sec", 0.0) + \
                 time.perf_counter() - t0
-        peak = float(np.max(np.abs(audio)))
-        if peak > 1e-8:
-            audio = audio * (0.95 / peak)
+        if apply_peak_normalization:
+            peak = float(np.max(np.abs(audio)))
+            if peak > 1e-8:
+                audio = audio * (0.95 / peak)
         return audio.astype(np.float32)
+
+    def _codec_audio_sliced(self, codes_b, embs_b, n_real_b, starts_b,
+                            emit_len: int) -> torch.Tensor:
+        """Batched codec + iSTFT returning ONLY each row's emission slice
+        audio[b, starts[b] : starts[b] + emit_len] (starts pre-clamped to
+        [0, total - emit_len]), as int16 when serving_i16_transfer (scale,
+        clamp, truncate: audio.wav.f32_to_s16's semantics), else f32."""
+        cfg = self.codec_cfg
+        p = self.codec_params
+        log_mag, phase = codec_decode_spec(p, codes_b, embs_b, cfg,
+                                           n_real=n_real_b)
+        with torch.no_grad(), exact_f32():
+            audio = spec_to_audio_bucketed(
+                log_mag, phase, p["istft_cos_basis"], p["istft_sin_basis"],
+                p["istft_hann"], cfg.hop_length, cfg.total_upsample, n_real_b)
+        idx = starts_b[:, None] + torch.arange(emit_len, device=audio.device)
+        out = audio.gather(1, idx)
+        if self.config.serving_i16_transfer:
+            out = torch.clamp(out * 32767.0, -32768, 32767).to(torch.int16)
+        return out
+
+    def decode_codes_batch_sliced_async(self, codes_list: list, voices: list,
+                                        begins: list, ends: list):
+        """Batched codec decode that enqueues ONLY each stream's emission
+        slice [begins[i], ends[i]) (sample offsets relative to the decoded
+        window) and does not wait for it.  The batch pads to a bucket
+        (powers of two up to 16, then multiples of 16) with zero-length
+        rows, and the slice length to multiples of 8 codes of audio, as in
+        the JAX package.  Returns (audio [B, E] on the device, offsets,
+        n_samples): row i's samples are audio[i, offsets[i] : offsets[i] +
+        n_samples[i]]."""
+        assert len(codes_list) == len(voices) == len(begins) == len(ends)
+        cfg = self.codec_cfg
+        spt = cfg.samples_per_token
+        lens = [len(c) for c in codes_list]
+        bucket = _bucket_len(max(lens), self.config.code_bucket)
+        B_real = len(codes_list)
+        if B_real <= 16:
+            B = 1
+            while B < B_real:
+                B *= 2
+        else:
+            B = _round_up(B_real, 16)
+        padded = np.zeros((B, bucket), np.int32)
+        embs = np.zeros((B, cfg.adaln_dim), np.float32)
+        for i, (c, v) in enumerate(zip(codes_list, voices)):
+            padded[i, :lens[i]] = np.asarray(c, np.int32)
+            embs[i] = v.embedding
+        total = bucket * spt
+        n_samp = [max(0, min(int(e), lens[i] * spt) - int(b))
+                  for i, (b, e) in enumerate(zip(begins, ends))]
+        E = min(_round_up(max(n_samp + [1]), 8 * spt), total)
+        starts, offs = [], []
+        for b in begins:
+            s = max(0, min(int(b), total - E))
+            starts.append(s)
+            offs.append(int(b) - s)
+        lens_arr = np.ones((B,), np.int64)
+        lens_arr[:B_real] = lens
+        starts_arr = np.zeros((B,), np.int64)
+        starts_arr[:B_real] = starts
+        dev = self.device
+        audio = self._codec_audio_sliced(
+            torch.from_numpy(padded).to(dev), torch.from_numpy(embs).to(dev),
+            torch.from_numpy(lens_arr).to(dev),
+            torch.from_numpy(starts_arr).to(dev), E)
+        return audio, offs, n_samp
+
+    def decode_codes_batch_sliced(self, codes_list: list, voices: list,
+                                  begins: list, ends: list,
+                                  profile: StreamProfile | None = None) -> list:
+        """Synchronous form of decode_codes_batch_sliced_async: a list of
+        float PCM arrays, exactly ends[i] - begins[i] samples each (clipped
+        to the decoded length)."""
+        t0 = time.perf_counter()
+        audio, offs, n_samp = self.decode_codes_batch_sliced_async(
+            codes_list, voices, begins, ends)
+        a = audio.cpu().numpy()
+        if a.dtype == np.int16:
+            a = a.astype(np.float32) / 32767.0
+        if profile:
+            profile.codec_sec += time.perf_counter() - t0
+            profile.decode_calls += 1
+            profile.decoded_codes += sum(len(c) for c in codes_list)
+        return [a[i, offs[i]:offs[i] + n_samp[i]] for i in range(len(offs))]
 
     # ------------------------------------------------------------------
     # Offline synthesis

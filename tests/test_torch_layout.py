@@ -38,6 +38,8 @@ def test_importing_the_port_loads_no_jax():
            or m == "miotts_tpu" or m.startswith("miotts_tpu.")]
     assert not bad, bad
     assert "miotts_tpu_torch.ops.qmat" in loaded
+    assert "miotts_tpu_torch.ops.decode_attn" in loaded
+    assert "miotts_tpu_torch.runtime.server" in loaded
     assert "regex" not in loaded     # the GPU machine has no `regex` package
 
 
@@ -61,4 +63,5 @@ def test_every_port_module_has_a_counterpart_layout():
     for sub in ("gguf", "text", "audio", "ops", "models", "runtime"):
         assert (PORT / sub / "__init__.py").exists(), sub
     assert (PORT / "ops" / "csrc" / "qdot.cu").exists()
+    assert (PORT / "ops" / "csrc" / "decode_attn.cu").exists()
     assert miotts_tpu_torch.__version__
