@@ -36,7 +36,27 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      4 slots, on the card and on the CPU plain path (tokens identical,
      logits within 1e-4 of their scale);
   9. HTTP: the port's server on 127.0.0.1 (8 slots) answers /health and
-     four concurrent /synthesize requests (2 wav, 2 pcm), then drains.
+     four concurrent /synthesize requests (2 wav, 2 pcm), then drains;
+ 10. (a) K5 vs plain: the single-query decode-attention CUDA kernel
+     (`decode_attention`) against its plain version at the LFM2-1.2B
+     decode shapes (B=1, H=32/8, D=64, S=256/512/1024; B=4 with staggered
+     fills and an idle row), the 0.1B heads (12/4) and D=80, bf16 / f32 /
+     int8 caches, within 1e-5, with kernel / eager / plain / bound times
+     and the library time of scaled_dot_product_attention (timed only);
+ 11. (b) LFM2-1.2B-Q8_0 offline: the synthetic full-width hybrid model
+     (written by the port's writer, timed) + the phase-3 codec through
+     TTSEngine.synthesize_to_file at temperature 0, 128 tokens; checks the
+     WAV, K5 = 6 launches per decode step and none in the prefill, qdot =
+     65 per decode step and per prefill, one text giving the same tokens
+     before and after another request (the conv-state reset), and profiles
+     a prefill + 64 steps;
+ 12. (d) LFM2 serving: ContinuousBatcher(16 slots, 20-step chunks) on the
+     same engine serves 24 requests of 96 tokens (bf16 cache): K6 = 6 x
+     device steps, qdot = 65 x (device steps + prefill waves), K5 none;
+     then profiles 16 requests x 40 tokens;
+ 13. (c) LFM2 GPU vs CPU: layers 0-5 (two attention layers) of the same
+     file at full width, f32, a prefill + 20 greedy steps on the card (K1,
+     K5) and on the CPU plain path: identical tokens, logits within 1e-4.
 
 Kernel times are device times: the calls are captured in a CUDA graph and
 replayed between CUDA events, cycling over weight (or KV-cache) copies
@@ -44,13 +64,16 @@ larger than the 50 MB L2 (a decode step streams them cold); the eager
 per-call time, Python wrapper included, is printed beside them.
 
 The second-to-last line is the nvidia-smi name / power-limit line; before
-it, one JSON object {"kernels": [...]}; the last line is
+it, one JSON object {"kernels": [...]} (each kernel's launches, errors and
+times per decode step of its path); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
-Imports nothing of JAX or of the JAX package.
+Earlier, a line `details {...}` holds the per-shape rows and every phase's
+numbers.  Imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import http.client
 import json
 import math
@@ -64,6 +87,7 @@ import time
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (data sheet)
 PEAK_FLOPS = 989e12            # H100 SXM dense bf16 tensor core (data sheet)
 PEAK_INT8_OPS = 1979e12        # H100 SXM dense int8 tensor core (data sheet)
+PEAK_F32_FLOPS = 67e12         # H100 SXM f32 outside the tensor cores
 L2_FLUSH_BYTES = 160 << 20     # weight copies cycled per timing loop (> 50 MB L2)
 KERNEL_TOL_BF16 = 1e-2         # bf16 output: one 2^-8 rounding on either side
 KERNEL_TOL_F32 = 1e-5          # f32 output: summation order only
@@ -81,8 +105,41 @@ SLOTS, CHUNK, SERVE_TOKENS, N_REQ, N_REQ_INT8 = 64, 20, 96, 80, 16
 # attention kernel shapes (B, H, H_kv, D, S)
 ATTN_SHAPES = [("0.1b", 64, 12, 4, 64, 128), ("0.1b", 64, 12, 4, 64, 256),
                ("0.1b", 64, 12, 4, 64, 512), ("2.6b", 64, 32, 8, 80, 256),
-               ("2.6b", 64, 32, 8, 80, 512), ("2.6b", 128, 32, 8, 80, 256)]
+               ("2.6b", 64, 32, 8, 80, 512), ("2.6b", 128, 32, 8, 80, 256),
+               ("lfm2-1.2b", 16, 32, 8, 64, 128),   # LFM2 serving: 16 slots,
+               ("lfm2-1.2b", 16, 32, 8, 64, 256)]   # the attn_len buckets
 ATTN_STEP_SHAPE = ("0.1b", 64, 12, 4, 64, 256)   # the serving phase's shape
+
+# LFM2-1.2B-Q8_0: the widths of the published LFM2-1.2B
+# (huggingface.co/LiquidAI/LFM2-1.2B, config.json): hidden 2048, 16 layers
+# with attention at full_attn_idxs and gated short convs (conv_L_cache 3,
+# no bias) elsewhere, 32 query / 8 KV heads of 64, block_ff_dim 12288 ->
+# 8192 (block_auto_adjust_ff_dim: int(2 * 12288 / 3), multiple of 256),
+# rope_theta 1e6, norm_eps 1e-5.  Not published: the synthetic TTS vocab
+# (256 + 3 + 12800, as every bench config), random weights from a seed and
+# an untied Q8_0 output head.
+LFM2_ATTN_IDX = (2, 5, 8, 10, 12, 14)
+LFM2_LAYERS = 16
+LFM2_QDOT_PER_STEP = LFM2_LAYERS * 4 + 1   # in/out_proj or QKV/wo, gate/up, down
+LFM2_SLOTS, LFM2_REQ = 16, 24
+LFM2_REF_LAYERS = 6                        # GPU vs CPU: layers 0-5, 2 attention
+# K5 shapes (label, B, H, H_kv, D, S)
+K5_SHAPES = [("lfm2-1.2b", 1, 32, 8, 64, 256), ("lfm2-1.2b", 1, 32, 8, 64, 512),
+             ("lfm2-1.2b", 1, 32, 8, 64, 1024), ("lfm2-1.2b", 4, 32, 8, 64, 512),
+             ("0.1b", 1, 12, 4, 64, 256), ("d80", 2, 32, 8, 80, 512)]
+K5_STEP_SHAPE = ("lfm2-1.2b", 1, 32, 8, 64, 256)   # the offline decode's
+K5_TOL = 1e-5                  # kernel vs plain: both f32, summation order
+
+
+def lfm2_config():
+    from miotts_tpu_torch.models.llm import LLMConfig
+    return LLMConfig(
+        arch="lfm2", n_layers=LFM2_LAYERS, dim=2048, n_heads=32, n_kv_heads=8,
+        head_dim=64, ff_dim=8192, n_vocab=256 + 3 + N_SPEECH, n_ctx=128000,
+        rope_theta=1e6, rms_eps=1e-5, rope_style="neox", qkv_bias=False,
+        qk_norm=True, conv_l_cache=3,
+        layer_types=tuple("attn" if i in LFM2_ATTN_IDX else "conv"
+                          for i in range(LFM2_LAYERS)))
 
 
 def log(msg: str) -> None:
@@ -151,6 +208,16 @@ def shape_cases(torch, qmat, gen):
         ("2.6b w_gateup q4_k packed", gateup, (1, 7, 64)),
         ("2.6b w_down q6_k", q(8192, 2560, "q6_k"), (1, 7, 64)),
         ("2.6b q4_0 packed", q(2560, 2560, "q4_0"), (1, 7, 64)),
+    ]
+    # LFM2-1.2B-Q8_0: M = 1 offline, M = 16 the serving phase's slots
+    ms = (1, LFM2_SLOTS)
+    cases += [
+        ("lfm2 in_proj q8_0", q(2048, 6144, "q8_0"), ms),
+        ("lfm2 out_proj/wo q8_0", q(2048, 2048, "q8_0"), ms),
+        ("lfm2 wqkv q8_0", q(2048, 3072, "q8_0"), ms),
+        ("lfm2 w_gateup q8_0", q(2048, 16384, "q8_0"), ms),
+        ("lfm2 w_down q8_0", q(8192, 2048, "q8_0"), ms),
+        ("lfm2 output q8_0", q(2048, 256 + 3 + N_SPEECH, "q8_0"), ms),
     ]
     return cases
 
@@ -404,6 +471,121 @@ def phase_attn_kernels(torch, card: str) -> list[dict]:
 
 
 # ---------------------------------------------------------------------------
+# Phase 10 (a): K5 vs plain
+# ---------------------------------------------------------------------------
+
+def k5_inputs(torch, B, H, H_kv, D, S, mode, gen):
+    """q, k, v, fill, q_pos, k_scale, v_scale on the card.  B = 1: the
+    hybrid decode's rows, fill 3/4 of S less 2 (190 keys at S = 256) and
+    q_pos = fill - 1; B > 1: staggered fills, row 1 idle (fill 0), row 0's
+    q_pos below fill - 1.  q is bf16 (the bf16 model's) except in f32
+    mode."""
+    from miotts_tpu_torch.models.llm import _kv_quantize
+    dev = "cuda"
+    q = torch.randn((B, H, D), generator=gen, device=dev)
+    k = torch.randn((B, H_kv, S, D), generator=gen, device=dev)
+    v = torch.randn((B, H_kv, S, D), generator=gen, device=dev)
+    if B == 1:
+        fill = torch.full((1,), S * 3 // 4 - 2, dtype=torch.int32, device=dev)
+        q_pos = fill - 1
+    else:
+        fill = torch.randint(1, S + 1, (B,), generator=gen, device=dev,
+                             dtype=torch.int32)
+        fill[1] = 0
+        q_pos = fill - 1
+        q_pos[0] = fill[0] // 2
+    if mode == "f32":
+        return q, k, v, fill, q_pos, None, None
+    if mode == "int8":
+        (k, ks), (v, vs) = _kv_quantize(k), _kv_quantize(v)
+        return q.bfloat16(), k, v, fill, q_pos, ks, vs
+    return q.bfloat16(), k.bfloat16(), v.bfloat16(), fill, q_pos, None, None
+
+
+def phase_k5(torch, card: str) -> list[dict]:
+    from miotts_tpu_torch.ops import decode_attn as da
+    F = torch.nn.functional
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    rows = []
+    for label, B, H, H_kv, D, S in K5_SHAPES:
+        for mode in ("bf16", "f32", "int8"):
+            inp = k5_inputs(torch, B, H, H_kv, D, S, mode, gen)
+            q, k, v, fill, q_pos, ks, vs = inp
+            got = da.decode_attention(*inp)
+            want = da.decode_attention_plain(*inp)
+            torch.cuda.synchronize()
+            if (got.shape != (B, H, D) or not torch.isfinite(got).all()
+                    or not (got[fill == 0] == 0).all()):
+                raise AssertionError(f"k5 {label} S={S} {mode}: bad output")
+            e = rel_err(got, want)
+            if not e < K5_TOL:
+                raise AssertionError(f"k5 {label} B={B} S={S} {mode}: kernel "
+                                     f"vs plain rel err {e} >= {K5_TOL}")
+            abs_err = float((got - want).abs().max())
+            cache_bytes = 2 * k.numel() * k.element_size() + (
+                0 if ks is None else 2 * ks.numel() * 4)
+            n_copies = max(2, min(512, -(-L2_FLUSH_BYTES // cache_bytes)))
+            copies = [(k, v, ks, vs)] + [
+                (k.clone(), v.clone(), None if ks is None else ks.clone(),
+                 None if vs is None else vs.clone())
+                for _ in range(n_copies - 1)]
+            q32 = q.float()     # the kernel's own input: the graph holds K5 alone
+
+            def kern(i, q=q):
+                c = copies[i % n_copies]
+                return da.decode_attention(q, c[0], c[1], fill, q_pos, c[2],
+                                           c[3])
+
+            def plain(i):
+                c = copies[i % n_copies]
+                return da.decode_attention_plain(q, c[0], c[1], fill, q_pos,
+                                                 c[2], c[3])
+            k_ms = graph_ms(torch, lambda i: kern(i, q32), n_copies)
+            p_ms = graph_ms(torch, plain, 4)
+            e_ms = time_ms(torch, kern, 50)     # bf16 q: the wrapper's upcast too
+            l_ms = None
+            if mode != "int8":
+                # scaled_dot_product_attention over each row's valid keys,
+                # heads expanded beforehand (a yardstick, never the port's)
+                rep_ = H // H_kv
+                limit = torch.minimum(fill, q_pos + 1)
+                mask = (torch.arange(S, device="cuda")[None, :]
+                        < limit[:, None])[:, None, None, :]
+                kx = [c[0].repeat_interleave(rep_, dim=1) for c in copies]
+                vx = [c[1].repeat_interleave(rep_, dim=1) for c in copies]
+                q4 = q.to(k.dtype)[:, :, None, :]
+                l_ms = graph_ms(torch, lambda i: F.scaled_dot_product_attention(
+                    q4, kx[i % n_copies], vx[i % n_copies], attn_mask=mask),
+                    n_copies)
+                del kx, vx
+            limit = torch.minimum(fill, q_pos + 1).clamp(0, S)
+            keys = int(limit.sum()) * H_kv
+            nbytes = (2 * keys * D * k.element_size() + q.numel()
+                      * q.element_size() + B * H * D * 4)
+            if mode == "int8":
+                nbytes += 2 * keys * 4
+            ops = 4 * keys * (H // H_kv) * D
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = ops / PEAK_F32_FLOPS * 1e3
+            row = dict(shape=label, B=B, H=H, H_kv=H_kv, D=D, S=S, mode=mode,
+                       valid_keys=int(limit.sum()), bytes=nbytes, ops=ops,
+                       ms=k_ms, eager_ms=e_ms, plain_ms=p_ms, library_ms=l_ms,
+                       bound_ms=max(t_bytes, t_ops),
+                       bound_by="bytes" if t_bytes >= t_ops else "operations",
+                       max_abs_err=abs_err, err=e)
+            rows.append(row)
+            lib = "none" if l_ms is None else f"{l_ms:.4f} ms"
+            log(f"k5 {label} B={B} H={H}/{H_kv} D={D} S={S:<4d} {mode:4s} "
+                f"kernel {k_ms:.4f} ms (eager {e_ms:.4f})  plain {p_ms:.4f} "
+                f"ms  library {lib}  bound {row['bound_ms']:.5f} ms "
+                f"({row['bound_by']})  err {e:.2e}  [{card}]")
+            del copies
+            torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # Phase 3/4: main path
 # ---------------------------------------------------------------------------
 
@@ -442,14 +624,20 @@ def phase_main_path(torch, qmat, paths: dict, out_dir: str, card: str) -> dict:
     opts = Options(temperature=0.0, max_tokens=MAX_TOKENS)
     eng.synthesize(voice, text, Options(temperature=0.0, max_tokens=8))  # warm
 
+    from miotts_tpu_torch.ops import decode_attn
     wav = os.path.join(out_dir, "main.wav")
     prof: dict = {}
     qmat.qdot.kernel_launches = 0
+    decode_attn.decode_attention.kernel_launches = 0
     t0 = time.perf_counter()
     eng.synthesize_to_file(voice, text, wav, opts, profile=prof)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = qmat.qdot.kernel_launches
+    k5 = decode_attn.decode_attention.kernel_launches
+    if k5:
+        raise AssertionError(f"the dense decode (deferred write) launched K5 "
+                             f"{k5} times")
 
     audio, sr = wav_read(wav)
     n_codes = prof["n_codes"]
@@ -470,7 +658,7 @@ def phase_main_path(torch, qmat, paths: dict, out_dir: str, card: str) -> dict:
                decode_steps=prof["decode_steps"], llm_tokens=prof["llm_tokens"],
                n_codes=n_codes, codec_istft_s=prof["codec_sec"],
                audio_s=audio_s, wall_s=wall, x_realtime=audio_s / wall,
-               qdot_launches=launches)
+               qdot_launches=launches, k5_launches=k5)
     for k in ("prefill_ms", "decode_tok_s", "codec_istft_s", "audio_s",
               "wall_s", "x_realtime"):
         log(f"main: {k} {res[k]:.4f}  [{card}]")
@@ -566,7 +754,8 @@ def device_profile(torch, fn, label: str, card: str) -> dict:
     return out
 
 
-def profile_decode(torch, eng, text, Options, card: str) -> dict:
+def profile_decode(torch, eng, text, Options, card: str,
+                   label: str = "prefill + 64 decode steps") -> dict:
     """Where one generate_tokens call (prefill + one 64-step chunk) spends
     its time."""
     opts = Options(temperature=0.0, max_tokens=16)
@@ -575,7 +764,7 @@ def profile_decode(torch, eng, text, Options, card: str) -> dict:
     def run():
         eng.generate_tokens(text, opts)
         return 65
-    return device_profile(torch, run, "prefill + 64 decode steps", card)
+    return device_profile(torch, run, label, card)
 
 
 # ---------------------------------------------------------------------------
@@ -584,9 +773,14 @@ def profile_decode(torch, eng, text, Options, card: str) -> dict:
 
 def serve_requests(torch, batcher, voice, n_req: int, Options) -> dict:
     """Submit n_req requests (bench_batch.py's mix) and run to completion;
-    checks every request's audio.  Returns the run's numbers."""
+    checks every request's audio and the launches: K6 once per attention
+    layer and qdot 4 per layer plus the head per batched step (qdot also
+    per prefill wave), K5 never.  Returns the run's numbers."""
     import numpy as np
     from miotts_tpu_torch.ops import decode_attn, qmat
+    cfg = batcher.engine.llm_cfg
+    attn_layers = len(cfg.attn_layer_idx)
+    qdot_per_step = 4 * cfg.n_layers + 1
     spt = batcher.engine.samples_per_token
     sr = batcher.engine.sample_rate
     got = {i: {"samples": 0, "finite": True, "peak": 0.0, "final": False,
@@ -604,6 +798,7 @@ def serve_requests(torch, batcher, voice, n_req: int, Options) -> dict:
         return cb
 
     decode_attn.decode_attention_batched.kernel_launches = 0
+    decode_attn.decode_attention.kernel_launches = 0
     qmat.qdot.kernel_launches = 0
     t0 = time.perf_counter()
     for i in range(n_req):
@@ -615,6 +810,7 @@ def serve_requests(torch, batcher, voice, n_req: int, Options) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     k6 = decode_attn.decode_attention_batched.kernel_launches
+    k5 = decode_attn.decode_attention.kernel_launches
     qd = qmat.qdot.kernel_launches
     st = dict(batcher.stage)
     if batcher.pending:
@@ -631,13 +827,15 @@ def serve_requests(torch, batcher, voice, n_req: int, Options) -> dict:
             raise AssertionError(f"serving: request {i} emitted {g['samples']}"
                                  f" samples for {len(r.codes)} codes")
     steps = st["device_steps"]
-    if k6 != LAYERS * steps:
+    if k6 != attn_layers * steps:
         raise AssertionError(f"serving: attention kernel launches {k6} != "
-                             f"{LAYERS} x {steps} device steps")
-    if qd != QDOT_PER_STEP * (steps + st["prefills"]):
+                             f"{attn_layers} x {steps} device steps")
+    if qd != qdot_per_step * (steps + st["prefills"]):
         raise AssertionError(f"serving: qdot launches {qd} != "
-                             f"{QDOT_PER_STEP} x ({steps} steps + "
+                             f"{qdot_per_step} x ({steps} steps + "
                              f"{st['prefills']} prefills)")
+    if k5:
+        raise AssertionError(f"serving: K5 launched {k5} times")
     audio_s = sum(g["samples"] for g in got.values()) / sr
     ttfa = sorted(g["req"].first_audio_at - g["req"].submitted_at
                   for g in got.values() if g["req"].first_audio_at >= 0)
@@ -647,7 +845,7 @@ def serve_requests(torch, batcher, voice, n_req: int, Options) -> dict:
                 ttfa_max_s=ttfa[-1] if ttfa else None,
                 codes=sum(len(g["req"].codes) for g in got.values()),
                 failed=sum(g["req"].failed for g in got.values()),
-                attn_launches=k6, qdot_launches=qd, stage=st)
+                attn_launches=k6, k5_launches=k5, qdot_launches=qd, stage=st)
 
 
 def phase_serving(torch, paths: dict, card: str) -> dict:
@@ -793,6 +991,181 @@ def phase_http(torch, eng, voice) -> dict:
     return dict(responses=results, wall_s=wall, drained=drained)
 
 
+# ---------------------------------------------------------------------------
+# Phases 11-13 (b, d, c): LFM2-1.2B-Q8_0 offline, serving, GPU vs CPU
+# ---------------------------------------------------------------------------
+
+def write_lfm2(d: str) -> str:
+    from miotts_tpu_torch.gguf import GGML_Q8_0
+    from miotts_tpu_torch.models.synthetic import write_synthetic_llm
+    path = os.path.join(d, "lfm2.gguf")
+    write_synthetic_llm(path, cfg=lfm2_config(),
+                        quant_type=GGML_Q8_0, seed=0)
+    return path
+
+
+def phase_lfm2_offline(torch, paths: dict, out_dir: str, card: str):
+    """Text -> WAV through the hybrid model; returns (numbers, engine,
+    voice) for the serving phase."""
+    import numpy as np
+    from miotts_tpu_torch.audio.wav import wav_read
+    from miotts_tpu_torch.ops import decode_attn, qmat
+    from miotts_tpu_torch.runtime.engine import (EngineConfig, Options,
+                                                 TTSEngine, VoiceModel)
+    t0 = time.perf_counter()
+    eng = TTSEngine(EngineConfig(model_path=paths["lfm2"],
+                                 codec_path=paths["codec"], device="cuda",
+                                 max_tokens=MAX_TOKENS, temperature=0.0))
+    voice = VoiceModel(paths["voice"])
+    log(f"lfm2: engine load {time.perf_counter() - t0:.2f} s")
+    text = "The quick brown fox jumps over the lazy dog."
+    eng.synthesize(voice, text, Options(temperature=0.0, max_tokens=8))
+
+    wav = os.path.join(out_dir, "lfm2.wav")
+    prof: dict = {}
+    counters = (qmat.qdot, decode_attn.decode_attention,
+                decode_attn.decode_attention_batched)
+    for c in counters:
+        c.kernel_launches = 0
+    t0 = time.perf_counter()
+    eng.synthesize_to_file(voice, text, wav,
+                           Options(temperature=0.0, max_tokens=MAX_TOKENS),
+                           profile=prof)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    qd, k5, k6 = (c.kernel_launches for c in counters)
+
+    audio, sr = wav_read(wav)
+    n_codes = prof["n_codes"]
+    if not (np.isfinite(audio).all() and sr == eng.sample_rate
+            and audio.size == n_codes * eng.samples_per_token
+            and abs(float(np.max(np.abs(audio))) - 0.95) < 1e-3):
+        raise AssertionError(f"lfm2: bad WAV, {audio.size} samples at {sr} "
+                             f"Hz for {n_codes} codes")
+    steps = prof["decode_steps"]
+    n_attn = len(LFM2_ATTN_IDX)
+    if k5 != n_attn * steps:
+        raise AssertionError(f"lfm2: K5 launches {k5} != {n_attn} x {steps} "
+                             f"decode steps (none in the prefill)")
+    if qd != LFM2_QDOT_PER_STEP * (1 + steps):
+        raise AssertionError(f"lfm2: qdot launches {qd} != "
+                             f"{LFM2_QDOT_PER_STEP} x (1 + {steps})")
+    if k6:
+        raise AssertionError(f"lfm2: the offline path launched K6 {k6} times")
+    audio_s = audio.size / sr
+    res = dict(prefill_ms=prof["prefill_sec"] * 1e3,
+               decode_tok_s=steps / prof["decode_sec"], decode_steps=steps,
+               llm_tokens=prof["llm_tokens"], n_codes=n_codes,
+               codec_istft_s=prof["codec_sec"], audio_s=audio_s, wall_s=wall,
+               x_realtime=audio_s / wall, qdot_launches=qd, k5_launches=k5)
+    for k in ("prefill_ms", "decode_tok_s", "codec_istft_s", "audio_s",
+              "wall_s", "x_realtime"):
+        log(f"lfm2: {k} {res[k]:.4f}  [{card}]")
+    log(f"lfm2: {res['llm_tokens']} tokens kept of {steps} decode steps, "
+        f"{n_codes} codes; launches: K5 {k5}, qdot {qd}, K6 {k6}")
+
+    # the conv state a request leaves must not reach the next one
+    opts = Options(temperature=0.0, max_tokens=64)
+    before = eng.generate_tokens(text, opts)
+    eng.generate_tokens("A different request in between.", opts)
+    after = eng.generate_tokens(text, opts)
+    log(f"lfm2: one text before and after another request: tokens "
+        f"{'identical' if before == after else 'DIFFER'} ({len(before)})")
+    if before != after or not before:
+        raise AssertionError("lfm2: greedy tokens depend on the previous "
+                             "request")
+    res["reuse_tokens_identical"] = True
+    res["profile"] = profile_decode(torch, eng, text, Options, card,
+                                    "lfm2 prefill + 64 decode steps")
+    return res, eng, voice
+
+
+def phase_lfm2_serving(torch, eng, voice, card: str) -> dict:
+    from miotts_tpu_torch.runtime.batching import ContinuousBatcher
+    from miotts_tpu_torch.runtime.engine import Options
+    batcher = ContinuousBatcher(eng, n_slots=LFM2_SLOTS, chunk_steps=CHUNK)
+    t0 = time.perf_counter()
+    batcher.warmup(prompt_len=16)
+    torch.cuda.synchronize()
+    log(f"lfm2 serving: warmup {time.perf_counter() - t0:.2f} s")
+    res = serve_requests(torch, batcher, voice, LFM2_REQ, Options)
+    st = res["stage"]
+    log(f"lfm2 serving: {LFM2_REQ} requests on {LFM2_SLOTS} slots, wall "
+        f"{res['wall_s']:.4f} s, audio {res['audio_s']:.4f} s, aggregate "
+        f"x_realtime {res['aggregate_x_realtime']:.4f}, TTFA p50 "
+        f"{res['ttfa_p50_s']:.4f} s (max {res['ttfa_max_s']:.4f} s), "
+        f"{res['codes']} codes, {res['failed']} failed  [{card}]")
+    log(f"lfm2 serving: {st['device_steps']} device steps in {st['chunks']} "
+        f"chunks, {st['prefills']} prefills; launches: K6 "
+        f"{res['attn_launches']}, qdot {res['qdot_launches']}, K5 "
+        f"{res['k5_launches']}")
+    log("lfm2 serving: stage " + json.dumps(
+        {k: (round(v, 6) if isinstance(v, float) else v)
+         for k, v in st.items()}))
+
+    # where a batched LFM2 step's time goes: 16 requests x 40 tokens
+    def run():
+        steps0 = batcher.stage["device_steps"]
+        for i in range(LFM2_SLOTS):
+            batcher.submit(f"profiled utterance number {i}", voice,
+                           lambda *a: True,
+                           Options(max_tokens=40, temperature=0.8, seed=i))
+        batcher.run_until_done(max_iters=1000)
+        return batcher.stage["device_steps"] - steps0
+    res["profile"] = device_profile(torch, run, "lfm2 serving 16 x 40 tokens",
+                                    card)
+    return res
+
+
+def phase_lfm2_gpu_vs_cpu(torch, path: str) -> dict:
+    """Layers 0-5 of the LFM2 file (4 conv, 2 attention) at full width,
+    f32: a prefill and a 20-step greedy chunk on the card (K1, K5) and on
+    the CPU (plain versions)."""
+    from miotts_tpu_torch.gguf import GGUFReader
+    from miotts_tpu_torch.models.llm import (LLMConfig, init_kv_cache,
+                                             llm_generate_chunk, llm_prefill,
+                                             load_llm_params)
+    from miotts_tpu_torch.ops import decode_attn
+    n_vocab = 256 + 3 + N_SPEECH
+    toks = torch.zeros((1, 48), dtype=torch.int64)
+    toks[0, :40] = (torch.arange(40) * 37 + 11) % n_vocab
+    res = {}
+    with GGUFReader(path) as r:
+        cfg = LLMConfig.from_gguf(r)
+        cfg = dataclasses.replace(cfg, n_layers=LFM2_REF_LAYERS,
+                                  layer_types=cfg.layer_types[:LFM2_REF_LAYERS])
+        for dev in ("cuda", "cpu"):
+            params, _ = load_llm_params(r, cfg, dtype=torch.float32,
+                                        device=dev)
+            cache = init_kv_cache(cfg, 1, 128, dtype=torch.float32, device=dev)
+            decode_attn.decode_attention.kernel_launches = 0
+            last, cache = llm_prefill(params, toks.to(dev), torch.tensor([40]),
+                                      cache, cfg)
+            first = last.cpu()
+            buf, n, _, last, cache = llm_generate_chunk(
+                params, last, cache, 0.0, torch.tensor([-1], device=dev), cfg,
+                20)
+            res[dev] = (first, buf.cpu(), last.cpu(),
+                        decode_attn.decode_attention.kernel_launches)
+            del params, cache
+    n_attn = sum(t == "attn" for t in cfg.layer_types)
+    if res["cuda"][3] != n_attn * 20:
+        raise AssertionError(f"lfm2 gpu-vs-cpu: K5 launches {res['cuda'][3]}"
+                             f" != {n_attn} x 20")
+    e_first = rel_err(res["cuda"][0], res["cpu"][0])
+    e_last = rel_err(res["cuda"][2], res["cpu"][2])
+    same = bool(torch.equal(res["cuda"][1], res["cpu"][1]))
+    log(f"lfm2 gpu-vs-cpu: layers 0-{LFM2_REF_LAYERS - 1} f32, prefill + 20 "
+        f"greedy steps: tokens {'identical' if same else 'DIFFER'}, prefill "
+        f"logits rel err {e_first:.2e}, last-step {e_last:.2e} (tol "
+        f"{REF_TOL})")
+    if not (same and e_first < REF_TOL and e_last < REF_TOL):
+        raise AssertionError("LFM2 on the card disagrees with the CPU plain "
+                             "path")
+    return dict(tokens_identical=same, first_logits_rel_err=e_first,
+                last_logits_rel_err=e_last, k5_launches=res["cuda"][3])
+
+
 def attn_step_summary(rows: list[dict], key: str):
     """One 0.1B serving decode step's attention: 12 layers at the serving
     phase's shape, bf16 cache."""
@@ -819,6 +1192,18 @@ def step_summary(rows: list[dict], key: str, m: int = 1) -> float:
           and r["shape"].startswith("0.1b")}
     layer = sum(v for s, v in by.items() if not s.startswith("0.1b output"))
     return LAYERS * layer + by["0.1b output q8_0"]
+
+
+def lfm2_step_summary(rows: list[dict], key: str, m: int = 1) -> float:
+    """One LFM2-1.2B decode step's qdot work at M = m: 10 conv layers (in /
+    out proj, gate/up, down), 6 attention layers (QKV, wo, gate/up, down),
+    the output head."""
+    by = {r["shape"][5:-5]: r[key] for r in rows if r["M"] == m
+          and r["shape"].startswith("lfm2 ")}
+    ffn = by["w_gateup"] + by["w_down"]
+    n_attn = len(LFM2_ATTN_IDX)
+    return ((LFM2_LAYERS - n_attn) * (by["in_proj"] + by["out_proj/wo"] + ffn)
+            + n_attn * (by["wqkv"] + by["out_proj/wo"] + ffn) + by["output"])
 
 
 def main() -> int:
@@ -859,6 +1244,22 @@ def main() -> int:
         http_res = phase_http(torch, serve_res.pop("engine"),
                               serve_res.pop("voice"))
         log(f"phase 9 done at {time.perf_counter() - t_start:.1f} s")
+        torch.cuda.empty_cache()
+        k5_rows = phase_k5(torch, card)
+        log(f"phase 10 (a) done at {time.perf_counter() - t_start:.1f} s")
+        t0 = time.perf_counter()
+        paths["lfm2"] = write_lfm2(d)
+        log(f"lfm2: LFM2-1.2B-Q8_0 written in {time.perf_counter() - t0:.1f} "
+            f"s ({os.path.getsize(paths['lfm2']) / 1e9:.3f} GB)")
+        lfm2_res, lfm2_eng, lfm2_voice = phase_lfm2_offline(torch, paths, d,
+                                                            card)
+        log(f"phase 11 (b) done at {time.perf_counter() - t_start:.1f} s")
+        lfm2_serve = phase_lfm2_serving(torch, lfm2_eng, lfm2_voice, card)
+        del lfm2_eng
+        torch.cuda.empty_cache()
+        log(f"phase 12 (d) done at {time.perf_counter() - t_start:.1f} s")
+        lfm2_ref = phase_lfm2_gpu_vs_cpu(torch, paths["lfm2"])
+        log(f"phase 13 (c) done at {time.perf_counter() - t_start:.1f} s")
 
     qdot_entry = dict(
         name="qdot", route="cuda", source="miotts_tpu_torch/ops/csrc/qdot.cu",
@@ -877,10 +1278,15 @@ def main() -> int:
              "(12 x 4 linears + output) at M=64, bf16 x",
         single_stream_step={k: step_summary(rows, k) for k in
                             ("ms", "plain_ms", "bound_ms", "library_ms")},
+        lfm2_single_stream_step={k: lfm2_step_summary(rows, k) for k in
+                                 ("ms", "plain_ms", "bound_ms", "library_ms")},
+        lfm2_16_slot_step={k: lfm2_step_summary(rows, k, LFM2_SLOTS) for k in
+                           ("ms", "plain_ms", "bound_ms", "library_ms")},
         launches_by_path={"serving_bf16": serve_res["bf16"]["qdot_launches"],
                           "serving_int8": serve_res["int8"]["qdot_launches"],
-                          "offline": main_res["qdot_launches"]},
-        per_shape=rows, main_path=main_res)
+                          "offline": main_res["qdot_launches"],
+                          "lfm2_offline": lfm2_res["qdot_launches"],
+                          "lfm2_serving": lfm2_serve["qdot_launches"]})
     step_rows = [r for r in attn_rows if r["mode"] == "bf16"
                  and (r["shape"], r["B"], r["H"], r["H_kv"], r["D"],
                       r["S"]) == ATTN_STEP_SHAPE]
@@ -899,11 +1305,37 @@ def main() -> int:
         unit="one 0.1B serving decode step of attention (12 layers) at "
              "B=64, H=12/4, D=64, S=256, bf16 cache",
         launches_by_path={"serving_bf16": serve_res["bf16"]["attn_launches"],
-                          "serving_int8": serve_res["int8"]["attn_launches"]},
-        per_shape=attn_rows, serving=serve_res, gpu_vs_cpu=ref_res,
-        http=http_res)
+                          "serving_int8": serve_res["int8"]["attn_launches"],
+                          "lfm2_serving": lfm2_serve["attn_launches"]})
+    k5_step = next(r for r in k5_rows if r["mode"] == "bf16" and (
+        r["shape"], r["B"], r["H"], r["H_kv"], r["D"], r["S"]) == K5_STEP_SHAPE)
+    n_attn = len(LFM2_ATTN_IDX)
+    k5_entry = dict(
+        name="decode_attention", route="cuda",
+        source="miotts_tpu_torch/ops/csrc/decode_attn_single.cu",
+        replaces="miotts_tpu/ops/decode_attn.py:55",
+        launches=lfm2_res["k5_launches"],
+        max_abs_err=max(r["max_abs_err"] for r in k5_rows),
+        rel_err=max(r["err"] for r in k5_rows),
+        ms=n_attn * k5_step["ms"], plain_ms=n_attn * k5_step["plain_ms"],
+        bound_ms=n_attn * k5_step["bound_ms"], bound_by=k5_step["bound_by"],
+        library_ms=n_attn * k5_step["library_ms"],
+        unit="one LFM2-1.2B offline decode step of attention (6 layers) at "
+             "B=1, H=32/8, D=64, S=256 (190 valid keys), bf16 cache",
+        launches_by_path={"lfm2_offline": lfm2_res["k5_launches"],
+                          "lfm2_serving": lfm2_serve["k5_launches"],
+                          "lfm2_gpu_vs_cpu": lfm2_ref["k5_launches"],
+                          "offline": main_res["k5_launches"],
+                          "serving_bf16": serve_res["bf16"]["k5_launches"]})
+    # the per-shape rows and every phase's numbers, on a line of their own
+    # (the kernels line stays short)
+    log("details " + json.dumps(dict(
+        qdot_per_shape=rows, attn_per_shape=attn_rows, k5_per_shape=k5_rows,
+        main_path=main_res, serving=serve_res, gpu_vs_cpu=ref_res,
+        http=http_res, lfm2_offline=lfm2_res, lfm2_serving=lfm2_serve,
+        lfm2_gpu_vs_cpu=lfm2_ref)))
     log(f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [qdot_entry, attn_entry]}))
+    print(json.dumps({"kernels": [qdot_entry, attn_entry, k5_entry]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

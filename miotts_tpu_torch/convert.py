@@ -48,9 +48,11 @@ def _convert(obj, device):
 
 
 def llm_params_from_numpy(tree: dict, device="cpu") -> dict:
-    """JAX `load_llm_params` tree (numpy leaves) -> the port's LLM params."""
-    if "blocks" not in tree:
-        raise ValueError("only dense (non-hybrid) LLM trees are supported")
+    """JAX `load_llm_params` tree (numpy leaves) -> the port's LLM params:
+    "blocks" of a dense model or "layers" of a hybrid one, key for key."""
+    if "blocks" not in tree and "layers" not in tree:
+        raise ValueError("an LLM tree has 'blocks' (dense) or 'layers' "
+                         "(hybrid)")
     return _convert(tree, device)
 
 
@@ -71,7 +73,8 @@ def codec_params_from_numpy(tree: dict, device="cpu") -> dict:
 
 def kv_cache_from_numpy(cache: dict, device="cpu") -> dict:
     """JAX `init_kv_cache` dict (numpy leaves: k, v, optional k_scale /
-    v_scale, fill) -> the port's cache, same layout [L, B, H_kv, S, D] and
+    v_scale, a hybrid model's conv state, fill) -> the port's cache, same
+    layouts ([L, B, H_kv, S, D]; conv [n_conv, B, L_cache - 1, dim]) and
     dtypes (fill as int32)."""
     out = {k: _tensor(v, device) for k, v in cache.items()}
     out["fill"] = out["fill"].to(torch.int32)

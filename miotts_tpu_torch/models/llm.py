@@ -1,10 +1,11 @@
 """Causal-LM decode engine in PyTorch (counterpart of
-`miotts_tpu/models/llm.py`, dense architectures).
+`miotts_tpu/models/llm.py`).
 
 llama / qwen2 / qwen3 / mio: RMSNorm + SwiGLU + GQA + RoPE, with per-arch
-toggles for QKV bias, QK-norm and the RoPE style.  Quantized weights stay
-packed (ops/qmat.QTensor) and every linear goes through `qdot`, which on a
-GPU is the hand-written CUDA kernel.
+toggles for QKV bias, QK-norm and the RoPE style.  lfm2: the hybrid of
+LFM2, gated short-conv layers between QK-norm attention layers.  Quantized
+weights stay packed (ops/qmat.QTensor) and every linear goes through
+`qdot`, which on a GPU is the hand-written CUDA kernel.
 
 The semantics follow the JAX package step for step:
   * The KV cache is a dense [L, B, H_kv, S_max, D] buffer plus `fill` [B];
@@ -19,10 +20,18 @@ The semantics follow the JAX package step for step:
     dtype before the PV product (as JAX's einsums with f32 accumulation).
   * Activations default to bf16; logits and sampling are f32.
 
+Hybrid (lfm2) models keep params["layers"] (one dict per layer, conv or
+attention) instead of params["blocks"]; their cache holds k/v for the
+attention layers only plus the short-conv state `conv` [n_conv, B, L-1,
+dim].  Every attention layer writes first and then attends, decode
+included, so a single-query step reads the cache through
+`ops/decode_attn.decode_attention` (the hand-written CUDA kernel on a
+GPU).
+
 Batched serving (`llm_prefill_slots`, `llm_generate_chunk_batched`) keeps a
 [L, n_slots, H_kv, S, D] cache, bf16 / f32 or int8 with per-(token, head)
 scales, and reads it through `ops/decode_attn.decode_attention_batched`
-(the hand-written CUDA kernel on a GPU).  Dense architectures only.
+(the hand-written CUDA kernel on a GPU).
 """
 
 from __future__ import annotations
@@ -35,7 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from ..gguf.quants import is_quantized
-from ..ops.decode_attn import decode_attention_batched
+from ..ops.decode_attn import decode_attention, decode_attention_batched
 from ..ops.qmat import QTensor, concat_qtensors, qdot, qtensor_from_raw
 
 # Per-arch behaviour toggles (llama.cpp build_* graph equivalents).
@@ -44,6 +53,8 @@ _ARCH_TABLE = {
     "qwen2": dict(rope_style="neox", qkv_bias=True, qk_norm=False),
     "qwen3": dict(rope_style="neox", qkv_bias=False, qk_norm=True),
     "mio": dict(rope_style="neox", qkv_bias=True, qk_norm=False),
+    # hybrid gated-short-conv / attention layers; per-head q/k RMS norms
+    "lfm2": dict(rope_style="neox", qkv_bias=False, qk_norm=True),
 }
 
 
@@ -64,22 +75,44 @@ class LLMConfig:
     qkv_bias: bool = False
     qk_norm: bool = False
     tie_embedding: bool = False
+    # hybrid (lfm2) layer plan: None = all attention, else "attn" / "conv"
+    # per layer (llama.cpp's per-layer head_count array, 0 = conv layer)
+    layer_types: tuple[str, ...] | None = None
+    conv_l_cache: int = 3
+    conv_bias: bool = False
+
+    @property
+    def attn_layer_idx(self) -> tuple[int, ...]:
+        if self.layer_types is None:
+            return tuple(range(self.n_layers))
+        return tuple(i for i, t in enumerate(self.layer_types) if t == "attn")
+
+    @property
+    def conv_layer_idx(self) -> tuple[int, ...]:
+        if self.layer_types is None:
+            return ()
+        return tuple(i for i, t in enumerate(self.layer_types) if t == "conv")
 
     @classmethod
     def from_gguf(cls, reader) -> "LLMConfig":
         arch = str(reader.kv.get("general.architecture", "qwen2"))
         if arch not in _ARCH_TABLE:
             raise ValueError(f"unsupported LLM architecture {arch!r} "
-                             f"(dense llama/qwen2/qwen3/mio only)")
+                             f"(llama/qwen2/qwen3/mio/lfm2)")
         p = arch + "."
         g = lambda k, d: int(reader.kv.get(p + k, d))
         gf = lambda k, d: float(reader.kv.get(p + k, d))
         dim = g("embedding_length", 1024)
         hc = reader.kv.get(p + "attention.head_count", 16)
+        layer_types = None
         if isinstance(hc, (list, tuple)):
-            raise ValueError("hybrid (per-layer head count) models are not "
-                             "supported by the port yet")
-        n_heads = int(hc)
+            layer_types = tuple("attn" if int(h) > 0 else "conv" for h in hc)
+            n_heads = max(int(h) for h in hc)
+        else:
+            n_heads = int(hc)
+        kvc = reader.kv.get(p + "attention.head_count_kv", n_heads)
+        n_kv = (max(int(h) for h in kvc) if isinstance(kvc, (list, tuple))
+                else int(kvc))
         n_vocab = (len(reader.kv.get("tokenizer.ggml.tokens", []))
                    or g("vocab_size", 32000))
         return cls(
@@ -87,7 +120,7 @@ class LLMConfig:
             n_layers=g("block_count", 24),
             dim=dim,
             n_heads=n_heads,
-            n_kv_heads=int(reader.kv.get(p + "attention.head_count_kv", n_heads)),
+            n_kv_heads=n_kv,
             head_dim=g("attention.key_length", dim // n_heads),
             ff_dim=g("feed_forward_length", 4 * dim),
             n_vocab=n_vocab,
@@ -95,6 +128,8 @@ class LLMConfig:
             rope_theta=gf("rope.freq_base", 10000.0),
             rms_eps=gf("attention.layer_norm_rms_epsilon", 1e-6),
             tie_embedding=not reader.has_tensor("output.weight"),
+            layer_types=layer_types,
+            conv_l_cache=g("shortconv.l_cache", 3),
             **_ARCH_TABLE[arch],
         )
 
@@ -116,12 +151,13 @@ def _load_matrix(reader, name: str, dtype, device) -> Any:
 
 
 def fuse_block(blk: dict, cfg: LLMConfig) -> dict:
-    """q/k/v and gate/up into single matmuls (7 -> 4 per layer) when the
-    siblings are all quantized or all dense."""
+    """q/k/v and gate/up into single matmuls (7 -> 4 per attention layer)
+    when the siblings are all quantized or all dense.  A conv layer (no
+    q/k/v) fuses gate/up only."""
     def same(keys):
         return (all(isinstance(blk[k], QTensor) for k in keys)
                 or all(isinstance(blk[k], torch.Tensor) for k in keys))
-    if same(("wq", "wk", "wv")):
+    if "wq" in blk and same(("wq", "wk", "wv")):
         blk["wqkv"] = concat_qtensors([blk.pop("wq"), blk.pop("wk"),
                                        blk.pop("wv")])
         if cfg.qkv_bias:
@@ -132,11 +168,25 @@ def fuse_block(blk: dict, cfg: LLMConfig) -> dict:
     return blk
 
 
+_ATTN_MATS = (("wq", "attn_q"), ("wk", "attn_k"), ("wv", "attn_v"),
+              ("wo", "attn_output"))
+_CONV_MATS = (("in_proj", "shortconv.in_proj"),
+              ("out_proj", "shortconv.out_proj"))
+_FFN_MATS = (("w_gate", "ffn_gate"), ("w_up", "ffn_up"),
+             ("w_down", "ffn_down"))
+# optional f32 biases of a conv layer: key -> tensor name
+_CONV_BIASES = (("conv_b", "shortconv.conv.bias"),
+                ("in_proj_b", "shortconv.in_proj.bias"),
+                ("out_proj_b", "shortconv.out_proj.bias"))
+
+
 def load_llm_params(reader, cfg: LLMConfig | None = None,
                     dtype=torch.bfloat16,
                     device="cpu") -> tuple[dict, LLMConfig]:
     """LLM weights from GGUF (llama.cpp tensor naming) onto `device`, with
-    q/k/v and gate/up fused."""
+    q/k/v and gate/up fused: params["blocks"] for a dense model,
+    params["layers"] for a hybrid one, whose conv layers carry conv_w
+    [dim, L] f32, in_proj / out_proj and any biases the file has."""
     if cfg is None:
         cfg = LLMConfig.from_gguf(reader)
 
@@ -155,23 +205,35 @@ def load_llm_params(reader, cfg: LLMConfig | None = None,
     blocks = []
     for i in range(cfg.n_layers):
         p = f"blk.{i}."
+        attn = cfg.layer_types is None or cfg.layer_types[i] == "attn"
         blk = {"attn_norm": vec(p + "attn_norm.weight"),
                "ffn_norm": vec(p + "ffn_norm.weight")}
-        for key, name in (("wq", "attn_q"), ("wk", "attn_k"),
-                          ("wv", "attn_v"), ("wo", "attn_output"),
-                          ("w_gate", "ffn_gate"), ("w_up", "ffn_up"),
-                          ("w_down", "ffn_down")):
+        for key, name in (_ATTN_MATS if attn else _CONV_MATS) + _FFN_MATS:
             blk[key] = _load_matrix(reader, p + name + ".weight", dtype, device)
-        if cfg.qkv_bias:
+        if not attn:
+            blk["conv_w"] = vec(p + "shortconv.conv.weight").reshape(cfg.dim,
+                                                                     -1)
+            for key, name in _CONV_BIASES:
+                if reader.has_tensor(p + name):
+                    blk[key] = vec(p + name)
+        if attn and cfg.qkv_bias:
             for key, name in (("bq", "attn_q"), ("bk", "attn_k"),
                               ("bv", "attn_v")):
                 blk[key] = vec(p + name + ".bias")
-        if cfg.qk_norm:
+        if attn and cfg.qk_norm:
             blk["q_norm"] = vec(p + "attn_q_norm.weight")
             blk["k_norm"] = vec(p + "attn_k_norm.weight")
         blocks.append(fuse_block(blk, cfg))
-    params["blocks"] = blocks
+    params["blocks" if cfg.layer_types is None else "layers"] = blocks
     return params, cfg
+
+
+def _layer_plan(params: dict, cfg: LLMConfig):
+    """(kind, block) per layer in order: "attn" / "conv" for a hybrid
+    model's params["layers"], "attn" for every dense block."""
+    if "layers" in params:
+        return list(zip(cfg.layer_types, params["layers"]))
+    return [("attn", blk) for blk in params["blocks"]]
 
 
 # ---------------------------------------------------------------------------
@@ -208,9 +270,11 @@ def init_kv_cache(cfg: LLMConfig, batch: int, max_len: int | None = None,
                   quantized: bool = False) -> dict:
     """Dense KV cache: k/v [L, B, H_kv, S, D] + fill counts [B] (int32).
     With `quantized`, k/v are int8 with per-(token, head) f32 scales
-    k_scale / v_scale [L, B, H_kv, S]."""
+    k_scale / v_scale [L, B, H_kv, S].  A hybrid model's k/v cover its
+    attention layers only (L = n_attn), and `conv` [n_conv, B, L_cache - 1,
+    dim] in `dtype` holds each conv layer's last inputs."""
     S = max_len or cfg.n_ctx
-    shape = (cfg.n_layers, batch, cfg.n_kv_heads, S, cfg.head_dim)
+    shape = (len(cfg.attn_layer_idx), batch, cfg.n_kv_heads, S, cfg.head_dim)
     kv_dtype = torch.int8 if quantized else dtype
     cache = {"k": torch.zeros(shape, dtype=kv_dtype, device=device),
              "v": torch.zeros(shape, dtype=kv_dtype, device=device),
@@ -220,6 +284,10 @@ def init_kv_cache(cfg: LLMConfig, batch: int, max_len: int | None = None,
                                        device=device)
         cache["v_scale"] = torch.zeros(shape[:-1], dtype=torch.float32,
                                        device=device)
+    if cfg.layer_types is not None:
+        cache["conv"] = torch.zeros(
+            (len(cfg.conv_layer_idx), batch, cfg.conv_l_cache - 1, cfg.dim),
+            dtype=dtype, device=device)
     return cache
 
 
@@ -232,8 +300,9 @@ def _kv_quantize(x):
 
 
 def _layer(cache: dict, li: int) -> dict:
-    """Layer li's views {k, v[, k_scale, v_scale]} of a stacked cache."""
-    return {k: v[li] for k, v in cache.items() if k != "fill"}
+    """Attention layer li's views {k, v[, k_scale, v_scale]} of a stacked
+    cache."""
+    return {k: v[li] for k, v in cache.items() if k not in ("fill", "conv")}
 
 
 def _attend(q, k_cache, v_cache, fill, q_pos, k_scale=None, v_scale=None,
@@ -247,11 +316,20 @@ def _attend(q, k_cache, v_cache, fill, q_pos, k_scale=None, v_scale=None,
     With k_cur / v_cur [B, 1, H_kv, D] (deferred-write decode) the current
     token is NOT in the cache and rides as one extra, always-valid column.
     Dots take their inputs in the compute dtype and sum in f32 (the exact
-    products of bf16 values, as JAX's preferred_element_type=f32)."""
+    products of bf16 values, as JAX's preferred_element_type=f32).
+
+    A single query with the current token already in the cache (the
+    hybrid decode, which writes first) goes through `decode_attention`
+    (the CUDA kernel on a GPU), all in f32, as the JAX package's route to
+    its `decode_attention` kernel."""
     B, S_q, H, D = q.shape
     H_kv, S_max = k_cache.shape[1], k_cache.shape[2]
     rep = H // H_kv
     cdt = torch.float32 if q.dtype == torch.float32 else torch.bfloat16
+    if S_q == 1 and k_cur is None:
+        out = decode_attention(q[:, 0], k_cache, v_cache, fill, q_pos[:, 0],
+                               k_scale, v_scale)
+        return out.reshape(B, S_q, H * D).to(cdt)
     qg = q.to(cdt).float().reshape(B, S_q, H_kv, rep, D)
     kf = k_cache.to(cdt).float()
     vf = v_cache.to(cdt).float()
@@ -409,7 +487,11 @@ def _block_forward(x, blk, lcache: dict, fill, pos, cfg: LLMConfig,
         new_fill = torch.maximum(fill, pos[:, -1] + 1)
         attn = _attend(q, lcache["k"], lcache["v"], new_fill, pos, ks, vs)
     x = x + qdot(attn.to(x.dtype), blk["wo"])
+    return _ffn(x, blk, cfg), kv_out
 
+
+def _ffn(x, blk, cfg: LLMConfig):
+    """x + the SwiGLU feed-forward of ffn_norm(x)."""
     h = _rms_norm(x, blk["ffn_norm"], cfg.rms_eps)
     if "w_gateup" in blk:
         gu = qdot(h, blk["w_gateup"])
@@ -417,8 +499,44 @@ def _block_forward(x, blk, lcache: dict, fill, pos, cfg: LLMConfig,
         gate, up = F.silu(gu[..., :ff]), gu[..., ff:]
     else:
         gate, up = F.silu(qdot(h, blk["w_gate"])), qdot(h, blk["w_up"])
-    x = x + qdot((gate * up).to(x.dtype), blk["w_down"])
-    return x, kv_out
+    return x + qdot((gate * up).to(x.dtype), blk["w_down"])
+
+
+def _conv_block_forward(x, blk, state, advance, cfg: LLMConfig):
+    """LFM2 gated short-conv layer + SwiGLU FFN (HF Lfm2ShortConv):
+    (b, c, v) = split(in_proj(operator_norm(x))); a causal depthwise conv of
+    length L over b * v, its first L - 1 inputs the cached `state`; then
+    x + out_proj(c * conv), then the FFN.
+
+    state [B, L-1, dim]: the last L - 1 real inputs; advance [B]: how many
+    real tokens this call adds (n_real in a prefill, 1 or 0 in a decode
+    step).  Returns (x, new_state) with new_state = ext[a : a + L - 1] of
+    ext = concat(state, b * v): the old state where a == 0, else the last
+    L - 1 real inputs."""
+    S = x.shape[1]
+    L = cfg.conv_l_cache
+    h = _rms_norm(x, blk["attn_norm"], cfg.rms_eps)
+    bcx = qdot(h, blk["in_proj"])
+    if "in_proj_b" in blk:
+        bcx = bcx + blk["in_proj_b"].to(bcx.dtype)
+    b_, c_, v_ = bcx.chunk(3, dim=-1)
+    bv = b_ * v_
+    ext = torch.cat([state.to(bv.dtype), bv], dim=1)       # [B, L-1+S, dim]
+    w = blk["conv_w"].to(bv.dtype)                         # [dim, L]
+    out = torch.zeros_like(bv)
+    for i in range(L):
+        out = out + ext[:, i:i + S] * w[:, i]
+    if "conv_b" in blk:
+        out = out + blk["conv_b"].to(out.dtype)
+    y = qdot(c_ * out, blk["out_proj"])
+    if "out_proj_b" in blk:
+        y = y + blk["out_proj_b"].to(y.dtype)
+    x = x + y
+    # like JAX's dynamic slice, the start clamps to the last full window
+    idx = (advance.long().clamp(0, S)[:, None]
+           + torch.arange(L - 1, device=x.device))          # [B, L-1]
+    new_state = ext.gather(1, idx[..., None].expand(-1, -1, ext.shape[-1]))
+    return _ffn(x, blk, cfg), new_state.to(state.dtype)
 
 
 def _logits(params, x, cfg: LLMConfig):
@@ -432,15 +550,19 @@ def _logits(params, x, cfg: LLMConfig):
 
 
 @torch.no_grad()
-def llm_forward(params: dict, tokens, pos, cache: dict, cfg: LLMConfig):
+def llm_forward(params: dict, tokens, pos, cache: dict, cfg: LLMConfig,
+                advance=None):
     """Run the transformer over `tokens` [B, S] at positions `pos` [B, S],
     updating `cache` in place.  Returns (logits [B, S, V] f32, cache) with
-    cache["fill"] = max(fill, pos[:, -1] + 1).  S == 1 is the deferred-write
-    decode, S > 1 the prefill."""
+    cache["fill"] = max(fill, pos[:, -1] + 1).  A dense model's S == 1 is
+    the deferred-write decode; every other call (a prefill, any step of a
+    hybrid model) writes each attention layer's k/v first and then
+    attends.  `advance` [B] (hybrid only, default S): the real tokens each
+    row adds to the conv state (see _conv_block_forward)."""
     x = params["token_embd"][tokens.long()]
     B, S, _ = x.shape
     fill = cache["fill"]
-    if S == 1:
+    if S == 1 and "layers" not in params:
         kvs = []
         for li, blk in enumerate(params["blocks"]):
             x, kv = _block_forward(x, blk, _layer(cache, li), fill, pos, cfg,
@@ -455,8 +577,19 @@ def llm_forward(params: dict, tokens, pos, cache: dict, cfg: LLMConfig):
             cache[key][:, b_idx, :, p] = torch.stack([kv[key] for kv in kvs],
                                                      dim=1)
     else:
-        for li, blk in enumerate(params["blocks"]):
-            x, _ = _block_forward(x, blk, _layer(cache, li), fill, pos, cfg)
+        if advance is None and "layers" in params:
+            advance = torch.full((B,), S, dtype=torch.int32, device=x.device)
+        attn_i = conv_i = 0
+        for kind, blk in _layer_plan(params, cfg):
+            if kind == "attn":
+                x, _ = _block_forward(x, blk, _layer(cache, attn_i), fill,
+                                      pos, cfg)
+                attn_i += 1
+            else:
+                x, state = _conv_block_forward(x, blk, cache["conv"][conv_i],
+                                               advance, cfg)
+                cache["conv"][conv_i] = state
+                conv_i += 1
     cache["fill"] = torch.maximum(fill, (pos[:, -1] + 1).to(fill.dtype))
     return _logits(params, x, cfg), cache
 
@@ -464,12 +597,15 @@ def llm_forward(params: dict, tokens, pos, cache: dict, cfg: LLMConfig):
 def llm_prefill(params, tokens, n_real, cache, cfg: LLMConfig):
     """Prefill a right-padded [B, S_bucket] prompt; `n_real` [B] are the true
     lengths.  Padding positions are written to the cache but `fill` only
-    advances to n_real, so later tokens never attend them.  Returns
-    (last_logits [B, V], cache)."""
+    advances to n_real, so later tokens never attend them, and a hybrid
+    model's conv state takes the last real inputs (it starts from the
+    state in `cache`, as in the JAX package).  Returns (last_logits [B, V],
+    cache)."""
     B, S = tokens.shape
     pos = torch.arange(S, device=tokens.device).expand(B, S)
-    logits, cache = llm_forward(params, tokens, pos, cache, cfg)
     n_real = n_real.to(device=tokens.device, dtype=torch.int32)
+    logits, cache = llm_forward(params, tokens, pos, cache, cfg,
+                                advance=n_real)
     cache["fill"] = n_real.clone()
     last = logits[torch.arange(B, device=tokens.device), n_real.long() - 1]
     return last, cache
@@ -510,9 +646,9 @@ def llm_generate_chunk(params: dict, last_logits, cache: dict,
     them once per chunk.
 
     After a stop token nothing changes any more: the buffer keeps -1, the
-    count and `fill` stop advancing and `last_logits` is kept (the masked
-    steps still run; their cache writes land at `fill`, which no later
-    token attends before rewriting it).
+    count, `fill` and a hybrid model's conv state stop advancing and
+    `last_logits` is kept (the masked steps still run; their k/v writes
+    land at `fill`, which no later token attends before rewriting it).
 
     last_logits [1, V]; stop_ids int [n_stop] (pad with -1).  Returns
     (tokens [n_steps] (-1 padded), n_generated, done, last_logits, cache)
@@ -528,11 +664,13 @@ def llm_generate_chunk(params: dict, last_logits, cache: dict,
         done = done | (tok[0] == stop_ids).any()
         active = ~done
         buf[i] = torch.where(active, tok[0], buf[i])
-        count = count + active.long()
+        step = active.long()
+        count = count + step
         fill = cache["fill"]
-        logits, cache = llm_decode_step(params, tok, cache, cfg)
+        logits, cache = llm_forward(params, tok[:, None], fill[:, None],
+                                    cache, cfg, advance=step[None])
         cache["fill"] = torch.where(active, cache["fill"], fill)
-        last = torch.where(active, logits, last)
+        last = torch.where(active, logits[:, 0], last)
     return buf, count, done, last, cache
 
 
@@ -547,41 +685,56 @@ def llm_prefill_slots(params: dict, tokens, n_real, cache: dict, slots,
     forward.  tokens [A, S_bucket]; n_real [A]; slots [A] (distinct).  A
     fresh sub-cache sized to the prompt bucket takes the prefill (the slots'
     old contents never matter: fill masks them), and its [0, S) positions
-    are then written into the slots.  Updates `cache` in place; returns
-    (last_logits [A, V], cache)."""
+    are then written into the slots; a hybrid model's conv state starts
+    from zeros and replaces the slots' state.  Updates `cache` in place;
+    returns (last_logits [A, V], cache)."""
     A, S = tokens.shape
     dev = tokens.device
-    sub = {k: v.new_zeros(v.shape[:1] + (A,) + v.shape[2:3] + (S,)
-                          + v.shape[4:])
+    sub = {k: v.new_zeros(v.shape[:1] + (A,) + v.shape[2:]) if k == "conv"
+           else v.new_zeros(v.shape[:1] + (A,) + v.shape[2:3] + (S,)
+                            + v.shape[4:])
            for k, v in cache.items() if k != "fill"}
     sub["fill"] = torch.zeros((A,), dtype=torch.int32, device=dev)
     pos = torch.arange(S, device=dev).expand(A, S)
-    logits, sub = llm_forward(params, tokens, pos, sub, cfg)
     slots = slots.to(device=dev, dtype=torch.long)
     n_real = n_real.to(device=dev, dtype=torch.int32)
+    logits, sub = llm_forward(params, tokens, pos, sub, cfg, advance=n_real)
     for k in sub:
-        if k != "fill":
+        if k == "conv":
+            cache[k][:, slots] = sub[k]
+        elif k != "fill":
             cache[k][:, slots, :, :S] = sub[k]
     cache["fill"][slots] = n_real
     last = logits[torch.arange(A, device=dev), n_real.long() - 1]
     return last, cache
 
 
-def _decode_core(params, tok, pos, cache, cfg: LLMConfig, chunk_buf):
-    """One batched decode step against a READ-ONLY cache.  tok [B]; pos
-    [B, 1]; chunk_buf = (k_buf [L, B, H_kv, W, D], v_buf, valid [B, W]).
-    Returns (logits [B, V] f32, kvs) with kvs {k, v} [L, B, H_kv, D], this
-    token's raw k / v of every layer."""
+def _decode_core(params, tok, pos, cache, cfg: LLMConfig, chunk_buf,
+                 conv_state=None, advance=None):
+    """One batched decode step against a READ-ONLY attention cache.  tok
+    [B]; pos [B, 1]; chunk_buf = (k_buf [L, B, H_kv, W, D], v_buf, valid
+    [B, W]) over the L attention layers.  A hybrid model also takes its
+    conv state [n_conv, B, L_cache - 1, dim] and `advance` [B] (1 where
+    the slot really advances).  Returns (logits [B, V] f32, kvs, new_conv)
+    with kvs {k, v} [L, B, H_kv, D], this token's raw k / v of every
+    attention layer, and the new conv state (None for a dense model)."""
     x = params["token_embd"][tok.long()][:, None]
     k_buf, v_buf, valid = chunk_buf
-    kv_list = []
-    for li, blk in enumerate(params["blocks"]):
-        x, kv = _block_forward(x, blk, _layer(cache, li), cache["fill"], pos,
-                               cfg, defer_write=True,
-                               chunk_buf=(k_buf[li], v_buf[li], valid))
-        kv_list.append(kv)
+    kv_list, conv_list = [], []
+    for kind, blk in _layer_plan(params, cfg):
+        if kind == "attn":
+            li = len(kv_list)
+            x, kv = _block_forward(x, blk, _layer(cache, li), cache["fill"],
+                                   pos, cfg, defer_write=True,
+                                   chunk_buf=(k_buf[li], v_buf[li], valid))
+            kv_list.append(kv)
+        else:
+            x, st = _conv_block_forward(x, blk, conv_state[len(conv_list)],
+                                        advance, cfg)
+            conv_list.append(st)
     kvs = {key: torch.stack([kv[key] for kv in kv_list]) for key in ("k", "v")}
-    return _logits(params, x, cfg)[:, 0], kvs
+    new_conv = torch.stack(conv_list) if conv_list else None
+    return _logits(params, x, cfg)[:, 0], kvs, new_conv
 
 
 # splitmix64 constants as signed int64 (torch has no uint64 arithmetic)
@@ -641,7 +794,9 @@ def llm_generate_chunk_batched(params: dict, last_logits, cache: dict,
     cache).  A slot that stops never resumes within a chunk, so its valid
     columns are its first `adv` ones, positions fill0 .. fill0 + adv - 1.
     Columns past adv park at the last cache position, which fill never
-    covers before the sequence itself rewrites it.
+    covers before the sequence itself rewrites it.  A hybrid model's conv
+    state is small and rides the loop (advancing only while the slot is
+    active); it is written back with the merge.
 
     `attn_len` (0 = full): attention reads only the first attn_len cache
     positions (a strided view, never a copy); the caller guarantees every
@@ -659,10 +814,11 @@ def llm_generate_chunk_batched(params: dict, last_logits, cache: dict,
     dev = last_logits.device
     L, _, H_kv, s_max, D = cache["k"].shape
     if attn_len and attn_len < s_max:
-        view = {k: (v if k == "fill" else v[:, :, :, :attn_len])
+        view = {k: (v if k in ("fill", "conv") else v[:, :, :, :attn_len])
                 for k, v in cache.items()}
     else:
         view = cache
+    conv = cache.get("conv")
     bdt = torch.float32 if cache["k"].dtype == torch.float32 else torch.bfloat16
     buf = torch.full((B, n_steps), -1, dtype=torch.int64, device=dev)
     k_buf = torch.zeros((L, B, H_kv, n_steps, D), dtype=bdt, device=dev)
@@ -679,12 +835,13 @@ def llm_generate_chunk_batched(params: dict, last_logits, cache: dict,
         active = active & ~is_stop
         buf[:, i] = torch.where(active, tok, -1)
         pos = torch.where(active, fill0 + adv, s_max - 1)[:, None]
-        last, kvs = _decode_core(params, tok, pos, view, cfg,
-                                 (k_buf, v_buf, valid))
+        step = active.int()
+        last, kvs, conv = _decode_core(params, tok, pos, view, cfg,
+                                       (k_buf, v_buf, valid), conv, step)
         k_buf[:, :, :, i] = kvs["k"].to(bdt)
         v_buf[:, :, :, i] = kvs["v"].to(bdt)
         valid[:, i] = active
-        adv = adv + active.int()
+        adv = adv + step
 
     # ONE merge scatter: slot b's column j -> position fill0[b] + j while
     # j < adv[b], else the parked last position
@@ -703,5 +860,7 @@ def llm_generate_chunk_batched(params: dict, last_logits, cache: dict,
         # (b, tpos) at cache dims 1 and 3 put their broadcast dims first
         upd = upd.movedim(1, 0).movedim(3, 1)
         cache[name][:, b_idx, :, tpos] = upd.to(cache[name].dtype)
+    if conv is not None:
+        cache["conv"].copy_(conv)
     cache["fill"] = fill0 + adv
     return buf, active, last, cache, drawn

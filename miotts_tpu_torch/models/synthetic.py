@@ -234,8 +234,16 @@ def write_synthetic_llm(path: str, cfg: LLMConfig | None = None,
     w.add_kv(f"{a}.block_count", cfg.n_layers)
     w.add_kv(f"{a}.embedding_length", cfg.dim)
     w.add_kv(f"{a}.feed_forward_length", cfg.ff_dim)
-    w.add_kv(f"{a}.attention.head_count", cfg.n_heads)
-    w.add_kv(f"{a}.attention.head_count_kv", cfg.n_kv_heads)
+    if cfg.layer_types is not None:
+        # hybrid: per-layer head counts, 0 = conv layer (llama.cpp LFM2)
+        w.add_array(f"{a}.attention.head_count",
+                    [cfg.n_heads if t == "attn" else 0 for t in cfg.layer_types])
+        w.add_array(f"{a}.attention.head_count_kv",
+                    [cfg.n_kv_heads if t == "attn" else 0 for t in cfg.layer_types])
+        w.add_kv(f"{a}.shortconv.l_cache", cfg.conv_l_cache)
+    else:
+        w.add_kv(f"{a}.attention.head_count", cfg.n_heads)
+        w.add_kv(f"{a}.attention.head_count_kv", cfg.n_kv_heads)
     w.add_kv(f"{a}.attention.key_length", cfg.head_dim)
     w.add_kv(f"{a}.attention.layer_norm_rms_epsilon", cfg.rms_eps)
     w.add_kv(f"{a}.context_length", cfg.n_ctx)
@@ -260,6 +268,19 @@ def write_synthetic_llm(path: str, cfg: LLMConfig | None = None,
         p = f"blk.{i}."
         w.add_tensor(p + "attn_norm.weight",
                      get(p + "attn_norm.weight", cfg.dim, ones=True), GGML_F32)
+        if cfg.layer_types is not None and cfg.layer_types[i] == "conv":
+            w.add_tensor(p + "shortconv.conv.weight",
+                         get(p + "shortconv.conv.weight", cfg.dim,
+                             cfg.conv_l_cache), GGML_F32)
+            mat(p + "shortconv.in_proj.weight", 3 * cfg.dim, cfg.dim)
+            mat(p + "shortconv.out_proj.weight", cfg.dim, cfg.dim)
+            w.add_tensor(p + "ffn_norm.weight",
+                         get(p + "ffn_norm.weight", cfg.dim, ones=True), GGML_F32)
+            mat(p + "ffn_gate.weight", cfg.ff_dim, cfg.dim)
+            mat(p + "ffn_up.weight", cfg.ff_dim, cfg.dim)
+            mat(p + "ffn_down.weight", cfg.dim, cfg.ff_dim,
+                qtype=GGML_Q6_K if mixed_k else quant_type)
+            continue
         mat(p + "attn_q.weight", qd, cfg.dim)
         mat(p + "attn_k.weight", kvd, cfg.dim)
         mat(p + "attn_v.weight", kvd, cfg.dim,

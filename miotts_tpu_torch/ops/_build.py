@@ -39,6 +39,13 @@ KERNELS = {
         "decode_attn_launch": [_P] * 11 + [_I] * 6 + [_L] * 10
                               + [ctypes.c_float, _P],
     }),
+    "decode_attn_single": ("decode_attn_single.cu", {
+        # q (f32), k, v, k_scale, v_scale, fill, q_pos, out, B, H, H_kv, S,
+        # D, dtype, k/v strides (b, h, s), k/v scale strides (b, h), scale,
+        # stream
+        "decode_attn_single_launch": [_P] * 8 + [_I] * 6 + [_L] * 10
+                                     + [ctypes.c_float, _P],
+    }),
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -55,9 +62,11 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = CSRC / KERNELS[name][0]
-    digest = hashlib.sha1(src.read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    # the source, every shared header in csrc/ and the flags
+    parts = [(CSRC / KERNELS[name][0]).read_bytes()]
+    parts += [h.read_bytes() for h in sorted(CSRC.glob("*.cuh"))]
+    parts.append(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha1(b"\0".join(parts)).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 

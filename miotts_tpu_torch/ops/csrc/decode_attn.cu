@@ -64,6 +64,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "attn_common.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;
@@ -71,55 +73,11 @@ constexpr int TILE = 512;     // keys per tile (the int8 quantization group)
 constexpr int MAX_REP = 8;
 constexpr float NEG = -1e9f;
 
-__device__ __forceinline__ float bf16_bits_to_f32(uint32_t bits16) {
-  return __uint_as_float(bits16 << 16);
-}
-
-// 16-byte chunk of a row -> floats (float mode)
-template <typename T> struct Chunk;
-template <> struct Chunk<float> {
-  static constexpr int N = 4;
-  __device__ static void load(const float* p, float* out) {
-    const float4 c = *reinterpret_cast<const float4*>(p);
-    out[0] = c.x; out[1] = c.y; out[2] = c.z; out[3] = c.w;
-  }
-};
-template <> struct Chunk<__nv_bfloat16> {
-  static constexpr int N = 8;
-  __device__ static void load(const __nv_bfloat16* p, float* out) {
-    const uint4 c = *reinterpret_cast<const uint4*>(p);
-    const uint32_t w[4] = {c.x, c.y, c.z, c.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      out[2 * i] = bf16_bits_to_f32(w[i] & 0xFFFFu);
-      out[2 * i + 1] = bf16_bits_to_f32(w[i] >> 16);
-    }
-  }
-};
-
-template <typename T> __device__ __forceinline__ float to_f32(T v);
-template <> __device__ __forceinline__ float to_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <> __device__ __forceinline__ float to_f32<int8_t>(int8_t v) { return (float)v; }
-
 // p rounded to the cache's type before the PV product
 template <typename T> __device__ __forceinline__ float round_to(float p);
 template <> __device__ __forceinline__ float round_to<float>(float p) { return p; }
 template <> __device__ __forceinline__ float round_to<__nv_bfloat16>(float p) {
   return __bfloat162float(__float2bfloat16(p));
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
 }
 
 struct Args {

@@ -1,25 +1,30 @@
-"""Batched single-query decode attention (counterpart of
-`miotts_tpu/ops/decode_attn.py:decode_attention_batched`).
+"""Single-query decode attention (counterparts of
+`miotts_tpu/ops/decode_attn.py:decode_attention` and
+`decode_attention_batched`).
 
-The attention of batched serving: one query per slot against that slot's
-KV cache rows, as a flash state (acc, m, l) that `models/llm.py:
-_attend_bkernel` folds together with the chunk-buffer and current-token
-columns.  A CUDA tensor goes through the hand-written kernel
-`ops/csrc/decode_attn.cu` (and raises if it cannot build or launch); a CPU
-tensor goes through `decode_attention_batched_plain`, the same function in
-plain torch.
+Both take one query per row against that row's KV cache: q [B, H, D];
+k/v cache [B, H_kv, S, D] bf16 / f32, or int8 with f32 scales
+[B, H_kv, S]; fill / q_pos [B].  Key s is valid iff
+s < min(fill[b], q_pos[b] + 1).  A CUDA tensor goes through a hand-written
+kernel (and raises if it cannot build or launch); a CPU tensor goes through
+the `*_plain` version, the same function in plain torch.
 
-Contract: q [B, H, D]; k/v cache [B, H_kv, S, D] bf16 / f32, or int8 with
-f32 scales [B, H_kv, S]; fill / q_pos [B].  Key s is valid iff
-s < min(fill[b], q_pos[b] + 1).  Returns f32 [B, H, D], or
-(acc [B, H, D] unnormalised, m [B, H], l [B, H]) with return_stats.
+`decode_attention` (kernel `ops/csrc/decode_attn_single.cu`): the hybrid
+decode's attention, all in f32.  q and k are upcast, an int8 cache is
+dequantized by its scales, probabilities are not rounded.  Returns f32
+[B, H, D] = acc / max(l, 1e-20); a row with no valid key returns 0.
 
-Float mode computes in the cache's type: q is cast to it, probabilities are
-rounded to it before the PV product, sums are f32.  int8 mode quantizes q
-per (b, h) row, takes int8 x int8 scores and quantizes the probabilities
-(times the v scales) to int8 per query row per tile of S_TILE keys — a
-grouping that is part of the result (~1 % of the row scale).  The TPU grid's
-b_tile and its VMEM-driven tile halving have no counterpart here.
+`decode_attention_batched` (kernel `ops/csrc/decode_attn.cu`): the
+attention of batched serving, as a flash state (acc, m, l) that
+`models/llm.py:_attend_bkernel` folds together with the chunk-buffer and
+current-token columns.  Returns f32 [B, H, D], or (acc [B, H, D]
+unnormalised, m [B, H], l [B, H]) with return_stats.  Float mode computes
+in the cache's type: q is cast to it, probabilities are rounded to it
+before the PV product, sums are f32.  int8 mode quantizes q per (b, h)
+row, takes int8 x int8 scores and quantizes the probabilities (times the v
+scales) to int8 per query row per tile of S_TILE keys — a grouping that is
+part of the result (~1 % of the row scale).  The TPU grid's b_tile and its
+VMEM-driven tile halving have no counterpart here.
 """
 
 from __future__ import annotations
@@ -105,11 +110,11 @@ def _check_strided(t: torch.Tensor, name: str) -> None:
                          f"(strides {t.stride()}, {el}-byte elements)")
 
 
-def _decode_attention_cuda(q, k_cache, v_cache, fill, q_pos, k_scale,
-                           v_scale, return_stats):
-    """Launch `decode_attn_launch` (ops/csrc/decode_attn.cu) on the current
-    stream.  The cache may be a strided view; it is never copied."""
-    from ._build import load_kernels
+def _check_inputs(q, k_cache, v_cache, fill, q_pos, k_scale, v_scale,
+                  kernel: str) -> None:
+    """What both kernels take (raises before any build or launch): shapes,
+    head dims, GQA ratios, dtypes, one GPU, 16-byte-aligned strided rows,
+    scales exactly for an int8 cache."""
     B, H, D = q.shape
     if k_cache.dim() != 4 or k_cache.shape != v_cache.shape:
         raise ValueError(f"k/v cache must both be [B, H_kv, S, D], got "
@@ -119,10 +124,10 @@ def _decode_attention_cuda(q, k_cache, v_cache, fill, q_pos, k_scale,
         raise ValueError(f"cache {tuple(k_cache.shape)} does not match q "
                          f"{tuple(q.shape)}")
     if D not in HEAD_DIMS:
-        raise ValueError(f"decode_attn kernel takes head dim {HEAD_DIMS}, "
+        raise ValueError(f"{kernel} kernel takes head dim {HEAD_DIMS}, "
                          f"got {D}")
     if H % H_kv or not 1 <= H // H_kv <= MAX_REP:
-        raise ValueError(f"decode_attn kernel takes H / H_kv in 1..{MAX_REP},"
+        raise ValueError(f"{kernel} kernel takes H / H_kv in 1..{MAX_REP},"
                          f" got {H} / {H_kv}")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"q must be f32 or bf16, got {q.dtype}")
@@ -138,8 +143,8 @@ def _decode_attention_cuda(q, k_cache, v_cache, fill, q_pos, k_scale,
         tensors += [k_scale, v_scale]
     for t in tensors:
         if not t.is_cuda or t.device != q.device:
-            raise ValueError("decode_attn kernel: every tensor must be on "
-                             "q's GPU")
+            raise ValueError(f"{kernel} kernel: every tensor must be on "
+                             f"q's GPU")
     if tuple(fill.shape) != (B,) or tuple(q_pos.shape) != (B,):
         raise ValueError("fill and q_pos must be [B]")
     _check_strided(k_cache, "k_cache")
@@ -150,6 +155,19 @@ def _decode_attention_cuda(q, k_cache, v_cache, fill, q_pos, k_scale,
                     or t.stride(-1) != 1):
                 raise ValueError(f"{name} must be f32 [B, H_kv, S] with a "
                                  f"contiguous last dim")
+
+
+def _decode_attention_cuda(q, k_cache, v_cache, fill, q_pos, k_scale,
+                           v_scale, return_stats):
+    """Launch `decode_attn_launch` (ops/csrc/decode_attn.cu) on the current
+    stream.  The cache may be a strided view; it is never copied."""
+    from ._build import load_kernels
+    _check_inputs(q, k_cache, v_cache, fill, q_pos, k_scale, v_scale,
+                  "decode_attn")
+    B, H, D = q.shape
+    _, H_kv, S, _ = k_cache.shape
+    int8 = k_cache.dtype == torch.int8
+    if int8:
         qq, qs = quantize_query(q)
         q_arg, qs_arg = qq.to(torch.int8).contiguous(), qs.contiguous()
         kss, vss = k_scale.stride(), v_scale.stride()
@@ -194,3 +212,75 @@ def decode_attention_batched(q, k_cache, v_cache, fill, q_pos, k_scale=None,
 
 
 decode_attention_batched.kernel_launches = 0
+
+
+def decode_attention_plain(q, k_cache, v_cache, fill, q_pos, k_scale=None,
+                           v_scale=None):
+    """`decode_attention` in plain torch, one pass over all S keys: f32
+    scores of q against the (dequantized) keys, masked to -1e9, softmax
+    with the masked probabilities zeroed, f32 PV product."""
+    B, H, D = q.shape
+    H_kv, S = k_cache.shape[1], k_cache.shape[2]
+    qg = q.float().reshape(B, H_kv, H // H_kv, D)
+    kf, vf = k_cache.float(), v_cache.float()
+    if k_scale is not None:
+        kf = kf * k_scale[..., None]
+        vf = vf * v_scale[..., None]
+    s = torch.einsum("bgrd,bgsd->bgrs", qg, kf) * (1.0 / math.sqrt(D))
+    limit = torch.minimum(fill.long(), q_pos.long() + 1)
+    mask = (torch.arange(S, device=q.device)[None, :]
+            < limit[:, None])[:, None, None, :]
+    s = s.masked_fill(~mask, NEG)
+    p = torch.where(mask, torch.exp(s - s.amax(dim=-1, keepdim=True)), 0.0)
+    out = torch.einsum("bgrs,bgsd->bgrd", p, vf)
+    return (out / p.sum(dim=-1, keepdim=True).clamp(min=1e-20)).reshape(B, H, D)
+
+
+def _decode_attention_single_cuda(q, k_cache, v_cache, fill, q_pos, k_scale,
+                                  v_scale):
+    """Launch `decode_attn_single_launch` (ops/csrc/decode_attn_single.cu)
+    on the current stream.  q goes in as f32; the cache may be a strided
+    view (a layer of the stacked cache) and is never copied."""
+    from ._build import load_kernels
+    _check_inputs(q, k_cache, v_cache, fill, q_pos, k_scale, v_scale,
+                  "decode_attn_single")
+    B, H, D = q.shape
+    _, H_kv, S, _ = k_cache.shape
+    int8 = k_cache.dtype == torch.int8
+    kss = k_scale.stride() if int8 else (0, 0, 0)
+    vss = v_scale.stride() if int8 else (0, 0, 0)
+    q32 = q.float().contiguous()
+    fill32 = fill.to(torch.int32).contiguous()
+    qpos32 = q_pos.to(torch.int32).contiguous()
+    out = torch.empty((B, H, D), dtype=torch.float32, device=q.device)
+    ks, vs = k_cache.stride(), v_cache.stride()
+    lib = load_kernels()["decode_attn_single"]
+    err = lib.decode_attn_single_launch(
+        q32.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        k_scale.data_ptr() if int8 else None,
+        v_scale.data_ptr() if int8 else None,
+        fill32.data_ptr(), qpos32.data_ptr(), out.data_ptr(),
+        B, H, H_kv, S, D, _DTYPE_CODE[k_cache.dtype],
+        ks[0], ks[1], ks[2], vs[0], vs[1], vs[2], kss[0], kss[1], vss[0],
+        vss[1], 1.0 / math.sqrt(D),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"decode_attn_single kernel launch failed: CUDA "
+                           f"error {err}")
+    decode_attention.kernel_launches += 1
+    return out
+
+
+def decode_attention(q, k_cache, v_cache, fill, q_pos, k_scale=None,
+                     v_scale=None):
+    """Single-query attention of each row against its cache rows, all in
+    f32 (see the module docstring).  CUDA tensors: the kernel; CPU tensors:
+    the plain version."""
+    if q.is_cuda:
+        return _decode_attention_single_cuda(q, k_cache, v_cache, fill,
+                                             q_pos, k_scale, v_scale)
+    return decode_attention_plain(q, k_cache, v_cache, fill, q_pos, k_scale,
+                                  v_scale)
+
+
+decode_attention.kernel_launches = 0

@@ -7,7 +7,9 @@ into free slots (one batched prefill per admission wave), every active slot
 steps together in chunks of on-device generation (`llm_generate_chunk_
 batched`, whose attention is the hand-written CUDA kernel on a GPU), and
 each request's audio streams out through the commit-holdback policy with a
-batched, sliced codec decode per scheduler step.
+batched, sliced codec decode per scheduler step.  Dense and hybrid (lfm2)
+models alike: a hybrid cache's per-slot conv state is reset by the slot
+prefill and advanced by the chunk.
 
 Reading results back without stalling the pipeline: a chunk's tokens and
 stop flags (and a deferred codec decode's samples) are copied into pinned

@@ -209,6 +209,11 @@ class TTSEngine:
                                         device=dev)
         cache = dict(self._cache,
                      fill=torch.zeros((1,), dtype=torch.int32, device=dev))
+        if "conv" in cache:
+            # a hybrid model's conv state holds the previous request's last
+            # inputs, and the prefill starts from it: clear it (`fill`
+            # alone masks the old k / v, nothing masks this state)
+            cache["conv"].zero_()
         last, cache = llm_prefill(self.llm_params, toks.to(dev),
                                   torch.tensor([n], dtype=torch.int32), cache,
                                   cfg)

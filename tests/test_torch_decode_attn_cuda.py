@@ -19,10 +19,11 @@ import torch
 from miotts_tpu_torch.models.llm import _kv_quantize
 from miotts_tpu_torch.ops import decode_attn as tda
 
-# (B, H, H_kv, D, S): 0.1B serving, 2.6B flagship, 1.7B head dim
+# (B, H, H_kv, D, S): 0.1B serving, 2.6B flagship, 1.7B head dim, LFM2-1.2B
+# serving (16 slots, the attn_len buckets)
 SHAPES = [(64, 12, 4, 64, 128), (64, 12, 4, 64, 256), (64, 12, 4, 64, 512),
           (64, 32, 8, 80, 256), (64, 32, 8, 80, 512), (128, 32, 8, 80, 256),
-          (16, 16, 8, 128, 1024)]
+          (16, 16, 8, 128, 1024), (16, 32, 8, 64, 128), (16, 32, 8, 64, 256)]
 TOL = {"f32": 1e-5, "bf16": 1e-2, "int8": 1e-2}
 
 

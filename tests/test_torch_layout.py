@@ -64,4 +64,5 @@ def test_every_port_module_has_a_counterpart_layout():
         assert (PORT / sub / "__init__.py").exists(), sub
     assert (PORT / "ops" / "csrc" / "qdot.cu").exists()
     assert (PORT / "ops" / "csrc" / "decode_attn.cu").exists()
+    assert (PORT / "ops" / "csrc" / "decode_attn_single.cu").exists()
     assert miotts_tpu_torch.__version__
