@@ -6,8 +6,9 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
   1. device: the card's name and power limit (nvidia-smi), kernel build;
   2. kernel vs plain: the `qdot` CUDA kernel against `qdot_plain` on the
      card at the main path's shapes (0.1B-Q8_0 at M = 1 and 64) and at the
-     2.6B-Q4_K_M formats (fused Q4_K + Q6_K, packed Q4_K, Q6_K, packed
-     Q4_0 at M = 1, 7 and 64), with kernel / plain / library times;
+     2.6B-Q4_K_M formats (fused Q4_K + Q6_K, packed Q4_K wo / gate-up /
+     output, Q6_K, packed Q4_0 at M = 1, 7 and 64), with kernel / plain /
+     library times;
   3. main path: synthetic full-width 0.1B-Q8_0 LLM + full-size MioCodec
      written with the port's own writer, then
      TTSEngine.synthesize_to_file on the card at temperature 0, 128 tokens;
@@ -57,6 +58,26 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
  13. (c) LFM2 GPU vs CPU: layers 0-5 (two attention layers) of the same
      file at full width, f32, a prefill + 20 greedy steps on the card (K1,
      K5) and on the CPU plain path: identical tokens, logits within 1e-4.
+ 14. the single-stream routes vs plain: K2 (`qdot_split`, packed shapes at
+     M = 1, 7, 64, f32 also against K1), K3 (`qdot_group`, bf16) and K4a /
+     K4b (`qdot_w8a8`, f32 and bf16) at M = 1 on the 2.6B-Q4_K_M linears
+     (fused QKV, wo, gate/up, w_down, output) and, for K3 / K4a, the 0.1B
+     and LFM2 Q8_0 shapes; every x has an all-zero quant group; f32 within
+     1e-5, bf16 1e-2; kernel / plain / library / bound times;
+ 15. 2.6B-Q4_K_M offline at full width and depth (written by the port's
+     writer, timed): one engine per route (default K1, w8a8, groupdot,
+     split; the routes share the loaded weights) runs synthesize_to_file
+     at temperature 0, 128 tokens, bf16; checks each WAV and the launches
+     (w8a8: K4a 64 and K4b 65 per decode step, K1 129 per prefill;
+     groupdot: K3 129 per step, K1 129 per prefill; split: K2 65 and K1 64
+     per step and per prefill; default: K1 129); prints the rates, a
+     profile and each route's token agreement with the default route;
+ 16. 2.6B-Q4_K_M GPU vs CPU: layers 0-1, a prefill + 8 greedy steps per
+     route on the card, then on the CPU plain path fed the card's tokens:
+     split and w8a8 (f32) greedy tokens identical, split's logits within
+     1e-4 at every step, w8a8's within 5e-2 RMS (the int8 quantization's
+     rounding ties part the two); groupdot (bf16) prefill and first step
+     within 2e-2.
 
 Kernel times are device times: the calls are captured in a CUDA graph and
 replayed between CUDA events, cycling over weight (or KV-cache) copies
@@ -129,6 +150,29 @@ K5_SHAPES = [("lfm2-1.2b", 1, 32, 8, 64, 256), ("lfm2-1.2b", 1, 32, 8, 64, 512),
              ("0.1b", 1, 12, 4, 64, 256), ("d80", 2, 32, 8, 80, 512)]
 K5_STEP_SHAPE = ("lfm2-1.2b", 1, 32, 8, 64, 256)   # the offline decode's
 K5_TOL = 1e-5                  # kernel vs plain: both f32, summation order
+
+# 2.6B-Q4_K_M: bench.py's "2.6b-q4_k" widths (qwen2, dim 2560, 32 layers,
+# 32/8 heads of 80, ff 8192, QKV bias, rope theta 1e6), written with
+# llama.cpp's Q4_K_M mix (attn_v and ffn_down in Q6_K, the rest Q4_K): the
+# fused QKV and w_down are int8 values (g16), wo, gate/up and the output head
+# packed Q4_K nibbles (g32, mins).
+Q4KM_LAYERS = 32
+Q4KM_QDOT_PER_STEP = Q4KM_LAYERS * 4 + 1     # 129
+Q4KM_REF_LAYERS = 2                          # GPU vs CPU: layers 0-1
+# the JAX package's switches of each route (ops/qmat.QdotRoute.from_env)
+Q4KM_ROUTES = {"default": {}, "w8a8": {"MIOTTS_QDOT_GEMV": "w8a8"},
+               "groupdot": {"MIOTTS_QDOT_GEMV": "groupdot"},
+               "split": {"MIOTTS_PACK4_SPLIT": "1"}}
+# GPU vs CPU under w8a8: each K4 call agrees with its plain version on the
+# same input to ~3e-7, but a 1e-5 difference upstream flips some int8
+# roundings (each moves a whole weight row's term by 1/254 of its group's
+# amax), and the MLP multiplies the flips: on the H100, 2 flips at layer 1's
+# wo became 13, 443 and 356 at gate/up, w_down and the head, 6.3e-3 of the
+# logits in one step and 1.6e-2 (RMS) over 8.  So the bound is the JAX
+# package's own tolerance of W8A8 against the dense product (rtol 0.05,
+# tests/test_qmat.py:441), on the RMS relative difference.
+W8A8_REF_TOL = 5e-2
+BF16_REF_TOL = 2e-2            # GPU vs CPU in bf16 (groupdot)
 
 
 def lfm2_config():
@@ -208,6 +252,9 @@ def shape_cases(torch, qmat, gen):
         ("2.6b w_gateup q4_k packed", gateup, (1, 7, 64)),
         ("2.6b w_down q6_k", q(8192, 2560, "q6_k"), (1, 7, 64)),
         ("2.6b q4_0 packed", q(2560, 2560, "q4_0"), (1, 7, 64)),
+        ("2.6b wo q4_k packed", q(2560, 2560, "q4_k"), (1, 7, 64)),
+        ("2.6b output q4_k packed", q(2560, 256 + 3 + N_SPEECH, "q4_k"),
+         (1, 7, 64)),
     ]
     # LFM2-1.2B-Q8_0: M = 1 offline, M = 16 the serving phase's slots
     ms = (1, LFM2_SLOTS)
@@ -344,6 +391,143 @@ def phase_kernels(torch, qmat, card: str) -> list[dict]:
         del qts, w_lib
         torch.cuda.empty_cache()
     return rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: the single-stream routes (K2, K3, K4a, K4b) vs plain
+# ---------------------------------------------------------------------------
+
+def q4km_cases(torch, qmat, gen):
+    """(label, QTensor) at the 2.6B-Q4_K_M widths, then the Q8_0 (g32, no
+    mins) shapes of the 0.1B and LFM2-1.2B models."""
+    q = lambda k, n, f: rand_qtensor(torch, qmat, k, n, f, gen)
+    cases = [
+        ("2.6b wqkv q4_k+q6_k", qmat.concat_qtensors([
+            q(2560, 2560, "q4_k"), q(2560, 640, "q4_k"), q(2560, 640, "q6_k")])),
+        ("2.6b wo q4_k", q(2560, 2560, "q4_k")),
+        ("2.6b w_gateup q4_k", qmat.concat_qtensors([
+            q(2560, 8192, "q4_k"), q(2560, 8192, "q4_k")])),
+        ("2.6b w_down q6_k", q(8192, 2560, "q6_k")),
+        ("2.6b output q4_k", q(2560, 256 + 3 + N_SPEECH, "q4_k")),
+    ]
+    kvd = KV_HEADS * HEAD_DIM
+    for label, k, n in (
+            ("0.1b wqkv", DIM, HEADS * HEAD_DIM + 2 * kvd),
+            ("0.1b wo", HEADS * HEAD_DIM, DIM), ("0.1b w_gateup", DIM, 2 * FF),
+            ("0.1b w_down", FF, DIM), ("0.1b output", DIM, 256 + 3 + N_SPEECH),
+            ("lfm2 in_proj", 2048, 6144), ("lfm2 out_proj/wo", 2048, 2048),
+            ("lfm2 wqkv", 2048, 3072), ("lfm2 w_gateup", 2048, 16384),
+            ("lfm2 w_down", 8192, 2048), ("lfm2 output", 2048, 256 + 3 + N_SPEECH)):
+        cases.append((label + " q8_0", q(k, n, "q8_0")))
+    return cases
+
+
+def variant_work(kernel: str, qt, m: int, el: int):
+    """(bytes, ops, peak ops/s) one call must move / do: the weight's values,
+    scales and mins, x and y once each; 2MKN operations at the rate of their
+    type (K4: int8; K2 / K3: f32 on the CUDA cores)."""
+    K, N = qt.k, qt.shape[0]
+    nbytes = qt_bytes(qt) + m * K * el + m * N * el
+    peak = PEAK_INT8_OPS if kernel.startswith("K4") else PEAK_F32_FLOPS
+    return nbytes, 2.0 * m * K * N, peak
+
+
+def phase_variants(torch, qmat, card: str) -> list[dict]:
+    """Every single-stream kernel against its plain version on the card, with
+    kernel / plain / library times: K2 on the packed shapes at M = 1, 7, 64
+    (f32 also against K1), K3 at M = 1 in bf16, K4a / K4b at M = 1 in f32 and
+    bf16.  Every x has an all-zero quant group (K4's sx = 1 rule)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    rows = []
+    for label, qt in q4km_cases(torch, qmat, gen):
+        K, N = qt.k, qt.shape[0]
+        n_copies = max(2, min(256, -(-L2_FLUSH_BYTES // qt_bytes(qt))))
+        qts = copies_of(torch, qmat, qt, n_copies)
+        w_lib = [c.dequant_t(torch.float32).to(torch.bfloat16)
+                 for c in qts[: max(2, min(256, -(-L2_FLUSH_BYTES
+                                                 // (2 * K * N))))]]
+        runs = [("K3", qmat.qdot_group, qmat.qdot_group_plain, 1,
+                 torch.bfloat16)]
+        k4 = "K4b" if qt.packed else "K4a"
+        runs += [(k4, qmat.qdot_w8a8, qmat.qdot_w8a8_plain, 1, dt)
+                 for dt in (torch.float32, torch.bfloat16)]
+        if qt.packed:
+            runs += [("K2", qmat.qdot_split, qmat.qdot_split_plain, m, dt)
+                     for m in (1, 7, 64)
+                     for dt in (torch.float32, torch.bfloat16)]
+        for kernel, fn, plain_fn, m, dtype in runs:
+            x = torch.randn((m, K), generator=gen, device="cuda")
+            x[:, 32:64] = 0.0
+            x = x.to(dtype)
+            got = fn(x, qt)
+            want = plain_fn(x, qt)
+            torch.cuda.synchronize()
+            if got.shape != (m, N) or got.dtype != dtype:
+                raise AssertionError(f"{kernel} {label} M={m}: bad output "
+                                     f"{tuple(got.shape)} {got.dtype}")
+            tol = KERNEL_TOL_F32 if dtype == torch.float32 else KERNEL_TOL_BF16
+            e = rel_err(got.float(), want.float())
+            if not e < tol:
+                raise AssertionError(f"{kernel} {label} M={m} {dtype}: kernel "
+                                     f"vs plain rel err {e} >= {tol}")
+            e_k1 = None
+            if kernel == "K2" and dtype == torch.float32:
+                e_k1 = rel_err(got, qmat._qdot_cuda(x, qt))
+                if not e_k1 < KERNEL_TOL_F32:
+                    raise AssertionError(f"K2 {label} M={m}: vs K1 rel err "
+                                         f"{e_k1}")
+            xl = x.to(torch.bfloat16)
+            kern = lambda i: fn(x, qts[i % n_copies])
+            k_ms = graph_ms(torch, kern, max(20, min(256, n_copies)))
+            p_ms = graph_ms(torch, lambda i: plain_fn(x, qts[i % n_copies]), 10)
+            l_ms = graph_ms(torch, lambda i: torch.matmul(
+                xl, w_lib[i % len(w_lib)]), max(20, min(256, len(w_lib))))
+            e_ms = time_ms(torch, kern, 50)
+            nbytes, ops, peak = variant_work(kernel, qt, m, x.element_size())
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = ops / peak * 1e3
+            dt = "f32" if dtype == torch.float32 else "bf16"
+            row = dict(kernel=kernel, shape=label, M=m, K=K, N=N, dtype=dt,
+                       group=qt.group, packed=qt.packed,
+                       mins=qt.mins is not None, bytes=nbytes, ops=ops,
+                       ms=k_ms, plain_ms=p_ms, library_ms=l_ms, eager_ms=e_ms,
+                       bound_ms=max(t_bytes, t_ops), bytes_ms=t_bytes,
+                       ops_ms=t_ops,
+                       bound_by="bytes" if t_bytes >= t_ops else "operations",
+                       max_abs_err=float((got.float() - want.float()).abs()
+                                         .max()),
+                       rel_err=e, rel_err_vs_k1=e_k1)
+            rows.append(row)
+            log(f"{kernel:3s} {label:22s} M={m:<3d} {dt:4s} K={K:<5d} "
+                f"N={N:<6d} kernel {k_ms:.4f} ms (eager {e_ms:.4f})  plain "
+                f"{p_ms:.4f} ms  library {l_ms:.4f} ms  bound "
+                f"{row['bound_ms']:.4f} ms ({row['bound_by']})  rel_err "
+                f"{e:.2e}" + ("" if e_k1 is None else f" (vs K1 {e_k1:.2e})")
+                + f"  [{card}]")
+        del qts, w_lib
+        torch.cuda.empty_cache()
+    return rows
+
+
+# per layer of the 2.6B-Q4_K_M decode, the linears each kernel takes
+Q4KM_LAYER_LINEARS = {
+    "K2": ("wo", "w_gateup"),                       # + output (packed)
+    "K3": ("wqkv", "wo", "w_gateup", "w_down"),     # + output
+    "K4a": ("wqkv", "w_down"),                      # int8 values
+    "K4b": ("wo", "w_gateup"),                      # + output (packed)
+}
+
+
+def q4km_step(rows: list[dict], kernel: str, key: str):
+    """One 2.6B-Q4_K_M decode step's `key` of `kernel` (M = 1, bf16 x, the
+    engine's activations): 32 layers of its linears, plus the output head
+    where the head is its (every kernel but K4a)."""
+    by = {r["shape"].split()[1]: r[key] for r in rows
+          if r["kernel"] == kernel and r["M"] == 1 and r["dtype"] == "bf16"
+          and r["shape"].startswith("2.6b")}
+    layer = sum(by[n] for n in Q4KM_LAYER_LINEARS[kernel])
+    return Q4KM_LAYERS * layer + (by["output"] if kernel != "K4a" else 0)
 
 
 # ---------------------------------------------------------------------------
@@ -1166,6 +1350,290 @@ def phase_lfm2_gpu_vs_cpu(torch, path: str) -> dict:
                 last_logits_rel_err=e_last, k5_launches=res["cuda"][3])
 
 
+# ---------------------------------------------------------------------------
+# Phases 15-16: 2.6B-Q4_K_M offline under each route, GPU vs CPU
+# ---------------------------------------------------------------------------
+
+def write_q4km(d: str) -> str:
+    from miotts_tpu_torch.gguf import GGML_Q4_K
+    from miotts_tpu_torch.models.llm import LLMConfig
+    from miotts_tpu_torch.models.synthetic import write_synthetic_llm
+    path = os.path.join(d, "q4km.gguf")
+    cfg = LLMConfig(arch="qwen2", n_layers=Q4KM_LAYERS, dim=2560, n_heads=32,
+                    n_kv_heads=8, head_dim=80, ff_dim=8192,
+                    n_vocab=256 + 3 + N_SPEECH, n_ctx=2048, rope_theta=1e6,
+                    rope_style="neox", qkv_bias=True, qk_norm=False)
+    write_synthetic_llm(path, cfg=cfg, quant_type=GGML_Q4_K, seed=0,
+                        mixed_k=True)
+    return path
+
+
+def route_counters(qmat):
+    """(object, attribute) of each quantized-matmul kernel's launch count."""
+    return {"K1": (qmat.qdot, "kernel_launches"),
+            "K2": (qmat.qdot_split, "kernel_launches"),
+            "K3": (qmat.qdot_group, "kernel_launches"),
+            "K4a": (qmat.qdot_w8a8, "kernel_launches"),
+            "K4b": (qmat.qdot_w8a8, "packed_launches")}
+
+
+def reset_counts(counters) -> None:
+    for obj, attr in counters.values():
+        setattr(obj, attr, 0)
+
+
+def read_counts(counters) -> dict:
+    return {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
+
+
+def expected_counts(route: str, steps: int, unpacked: int,
+                    packed: int) -> dict:
+    """Launches of each kernel for one prefill and `steps` decode steps of a
+    dense model with `unpacked` int8-valued and `packed` nibble-packed
+    quantized linears, under `route`."""
+    want = dict.fromkeys(("K1", "K2", "K3", "K4a", "K4b"), 0)
+    n = unpacked + packed
+    if route == "split":
+        want.update(K1=unpacked * (1 + steps), K2=packed * (1 + steps))
+    elif route == "w8a8":
+        want.update(K1=n, K4a=unpacked * steps, K4b=packed * steps)
+    elif route == "groupdot":
+        want.update(K1=n, K3=n * steps)
+    else:
+        want["K1"] = n * (1 + steps)
+    return want
+
+
+def phase_q4km_offline(torch, qmat, paths: dict, out_dir: str,
+                       card: str) -> dict:
+    """2.6B-Q4_K_M text -> WAV on the card under each route: one engine
+    loads the weights, one more per route shares them
+    (TTSEngine.with_qdot_route).  Checks each WAV and each kernel's
+    launches; reports the rates, the device-busy share and each route's
+    greedy-token agreement with the default route."""
+    import numpy as np
+    from miotts_tpu_torch.audio.wav import wav_read
+    from miotts_tpu_torch.ops import decode_attn
+    from miotts_tpu_torch.runtime.engine import (EngineConfig, Options,
+                                                 TTSEngine, VoiceModel)
+    t0 = time.perf_counter()
+    base = TTSEngine(EngineConfig(model_path=paths["q4km"],
+                                  codec_path=paths["codec"], device="cuda",
+                                  max_tokens=MAX_TOKENS, temperature=0.0,
+                                  qdot_route=qmat.QdotRoute()))
+    voice = VoiceModel(paths["voice"])
+    log(f"q4km: engine load {time.perf_counter() - t0:.2f} s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.3f} GB on the card")
+    text = "The quick brown fox jumps over the lazy dog."
+    counters = route_counters(qmat)
+    out, tokens = {}, {}
+    for name, env in Q4KM_ROUTES.items():
+        route = qmat.QdotRoute.from_env(env)
+        eng = base if name == "default" else base.with_qdot_route(route)
+        # greedy tokens (the agreement below) and the warm-up
+        tokens[name] = eng.generate_tokens(
+            text, Options(temperature=0.0, max_tokens=MAX_TOKENS))
+        wav = os.path.join(out_dir, f"q4km_{name}.wav")
+        prof: dict = {}
+        reset_counts(counters)
+        decode_attn.decode_attention.kernel_launches = 0
+        t0 = time.perf_counter()
+        eng.synthesize_to_file(voice, text, wav, Options(
+            temperature=0.0, max_tokens=MAX_TOKENS), profile=prof)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = read_counts(counters)
+        k5 = decode_attn.decode_attention.kernel_launches
+        audio, sr = wav_read(wav)
+        n_codes = prof["n_codes"]
+        if not (np.isfinite(audio).all() and sr == eng.sample_rate
+                and audio.size == n_codes * eng.samples_per_token
+                and abs(float(np.max(np.abs(audio))) - 0.95) < 1e-3):
+            raise AssertionError(f"q4km[{name}]: bad WAV, {audio.size} "
+                                 f"samples at {sr} Hz for {n_codes} codes")
+        steps = prof["decode_steps"]
+        want = expected_counts(name, steps, 2 * Q4KM_LAYERS,
+                               2 * Q4KM_LAYERS + 1)
+        if got != want or k5:
+            raise AssertionError(f"q4km[{name}]: launches {got} (K5 {k5}) "
+                                 f"!= {want} for 1 prefill + {steps} steps")
+        same = sum(a == b for a, b in zip(tokens[name], tokens["default"]))
+        compared = min(len(tokens[name]), len(tokens["default"]))
+        audio_s = audio.size / sr
+        res = dict(route=env, prefill_ms=prof["prefill_sec"] * 1e3,
+                   decode_tok_s=steps / prof["decode_sec"],
+                   decode_steps=steps, llm_tokens=prof["llm_tokens"],
+                   n_codes=n_codes, codec_istft_s=prof["codec_sec"],
+                   audio_s=audio_s, wall_s=wall, x_realtime=audio_s / wall,
+                   launches=got,
+                   launches_per_step={k: v / steps for k, v in got.items()
+                                      if v},
+                   tokens=len(tokens[name]),
+                   tokens_agreeing_with_default=same,
+                   tokens_compared=compared,
+                   first_disagreement=next(
+                       (i for i, (a, b) in enumerate(zip(
+                           tokens[name], tokens["default"])) if a != b), None))
+        res["profile"] = profile_steps(torch, eng, card,
+                                       f"q4km[{name}] prefill + 16 steps")
+        out[name] = res
+        log(f"q4km[{name}]: prefill {res['prefill_ms']:.4f} ms, decode "
+            f"{res['decode_tok_s']:.4f} tok/s, x_realtime "
+            f"{res['x_realtime']:.4f}, codec + iSTFT "
+            f"{res['codec_istft_s']:.4f} s, {n_codes} codes; launches {got} "
+            f"over 1 prefill + {steps} steps; device busy "
+            f"{res['profile']['busy_share']}; tokens agreeing with the "
+            f"default route {same} of {compared}  [{card}]")
+        del eng
+    del base
+    torch.cuda.empty_cache()
+    return out
+
+
+def profile_steps(torch, eng, card: str, label: str, n_steps: int = 16):
+    """Where a prefill (a 64-token bucket) and an n_steps decode chunk of
+    the engine's model spend their time: a shorter window than
+    profile_decode's 64 steps, because the profiler's own processing grows
+    with every launch it records (~2900 per step at 2.6B)."""
+    from miotts_tpu_torch.models.llm import (init_kv_cache,
+                                             llm_generate_chunk, llm_prefill)
+    cfg = eng.llm_cfg
+    toks = ((torch.arange(64) * 37 + 11) % cfg.n_vocab)[None].cuda()
+    no_stop = torch.tensor([-1], device="cuda")
+
+    def run():
+        cache = init_kv_cache(cfg, 1, 256, dtype=eng.dtype, device="cuda")
+        last, cache = llm_prefill(eng.llm_params, toks, torch.tensor([45]),
+                                  cache, cfg)
+        llm_generate_chunk(eng.llm_params, last, cache, 0.0, no_stop, cfg,
+                           n_steps)
+        return n_steps + 1
+    run()
+    return device_profile(torch, run, label, card)
+
+
+def rms_rel(got, want) -> float:
+    """RMS of got - want over the RMS of want."""
+    got, want = got.double(), want.double()
+    return float((got - want).pow(2).mean().sqrt()
+                 / want.pow(2).mean().sqrt().clamp(min=1e-30))
+
+
+def phase_q4km_gpu_vs_cpu(torch, qmat, path: str) -> dict:
+    """Layers 0-1 of the 2.6B-Q4_K_M file at full width (a depth cut only):
+    under split and w8a8 in f32 and groupdot in bf16, a prefill and 8
+    greedy steps on the card (the route's kernels), then the same on the
+    CPU (their plain versions) fed the card's tokens, so that every step's
+    logits compare like with like.  Checks: in f32, greedy tokens identical;
+    split, every step within 1e-4 of the logit scale; w8a8, every step's
+    RMS relative difference within W8A8_REF_TOL; groupdot (bf16), prefill
+    and first step within 2e-2 of the scale."""
+    from miotts_tpu_torch.gguf import GGUFReader
+    from miotts_tpu_torch.models.llm import (LLMConfig, init_kv_cache,
+                                             llm_decode_step, llm_prefill,
+                                             load_llm_params)
+    n_vocab = 256 + 3 + N_SPEECH
+    toks = torch.zeros((1, 64), dtype=torch.int64)
+    toks[0, :45] = (torch.arange(45) * 37 + 11) % n_vocab
+    counters = route_counters(qmat)
+    checks = {"split": (torch.float32, REF_TOL),
+              "w8a8": (torch.float32, W8A8_REF_TOL),
+              "groupdot": (torch.bfloat16, BF16_REF_TOL)}
+    res = {name: {} for name in checks}
+    with GGUFReader(path) as r:
+        cfg = dataclasses.replace(LLMConfig.from_gguf(r),
+                                  n_layers=Q4KM_REF_LAYERS)
+        for dev in ("cuda", "cpu"):
+            params, _ = load_llm_params(r, cfg, dtype=torch.float32,
+                                        device=dev)
+            for name, (dtype, _) in checks.items():
+                p = qmat.with_route(
+                    dict(params, token_embd=params["token_embd"].to(dtype)),
+                    qmat.QdotRoute.from_env(Q4KM_ROUTES[name]))
+                cache = init_kv_cache(cfg, 1, 128, dtype=dtype, device=dev)
+                reset_counts(counters)
+                last, cache = llm_prefill(p, toks.to(dev), torch.tensor([45]),
+                                          cache, cfg)
+                logits, fed = [last.float().cpu()], []
+                for i in range(8):
+                    tok = (int(logits[-1].argmax()) if dev == "cuda"
+                           else res[name]["cuda"]["tokens"][i])
+                    fed.append(tok)
+                    last, cache = llm_decode_step(
+                        p, torch.tensor([tok], device=dev), cache, cfg)
+                    logits.append(last.float().cpu())
+                res[name][dev] = dict(logits=logits, tokens=fed,
+                                      argmax=[int(x.argmax()) for x in logits],
+                                      launches=read_counts(counters))
+            del params
+    out = {}
+    for name, (dtype, tol) in checks.items():
+        g, c = res[name]["cuda"], res[name]["cpu"]
+        want = expected_counts(name, 8, 2 * Q4KM_REF_LAYERS,
+                               2 * Q4KM_REF_LAYERS + 1)
+        if g["launches"] != want:
+            raise AssertionError(f"q4km gpu-vs-cpu[{name}]: launches "
+                                 f"{g['launches']} != {want}")
+        errs = [rel_err(a, b) for a, b in zip(g["logits"], c["logits"])]
+        rms = [rms_rel(a, b) for a, b in zip(g["logits"], c["logits"])]
+        same = g["argmax"] == c["argmax"]
+        log(f"q4km gpu-vs-cpu[{name}]: layers 0-{Q4KM_REF_LAYERS - 1}, "
+            f"{'f32' if dtype == torch.float32 else 'bf16'}, prefill + 8 "
+            f"greedy steps (the CPU fed the card's tokens): greedy tokens "
+            f"{'identical' if same else 'DIFFER'}, logits rel err prefill "
+            f"{errs[0]:.2e}, first step {errs[1]:.2e}, max over steps "
+            f"{max(errs):.2e}; RMS rel max {max(rms):.2e} (tol {tol}"
+            f"{' RMS' if name == 'w8a8' else ''}); launches {g['launches']}")
+        checked = {"split": errs, "w8a8": rms, "groupdot": errs[:2]}[name]
+        if max(checked) >= tol or (dtype == torch.float32 and not same):
+            raise AssertionError(f"q4km gpu-vs-cpu[{name}]: the card "
+                                 f"disagrees with the CPU plain path")
+        out[name] = dict(tokens_identical=same, tokens=g["tokens"],
+                         logits_rel_err=errs, logits_rms_rel=rms,
+                         launches=g["launches"])
+    return out
+
+
+# kernel -> (name, source, the TPU kernel it replaces, the route that runs
+# it, what one decode step of its work is)
+VARIANTS = {
+    "K2": ("qdot_split", "miotts_tpu/ops/qmat.py:246", "split",
+           "32 x wo, gate/up; output: 65 packed linears"),
+    "K3": ("qdot_group", "miotts_tpu/ops/qmat.py:285", "groupdot",
+           "32 x fused QKV, wo, gate/up, w_down; output: 129 linears"),
+    "K4a": ("qdot_w8a8", "miotts_tpu/ops/qmat.py:349", "w8a8",
+            "32 x fused QKV, w_down: 64 int8-valued linears"),
+    "K4b": ("qdot_w8a8_packed", "miotts_tpu/ops/qmat.py:401", "w8a8",
+            "32 x wo, gate/up; output: 65 packed linears"),
+}
+
+
+def variant_entry(rows, offline, ref, kernel: str) -> dict:
+    """The kernels-line entry of a single-stream kernel: launches on its
+    route's 2.6B-Q4_K_M run, and one decode step of its work (phase 14's
+    M = 1 bf16 rows summed over the step's linears)."""
+    name, replaces, route, what = VARIANTS[kernel]
+    mine = [r for r in rows if r["kernel"] == kernel]
+    step = {k: q4km_step(rows, kernel, k)
+            for k in ("ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms")}
+    return dict(
+        name=name, route="cuda",
+        source="miotts_tpu_torch/ops/csrc/qdot_gemv.cu", replaces=replaces,
+        launches=offline[route]["launches"][kernel],
+        launches_by_path={f"q4km_{route}_offline":
+                          offline[route]["launches"][kernel],
+                          f"q4km_{route}_gpu_vs_cpu":
+                          ref[route]["launches"][kernel]},
+        max_abs_err=max(r["max_abs_err"] for r in mine),
+        rel_err=max(r["rel_err"] for r in mine),
+        ms=step["ms"], plain_ms=step["plain_ms"],
+        bound_ms=max(step["bytes_ms"], step["ops_ms"]),
+        bound_by="bytes" if step["bytes_ms"] >= step["ops_ms"] else "operations",
+        library_ms=step["library_ms"],
+        unit=f"one 2.6B-Q4_K_M decode step of {kernel} work ({what}) at M=1, "
+             f"bf16 x")
+
+
 def attn_step_summary(rows: list[dict], key: str):
     """One 0.1B serving decode step's attention: 12 layers at the serving
     phase's shape, bf16 cache."""
@@ -1192,6 +1660,15 @@ def step_summary(rows: list[dict], key: str, m: int = 1) -> float:
           and r["shape"].startswith("0.1b")}
     layer = sum(v for s, v in by.items() if not s.startswith("0.1b output"))
     return LAYERS * layer + by["0.1b output q8_0"]
+
+
+def q4km_k1_step(rows: list[dict], key: str) -> float:
+    """One 2.6B-Q4_K_M decode step's K1 work at M = 1 (the default route):
+    32 layers of fused QKV, wo, gate/up and w_down, plus the output head."""
+    by = {r["shape"].split()[1]: r[key] for r in rows if r["M"] == 1
+          and r["shape"].startswith("2.6b") and "q4_0" not in r["shape"]}
+    return Q4KM_LAYERS * (by["wqkv"] + by["wo"] + by["w_gateup"]
+                          + by["w_down"]) + by["output"]
 
 
 def lfm2_step_summary(rows: list[dict], key: str, m: int = 1) -> float:
@@ -1260,6 +1737,17 @@ def main() -> int:
         log(f"phase 12 (d) done at {time.perf_counter() - t_start:.1f} s")
         lfm2_ref = phase_lfm2_gpu_vs_cpu(torch, paths["lfm2"])
         log(f"phase 13 (c) done at {time.perf_counter() - t_start:.1f} s")
+        var_rows = phase_variants(torch, qmat, card)
+        log(f"phase 14 done at {time.perf_counter() - t_start:.1f} s")
+        os.remove(paths.pop("lfm2"))
+        t0 = time.perf_counter()
+        paths["q4km"] = write_q4km(d)
+        log(f"q4km: 2.6B-Q4_K_M written in {time.perf_counter() - t0:.1f} s "
+            f"({os.path.getsize(paths['q4km']) / 1e9:.3f} GB)")
+        q4km_res = phase_q4km_offline(torch, qmat, paths, d, card)
+        log(f"phase 15 done at {time.perf_counter() - t_start:.1f} s")
+        q4km_ref = phase_q4km_gpu_vs_cpu(torch, qmat, paths["q4km"])
+        log(f"phase 16 done at {time.perf_counter() - t_start:.1f} s")
 
     qdot_entry = dict(
         name="qdot", route="cuda", source="miotts_tpu_torch/ops/csrc/qdot.cu",
@@ -1282,11 +1770,15 @@ def main() -> int:
                                  ("ms", "plain_ms", "bound_ms", "library_ms")},
         lfm2_16_slot_step={k: lfm2_step_summary(rows, k, LFM2_SLOTS) for k in
                            ("ms", "plain_ms", "bound_ms", "library_ms")},
+        q4km_single_stream_step={k: q4km_k1_step(rows, k) for k in
+                                 ("ms", "plain_ms", "bound_ms", "library_ms")},
         launches_by_path={"serving_bf16": serve_res["bf16"]["qdot_launches"],
                           "serving_int8": serve_res["int8"]["qdot_launches"],
                           "offline": main_res["qdot_launches"],
                           "lfm2_offline": lfm2_res["qdot_launches"],
-                          "lfm2_serving": lfm2_serve["qdot_launches"]})
+                          "lfm2_serving": lfm2_serve["qdot_launches"],
+                          **{f"q4km_{name}_offline": r["launches"]["K1"]
+                             for name, r in q4km_res.items()}})
     step_rows = [r for r in attn_rows if r["mode"] == "bf16"
                  and (r["shape"], r["B"], r["H"], r["H_kv"], r["D"],
                       r["S"]) == ATTN_STEP_SHAPE]
@@ -1327,15 +1819,19 @@ def main() -> int:
                           "lfm2_gpu_vs_cpu": lfm2_ref["k5_launches"],
                           "offline": main_res["k5_launches"],
                           "serving_bf16": serve_res["bf16"]["k5_launches"]})
+    variant_entries = [variant_entry(var_rows, q4km_res, q4km_ref, kernel)
+                       for kernel in VARIANTS]
     # the per-shape rows and every phase's numbers, on a line of their own
     # (the kernels line stays short)
     log("details " + json.dumps(dict(
         qdot_per_shape=rows, attn_per_shape=attn_rows, k5_per_shape=k5_rows,
         main_path=main_res, serving=serve_res, gpu_vs_cpu=ref_res,
         http=http_res, lfm2_offline=lfm2_res, lfm2_serving=lfm2_serve,
-        lfm2_gpu_vs_cpu=lfm2_ref)))
+        lfm2_gpu_vs_cpu=lfm2_ref, variants_per_shape=var_rows,
+        q4km_offline=q4km_res, q4km_gpu_vs_cpu=q4km_ref)))
     log(f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [qdot_entry, attn_entry, k5_entry]}))
+    print(json.dumps({"kernels": [qdot_entry, attn_entry, k5_entry]
+                      + variant_entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

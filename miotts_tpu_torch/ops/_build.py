@@ -32,6 +32,15 @@ KERNELS = {
         # x, x_is_bf16, v, packed, s, mins, y, M, K, N, group, stream
         "qdot_launch": [_P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P],
     }),
+    "qdot_gemv": ("qdot_gemv.cu", {
+        # x, v, s, mins, y, x_is_bf16, M, K, N, group, stream
+        "qdot_split_launch": [_P] * 5 + [_I] * 5 + [_P],
+        # x, v, s, mins, y, packed, K, N, group, stream
+        "qdot_group_launch": [_P] * 5 + [_I] * 4 + [_P],
+        # x, v, s, mins, y, x_is_bf16, K, N, group, stream
+        "qdot_w8a8_launch": [_P] * 5 + [_I] * 4 + [_P],
+        "qdot_w8a8_packed_launch": [_P] * 5 + [_I] * 4 + [_P],
+    }),
     "decode_attn": ("decode_attn.cu", {
         # q, q_scale, k, v, k_scale, v_scale, fill, q_pos, out, out_m, out_l,
         # B, H, H_kv, S, D, dtype, k/v strides (b, h, s), k/v scale strides

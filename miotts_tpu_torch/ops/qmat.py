@@ -19,21 +19,64 @@ No lane padding: the TPU's N -> 128 pad and M -> 8 pad have no counterpart
 on the GPU, so `n_out` equals N for tensors built here (the field is kept so
 padded trees from the JAX package slice the same way).
 
-`qdot` is the single matmul entry point for every LLM linear.  A CUDA
-tensor goes through the hand-written kernel `ops/csrc/qdot.cu` (and raises
-if it cannot build or launch); a CPU tensor goes through `qdot_plain`, the
-same function in plain torch.
+`qdot` is the single matmul entry point for every LLM linear.  It picks a
+kernel as the JAX package's `qdot` does, by the weight's `QdotRoute`:
+
+  K1  `qdot.cu`       the default dequant-matmul, any M
+  K2  `qdot_split`    packed weights at any M (MIOTTS_PACK4_SPLIT=1)
+  K3  `qdot_group`    M = 1, bf16 x (MIOTTS_QDOT_GEMV=groupdot)
+  K4  `qdot_w8a8`     M = 1, int8-quantized x (MIOTTS_QDOT_GEMV=w8a8)
+
+A CUDA tensor goes through the hand-written kernel (`ops/csrc/qdot.cu`,
+`ops/csrc/qdot_gemv.cu`) and raises if it cannot build or launch; a CPU
+tensor goes through the kernel's plain torch version (`*_plain`).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import os
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
 
 from ..gguf.quants import to_group_quant
 from ..gguf.reader import GGML_Q4_0, GGML_Q4_K
+
+GEMV_MODES = ("plain", "w8a8", "groupdot")
+
+
+@dataclass(frozen=True)
+class QdotRoute:
+    """The kernel choice of `qdot`, the JAX package's switches
+    (`miotts_tpu/ops/qmat.py`: `_gemv_mode`, `_use_pack4_split`,
+    `_gemv_m8`), resolved once (`from_env`) and carried by each QTensor.
+
+      gemv   the M = 1 kernel: "plain" (K1), "w8a8" (K4), "groupdot" (K3,
+             bf16 x only)
+      split  packed weights through K2 at every M
+      m8     pad M = 1 to 8 rows first, which bypasses the M = 1 kernels"""
+    gemv: str = "plain"
+    split: bool = False
+    m8: bool = False
+
+    def __post_init__(self):
+        if self.gemv not in GEMV_MODES:
+            raise ValueError(f"gemv must be one of {GEMV_MODES}, got "
+                             f"{self.gemv!r}")
+
+    @classmethod
+    def from_env(cls, env=None) -> "QdotRoute":
+        """MIOTTS_QDOT_GEMV (w8a8 / groupdot / plain), its alias
+        MIOTTS_QDOT_GROUPDOT=1, MIOTTS_PACK4_SPLIT=1 and MIOTTS_GEMV_M8=1,
+        read as the JAX package reads them."""
+        env = os.environ if env is None else env
+        gemv = env.get("MIOTTS_QDOT_GEMV", "")
+        if gemv not in GEMV_MODES:
+            gemv = ("groupdot" if env.get("MIOTTS_QDOT_GROUPDOT", "") == "1"
+                    else "plain")
+        return cls(gemv=gemv, split=env.get("MIOTTS_PACK4_SPLIT", "") == "1",
+                   m8=env.get("MIOTTS_GEMV_M8", "") == "1")
 
 
 @dataclass
@@ -46,6 +89,7 @@ class QTensor:
     group: int
     n_out: int = -1               # logical output dim (un-padded N)
     packed: bool = False
+    route: QdotRoute = QdotRoute()   # the kernel `qdot` takes for it
 
     @property
     def k(self) -> int:
@@ -58,10 +102,9 @@ class QTensor:
         return (n, self.k)
 
     def to(self, device) -> "QTensor":
-        return QTensor(
-            values=self.values.to(device), scales=self.scales.to(device),
-            mins=None if self.mins is None else self.mins.to(device),
-            group=self.group, n_out=self.n_out, packed=self.packed)
+        return replace(
+            self, values=self.values.to(device), scales=self.scales.to(device),
+            mins=None if self.mins is None else self.mins.to(device))
 
     @classmethod
     def from_group_quant(cls, gq) -> "QTensor":
@@ -122,8 +165,8 @@ class QTensor:
         g = self.group
         v3 = v.reshape(k // g, g, n)
         packed = (v3[:, : g // 2] | (v3[:, g // 2:] << 4)).reshape(k // 2, n)
-        return QTensor(values=packed.to(torch.uint8), scales=self.scales,
-                       mins=mins, group=g, n_out=self.n_out, packed=True)
+        return replace(self, values=packed.to(torch.uint8), mins=mins,
+                       packed=True)
 
 
 def qtensor_from_raw(raw: np.ndarray, ggml_type: int, rows: int, cols: int,
@@ -187,23 +230,123 @@ def concat_qtensors(tensors: list):
                    n_out=values.shape[1], packed=tensors[0].packed)
 
 
+def with_route(tree, route: QdotRoute):
+    """A params tree (dicts / lists) whose QTensors take `route`; the
+    tensors are shared, not copied."""
+    if isinstance(tree, QTensor):
+        return replace(tree, route=route)
+    if isinstance(tree, dict):
+        return {k: with_route(v, route) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [with_route(v, route) for v in tree]
+    return tree
+
+
+# ---------------------------------------------------------------------------
+# Plain versions: the JAX package's functions, step for step, in torch (the
+# CPU path, and what the CUDA kernels are held against)
+# ---------------------------------------------------------------------------
+
 def qdot_plain(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
-    """x [M, K] @ w [K, N] in plain torch: dequantize to f32, multiply in
-    f32, cast to x.dtype — the arithmetic of the TPU kernel's default
+    """K1.  x [M, K] @ w [K, N] in plain torch: dequantize to f32, multiply
+    in f32, cast to x.dtype — the arithmetic of the TPU kernel's default
     (f32-dequant) path and of the CUDA kernel."""
     return (x.float() @ qt.dequant_t(torch.float32)).to(x.dtype)
 
 
-def _qdot_cuda(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
-    """Launch `qdot_launch` (ops/csrc/qdot.cu) on the current stream."""
-    from ._build import load_kernels
+def _gemv_only(x: torch.Tensor, name: str) -> None:
+    if x.shape[0] != 1:
+        raise ValueError(f"{name} is a GEMV kernel (M=1), got M={x.shape[0]}")
+
+
+def _mins_term(xg: torch.Tensor, qt: QTensor) -> torch.Tensor:
+    """xg [M, K/g] (group sums of x) @ mins, or 0 without mins."""
+    return 0.0 if qt.mins is None else xg @ qt.mins
+
+
+def qdot_split_plain(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
+    """K2 (`_qdot_pallas_split`): x cast to f32 and split into each quant
+    group's lo / hi halves, each nibble plane dequantized in place and
+    contracted by its own half-K product; the mins term from the f32 group
+    sums of x, subtracted after; the output cast to x.dtype."""
+    if not qt.packed:
+        raise ValueError("qdot_split requires a packed QTensor")
+    M, K = x.shape
+    g, N = qt.group, qt.values.shape[1]
+    x3 = x.float().reshape(M, K // g, g)
+    x_lo = x3[:, :, : g // 2].reshape(M, K // 2)
+    x_hi = x3[:, :, g // 2:].reshape(M, K // 2)
+    v3 = qt.values.to(torch.int32).reshape(K // g, g // 2, N)
+    s = qt.scales[:, None, :]
+    w_lo = ((v3 & 0xF).float() * s).reshape(K // 2, N)
+    w_hi = ((v3 >> 4).float() * s).reshape(K // 2, N)
+    out = x_lo @ w_lo + x_hi @ w_hi
+    return (out - _mins_term(x3.sum(dim=2), qt)).to(x.dtype)
+
+
+def qdot_group_plain(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
+    """K3 (`_qdot_group_pallas`), M = 1: per-group partial sums d[b, n] of
+    bf16(x) times the integer values, in f32; then sum_b d[b, n] * s[b, n];
+    the mins term from the exact f32 group sums of x; cast to x.dtype."""
+    _gemv_only(x, "qdot_group")
+    K = x.shape[1]
+    g = qt.group
+    xb = x.to(torch.bfloat16).float().reshape(K // g, 1, g)
+    v = qt.unpacked_values().float().reshape(K // g, g, -1)
+    d = torch.bmm(xb, v)[:, 0]                       # [K/g, N]
+    out = (d * qt.scales).sum(dim=0, keepdim=True)
+    xg = x.float().reshape(1, K // g, g).sum(dim=2)
+    return (out - _mins_term(xg, qt)).to(x.dtype)
+
+
+def quantize_groups(x: torch.Tensor, group: int):
+    """Per-group symmetric int8 quantization of a row x [1, K], as
+    `_qdot_w8a8_pallas`: sx = amax / 127 (1 where amax is 0), xq =
+    clip(round_half_even(x / sx), -127, 127).  Returns (xq [K/g, g] as f32
+    integers, sx [K/g])."""
+    xf = x.float().reshape(-1, group)
+    amax = xf.abs().amax(dim=1)
+    sx = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    xq = torch.clamp(torch.round(xf / sx[:, None]), -127, 127)
+    return xq, sx
+
+
+def qdot_w8a8_plain(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
+    """K4 (`_qdot_w8a8_pallas`, packed and unpacked), M = 1: x quantized per
+    group to int8, integer per-group partials d[b, n] = sum xq * v (exact:
+    |d| < 2^24, so the f32 product below is exact), the scale s * sx riding
+    them; the mins term from the group sums of x^ = xq * sx (not of x);
+    cast to x.dtype."""
+    _gemv_only(x, "qdot_w8a8")
+    g = qt.group
+    xq, sx = quantize_groups(x, g)
+    v = qt.unpacked_values().float().reshape(xq.shape[0], g, -1)
+    d = torch.bmm(xq[:, None, :], v)[:, 0]          # [K/g, N] integers
+    out = (d * (qt.scales * sx[:, None])).sum(dim=0, keepdim=True)
+    xg = (sx * xq.sum(dim=1))[None]
+    return (out - _mins_term(xg, qt)).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# CUDA wrappers: check, allocate, launch on the current stream, count
+# ---------------------------------------------------------------------------
+
+def _checked(name: str, x: torch.Tensor, qt: QTensor,
+             xtypes=(torch.bfloat16, torch.float32),
+             packed: bool | None = None, gemv: bool = False) -> int:
+    """Raise on what kernel `name` does not take; returns N."""
     M, K = x.shape
     vals = qt.values
     N = vals.shape[1]
-    if x.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"qdot kernel takes bf16/f32 x, got {x.dtype}")
+    if x.dtype not in xtypes:
+        raise TypeError(f"{name} kernel takes {xtypes} x, got {x.dtype}")
+    if gemv:
+        _gemv_only(x, name)
+    if packed is not None and qt.packed != packed:
+        raise ValueError(f"{name} kernel requires a "
+                         f"{'packed' if packed else 'unpacked'} QTensor")
     if qt.group not in (16, 32):
-        raise ValueError(f"qdot kernel takes group 16 or 32, got {qt.group}")
+        raise ValueError(f"{name} kernel takes group 16 or 32, got {qt.group}")
     want_v = torch.uint8 if qt.packed else torch.int8
     if vals.dtype != want_v:
         raise TypeError(f"values must be {want_v}, got {vals.dtype}")
@@ -213,24 +356,114 @@ def _qdot_cuda(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     tensors = [x, vals, qt.scales] + ([] if qt.mins is None else [qt.mins])
     for t in tensors:
         if not t.is_cuda or t.device != x.device:
-            raise ValueError("qdot kernel: every tensor must be on x's GPU")
+            raise ValueError(f"{name} kernel: every tensor must be on x's GPU")
         if not t.is_contiguous():
-            raise ValueError("qdot kernel: tensors must be contiguous")
+            raise ValueError(f"{name} kernel: tensors must be contiguous")
     for t in tensors[2:]:
         if t.dtype != torch.float32 or tuple(t.shape) != (K // qt.group, N):
             raise ValueError(f"scales/mins must be f32 [{K // qt.group}, "
                              f"{N}], got {t.dtype} {tuple(t.shape)}")
+    return N
+
+
+def _raise_on(err: int, fn: str) -> None:
+    if err:
+        raise RuntimeError(f"{fn} failed: CUDA error {err}")
+
+
+def _launch(fn: str, x, qt: QTensor, y, *ints) -> None:
+    """fn(x, v, s, mins, y, *ints, stream) of ops/csrc/qdot_gemv.cu."""
+    from ._build import load_kernels
+    _raise_on(getattr(load_kernels()["qdot_gemv"], fn)(
+        x.data_ptr(), qt.values.data_ptr(), qt.scales.data_ptr(),
+        None if qt.mins is None else qt.mins.data_ptr(), y.data_ptr(), *ints,
+        torch.cuda.current_stream(x.device).cuda_stream), fn)
+
+
+def _qdot_cuda(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
+    """K1: `qdot_launch` (ops/csrc/qdot.cu)."""
+    from ._build import load_kernels
+    N = _checked("qdot", x, qt)
+    M, K = x.shape
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    lib = load_kernels()["qdot"]
-    err = lib.qdot_launch(
-        x.data_ptr(), int(x.dtype == torch.bfloat16), vals.data_ptr(),
+    _raise_on(load_kernels()["qdot"].qdot_launch(
+        x.data_ptr(), int(x.dtype == torch.bfloat16), qt.values.data_ptr(),
         int(qt.packed), qt.scales.data_ptr(),
         None if qt.mins is None else qt.mins.data_ptr(), y.data_ptr(),
-        M, K, N, qt.group, torch.cuda.current_stream(x.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"qdot kernel launch failed: CUDA error {err}")
+        M, K, N, qt.group, torch.cuda.current_stream(x.device).cuda_stream),
+        "qdot_launch")
     qdot.kernel_launches += 1
     return y
+
+
+def _qdot_split_cuda(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
+    """K2: `qdot_split_launch` (ops/csrc/qdot_gemv.cu)."""
+    N = _checked("qdot_split", x, qt, packed=True)
+    M, K = x.shape
+    y = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    _launch("qdot_split_launch", x, qt, y,
+            int(x.dtype == torch.bfloat16), M, K, N, qt.group)
+    qdot_split.kernel_launches += 1
+    return y
+
+
+def _qdot_group_cuda(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
+    """K3: `qdot_group_launch` (ops/csrc/qdot_gemv.cu), bf16 x only."""
+    N = _checked("qdot_group", x, qt, xtypes=(torch.bfloat16,), gemv=True)
+    K = x.shape[1]
+    y = torch.empty((1, N), dtype=x.dtype, device=x.device)
+    _launch("qdot_group_launch", x, qt, y, int(qt.packed), K, N, qt.group)
+    qdot_group.kernel_launches += 1
+    return y
+
+
+def _qdot_w8a8_cuda(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
+    """K4a (unpacked) / K4b (packed): `qdot_w8a8_launch` /
+    `qdot_w8a8_packed_launch` (ops/csrc/qdot_gemv.cu)."""
+    N = _checked("qdot_w8a8", x, qt, gemv=True)
+    K = x.shape[1]
+    y = torch.empty((1, N), dtype=x.dtype, device=x.device)
+    fn = "qdot_w8a8_packed_launch" if qt.packed else "qdot_w8a8_launch"
+    _launch(fn, x, qt, y, int(x.dtype == torch.bfloat16), K, N, qt.group)
+    if qt.packed:
+        qdot_w8a8.packed_launches += 1
+    else:
+        qdot_w8a8.kernel_launches += 1
+    return y
+
+
+# ---------------------------------------------------------------------------
+# Entry points: the kernel for a CUDA tensor, its plain version for a CPU one
+# ---------------------------------------------------------------------------
+
+def qdot_split(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
+    """K2 on x [M, K] and a packed QTensor -> [M, N]."""
+    return _qdot_split_cuda(x, qt) if x.is_cuda else qdot_split_plain(x, qt)
+
+
+def qdot_group(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
+    """K3 on x [1, K] -> [1, N]."""
+    return _qdot_group_cuda(x, qt) if x.is_cuda else qdot_group_plain(x, qt)
+
+
+def qdot_w8a8(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
+    """K4 on x [1, K] -> [1, N] (K4a for int8 values, K4b for packed)."""
+    return _qdot_w8a8_cuda(x, qt) if x.is_cuda else qdot_w8a8_plain(x, qt)
+
+
+def _qdot_routed(x: torch.Tensor, w: QTensor) -> torch.Tensor:
+    """x [M, K] through the kernel of w.route, in the JAX package's order
+    (`miotts_tpu/ops/qmat.py:qdot`): w8a8 at M = 1, then groupdot at M = 1
+    for bf16 x, then split for packed weights, then K1.  (The TPU's M -> 8
+    and N -> 128 padding and its tiling gate have no counterpart here.)"""
+    route, m = w.route, x.shape[0]
+    if m == 1 and route.gemv == "w8a8":
+        return qdot_w8a8(x, w)
+    if m == 1 and route.gemv == "groupdot" and x.dtype == torch.bfloat16:
+        return qdot_group(x, w)
+    if w.packed and route.split:
+        return qdot_split(x, w)
+    return _qdot_cuda(x, w) if x.is_cuda else qdot_plain(x, w)
 
 
 def qdot(x: torch.Tensor, w) -> torch.Tensor:
@@ -239,10 +472,10 @@ def qdot(x: torch.Tensor, w) -> torch.Tensor:
     if isinstance(w, QTensor):
         lead = x.shape[:-1]
         x2 = x.reshape(-1, x.shape[-1]).contiguous()
-        if x2.is_cuda:
-            y = _qdot_cuda(x2, w)
-        else:
-            y = qdot_plain(x2, w)
+        m = x2.shape[0]
+        if m == 1 and w.route.m8:
+            x2 = torch.cat([x2, x2.new_zeros((7, x2.shape[1]))])
+        y = _qdot_routed(x2, w)[:m]
         n = w.shape[0]
         if n != y.shape[1]:
             y = y[:, :n]
@@ -250,4 +483,9 @@ def qdot(x: torch.Tensor, w) -> torch.Tensor:
     return torch.matmul(x, w.T.to(x.dtype))
 
 
-qdot.kernel_launches = 0
+# launches of each kernel (the wrapper adds one where it launches)
+qdot.kernel_launches = 0                 # K1
+qdot_split.kernel_launches = 0           # K2
+qdot_group.kernel_launches = 0           # K3
+qdot_w8a8.kernel_launches = 0            # K4a (int8 values)
+qdot_w8a8.packed_launches = 0            # K4b (packed nibbles)

@@ -12,13 +12,16 @@ emission slice (`decode_codes_batch_sliced[_async]`).
 
 Everything runs on `EngineConfig.device` ("cuda" by default).  Asking for
 the GPU when none is available raises; the engine never carries on quietly
-on the CPU.
+on the CPU.  The quantized linears take the kernel route of
+`EngineConfig.qdot_route`, or of the JAX package's environment switches
+(`ops/qmat.QdotRoute.from_env`) read once when the engine is built.
 """
 
 from __future__ import annotations
 
+import copy
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
@@ -28,6 +31,7 @@ from ..models.codec import codec_decode_spec, exact_f32, load_codec_params
 from ..models.llm import (LLMConfig, init_kv_cache, llm_generate_chunk,
                           llm_prefill, load_llm_params)
 from ..ops.istft import spec_to_audio_bucketed
+from ..ops.qmat import QdotRoute, with_route
 from ..text import build_prompt, normalize_tts_text, parse_speech_tokens
 from ..text.tokenizer import Tokenizer
 from .profile import StreamProfile
@@ -90,6 +94,9 @@ class EngineConfig:
     pipeline_codec: bool | None = None
     i16_transfer: bool | None = None
     device: str = "cuda"
+    # the kernel route of every quantized linear (None: from the
+    # environment, MIOTTS_QDOT_GEMV / MIOTTS_PACK4_SPLIT / MIOTTS_GEMV_M8)
+    qdot_route: QdotRoute | None = None
 
     @property
     def serving_pipeline_codec(self) -> bool:
@@ -134,7 +141,9 @@ class VoiceModel:
 
 class TTSEngine:
     def __init__(self, config: EngineConfig):
-        self.config = config
+        # the route is resolved once, here
+        self.config = replace(config, qdot_route=(config.qdot_route
+                                                  or QdotRoute.from_env()))
         self.device = resolve_device(config.device)
         # effective first-commit threshold: <= 0 disables the early first
         # emission; never above min_commit
@@ -151,8 +160,9 @@ class TTSEngine:
         if config.model_path:
             with GGUFReader(config.model_path) as r:
                 self.llm_cfg = LLMConfig.from_gguf(r)
-                self.llm_params, _ = load_llm_params(
+                params, _ = load_llm_params(
                     r, self.llm_cfg, dtype=self.dtype, device=self.device)
+                self.llm_params = with_route(params, self.config.qdot_route)
                 self.tokenizer = Tokenizer.from_gguf(r)
             self.code_table = self.tokenizer.speech_code_table()
             im_end = self.tokenizer.token_to_id.get("<|im_end|>", -1)
@@ -166,6 +176,16 @@ class TTSEngine:
         # one KV cache reused across requests (prefill overwrites it and
         # `fill` masks the rest); reallocated when the size bucket changes
         self._cache = None
+
+    def with_qdot_route(self, route: QdotRoute) -> "TTSEngine":
+        """Another engine over this one's loaded weights, codec and
+        tokenizer (shared, not copied) whose quantized linears take
+        `route`, with a KV cache of its own."""
+        eng = copy.copy(self)
+        eng.config = replace(self.config, qdot_route=route)
+        eng.llm_params = with_route(self.llm_params, route)
+        eng._cache = None
+        return eng
 
     # ------------------------------------------------------------------
     # LLM: speech-token generation

@@ -62,7 +62,7 @@ def test_every_port_module_has_a_counterpart_layout():
     """The port mirrors the JAX package's layout."""
     for sub in ("gguf", "text", "audio", "ops", "models", "runtime"):
         assert (PORT / sub / "__init__.py").exists(), sub
-    assert (PORT / "ops" / "csrc" / "qdot.cu").exists()
-    assert (PORT / "ops" / "csrc" / "decode_attn.cu").exists()
-    assert (PORT / "ops" / "csrc" / "decode_attn_single.cu").exists()
+    for src in ("qdot.cu", "qdot_gemv.cu", "decode_attn.cu",
+                "decode_attn_single.cu"):
+        assert (PORT / "ops" / "csrc" / src).exists(), src
     assert miotts_tpu_torch.__version__
