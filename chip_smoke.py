@@ -54,7 +54,10 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
  12. (d) LFM2 serving: ContinuousBatcher(16 slots, 20-step chunks) on the
      same engine serves 24 requests of 96 tokens (bf16 cache): K6 = 6 x
      device steps, qdot = 65 x (device steps + prefill waves), K5 none;
-     then profiles 16 requests x 40 tokens;
+     then profiles 16 requests x 40 tokens; then the same engine's weights
+     under MIOTTS_QDOT_BF16=after serve 16 requests of 96 tokens (K1v = 65
+     x (device steps + prefill waves), K6 = 6 x device steps, K1 and K5
+     none) and are profiled the same way;
  13. (c) LFM2 GPU vs CPU: layers 0-5 (two attention layers) of the same
      file at full width, f32, a prefill + 20 greedy steps on the card (K1,
      K5) and on the CPU plain path: identical tokens, logits within 1e-4.
@@ -66,18 +69,34 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      1e-5, bf16 1e-2; kernel / plain / library / bound times;
  15. 2.6B-Q4_K_M offline at full width and depth (written by the port's
      writer, timed): one engine per route (default K1, w8a8, groupdot,
-     split; the routes share the loaded weights) runs synthesize_to_file
-     at temperature 0, 128 tokens, bf16; checks each WAV and the launches
-     (w8a8: K4a 64 and K4b 65 per decode step, K1 129 per prefill;
-     groupdot: K3 129 per step, K1 129 per prefill; split: K2 65 and K1 64
+     split, bf16dot, bf16after; the routes share the loaded weights) runs
+     synthesize_to_file at temperature 0, 128 tokens, bf16; checks each
+     WAV and the launches (w8a8: K4a 64 and K4b 65 per decode step, K1 129
+     per prefill; groupdot: K3 129 per step, K1 129 per prefill; split: K2
+     65 and K1 64 per step and per prefill; bf16dot / bf16after: K1v 129
      per step and per prefill; default: K1 129); prints the rates, a
-     profile and each route's token agreement with the default route;
+     profile (not of bf16dot: the time limit) and each route's token
+     agreement with the default route;
  16. 2.6B-Q4_K_M GPU vs CPU: layers 0-1, a prefill + 8 greedy steps per
      route on the card, then on the CPU plain path fed the card's tokens:
      split and w8a8 (f32) greedy tokens identical, split's logits within
      1e-4 at every step, w8a8's within 5e-2 RMS (the int8 quantization's
-     rounding ties part the two); groupdot (bf16) prefill and first step
-     within 2e-2.
+     rounding ties part the two); groupdot and bf16after (bf16) prefill and
+     first step within 2e-2;
+ 17. K1v vs plain: the bf16-dot variants (`qdot_bf16`, MIOTTS_QDOT_BF16=1
+     and after) against `qdot_bf16_plain` at phase 2's shapes (0.1B-Q8_0 at
+     M = 1, 64; the 2.6B-Q4_K_M formats at M = 1, 7, 64; LFM2 at M = 1,
+     16), f32 x within 1e-5 and bf16 x within 1e-2, with kernel / eager /
+     plain / library / bound times beside K1's;
+ 18. the probes: K8 (`qdot_dma_floor`, K1's blocks) at bench_qmat.py's
+     2.6B shapes (its own int8 g32 tensor, K1 timed on the same copies) and
+     at the 0.1B / LFM2 Q8_0 shapes, and K7 (`dma_floor`, K5's blocks) at
+     phase 10's and phase 6's shapes (bf16 cache): each called once per
+     shape with the counts at 0 (the probe path), then against its plain
+     version (K7 bit for bit, K8 within 1e-6) and timed over copies larger
+     than the L2; prints each probe's GB/s beside the kernel it floors and
+     fails if a probe streams faster than 1.05 x 3.35 TB/s (skipped
+     bytes).
 
 Kernel times are device times: the calls are captured in a CUDA graph and
 replayed between CUDA events, cycling over weight (or KV-cache) copies
@@ -94,10 +113,12 @@ numbers.  Imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import http.client
 import json
 import math
+import multiprocessing
 import os
 import subprocess
 import sys
@@ -115,6 +136,8 @@ KERNEL_TOL_F32 = 1e-5          # f32 output: summation order only
 REF_TOL = 1e-4                 # GPU vs CPU reference, f32 LLM prefill / codec
 ATTN_TOL = 1e-2                # attention kernel vs plain: bf16 rounding of p;
                                # int8: of the row scale (one quantized step)
+PROBE_TOL = 1e-6               # K8 vs plain: f32 sums of the tiles in another order
+PROBE_MAX_RATE = 1.05 * HBM_BYTES_PER_S   # a probe above it skipped bytes
 
 # 0.1B-Q8_0 (the main path's model, bench.py's "0.1b-q8_0" at full width)
 DIM, LAYERS, HEADS, KV_HEADS, HEAD_DIM, FF = 768, 12, 12, 4, 64, 2048
@@ -143,6 +166,7 @@ LFM2_ATTN_IDX = (2, 5, 8, 10, 12, 14)
 LFM2_LAYERS = 16
 LFM2_QDOT_PER_STEP = LFM2_LAYERS * 4 + 1   # in/out_proj or QKV/wo, gate/up, down
 LFM2_SLOTS, LFM2_REQ = 16, 24
+LFM2_AFTER_REQ = 16                        # serving under MIOTTS_QDOT_BF16=after
 LFM2_REF_LAYERS = 6                        # GPU vs CPU: layers 0-5, 2 attention
 # K5 shapes (label, B, H, H_kv, D, S)
 K5_SHAPES = [("lfm2-1.2b", 1, 32, 8, 64, 256), ("lfm2-1.2b", 1, 32, 8, 64, 512),
@@ -162,7 +186,13 @@ Q4KM_REF_LAYERS = 2                          # GPU vs CPU: layers 0-1
 # the JAX package's switches of each route (ops/qmat.QdotRoute.from_env)
 Q4KM_ROUTES = {"default": {}, "w8a8": {"MIOTTS_QDOT_GEMV": "w8a8"},
                "groupdot": {"MIOTTS_QDOT_GEMV": "groupdot"},
-               "split": {"MIOTTS_PACK4_SPLIT": "1"}}
+               "split": {"MIOTTS_PACK4_SPLIT": "1"},
+               "bf16dot": {"MIOTTS_QDOT_BF16": "1"},
+               "bf16after": {"MIOTTS_QDOT_BF16": "after"}}
+Q4KM_UNPROFILED = ("bf16dot",)               # the profiler's time, see phase 15
+Q4KM_AGREE_TOKENS = 32      # greedy tokens compared with the default route
+# bench_qmat.py's SHAPES: the 2.6B per-layer (K, N) of K8's own configuration
+K8_SHAPES = [(2560, 3840), (2560, 2560), (2560, 16384), (8192, 2560)]
 # GPU vs CPU under w8a8: each K4 call agrees with its plain version on the
 # same input to ~3e-7, but a 1e-5 difference upstream flips some int8
 # roundings (each moves a whole weight row's term by 1/254 of its group's
@@ -397,6 +427,17 @@ def phase_kernels(torch, qmat, card: str) -> list[dict]:
 # Phase 14: the single-stream routes (K2, K3, K4a, K4b) vs plain
 # ---------------------------------------------------------------------------
 
+# the Q8_0 (g32, no mins) linears of the 0.1B and LFM2-1.2B models: (label,
+# K, N)
+Q8_LINEARS = (
+    ("0.1b wqkv", DIM, HEADS * HEAD_DIM + 2 * KV_HEADS * HEAD_DIM),
+    ("0.1b wo", HEADS * HEAD_DIM, DIM), ("0.1b w_gateup", DIM, 2 * FF),
+    ("0.1b w_down", FF, DIM), ("0.1b output", DIM, 256 + 3 + N_SPEECH),
+    ("lfm2 in_proj", 2048, 6144), ("lfm2 out_proj/wo", 2048, 2048),
+    ("lfm2 wqkv", 2048, 3072), ("lfm2 w_gateup", 2048, 16384),
+    ("lfm2 w_down", 8192, 2048), ("lfm2 output", 2048, 256 + 3 + N_SPEECH))
+
+
 def q4km_cases(torch, qmat, gen):
     """(label, QTensor) at the 2.6B-Q4_K_M widths, then the Q8_0 (g32, no
     mins) shapes of the 0.1B and LFM2-1.2B models."""
@@ -410,14 +451,7 @@ def q4km_cases(torch, qmat, gen):
         ("2.6b w_down q6_k", q(8192, 2560, "q6_k")),
         ("2.6b output q4_k", q(2560, 256 + 3 + N_SPEECH, "q4_k")),
     ]
-    kvd = KV_HEADS * HEAD_DIM
-    for label, k, n in (
-            ("0.1b wqkv", DIM, HEADS * HEAD_DIM + 2 * kvd),
-            ("0.1b wo", HEADS * HEAD_DIM, DIM), ("0.1b w_gateup", DIM, 2 * FF),
-            ("0.1b w_down", FF, DIM), ("0.1b output", DIM, 256 + 3 + N_SPEECH),
-            ("lfm2 in_proj", 2048, 6144), ("lfm2 out_proj/wo", 2048, 2048),
-            ("lfm2 wqkv", 2048, 3072), ("lfm2 w_gateup", 2048, 16384),
-            ("lfm2 w_down", 8192, 2048), ("lfm2 output", 2048, 256 + 3 + N_SPEECH)):
+    for label, k, n in Q8_LINEARS:
         cases.append((label + " q8_0", q(k, n, "q8_0")))
     return cases
 
@@ -528,6 +562,234 @@ def q4km_step(rows: list[dict], kernel: str, key: str):
           and r["shape"].startswith("2.6b")}
     layer = sum(by[n] for n in Q4KM_LAYER_LINEARS[kernel])
     return Q4KM_LAYERS * layer + (by["output"] if kernel != "K4a" else 0)
+
+
+# ---------------------------------------------------------------------------
+# Phase 17: K1v (the bf16-dot variants) vs plain
+# ---------------------------------------------------------------------------
+
+def phase_bf16(torch, qmat, card: str, k1_rows: list[dict]) -> list[dict]:
+    """K1v in both modes against its plain version at phase 2's shapes (f32
+    x within 1e-5, bf16 x within 1e-2), then, at bf16 x (the engine's
+    activations), the device time of each mode beside K1's (phase 2's row
+    of the same shape), the plain version's (mode after), `torch.matmul` on
+    a dequantized bf16 weight, and the bound: bytes over 3.35 TB/s or 2MKN
+    over the bf16 tensor-core rate."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    k1 = {(r["shape"], r["M"]): r for r in k1_rows}
+    modes = qmat.BF16_MODES[1:]          # "1", "after"
+    rows = []
+    for label, qt, ms_list in shape_cases(torch, qmat, gen):
+        K, N = qt.k, qt.shape[0]
+        n_copies = max(2, min(256, -(-L2_FLUSH_BYTES // qt_bytes(qt))))
+        qts = copies_of(torch, qmat, qt, n_copies)
+        w_lib = [c.dequant_t(torch.float32).to(torch.bfloat16)
+                 for c in qts[: max(2, min(256, -(-L2_FLUSH_BYTES
+                                                 // (2 * K * N))))]]
+        for m in ms_list:
+            err, abs_err = {}, 0.0
+            for mode in modes:
+                for dtype, tol in ((torch.float32, KERNEL_TOL_F32),
+                                   (torch.bfloat16, KERNEL_TOL_BF16)):
+                    x = torch.randn((m, K), generator=gen,
+                                    device="cuda").to(dtype)
+                    got = qmat.qdot_bf16(x, qt, mode)
+                    want = qmat.qdot_bf16_plain(x, qt, mode)
+                    torch.cuda.synchronize()
+                    if got.shape != (m, N) or got.dtype != dtype:
+                        raise AssertionError(f"K1v {label} M={m}: bad output "
+                                             f"{tuple(got.shape)} {got.dtype}")
+                    e = rel_err(got.float(), want.float())
+                    if not e < tol:
+                        raise AssertionError(f"K1v {label} M={m} mode {mode} "
+                                             f"{dtype}: kernel vs plain rel "
+                                             f"err {e} >= {tol}")
+                    err[(mode, str(dtype))] = e
+                    abs_err = max(abs_err, float((got.float() - want.float())
+                                                 .abs().max()))
+            # x is bf16 here: the engine's activations
+            n_graph = max(20, min(256, n_copies))
+            k_ms = {mode: graph_ms(torch, lambda i, mode=mode: qmat.qdot_bf16(
+                x, qts[i % n_copies], mode), n_graph) for mode in modes}
+            p_ms = graph_ms(torch, lambda i: qmat.qdot_bf16_plain(
+                x, qts[i % n_copies], "after"), 10)
+            l_ms = graph_ms(torch, lambda i: torch.matmul(
+                x, w_lib[i % len(w_lib)]), max(20, min(256, len(w_lib))))
+            e_ms = time_ms(torch, lambda i: qmat.qdot_bf16(
+                x, qts[i % n_copies], "after"), 50)
+            nbytes = qt_bytes(qt) + 2 * m * K + 2 * m * N
+            flops = 2.0 * m * K * N
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = flops / PEAK_FLOPS * 1e3
+            row = dict(shape=label, M=m, K=K, N=N, bytes=nbytes, flops=flops,
+                       group=qt.group, packed=qt.packed,
+                       mins=qt.mins is not None, ms=k_ms["after"],
+                       ms_mode1=k_ms["1"], plain_ms=p_ms, library_ms=l_ms,
+                       eager_ms=e_ms, bound_ms=max(t_bytes, t_ops),
+                       bound_by="bytes" if t_bytes >= t_ops else "operations",
+                       k1_ms=k1[(label, m)]["ms"], max_abs_err=abs_err,
+                       rel_err_f32=max(v for (_, d), v in err.items()
+                                       if d == str(torch.float32)),
+                       rel_err_bf16=max(v for (_, d), v in err.items()
+                                        if d == str(torch.bfloat16)))
+            rows.append(row)
+            log(f"K1v {label:28s} M={m:<3d} K={K:<5d} N={N:<6d} kernel after "
+                f"{k_ms['after']:.4f} / 1 {k_ms['1']:.4f} ms (eager "
+                f"{e_ms:.4f})  K1 {row['k1_ms']:.4f} ms  plain {p_ms:.4f} ms"
+                f"  library {l_ms:.4f} ms  bound {row['bound_ms']:.4f} ms "
+                f"({row['bound_by']})  rel_err f32 {row['rel_err_f32']:.2e} "
+                f"bf16 {row['rel_err_bf16']:.2e}  [{card}]")
+        del qts, w_lib
+        torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 18: the bandwidth-floor probes K7 / K8
+# ---------------------------------------------------------------------------
+
+def probe_qtensors(torch, qmat, gen):
+    """(label, QTensor) of K8's domain (int8 values, g32, f32 scales): at
+    bench_qmat.py's 2.6B shapes its own tensor (values 0..15, scales in
+    [0.01, 0.03), mins in [0, 0.01): make_qt), then the 0.1B and LFM2-1.2B
+    Q8_0 linears."""
+    def bench_qt(k, n):
+        return qmat.QTensor(
+            values=torch.randint(0, 16, (k, n), generator=gen, device="cuda",
+                                 dtype=torch.int32).to(torch.int8),
+            scales=torch.rand((k // 32, n), generator=gen, device="cuda")
+            * 0.02 + 0.01,
+            mins=torch.rand((k // 32, n), generator=gen, device="cuda") * 0.01,
+            group=32, n_out=n)
+    cases = [(f"2.6b bench_qmat {k}x{n}", bench_qt(k, n)) for k, n in K8_SHAPES]
+    for label, k, n in Q8_LINEARS:
+        cases.append((label + " q8_0", rand_qtensor(torch, qmat, k, n, "q8_0",
+                                                    gen)))
+    return cases
+
+
+def probe_counters(qmat, da):
+    return {"K7": (da.dma_floor, "kernel_launches"),
+            "K8": (qmat.qdot_dma_floor, "kernel_launches")}
+
+
+def phase_probes(torch, qmat, card: str, k5_rows: list[dict],
+                 attn_rows: list[dict]) -> dict:
+    """The probe path (each probe once per shape, counted), then each probe
+    against its plain version (K7 bit for bit, K8 within 1e-6) and timed
+    over copies larger than the L2, beside the kernel it floors: K8 beside
+    K1 at M = 1 (bf16 x) on the same copies, K7 beside K5 (phase 10) and
+    K6 (phase 6) at the same shape (bf16 cache).  Fails if a probe streams
+    faster than PROBE_MAX_RATE."""
+    from miotts_tpu_torch.ops import decode_attn as da
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    k8_cases = probe_qtensors(torch, qmat, gen)
+    k7_cases = []
+    for label, B, H, H_kv, D, S in K5_SHAPES + ATTN_SHAPES:
+        k, v = (torch.randn((B, H_kv, S, D), generator=gen, device="cuda")
+                .bfloat16() for _ in range(2))
+        k7_cases.append(((label, B, H, H_kv, D, S), k, v))
+
+    counters = probe_counters(qmat, da)
+    reset_counts(counters)
+    for _, qt in k8_cases:
+        qmat.qdot_dma_floor(qt)
+    for _, k, v in k7_cases:
+        da.dma_floor(k, v)
+    torch.cuda.synchronize()
+    launches = read_counts(counters)
+    if launches != {"K7": len(k7_cases), "K8": len(k8_cases)}:
+        raise AssertionError(f"probes: launches {launches} for "
+                             f"{len(k7_cases)} K7 and {len(k8_cases)} K8 "
+                             f"shapes")
+
+    def check_rate(name, label, nbytes, ms):
+        rate = nbytes / (ms * 1e-3)
+        if rate > PROBE_MAX_RATE:
+            raise AssertionError(f"{name} {label}: {rate / 1e9:.1f} GB/s "
+                                 f"exceeds 1.05 x HBM: bytes were skipped")
+        return rate
+
+    k8_rows = []
+    for label, qt in k8_cases:
+        K, N = qt.k, qt.shape[0]
+        got = qmat.qdot_dma_floor(qt)
+        want = qmat.qdot_dma_floor_plain(qt)
+        torch.cuda.synchronize()
+        e = rel_err(got, want)
+        if got.shape != (1, N) or not e < PROBE_TOL:
+            raise AssertionError(f"K8 {label}: kernel vs plain rel err {e}")
+        streamed = qt.values.numel() + qt.scales.numel() * 4
+        n_copies = max(2, min(256, -(-L2_FLUSH_BYTES // streamed)))
+        qts = copies_of(torch, qmat, qt, n_copies)
+        x = torch.randn((1, K), generator=gen, device="cuda").bfloat16()
+        n_graph = max(20, min(256, n_copies))
+        p_ms = graph_ms(torch, lambda i: qmat.qdot_dma_floor(
+            qts[i % n_copies]), n_graph)
+        plain_ms = graph_ms(torch, lambda i: qmat.qdot_dma_floor_plain(
+            qts[i % n_copies]), 10)
+        k1_ms = graph_ms(torch, lambda i: qmat._qdot_cuda(
+            x, qts[i % n_copies]), n_graph)
+        nbytes = streamed + 4 * N
+        k1_bytes = qt_bytes(qt) + 2 * K + 2 * N
+        rate = check_rate("K8", label, nbytes, p_ms)
+        row = dict(shape=label, K=K, N=N, bytes=nbytes, ms=p_ms,
+                   plain_ms=plain_ms, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                   gb_s=rate / 1e9, k1_ms=k1_ms, k1_bytes=k1_bytes,
+                   k1_gb_s=k1_bytes / (k1_ms * 1e-3) / 1e9,
+                   max_abs_err=float((got - want).abs().max()), rel_err=e)
+        k8_rows.append(row)
+        log(f"K8 {label:26s} K={K:<5d} N={N:<6d} probe {p_ms:.4f} ms "
+            f"({row['gb_s']:.1f} GB/s)  plain {plain_ms:.4f} ms  bound "
+            f"{row['bound_ms']:.4f} ms  | K1 M=1 {k1_ms:.4f} ms "
+            f"({row['k1_gb_s']:.1f} GB/s)  rel_err {e:.2e}  [{card}]")
+        del qts
+        torch.cuda.empty_cache()
+
+    def beside(rows, key):
+        r = next((r for r in rows if r["mode"] == "bf16" and (
+            r["shape"], r["B"], r["H"], r["H_kv"], r["D"], r["S"]) == key),
+            None)
+        return None if r is None else dict(
+            ms=r["ms"], gb_s=r["bytes"] / (r["ms"] * 1e-3) / 1e9)
+
+    k7_rows = []
+    for key, k, v in k7_cases:
+        label, B, H, H_kv, D, S = key
+        got = da.dma_floor(k, v)
+        want = da.dma_floor_plain(k, v)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"K7 {key}: kernel differs from plain (max "
+                                 f"{float((got - want).abs().max())})")
+        s_tile = min(S, 512)
+        streamed = 2 * B * H_kv * (S // s_tile) * s_tile * D * k.element_size()
+        n_copies = max(2, min(512, -(-L2_FLUSH_BYTES // streamed)))
+        copies = [(k, v)] + [(k.clone(), v.clone())
+                             for _ in range(n_copies - 1)]
+        p_ms = graph_ms(torch, lambda i: da.dma_floor(
+            *copies[i % n_copies]), max(20, n_copies))
+        plain_ms = graph_ms(torch, lambda i: da.dma_floor_plain(
+            *copies[i % n_copies]), 4)
+        nbytes = streamed + B * H_kv * 8 * D * 4
+        rate = check_rate("K7", key, nbytes, p_ms)
+        row = dict(shape=label, B=B, H=H, H_kv=H_kv, D=D, S=S, bytes=nbytes,
+                   ms=p_ms, plain_ms=plain_ms,
+                   bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, gb_s=rate / 1e9,
+                   k5=beside(k5_rows, key), k6=beside(attn_rows, key),
+                   max_abs_err=0.0)
+        k7_rows.append(row)
+        near = "  ".join(f"| {n} {r['ms']:.4f} ms ({r['gb_s']:.1f} GB/s)"
+                         for n, r in (("K5", row["k5"]), ("K6", row["k6"]))
+                         if r is not None)
+        log(f"K7 {label} B={B:<3d} H_kv={H_kv} D={D} S={S:<4d} probe "
+            f"{p_ms:.4f} ms ({row['gb_s']:.1f} GB/s)  plain {plain_ms:.4f} ms"
+            f"  bound {row['bound_ms']:.5f} ms  {near}  [{card}]")
+        del copies
+        torch.cuda.empty_cache()
+    return dict(launches=launches, k8=k8_rows, k7=k7_rows)
 
 
 # ---------------------------------------------------------------------------
@@ -958,10 +1220,14 @@ def profile_decode(torch, eng, text, Options, card: str,
 def serve_requests(torch, batcher, voice, n_req: int, Options) -> dict:
     """Submit n_req requests (bench_batch.py's mix) and run to completion;
     checks every request's audio and the launches: K6 once per attention
-    layer and qdot 4 per layer plus the head per batched step (qdot also
-    per prefill wave), K5 never.  Returns the run's numbers."""
+    layer and the quantized linears 4 per layer plus the head per batched
+    step (also per prefill wave), through K1, or through K1v alone where
+    the engine's route is MIOTTS_QDOT_BF16 on bf16 activations; K5 never.
+    Returns the run's numbers."""
     import numpy as np
     from miotts_tpu_torch.ops import decode_attn, qmat
+    eng = batcher.engine
+    k1v_route = bool(eng.config.qdot_route.bf16) and eng.dtype == torch.bfloat16
     cfg = batcher.engine.llm_cfg
     attn_layers = len(cfg.attn_layer_idx)
     qdot_per_step = 4 * cfg.n_layers + 1
@@ -984,6 +1250,7 @@ def serve_requests(torch, batcher, voice, n_req: int, Options) -> dict:
     decode_attn.decode_attention_batched.kernel_launches = 0
     decode_attn.decode_attention.kernel_launches = 0
     qmat.qdot.kernel_launches = 0
+    qmat.qdot_bf16.kernel_launches = 0
     t0 = time.perf_counter()
     for i in range(n_req):
         batcher.submit(f"concurrent utterance number {i} for serving", voice,
@@ -996,6 +1263,7 @@ def serve_requests(torch, batcher, voice, n_req: int, Options) -> dict:
     k6 = decode_attn.decode_attention_batched.kernel_launches
     k5 = decode_attn.decode_attention.kernel_launches
     qd = qmat.qdot.kernel_launches
+    qv = qmat.qdot_bf16.kernel_launches
     st = dict(batcher.stage)
     if batcher.pending:
         raise AssertionError(f"serving: {batcher.pending} requests pending")
@@ -1014,10 +1282,12 @@ def serve_requests(torch, batcher, voice, n_req: int, Options) -> dict:
     if k6 != attn_layers * steps:
         raise AssertionError(f"serving: attention kernel launches {k6} != "
                              f"{attn_layers} x {steps} device steps")
-    if qd != qdot_per_step * (steps + st["prefills"]):
-        raise AssertionError(f"serving: qdot launches {qd} != "
+    linears, other = (qv, qd) if k1v_route else (qd, qv)
+    if linears != qdot_per_step * (steps + st["prefills"]) or other:
+        raise AssertionError(f"serving: K1 / K1v launches {qd} / {qv}: want "
                              f"{qdot_per_step} x ({steps} steps + "
-                             f"{st['prefills']} prefills)")
+                             f"{st['prefills']} prefills) through "
+                             f"{'K1v' if k1v_route else 'K1'} alone")
     if k5:
         raise AssertionError(f"serving: K5 launched {k5} times")
     audio_s = sum(g["samples"] for g in got.values()) / sr
@@ -1029,7 +1299,8 @@ def serve_requests(torch, batcher, voice, n_req: int, Options) -> dict:
                 ttfa_max_s=ttfa[-1] if ttfa else None,
                 codes=sum(len(g["req"].codes) for g in got.values()),
                 failed=sum(g["req"].failed for g in got.values()),
-                attn_launches=k6, k5_launches=k5, qdot_launches=qd, stage=st)
+                attn_launches=k6, k5_launches=k5, qdot_launches=qd,
+                qdot_bf16_launches=qv, stage=st)
 
 
 def phase_serving(torch, paths: dict, card: str) -> dict:
@@ -1298,6 +1569,45 @@ def phase_lfm2_serving(torch, eng, voice, card: str) -> dict:
         return batcher.stage["device_steps"] - steps0
     res["profile"] = device_profile(torch, run, "lfm2 serving 16 x 40 tokens",
                                     card)
+    res["after"] = lfm2_serving_after(torch, eng, voice, card, res)
+    return res
+
+
+def lfm2_serving_after(torch, eng, voice, card: str, default: dict) -> dict:
+    """The same weights under MIOTTS_QDOT_BF16=after (K1v at M = 16, the
+    batched step's tile): 16 requests x 96 tokens on 16 slots, then the
+    same 16 x 40 profile; printed beside the default route's."""
+    from miotts_tpu_torch.ops import qmat
+    from miotts_tpu_torch.runtime.batching import ContinuousBatcher
+    from miotts_tpu_torch.runtime.engine import Options
+    after = eng.with_qdot_route(qmat.QdotRoute.from_env(
+        {"MIOTTS_QDOT_BF16": "after"}))
+    batcher = ContinuousBatcher(after, n_slots=LFM2_SLOTS, chunk_steps=CHUNK)
+    batcher.warmup(prompt_len=16)
+    res = serve_requests(torch, batcher, voice, LFM2_AFTER_REQ, Options)
+    st = res["stage"]
+
+    def run():
+        steps0 = batcher.stage["device_steps"]
+        for i in range(LFM2_SLOTS):
+            batcher.submit(f"profiled utterance number {i}", voice,
+                           lambda *a: True,
+                           Options(max_tokens=40, temperature=0.8, seed=i))
+        batcher.run_until_done(max_iters=1000)
+        return batcher.stage["device_steps"] - steps0
+    res["profile"] = device_profile(
+        torch, run, "lfm2 serving (after) 16 x 40 tokens", card)
+    log(f"lfm2 serving[after]: {LFM2_AFTER_REQ} requests x {SERVE_TOKENS} "
+        f"tokens on {LFM2_SLOTS} slots, wall {res['wall_s']:.4f} s, "
+        f"aggregate x_realtime {res['aggregate_x_realtime']:.4f} (default "
+        f"route {default['aggregate_x_realtime']:.4f}), TTFA p50 "
+        f"{res['ttfa_p50_s']:.4f} s, device busy "
+        f"{res['profile']['busy_share']} (default route "
+        f"{default['profile']['busy_share']}); {st['device_steps']} device "
+        f"steps, {st['prefills']} prefills; launches: K1v "
+        f"{res['qdot_bf16_launches']}, K6 {res['attn_launches']}, K1 "
+        f"{res['qdot_launches']}, K5 {res['k5_launches']}  [{card}]")
+    del batcher
     return res
 
 
@@ -1368,13 +1678,58 @@ def write_q4km(d: str) -> str:
     return path
 
 
+# the large model files: numpy on one host core each (LFM2-1.2B ~45 s,
+# 2.6B-Q4_K_M 130-160 s), so they are written by processes of their own
+# while the earlier phases run on the card
+WRITERS = {"lfm2": (write_lfm2, "lfm2: LFM2-1.2B-Q8_0"),
+           "q4km": (write_q4km, "q4km: 2.6B-Q4_K_M")}
+
+
+def timed_write(fn, d: str, label: str) -> None:
+    t0 = time.perf_counter()
+    path = fn(d)
+    log(f"{label} written in {time.perf_counter() - t0:.1f} s "
+        f"({os.path.getsize(path) / 1e9:.3f} GB, in a process of its own)")
+
+
+@contextlib.contextmanager
+def background_writes(d: str):
+    """Start one spawned writer process per WRITERS entry; on leaving, stop
+    any that is still running (a phase failed) and join them all."""
+    ctx = multiprocessing.get_context("spawn")
+    procs = {key: ctx.Process(target=timed_write, args=(fn, d, label))
+             for key, (fn, label) in WRITERS.items()}
+    try:
+        for p in procs.values():
+            p.start()
+        yield procs
+    finally:
+        for p in procs.values():
+            if p.is_alive():
+                p.terminate()
+            if p.pid is not None:
+                p.join()
+
+
+def written(procs: dict, key: str, d: str) -> str:
+    """Wait for the `key` file's writer; raise if it failed."""
+    t0 = time.perf_counter()
+    procs[key].join()
+    if procs[key].exitcode != 0:
+        raise RuntimeError(f"writing the {key} file failed (exit code "
+                           f"{procs[key].exitcode})")
+    log(f"{key}: waited {time.perf_counter() - t0:.1f} s for its file")
+    return os.path.join(d, f"{key}.gguf")
+
+
 def route_counters(qmat):
     """(object, attribute) of each quantized-matmul kernel's launch count."""
     return {"K1": (qmat.qdot, "kernel_launches"),
             "K2": (qmat.qdot_split, "kernel_launches"),
             "K3": (qmat.qdot_group, "kernel_launches"),
             "K4a": (qmat.qdot_w8a8, "kernel_launches"),
-            "K4b": (qmat.qdot_w8a8, "packed_launches")}
+            "K4b": (qmat.qdot_w8a8, "packed_launches"),
+            "K1v": (qmat.qdot_bf16, "kernel_launches")}
 
 
 def reset_counts(counters) -> None:
@@ -1390,10 +1745,13 @@ def expected_counts(route: str, steps: int, unpacked: int,
                     packed: int) -> dict:
     """Launches of each kernel for one prefill and `steps` decode steps of a
     dense model with `unpacked` int8-valued and `packed` nibble-packed
-    quantized linears, under `route`."""
-    want = dict.fromkeys(("K1", "K2", "K3", "K4a", "K4b"), 0)
+    quantized linears, under `route` (bf16 activations for groupdot and the
+    K1v routes)."""
+    want = dict.fromkeys(("K1", "K2", "K3", "K4a", "K4b", "K1v"), 0)
     n = unpacked + packed
-    if route == "split":
+    if route in ("bf16dot", "bf16after"):
+        want["K1v"] = n * (1 + steps)
+    elif route == "split":
         want.update(K1=unpacked * (1 + steps), K2=packed * (1 + steps))
     elif route == "w8a8":
         want.update(K1=n, K4a=unpacked * steps, K4b=packed * steps)
@@ -1432,7 +1790,7 @@ def phase_q4km_offline(torch, qmat, paths: dict, out_dir: str,
         eng = base if name == "default" else base.with_qdot_route(route)
         # greedy tokens (the agreement below) and the warm-up
         tokens[name] = eng.generate_tokens(
-            text, Options(temperature=0.0, max_tokens=MAX_TOKENS))
+            text, Options(temperature=0.0, max_tokens=Q4KM_AGREE_TOKENS))
         wav = os.path.join(out_dir, f"q4km_{name}.wav")
         prof: dict = {}
         reset_counts(counters)
@@ -1474,15 +1832,16 @@ def phase_q4km_offline(torch, qmat, paths: dict, out_dir: str,
                    first_disagreement=next(
                        (i for i, (a, b) in enumerate(zip(
                            tokens[name], tokens["default"])) if a != b), None))
-        res["profile"] = profile_steps(torch, eng, card,
-                                       f"q4km[{name}] prefill + 16 steps")
+        res["profile"] = (None if name in Q4KM_UNPROFILED else profile_steps(
+            torch, eng, card, f"q4km[{name}] prefill + 16 steps"))
         out[name] = res
         log(f"q4km[{name}]: prefill {res['prefill_ms']:.4f} ms, decode "
             f"{res['decode_tok_s']:.4f} tok/s, x_realtime "
             f"{res['x_realtime']:.4f}, codec + iSTFT "
             f"{res['codec_istft_s']:.4f} s, {n_codes} codes; launches {got} "
             f"over 1 prefill + {steps} steps; device busy "
-            f"{res['profile']['busy_share']}; tokens agreeing with the "
+            f"{res['profile'] and res['profile']['busy_share']}; tokens "
+            f"agreeing with the "
             f"default route {same} of {compared}  [{card}]")
         del eng
     del base
@@ -1526,8 +1885,8 @@ def phase_q4km_gpu_vs_cpu(torch, qmat, path: str) -> dict:
     CPU (their plain versions) fed the card's tokens, so that every step's
     logits compare like with like.  Checks: in f32, greedy tokens identical;
     split, every step within 1e-4 of the logit scale; w8a8, every step's
-    RMS relative difference within W8A8_REF_TOL; groupdot (bf16), prefill
-    and first step within 2e-2 of the scale."""
+    RMS relative difference within W8A8_REF_TOL; groupdot and bf16after
+    (bf16), prefill and first step within 2e-2 of the scale."""
     from miotts_tpu_torch.gguf import GGUFReader
     from miotts_tpu_torch.models.llm import (LLMConfig, init_kv_cache,
                                              llm_decode_step, llm_prefill,
@@ -1538,7 +1897,8 @@ def phase_q4km_gpu_vs_cpu(torch, qmat, path: str) -> dict:
     counters = route_counters(qmat)
     checks = {"split": (torch.float32, REF_TOL),
               "w8a8": (torch.float32, W8A8_REF_TOL),
-              "groupdot": (torch.bfloat16, BF16_REF_TOL)}
+              "groupdot": (torch.bfloat16, BF16_REF_TOL),
+              "bf16after": (torch.bfloat16, BF16_REF_TOL)}
     res = {name: {} for name in checks}
     with GGUFReader(path) as r:
         cfg = dataclasses.replace(LLMConfig.from_gguf(r),
@@ -1584,7 +1944,8 @@ def phase_q4km_gpu_vs_cpu(torch, qmat, path: str) -> dict:
             f"{errs[0]:.2e}, first step {errs[1]:.2e}, max over steps "
             f"{max(errs):.2e}; RMS rel max {max(rms):.2e} (tol {tol}"
             f"{' RMS' if name == 'w8a8' else ''}); launches {g['launches']}")
-        checked = {"split": errs, "w8a8": rms, "groupdot": errs[:2]}[name]
+        checked = {"split": errs, "w8a8": rms, "groupdot": errs[:2],
+                   "bf16after": errs[:2]}[name]
         if max(checked) >= tol or (dtype == torch.float32 and not same):
             raise AssertionError(f"q4km gpu-vs-cpu[{name}]: the card "
                                  f"disagrees with the CPU plain path")
@@ -1706,7 +2067,7 @@ def main() -> int:
     rows = phase_kernels(torch, qmat, card)
     log(f"phase 2 done at {time.perf_counter() - t_start:.1f} s")
 
-    with tempfile.TemporaryDirectory() as d:
+    with tempfile.TemporaryDirectory() as d, background_writes(d) as writers:
         t0 = time.perf_counter()
         paths = write_models(d)
         log(f"models written in {time.perf_counter() - t0:.1f} s")
@@ -1724,10 +2085,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         k5_rows = phase_k5(torch, card)
         log(f"phase 10 (a) done at {time.perf_counter() - t_start:.1f} s")
-        t0 = time.perf_counter()
-        paths["lfm2"] = write_lfm2(d)
-        log(f"lfm2: LFM2-1.2B-Q8_0 written in {time.perf_counter() - t0:.1f} "
-            f"s ({os.path.getsize(paths['lfm2']) / 1e9:.3f} GB)")
+        paths["lfm2"] = written(writers, "lfm2", d)
         lfm2_res, lfm2_eng, lfm2_voice = phase_lfm2_offline(torch, paths, d,
                                                             card)
         log(f"phase 11 (b) done at {time.perf_counter() - t_start:.1f} s")
@@ -1739,11 +2097,12 @@ def main() -> int:
         log(f"phase 13 (c) done at {time.perf_counter() - t_start:.1f} s")
         var_rows = phase_variants(torch, qmat, card)
         log(f"phase 14 done at {time.perf_counter() - t_start:.1f} s")
+        bf16_rows = phase_bf16(torch, qmat, card, rows)
+        log(f"phase 17 done at {time.perf_counter() - t_start:.1f} s")
+        probes = phase_probes(torch, qmat, card, k5_rows, attn_rows)
+        log(f"phase 18 done at {time.perf_counter() - t_start:.1f} s")
         os.remove(paths.pop("lfm2"))
-        t0 = time.perf_counter()
-        paths["q4km"] = write_q4km(d)
-        log(f"q4km: 2.6B-Q4_K_M written in {time.perf_counter() - t0:.1f} s "
-            f"({os.path.getsize(paths['q4km']) / 1e9:.3f} GB)")
+        paths["q4km"] = written(writers, "q4km", d)
         q4km_res = phase_q4km_offline(torch, qmat, paths, d, card)
         log(f"phase 15 done at {time.perf_counter() - t_start:.1f} s")
         q4km_ref = phase_q4km_gpu_vs_cpu(torch, qmat, paths["q4km"])
@@ -1777,6 +2136,8 @@ def main() -> int:
                           "offline": main_res["qdot_launches"],
                           "lfm2_offline": lfm2_res["qdot_launches"],
                           "lfm2_serving": lfm2_serve["qdot_launches"],
+                          "lfm2_serving_after": lfm2_serve["after"][
+                              "qdot_launches"],
                           **{f"q4km_{name}_offline": r["launches"]["K1"]
                              for name, r in q4km_res.items()}})
     step_rows = [r for r in attn_rows if r["mode"] == "bf16"
@@ -1821,6 +2182,67 @@ def main() -> int:
                           "serving_bf16": serve_res["bf16"]["k5_launches"]})
     variant_entries = [variant_entry(var_rows, q4km_res, q4km_ref, kernel)
                        for kernel in VARIANTS]
+    lfm2_after = lfm2_serve["after"]
+    step16 = {k: lfm2_step_summary(bf16_rows, k, LFM2_SLOTS) for k in
+              ("ms", "plain_ms", "bound_ms", "library_ms", "bytes", "flops",
+               "k1_ms", "ms_mode1")}
+    bf16_entry = dict(
+        name="qdot_bf16", route="cuda",
+        source="miotts_tpu_torch/ops/csrc/qdot_bf16.cu",
+        replaces="miotts_tpu/ops/qmat.py:191",
+        launches=lfm2_after["qdot_bf16_launches"],
+        launches_by_path={
+            "lfm2_serving_after": lfm2_after["qdot_bf16_launches"],
+            "q4km_bf16dot_offline": q4km_res["bf16dot"]["launches"]["K1v"],
+            "q4km_bf16after_offline": q4km_res["bf16after"]["launches"]["K1v"],
+            "q4km_bf16after_gpu_vs_cpu":
+                q4km_ref["bf16after"]["launches"]["K1v"]},
+        max_abs_err=max(r["max_abs_err"] for r in bf16_rows),
+        rel_err=max(max(r["rel_err_bf16"], r["rel_err_f32"])
+                    for r in bf16_rows),
+        ms=step16["ms"], plain_ms=step16["plain_ms"],
+        bound_ms=step16["bound_ms"],
+        bound_by=("bytes" if step16["bytes"] / HBM_BYTES_PER_S
+                  >= step16["flops"] / PEAK_FLOPS else "operations"),
+        library_ms=step16["library_ms"], k1_ms=step16["k1_ms"],
+        mode1_ms=step16["ms_mode1"],
+        unit="one LFM2-1.2B 16-slot batched decode step of K1v work (65 "
+             "linears at M=16), mode after, bf16 x",
+        q4km_single_stream_step={k: q4km_k1_step(bf16_rows, k) for k in
+                                 ("ms", "ms_mode1", "plain_ms", "bound_ms",
+                                  "library_ms", "k1_ms")})
+    k7_step = next(r for r in probes["k7"] if (
+        r["shape"], r["B"], r["H"], r["H_kv"], r["D"], r["S"]) == K5_STEP_SHAPE)
+    k7_entry = dict(
+        name="attn_dma_floor", route="cuda",
+        source="miotts_tpu_torch/ops/csrc/dma_floor.cu",
+        replaces="miotts_tpu/ops/decode_attn.py:391",
+        launches=probes["launches"]["K7"],
+        launches_by_path={"probes": probes["launches"]["K7"]},
+        max_abs_err=0.0, rel_err=0.0,
+        ms=n_attn * k7_step["ms"], plain_ms=n_attn * k7_step["plain_ms"],
+        bound_ms=n_attn * k7_step["bound_ms"], bound_by="bytes",
+        library_ms=None, gb_s=k7_step["gb_s"],
+        unit="one LFM2-1.2B offline decode step of K5's k/v streams (6 "
+             "layers) at B=1, H_kv=8, D=64, S=256 (all rows), bf16 cache; "
+             "no single PyTorch call computes it")
+    k8_bench = [r for r in probes["k8"] if "bench_qmat" in r["shape"]]
+    k8_entry = dict(
+        name="qdot_dma_floor", route="cuda",
+        source="miotts_tpu_torch/ops/csrc/dma_floor.cu",
+        replaces="benchmarks/bench_qmat.py:57",
+        launches=probes["launches"]["K8"],
+        launches_by_path={"probes": probes["launches"]["K8"]},
+        max_abs_err=max(r["max_abs_err"] for r in probes["k8"]),
+        rel_err=max(r["rel_err"] for r in probes["k8"]),
+        ms=Q4KM_LAYERS * sum(r["ms"] for r in k8_bench),
+        plain_ms=Q4KM_LAYERS * sum(r["plain_ms"] for r in k8_bench),
+        bound_ms=Q4KM_LAYERS * sum(r["bound_ms"] for r in k8_bench),
+        bound_by="bytes", library_ms=None,
+        k1_ms=Q4KM_LAYERS * sum(r["k1_ms"] for r in k8_bench),
+        unit="one 2.6B decode step of K1's value/scale blocks in "
+             "bench_qmat.py's configuration (32 layers x its 4 shapes, int8 "
+             "g32); no single PyTorch call computes it")
     # the per-shape rows and every phase's numbers, on a line of their own
     # (the kernels line stays short)
     log("details " + json.dumps(dict(
@@ -1828,10 +2250,11 @@ def main() -> int:
         main_path=main_res, serving=serve_res, gpu_vs_cpu=ref_res,
         http=http_res, lfm2_offline=lfm2_res, lfm2_serving=lfm2_serve,
         lfm2_gpu_vs_cpu=lfm2_ref, variants_per_shape=var_rows,
-        q4km_offline=q4km_res, q4km_gpu_vs_cpu=q4km_ref)))
+        q4km_offline=q4km_res, q4km_gpu_vs_cpu=q4km_ref,
+        bf16_per_shape=bf16_rows, probes=probes)))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [qdot_entry, attn_entry, k5_entry]
-                      + variant_entries}))
+                      + variant_entries + [bf16_entry, k7_entry, k8_entry]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -41,6 +41,16 @@ KERNELS = {
         "qdot_w8a8_launch": [_P] * 5 + [_I] * 4 + [_P],
         "qdot_w8a8_packed_launch": [_P] * 5 + [_I] * 4 + [_P],
     }),
+    "qdot_bf16": ("qdot_bf16.cu", {
+        # x, x_is_bf16, v, packed, s, mins, y, M, K, N, group, after, stream
+        "qdot_bf16_launch": [_P, _I, _P, _I, _P, _P, _P] + [_I] * 5 + [_P],
+    }),
+    "dma_floor": ("dma_floor.cu", {
+        # k, v, out, sink, B, H_kv, S, D, dtype, stream
+        "attn_dma_floor_launch": [_P] * 4 + [_I] * 5 + [_P],
+        # v, s, out, sink, K, N, tile_k, stream
+        "qdot_dma_floor_launch": [_P] * 4 + [_I] * 3 + [_P],
+    }),
     "decode_attn": ("decode_attn.cu", {
         # q, q_scale, k, v, k_scale, v_scale, fill, q_pos, out, out_m, out_l,
         # B, H, H_kv, S, D, dtype, k/v strides (b, h, s), k/v scale strides

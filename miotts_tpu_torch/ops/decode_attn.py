@@ -25,6 +25,10 @@ row, takes int8 x int8 scores and quantizes the probabilities (times the v
 scales) to int8 per query row per tile of S_TILE keys — a grouping that is
 part of the result (~1 % of the row scale).  The TPU grid's b_tile and its
 VMEM-driven tile halving have no counterpart here.
+
+`dma_floor` (K7, kernel `ops/csrc/dma_floor.cu`): a probe that streams the
+k / v rows in K5's layout with (almost) no arithmetic, the floor of that
+layout's time; no attention calls it.
 """
 
 from __future__ import annotations
@@ -284,3 +288,65 @@ def decode_attention(q, k_cache, v_cache, fill, q_pos, k_scale=None,
 
 
 decode_attention.kernel_launches = 0
+
+
+def dma_floor_plain(k_cache, v_cache):
+    """K7 (`miotts_tpu/ops/decode_attn.py:_dma_floor`): s_tile = min(S,
+    512) and n_s = S // s_tile whole tiles; out[b, h, r, d] = sum over t <
+    n_s of k + v at row t * s_tile + r, r < 8, f32 [B, H_kv, 8, D], summed
+    in t order."""
+    B, H_kv, S, D = k_cache.shape
+    s_tile = min(S, S_TILE)
+    out = k_cache.new_zeros((B, H_kv, 8, D), dtype=torch.float32)
+    for t in range(S // s_tile):
+        r0 = t * s_tile
+        out += (k_cache[:, :, r0: r0 + 8].float()
+                + v_cache[:, :, r0: r0 + 8].float())
+    return out
+
+
+def _dma_floor_cuda(k_cache, v_cache):
+    """Launch `attn_dma_floor_launch` (ops/csrc/dma_floor.cu) on the current
+    stream: contiguous k / v of one dtype on one GPU, 16-byte rows."""
+    from ._build import load_kernels
+    if k_cache.dim() != 4 or k_cache.shape != v_cache.shape:
+        raise ValueError(f"k/v cache must both be [B, H_kv, S, D], got "
+                         f"{tuple(k_cache.shape)} / {tuple(v_cache.shape)}")
+    if k_cache.dtype not in _DTYPE_CODE or v_cache.dtype != k_cache.dtype:
+        raise TypeError(f"cache must be f32, bf16 or int8 (k and v alike), "
+                        f"got {k_cache.dtype} / {v_cache.dtype}")
+    B, H_kv, S, D = k_cache.shape
+    el = k_cache.element_size()
+    if D * el % 16 or 8 * D * el // 16 > 256 or min(S, S_TILE) < 8:
+        raise ValueError(f"dma_floor kernel takes 16-byte rows of at most "
+                         f"512 bytes and S >= 8, got D={D}, S={S}, "
+                         f"{el}-byte elements")
+    for t in (k_cache, v_cache):
+        if not t.is_cuda or t.device != k_cache.device:
+            raise ValueError("dma_floor kernel: k and v must be on one GPU")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("dma_floor kernel: k and v must be contiguous "
+                             "and 16-byte aligned")
+    out = torch.empty((B, H_kv, 8, D), dtype=torch.float32,
+                      device=k_cache.device)
+    sink = torch.empty((1,), dtype=torch.int32, device=k_cache.device)
+    err = load_kernels()["dma_floor"].attn_dma_floor_launch(
+        k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
+        sink.data_ptr(), B, H_kv, S, D, _DTYPE_CODE[k_cache.dtype],
+        torch.cuda.current_stream(k_cache.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"attn_dma_floor kernel launch failed: CUDA "
+                           f"error {err}")
+    dma_floor.kernel_launches += 1
+    return out
+
+
+def dma_floor(k_cache, v_cache):
+    """K7 on k / v [B, H_kv, S, D] -> f32 [B, H_kv, 8, D].  CUDA tensors:
+    the kernel; CPU tensors: the plain version."""
+    if k_cache.is_cuda:
+        return _dma_floor_cuda(k_cache, v_cache)
+    return dma_floor_plain(k_cache, v_cache)
+
+
+dma_floor.kernel_launches = 0

@@ -26,10 +26,14 @@ kernel as the JAX package's `qdot` does, by the weight's `QdotRoute`:
   K2  `qdot_split`    packed weights at any M (MIOTTS_PACK4_SPLIT=1)
   K3  `qdot_group`    M = 1, bf16 x (MIOTTS_QDOT_GEMV=groupdot)
   K4  `qdot_w8a8`     M = 1, int8-quantized x (MIOTTS_QDOT_GEMV=w8a8)
+  K1v `qdot_bf16`     bf16 x at any M, bf16 weights and dot
+                      (MIOTTS_QDOT_BF16=1 / after)
 
 A CUDA tensor goes through the hand-written kernel (`ops/csrc/qdot.cu`,
-`ops/csrc/qdot_gemv.cu`) and raises if it cannot build or launch; a CPU
-tensor goes through the kernel's plain torch version (`*_plain`).
+`ops/csrc/qdot_gemv.cu`, `ops/csrc/qdot_bf16.cu`) and raises if it cannot
+build or launch; a CPU tensor goes through the kernel's plain torch version
+(`*_plain`).  `qdot_dma_floor` (K8, `ops/csrc/dma_floor.cu`) is a probe
+that streams K1's blocks; no linear calls it.
 """
 
 from __future__ import annotations
@@ -44,39 +48,50 @@ from ..gguf.quants import to_group_quant
 from ..gguf.reader import GGML_Q4_0, GGML_Q4_K
 
 GEMV_MODES = ("plain", "w8a8", "groupdot")
+BF16_MODES = ("", "1", "after")
 
 
 @dataclass(frozen=True)
 class QdotRoute:
     """The kernel choice of `qdot`, the JAX package's switches
     (`miotts_tpu/ops/qmat.py`: `_gemv_mode`, `_use_pack4_split`,
-    `_gemv_m8`), resolved once (`from_env`) and carried by each QTensor.
+    `_gemv_m8`, `_use_bf16_dot`), resolved once (`from_env`) and carried
+    by each QTensor.
 
       gemv   the M = 1 kernel: "plain" (K1), "w8a8" (K4), "groupdot" (K3,
              bf16 x only)
       split  packed weights through K2 at every M
-      m8     pad M = 1 to 8 rows first, which bypasses the M = 1 kernels"""
+      m8     pad M = 1 to 8 rows first, which bypasses the M = 1 kernels
+      bf16   K1v for bf16 x at any M: "1" (bf16 scale, bf16 dequant) or
+             "after" (f32 dequant, one bf16 cast); "" keeps K1"""
     gemv: str = "plain"
     split: bool = False
     m8: bool = False
+    bf16: str = ""
 
     def __post_init__(self):
         if self.gemv not in GEMV_MODES:
             raise ValueError(f"gemv must be one of {GEMV_MODES}, got "
                              f"{self.gemv!r}")
+        if self.bf16 not in BF16_MODES:
+            raise ValueError(f"bf16 must be one of {BF16_MODES}, got "
+                             f"{self.bf16!r}")
 
     @classmethod
     def from_env(cls, env=None) -> "QdotRoute":
         """MIOTTS_QDOT_GEMV (w8a8 / groupdot / plain), its alias
-        MIOTTS_QDOT_GROUPDOT=1, MIOTTS_PACK4_SPLIT=1 and MIOTTS_GEMV_M8=1,
-        read as the JAX package reads them."""
+        MIOTTS_QDOT_GROUPDOT=1, MIOTTS_PACK4_SPLIT=1, MIOTTS_GEMV_M8=1 and
+        MIOTTS_QDOT_BF16 (1 / after; anything else is off), read as the
+        JAX package reads them."""
         env = os.environ if env is None else env
         gemv = env.get("MIOTTS_QDOT_GEMV", "")
         if gemv not in GEMV_MODES:
             gemv = ("groupdot" if env.get("MIOTTS_QDOT_GROUPDOT", "") == "1"
                     else "plain")
+        bf16 = env.get("MIOTTS_QDOT_BF16", "")
         return cls(gemv=gemv, split=env.get("MIOTTS_PACK4_SPLIT", "") == "1",
-                   m8=env.get("MIOTTS_GEMV_M8", "") == "1")
+                   m8=env.get("MIOTTS_GEMV_M8", "") == "1",
+                   bf16=bf16 if bf16 in BF16_MODES else "")
 
 
 @dataclass
@@ -254,6 +269,70 @@ def qdot_plain(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     return (x.float() @ qt.dequant_t(torch.float32)).to(x.dtype)
 
 
+def _bf16_mode_checked(mode: str) -> None:
+    if mode not in BF16_MODES[1:]:
+        raise ValueError(f"qdot_bf16 mode must be '1' or 'after', got "
+                         f"{mode!r}")
+
+
+def qdot_bf16_plain(x: torch.Tensor, qt: QTensor, mode: str) -> torch.Tensor:
+    """K1v (`_qdot_pallas(bf16_dot=True | "after")`): x rounded to bf16; the
+    weight dequantized without mins and rounded to bf16 as the mode says
+    ("1": bf16(v * bf16(s)), exact before its one rounding; "after":
+    bf16(v * s) of the f32 product); the bf16 x bf16 product in f32 (every
+    product exact); minus the mins term from the f32 group sums of the
+    unrounded x; cast to x.dtype."""
+    _bf16_mode_checked(mode)
+    M, K = x.shape
+    g = qt.group
+    s = qt.scales if mode == "after" else qt.scales.to(torch.bfloat16).float()
+    v = qt.unpacked_values().float().reshape(K // g, g, -1)
+    w = (v * s[:, None, :]).reshape(K, -1).to(torch.bfloat16).float()
+    out = x.to(torch.bfloat16).float() @ w
+    xg = x.float().reshape(M, K // g, g).sum(dim=2)
+    return (out - _mins_term(xg, qt)).to(x.dtype)
+
+
+def _k8_tile_k(K: int, N: int) -> int:
+    """`benchmarks/bench_qmat.py:dma_floor`'s K tile: TILE_N = 512 if N is
+    its multiple, else 256; TILE_K = K halved while TILE_N * TILE_K > 512 KiB
+    and TILE_K / 2 is a multiple of 256."""
+    tile_n = 512 if N % 512 == 0 else 256
+    tile_k = K
+    while (tile_n * tile_k > 512 * 1024 and tile_k % 2 == 0
+           and (tile_k // 2) % 256 == 0):
+        tile_k //= 2
+    return tile_k
+
+
+def _k8_checked(qt: QTensor) -> int:
+    """Raise on what K8 does not take (int8 values, f32 scales, group 32,
+    at least one 256-row K tile); returns its K tile."""
+    K, N = qt.values.shape
+    if qt.packed or qt.values.dtype != torch.int8 or qt.group != 32:
+        raise ValueError("qdot_dma_floor streams int8 values with group 32 "
+                         "(Q8_0's layout)")
+    if qt.scales.dtype != torch.float32 or tuple(qt.scales.shape) != (
+            K // 32, N):
+        raise ValueError(f"scales must be f32 [{K // 32}, {N}]")
+    tile_k = _k8_tile_k(K, N)
+    if K % 32 or tile_k < 256:
+        raise ValueError(f"qdot_dma_floor needs K tiles of >= 256 rows, "
+                         f"got K={K}")
+    return tile_k
+
+
+def qdot_dma_floor_plain(qt: QTensor) -> torch.Tensor:
+    """K8 (`benchmarks/bench_qmat.py:dma_floor`), the probe that streams
+    K1's value and scale blocks: out[0, n] = sum over K tiles t of
+    v[t * TILE_K, n] + s[t * TILE_K / 32, n], f32 [1, N].  (The JAX grid
+    covers N / TILE_N whole column tiles; this covers every column.)"""
+    tile_k = _k8_tile_k(*qt.values.shape)
+    v = qt.values[::tile_k].float()
+    s = qt.scales[:: tile_k // 32].float()
+    return (v + s).sum(dim=0, keepdim=True)
+
+
 def _gemv_only(x: torch.Tensor, name: str) -> None:
     if x.shape[0] != 1:
         raise ValueError(f"{name} is a GEMV kernel (M=1), got M={x.shape[0]}")
@@ -396,6 +475,46 @@ def _qdot_cuda(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     return y
 
 
+def _qdot_bf16_cuda(x: torch.Tensor, qt: QTensor, mode: str) -> torch.Tensor:
+    """K1v: `qdot_bf16_launch` (ops/csrc/qdot_bf16.cu)."""
+    from ._build import load_kernels
+    _bf16_mode_checked(mode)
+    N = _checked("qdot_bf16", x, qt)
+    M, K = x.shape
+    y = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    _raise_on(load_kernels()["qdot_bf16"].qdot_bf16_launch(
+        x.data_ptr(), int(x.dtype == torch.bfloat16), qt.values.data_ptr(),
+        int(qt.packed), qt.scales.data_ptr(),
+        None if qt.mins is None else qt.mins.data_ptr(), y.data_ptr(),
+        M, K, N, qt.group, int(mode == "after"),
+        torch.cuda.current_stream(x.device).cuda_stream), "qdot_bf16_launch")
+    qdot_bf16.kernel_launches += 1
+    return y
+
+
+def _qdot_dma_floor_cuda(qt: QTensor) -> torch.Tensor:
+    """K8: `qdot_dma_floor_launch` (ops/csrc/dma_floor.cu)."""
+    from ._build import load_kernels
+    tile_k = _k8_checked(qt)
+    K, N = qt.values.shape
+    for t in (qt.values, qt.scales):
+        if not t.is_cuda or t.device != qt.values.device:
+            raise ValueError("qdot_dma_floor kernel: values and scales must "
+                             "be on one GPU")
+        if not t.is_contiguous():
+            raise ValueError("qdot_dma_floor kernel: tensors must be "
+                             "contiguous")
+    dev = qt.values.device
+    out = torch.empty((1, N), dtype=torch.float32, device=dev)
+    sink = torch.empty((1,), dtype=torch.int32, device=dev)
+    _raise_on(load_kernels()["dma_floor"].qdot_dma_floor_launch(
+        qt.values.data_ptr(), qt.scales.data_ptr(), out.data_ptr(),
+        sink.data_ptr(), K, N, tile_k,
+        torch.cuda.current_stream(dev).cuda_stream), "qdot_dma_floor_launch")
+    qdot_dma_floor.kernel_launches += 1
+    return out
+
+
 def _qdot_split_cuda(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     """K2: `qdot_split_launch` (ops/csrc/qdot_gemv.cu)."""
     N = _checked("qdot_split", x, qt, packed=True)
@@ -451,11 +570,24 @@ def qdot_w8a8(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     return _qdot_w8a8_cuda(x, qt) if x.is_cuda else qdot_w8a8_plain(x, qt)
 
 
+def qdot_bf16(x: torch.Tensor, qt: QTensor, mode: str) -> torch.Tensor:
+    """K1v on x [M, K] -> [M, N], mode "1" or "after"."""
+    return (_qdot_bf16_cuda(x, qt, mode) if x.is_cuda
+            else qdot_bf16_plain(x, qt, mode))
+
+
+def qdot_dma_floor(qt: QTensor) -> torch.Tensor:
+    """K8 on an int8 g32 QTensor -> f32 [1, N]."""
+    return (_qdot_dma_floor_cuda(qt) if qt.values.is_cuda
+            else qdot_dma_floor_plain(qt))
+
+
 def _qdot_routed(x: torch.Tensor, w: QTensor) -> torch.Tensor:
     """x [M, K] through the kernel of w.route, in the JAX package's order
     (`miotts_tpu/ops/qmat.py:qdot`): w8a8 at M = 1, then groupdot at M = 1
-    for bf16 x, then split for packed weights, then K1.  (The TPU's M -> 8
-    and N -> 128 padding and its tiling gate have no counterpart here.)"""
+    for bf16 x, then split for packed weights, then K1v for bf16 x, then
+    K1.  (The TPU's M -> 8 and N -> 128 padding and its tiling gate have no
+    counterpart here.)"""
     route, m = w.route, x.shape[0]
     if m == 1 and route.gemv == "w8a8":
         return qdot_w8a8(x, w)
@@ -463,6 +595,8 @@ def _qdot_routed(x: torch.Tensor, w: QTensor) -> torch.Tensor:
         return qdot_group(x, w)
     if w.packed and route.split:
         return qdot_split(x, w)
+    if route.bf16 and x.dtype == torch.bfloat16:
+        return qdot_bf16(x, w, route.bf16)
     return _qdot_cuda(x, w) if x.is_cuda else qdot_plain(x, w)
 
 
@@ -489,3 +623,5 @@ qdot_split.kernel_launches = 0           # K2
 qdot_group.kernel_launches = 0           # K3
 qdot_w8a8.kernel_launches = 0            # K4a (int8 values)
 qdot_w8a8.packed_launches = 0            # K4b (packed nibbles)
+qdot_bf16.kernel_launches = 0            # K1v
+qdot_dma_floor.kernel_launches = 0       # K8 (the probe)

@@ -33,18 +33,23 @@ PALLAS_ENTRIES = ("_qdot_pallas", "_qdot_pallas_split", "_qdot_group_pallas",
 ROUTE_ENV = ("MIOTTS_QDOT_GEMV", "MIOTTS_QDOT_GROUPDOT", "MIOTTS_PACK4_SPLIT",
              "MIOTTS_GEMV_M8", "MIOTTS_QDOT_BF16")
 # route: (environment, dtype, logits tolerance of the output scale, the
-# JAX entry the route must reach)
+# JAX entry the route must reach, with the bf16_dot it must be given)
 ROUTES = {
     # f32, the same arithmetic up to the order of the sums
     "split": ({"MIOTTS_PACK4_SPLIT": "1"}, "float32", 1e-4,
-              "_qdot_pallas_split"),
+              ("_qdot_pallas_split", False)),
     # f32; a 1e-7 difference upstream can move one activation across a
     # rounding tie of its int8 quantization (1/254 of the group's amax)
     "w8a8": ({"MIOTTS_QDOT_GEMV": "w8a8"}, "float32", 1e-3,
-             "_qdot_w8a8_pallas"),
+             ("_qdot_w8a8_pallas", False)),
     # bf16 activations (the route's only dtype): bf16 rounding
     "groupdot": ({"MIOTTS_QDOT_GROUPDOT": "1"}, "bfloat16", 2e-2,
-                 "_qdot_group_pallas"),
+                 ("_qdot_group_pallas", False)),
+    # K1v (bf16 activations, the variant's only ones): bf16 rounding
+    "bf16dot": ({"MIOTTS_QDOT_BF16": "1"}, "bfloat16", 2e-2,
+                ("_qdot_pallas", True)),
+    "bf16after": ({"MIOTTS_QDOT_BF16": "after"}, "bfloat16", 2e-2,
+                  ("_qdot_pallas", "after")),
 }
 
 
@@ -68,7 +73,9 @@ def files(tmp_path_factory):
 def route_env(monkeypatch):
     """Set a route's environment for both packages, the JAX package on its
     Pallas route in interpret mode, with its jit caches emptied on entry
-    and exit."""
+    and exit.  Records each entry traced, with the bf16_dot it was given
+    (`_qdot_pallas` is traced on every route: the name alone does not show
+    the variant)."""
     for name in ROUTE_ENV:
         monkeypatch.delenv(name, raising=False)
     monkeypatch.setattr(jq, "_use_pallas", lambda: True)
@@ -76,7 +83,7 @@ def route_env(monkeypatch):
     for name in PALLAS_ENTRIES:
         entry = partial(getattr(jq, name), interpret=True)
         monkeypatch.setattr(jq, name, lambda *a, _n=name, _e=entry, **kw: (
-            traced.add(_n) or _e(*a, **kw)))
+            traced.add((_n, kw.get("bf16_dot", False))) or _e(*a, **kw)))
     jax.clear_caches()
 
     def set_route(env):
@@ -133,7 +140,9 @@ def test_route_matches_jax_pallas_route(name, files, route_env):
     assert wqkv.route == teng.config.qdot_route and not wqkv.packed
     assert teng.llm_params["blocks"][0]["w_gateup"].packed
     (jp, tp), (js, ts) = _prefill_and_step(jeng, teng, dtype)
-    assert {entry, "_qdot_pallas"} <= traced
+    assert entry in traced, traced
+    if entry[1] is False:   # the prefill's K1 besides an M = 1 route
+        assert ("_qdot_pallas", False) in traced, traced
     assert rel_err(tp, jp) < tol, rel_err(tp, jp)
     assert rel_err(ts, js) < tol, rel_err(ts, js)
     if dtype == "float32":
