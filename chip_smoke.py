@@ -1,14 +1,16 @@
 """Chip smoke test of the PyTorch/CUDA port (miotts_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                  # every phase, the summary lines
+    python3 chip_smoke.py --phases 2,17    # some phases (dev runs), no summary
 
 Phases (any failure exits non-zero; nothing is caught and ignored):
   1. device: the card's name and power limit (nvidia-smi), kernel build;
   2. kernel vs plain: the `qdot` CUDA kernel against `qdot_plain` on the
      card at the main path's shapes (0.1B-Q8_0 at M = 1 and 64) and at the
      2.6B-Q4_K_M formats (fused Q4_K + Q6_K, packed Q4_K wo / gate-up /
-     output, Q6_K, packed Q4_0 at M = 1, 7 and 64), with kernel / plain /
-     library times;
+     output, Q6_K, packed Q4_0 at M = 1, 7, 16 and 64), with kernel /
+     plain / library times; a second call must give the same bits (the
+     M > 1 tile's split-K is deterministic);
   3. main path: synthetic full-width 0.1B-Q8_0 LLM + full-size MioCodec
      written with the port's own writer, then
      TTSEngine.synthesize_to_file on the card at temperature 0, 128 tokens;
@@ -70,12 +72,13 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
  15. 2.6B-Q4_K_M offline at full width and depth (written by the port's
      writer, timed): one engine per route (default K1, w8a8, groupdot,
      split, bf16dot, bf16after; the routes share the loaded weights) runs
-     synthesize_to_file at temperature 0, 128 tokens, bf16; checks each
+     synthesize_to_file at temperature 0, bf16 (the default route 128
+     tokens, the others 32: the harness's time limit); checks each
      WAV and the launches (w8a8: K4a 64 and K4b 65 per decode step, K1 129
      per prefill; groupdot: K3 129 per step, K1 129 per prefill; split: K2
      65 and K1 64 per step and per prefill; bf16dot / bf16after: K1v 129
      per step and per prefill; default: K1 129); prints the rates, a
-     profile (not of bf16dot: the time limit) and each route's token
+     profile of the default and bf16after routes and each route's token
      agreement with the default route;
  16. 2.6B-Q4_K_M GPU vs CPU: layers 0-1, a prefill + 8 greedy steps per
      route on the card, then on the CPU plain path fed the card's tokens:
@@ -85,9 +88,10 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      first step within 2e-2;
  17. K1v vs plain: the bf16-dot variants (`qdot_bf16`, MIOTTS_QDOT_BF16=1
      and after) against `qdot_bf16_plain` at phase 2's shapes (0.1B-Q8_0 at
-     M = 1, 64; the 2.6B-Q4_K_M formats at M = 1, 7, 64; LFM2 at M = 1,
-     16), f32 x within 1e-5 and bf16 x within 1e-2, with kernel / eager /
-     plain / library / bound times beside K1's;
+     M = 1, 64; the 2.6B-Q4_K_M formats at M = 1, 7, 16, 64; LFM2 at M =
+     1, 16), f32 x within 1e-5 and bf16 x within 1e-2, two calls bit for
+     bit equal, with kernel / eager / plain / library / bound times beside
+     K1's;
  18. the probes: K8 (`qdot_dma_floor`, K1's blocks) at bench_qmat.py's
      2.6B shapes (its own int8 g32 tensor, K1 timed on the same copies) and
      at the 0.1B / LFM2 Q8_0 shapes, and K7 (`dma_floor`, K5's blocks) at
@@ -189,8 +193,12 @@ Q4KM_ROUTES = {"default": {}, "w8a8": {"MIOTTS_QDOT_GEMV": "w8a8"},
                "split": {"MIOTTS_PACK4_SPLIT": "1"},
                "bf16dot": {"MIOTTS_QDOT_BF16": "1"},
                "bf16after": {"MIOTTS_QDOT_BF16": "after"}}
-Q4KM_UNPROFILED = ("bf16dot",)               # the profiler's time, see phase 15
-Q4KM_AGREE_TOKENS = 32      # greedy tokens compared with the default route
+# phase 15's depth: the routes other than the default synthesize
+# Q4KM_AGREE_TOKENS (the greedy tokens compared with the default route), and
+# only Q4KM_PROFILED are profiled (the profiler's processing grows with
+# every launch it records)
+Q4KM_AGREE_TOKENS = 32
+Q4KM_PROFILED = ("default", "bf16after")
 # bench_qmat.py's SHAPES: the 2.6B per-layer (K, N) of K8's own configuration
 K8_SHAPES = [(2560, 3840), (2560, 2560), (2560, 16384), (8192, 2560)]
 # GPU vs CPU under w8a8: each K4 call agrees with its plain version on the
@@ -277,14 +285,15 @@ def shape_cases(torch, qmat, gen):
     gateup = qmat.concat_qtensors([q(2560, 8192, "q4_k"), q(2560, 8192, "q4_k")])
     assert not wqkv.packed and wqkv.group == 16 and wqkv.mins is not None
     assert gateup.packed and gateup.group == 32 and gateup.mins is not None
+    # M = 16: a 16-slot step or a speculative verify on the 2.6B widths
+    ms = (1, 7, 16, 64)
     cases += [
-        ("2.6b wqkv q4_k+q6_k", wqkv, (1, 7, 64)),
-        ("2.6b w_gateup q4_k packed", gateup, (1, 7, 64)),
-        ("2.6b w_down q6_k", q(8192, 2560, "q6_k"), (1, 7, 64)),
-        ("2.6b q4_0 packed", q(2560, 2560, "q4_0"), (1, 7, 64)),
-        ("2.6b wo q4_k packed", q(2560, 2560, "q4_k"), (1, 7, 64)),
-        ("2.6b output q4_k packed", q(2560, 256 + 3 + N_SPEECH, "q4_k"),
-         (1, 7, 64)),
+        ("2.6b wqkv q4_k+q6_k", wqkv, ms),
+        ("2.6b w_gateup q4_k packed", gateup, ms),
+        ("2.6b w_down q6_k", q(8192, 2560, "q6_k"), ms),
+        ("2.6b q4_0 packed", q(2560, 2560, "q4_0"), ms),
+        ("2.6b wo q4_k packed", q(2560, 2560, "q4_k"), ms),
+        ("2.6b output q4_k packed", q(2560, 256 + 3 + N_SPEECH, "q4_k"), ms),
     ]
     # LFM2-1.2B-Q8_0: M = 1 offline, M = 16 the serving phase's slots
     ms = (1, LFM2_SLOTS)
@@ -385,6 +394,9 @@ def phase_kernels(torch, qmat, card: str) -> list[dict]:
                 if not e < tol:
                     raise AssertionError(f"{label} M={m} {dtype}: kernel vs "
                                          f"plain rel err {e} >= {tol}")
+                if not torch.equal(qmat.qdot(x, qt), got):
+                    raise AssertionError(f"{label} M={m} {dtype}: two calls "
+                                         f"differ (split-K not deterministic)")
                 err[str(dtype)] = e
             abs_err = float((got.float() - want.float()).abs().max())
             # device time (graph replay over weight copies that exceed the
@@ -410,7 +422,10 @@ def phase_kernels(torch, qmat, card: str) -> list[dict]:
                        library_eager_ms=l_host, bound_ms=max(t_bytes, t_ops),
                        bound_by="bytes" if t_bytes >= t_ops else "operations",
                        max_abs_err=abs_err, rel_err_bf16=err[str(torch.bfloat16)],
-                       rel_err_f32=err[str(torch.float32)])
+                       rel_err_f32=err[str(torch.float32)],
+                       splits=(qmat._tile_plan(m, K, N, qt.group,
+                                               qmat._sm_count(x.device)).splits
+                               if m > 1 else None), bit_identical=True)
             rows.append(row)
             log(f"qdot {label:28s} M={m:<3d} K={K:<5d} N={N:<6d} "
                 f"kernel {k_ms:.4f} ms (eager {k_host:.4f})  plain {p_ms:.4f} "
@@ -605,6 +620,9 @@ def phase_bf16(torch, qmat, card: str, k1_rows: list[dict]) -> list[dict]:
                         raise AssertionError(f"K1v {label} M={m} mode {mode} "
                                              f"{dtype}: kernel vs plain rel "
                                              f"err {e} >= {tol}")
+                    if not torch.equal(qmat.qdot_bf16(x, qt, mode), got):
+                        raise AssertionError(f"K1v {label} M={m} mode {mode} "
+                                             f"{dtype}: two calls differ")
                     err[(mode, str(dtype))] = e
                     abs_err = max(abs_err, float((got.float() - want.float())
                                                  .abs().max()))
@@ -628,15 +646,17 @@ def phase_bf16(torch, qmat, card: str, k1_rows: list[dict]) -> list[dict]:
                        ms_mode1=k_ms["1"], plain_ms=p_ms, library_ms=l_ms,
                        eager_ms=e_ms, bound_ms=max(t_bytes, t_ops),
                        bound_by="bytes" if t_bytes >= t_ops else "operations",
-                       k1_ms=k1[(label, m)]["ms"], max_abs_err=abs_err,
+                       k1_ms=k1[(label, m)]["ms"] if k1 else None,
+                       max_abs_err=abs_err, bit_identical=True,
                        rel_err_f32=max(v for (_, d), v in err.items()
                                        if d == str(torch.float32)),
                        rel_err_bf16=max(v for (_, d), v in err.items()
                                         if d == str(torch.bfloat16)))
             rows.append(row)
+            k1_txt = "n/a" if not k1 else f"{row['k1_ms']:.4f} ms"
             log(f"K1v {label:28s} M={m:<3d} K={K:<5d} N={N:<6d} kernel after "
                 f"{k_ms['after']:.4f} / 1 {k_ms['1']:.4f} ms (eager "
-                f"{e_ms:.4f})  K1 {row['k1_ms']:.4f} ms  plain {p_ms:.4f} ms"
+                f"{e_ms:.4f})  K1 {k1_txt}  plain {p_ms:.4f} ms"
                 f"  library {l_ms:.4f} ms  bound {row['bound_ms']:.4f} ms "
                 f"({row['bound_by']})  rel_err f32 {row['rel_err_f32']:.2e} "
                 f"bf16 {row['rel_err_bf16']:.2e}  [{card}]")
@@ -1693,12 +1713,13 @@ def timed_write(fn, d: str, label: str) -> None:
 
 
 @contextlib.contextmanager
-def background_writes(d: str):
-    """Start one spawned writer process per WRITERS entry; on leaving, stop
-    any that is still running (a phase failed) and join them all."""
+def background_writes(d: str, keys):
+    """Start one spawned writer process per WRITERS entry in `keys`; on
+    leaving, stop any that is still running (a phase failed) and join them
+    all."""
     ctx = multiprocessing.get_context("spawn")
     procs = {key: ctx.Process(target=timed_write, args=(fn, d, label))
-             for key, (fn, label) in WRITERS.items()}
+             for key, (fn, label) in WRITERS.items() if key in keys}
     try:
         for p in procs.values():
             p.start()
@@ -1797,7 +1818,9 @@ def phase_q4km_offline(torch, qmat, paths: dict, out_dir: str,
         decode_attn.decode_attention.kernel_launches = 0
         t0 = time.perf_counter()
         eng.synthesize_to_file(voice, text, wav, Options(
-            temperature=0.0, max_tokens=MAX_TOKENS), profile=prof)
+            temperature=0.0, max_tokens=(MAX_TOKENS if name == "default"
+                                         else Q4KM_AGREE_TOKENS)),
+            profile=prof)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         got = read_counts(counters)
@@ -1832,8 +1855,9 @@ def phase_q4km_offline(torch, qmat, paths: dict, out_dir: str,
                    first_disagreement=next(
                        (i for i, (a, b) in enumerate(zip(
                            tokens[name], tokens["default"])) if a != b), None))
-        res["profile"] = (None if name in Q4KM_UNPROFILED else profile_steps(
-            torch, eng, card, f"q4km[{name}] prefill + 16 steps"))
+        res["profile"] = (profile_steps(
+            torch, eng, card, f"q4km[{name}] prefill + 16 steps")
+            if name in Q4KM_PROFILED else None)
         out[name] = res
         log(f"q4km[{name}]: prefill {res['prefill_ms']:.4f} ms, decode "
             f"{res['decode_tok_s']:.4f} tok/s, x_realtime "
@@ -2023,10 +2047,11 @@ def step_summary(rows: list[dict], key: str, m: int = 1) -> float:
     return LAYERS * layer + by["0.1b output q8_0"]
 
 
-def q4km_k1_step(rows: list[dict], key: str) -> float:
-    """One 2.6B-Q4_K_M decode step's K1 work at M = 1 (the default route):
-    32 layers of fused QKV, wo, gate/up and w_down, plus the output head."""
-    by = {r["shape"].split()[1]: r[key] for r in rows if r["M"] == 1
+def q4km_k1_step(rows: list[dict], key: str, m: int = 1) -> float:
+    """One 2.6B-Q4_K_M decode step's K1 work at M = m (1: the default
+    route's single stream; 64: a 64-slot batched step): 32 layers of fused
+    QKV, wo, gate/up and w_down, plus the output head."""
+    by = {r["shape"].split()[1]: r[key] for r in rows if r["M"] == m
           and r["shape"].startswith("2.6b") and "q4_0" not in r["shape"]}
     return Q4KM_LAYERS * (by["wqkv"] + by["wo"] + by["w_gateup"]
                           + by["w_down"]) + by["output"]
@@ -2044,11 +2069,39 @@ def lfm2_step_summary(rows: list[dict], key: str, m: int = 1) -> float:
             + n_attn * (by["wqkv"] + by["out_proj/wo"] + ffn) + by["output"])
 
 
-def main() -> int:
+# every phase (3 runs 3-5), and what a phase needs run before it
+ALL_PHASES = (2, 3, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18)
+PHASE_NEEDS = {9: {7}, 12: {11}}
+MODEL_PHASES = {3, 7, 8, 9, 11, 12, 13, 15, 16}   # the 0.1B files, the codec
+
+
+def parse_phases(argv) -> set:
+    """The phases to run: all of them, or those of --phases (for dev runs;
+    the summary and the last line are printed only when all ran)."""
+    import argparse
+    ap = argparse.ArgumentParser(description="Chip smoke test of the port.")
+    ap.add_argument("--phases", default="",
+                    help="comma-separated phase numbers to run (3 runs 3-5; "
+                         "9 brings 7, 12 brings 11); default: all")
+    args = ap.parse_args(argv)
+    if not args.phases:
+        return set(ALL_PHASES)
+    run = {int(t) for t in args.phases.split(",") if t.strip()}
+    if run - set(ALL_PHASES):
+        ap.error(f"unknown phases {sorted(run - set(ALL_PHASES))}; "
+                 f"choose from {ALL_PHASES}")
+    for phase, needs in PHASE_NEEDS.items():
+        if phase in run:
+            run |= needs
+    return run
+
+
+def main(argv=None) -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
+    run = parse_phases(argv)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from miotts_tpu_torch.ops import _build, qmat
 
@@ -2064,50 +2117,95 @@ def main() -> int:
             if "Used" in line or "spill" in line:
                 log(f"build {name}: {line.strip()}")
 
-    rows = phase_kernels(torch, qmat, card)
-    log(f"phase 2 done at {time.perf_counter() - t_start:.1f} s")
+    def done(label: str) -> None:
+        log(f"phase {label} done at {time.perf_counter() - t_start:.1f} s")
 
-    with tempfile.TemporaryDirectory() as d, background_writes(d) as writers:
-        t0 = time.perf_counter()
-        paths = write_models(d)
-        log(f"models written in {time.perf_counter() - t0:.1f} s")
-        main_res = phase_main_path(torch, qmat, paths, d, card)
-        log(f"phase 3/4/5 done at {time.perf_counter() - t_start:.1f} s")
-        attn_rows = phase_attn_kernels(torch, card)
-        log(f"phase 6 done at {time.perf_counter() - t_start:.1f} s")
-        serve_res = phase_serving(torch, paths, card)
-        log(f"phase 7 done at {time.perf_counter() - t_start:.1f} s")
-        ref_res = phase_gpu_vs_cpu(torch, paths)
-        log(f"phase 8 done at {time.perf_counter() - t_start:.1f} s")
-        http_res = phase_http(torch, serve_res.pop("engine"),
-                              serve_res.pop("voice"))
-        log(f"phase 9 done at {time.perf_counter() - t_start:.1f} s")
-        torch.cuda.empty_cache()
-        k5_rows = phase_k5(torch, card)
-        log(f"phase 10 (a) done at {time.perf_counter() - t_start:.1f} s")
-        paths["lfm2"] = written(writers, "lfm2", d)
-        lfm2_res, lfm2_eng, lfm2_voice = phase_lfm2_offline(torch, paths, d,
-                                                            card)
-        log(f"phase 11 (b) done at {time.perf_counter() - t_start:.1f} s")
-        lfm2_serve = phase_lfm2_serving(torch, lfm2_eng, lfm2_voice, card)
-        del lfm2_eng
-        torch.cuda.empty_cache()
-        log(f"phase 12 (d) done at {time.perf_counter() - t_start:.1f} s")
-        lfm2_ref = phase_lfm2_gpu_vs_cpu(torch, paths["lfm2"])
-        log(f"phase 13 (c) done at {time.perf_counter() - t_start:.1f} s")
-        var_rows = phase_variants(torch, qmat, card)
-        log(f"phase 14 done at {time.perf_counter() - t_start:.1f} s")
-        bf16_rows = phase_bf16(torch, qmat, card, rows)
-        log(f"phase 17 done at {time.perf_counter() - t_start:.1f} s")
-        probes = phase_probes(torch, qmat, card, k5_rows, attn_rows)
-        log(f"phase 18 done at {time.perf_counter() - t_start:.1f} s")
-        os.remove(paths.pop("lfm2"))
-        paths["q4km"] = written(writers, "q4km", d)
-        q4km_res = phase_q4km_offline(torch, qmat, paths, d, card)
-        log(f"phase 15 done at {time.perf_counter() - t_start:.1f} s")
-        q4km_ref = phase_q4km_gpu_vs_cpu(torch, qmat, paths["q4km"])
-        log(f"phase 16 done at {time.perf_counter() - t_start:.1f} s")
+    res: dict = {}
+    rows = []
+    if 2 in run:
+        rows = res["qdot_per_shape"] = phase_kernels(torch, qmat, card)
+        done("2")
 
+    writers_for = {"lfm2": {11, 12, 13}, "q4km": {15, 16}}
+    keys = {k for k, phases in writers_for.items() if run & phases}
+    with tempfile.TemporaryDirectory() as d, background_writes(d, keys) as writers:
+        paths = {}
+        if run & MODEL_PHASES:
+            t0 = time.perf_counter()
+            paths = write_models(d)
+            log(f"models written in {time.perf_counter() - t0:.1f} s")
+        if 3 in run:
+            res["main_path"] = phase_main_path(torch, qmat, paths, d, card)
+            done("3/4/5")
+        attn_rows = []
+        if 6 in run:
+            attn_rows = res["attn_per_shape"] = phase_attn_kernels(torch, card)
+            done("6")
+        if 7 in run:
+            res["serving"] = phase_serving(torch, paths, card)
+            done("7")
+        if 8 in run:
+            res["gpu_vs_cpu"] = phase_gpu_vs_cpu(torch, paths)
+            done("8")
+        if 7 in run:
+            eng, voice = res["serving"].pop("engine"), res["serving"].pop("voice")
+            if 9 in run:
+                res["http"] = phase_http(torch, eng, voice)
+                done("9")
+            del eng, voice
+        torch.cuda.empty_cache()
+        k5_rows = []
+        if 10 in run:
+            k5_rows = res["k5_per_shape"] = phase_k5(torch, card)
+            done("10 (a)")
+        if "lfm2" in keys:
+            paths["lfm2"] = written(writers, "lfm2", d)
+        if 11 in run:
+            res["lfm2_offline"], lfm2_eng, lfm2_voice = phase_lfm2_offline(
+                torch, paths, d, card)
+            done("11 (b)")
+            if 12 in run:
+                res["lfm2_serving"] = phase_lfm2_serving(torch, lfm2_eng,
+                                                         lfm2_voice, card)
+                done("12 (d)")
+            del lfm2_eng
+            torch.cuda.empty_cache()
+        if 13 in run:
+            res["lfm2_gpu_vs_cpu"] = phase_lfm2_gpu_vs_cpu(torch, paths["lfm2"])
+            done("13 (c)")
+        if 14 in run:
+            res["variants_per_shape"] = phase_variants(torch, qmat, card)
+            done("14")
+        if 17 in run:
+            res["bf16_per_shape"] = phase_bf16(torch, qmat, card, rows)
+            done("17")
+        if 18 in run:
+            res["probes"] = phase_probes(torch, qmat, card, k5_rows, attn_rows)
+            done("18")
+        if "lfm2" in keys:
+            os.remove(paths.pop("lfm2"))
+        if "q4km" in keys:
+            paths["q4km"] = written(writers, "q4km", d)
+        if 15 in run:
+            res["q4km_offline"] = phase_q4km_offline(torch, qmat, paths, d, card)
+            done("15")
+        if 16 in run:
+            res["q4km_gpu_vs_cpu"] = phase_q4km_gpu_vs_cpu(torch, qmat,
+                                                           paths["q4km"])
+            done("16")
+
+    if run != set(ALL_PHASES):
+        log("details " + json.dumps(res))
+        log(f"total {time.perf_counter() - t_start:.1f} s (phases "
+            f"{sorted(run)} only: no summary)")
+        return 0
+    main_res, serve_res, ref_res = (res["main_path"], res["serving"],
+                                    res["gpu_vs_cpu"])
+    lfm2_res, lfm2_serve, lfm2_ref = (res["lfm2_offline"], res["lfm2_serving"],
+                                      res["lfm2_gpu_vs_cpu"])
+    var_rows, bf16_rows, probes = (res["variants_per_shape"],
+                                   res["bf16_per_shape"], res["probes"])
+    q4km_res, q4km_ref = res["q4km_offline"], res["q4km_gpu_vs_cpu"]
     qdot_entry = dict(
         name="qdot", route="cuda", source="miotts_tpu_torch/ops/csrc/qdot.cu",
         replaces="miotts_tpu/ops/qmat.py:191",
@@ -2131,6 +2229,8 @@ def main() -> int:
                            ("ms", "plain_ms", "bound_ms", "library_ms")},
         q4km_single_stream_step={k: q4km_k1_step(rows, k) for k in
                                  ("ms", "plain_ms", "bound_ms", "library_ms")},
+        q4km_64_slot_step={k: q4km_k1_step(rows, k, 64) for k in
+                           ("ms", "plain_ms", "bound_ms", "library_ms")},
         launches_by_path={"serving_bf16": serve_res["bf16"]["qdot_launches"],
                           "serving_int8": serve_res["int8"]["qdot_launches"],
                           "offline": main_res["qdot_launches"],
@@ -2210,7 +2310,10 @@ def main() -> int:
              "linears at M=16), mode after, bf16 x",
         q4km_single_stream_step={k: q4km_k1_step(bf16_rows, k) for k in
                                  ("ms", "ms_mode1", "plain_ms", "bound_ms",
-                                  "library_ms", "k1_ms")})
+                                  "library_ms", "k1_ms")},
+        q4km_64_slot_step={k: q4km_k1_step(bf16_rows, k, 64) for k in
+                           ("ms", "ms_mode1", "plain_ms", "bound_ms",
+                            "library_ms", "k1_ms")})
     k7_step = next(r for r in probes["k7"] if (
         r["shape"], r["B"], r["H"], r["H_kv"], r["D"], r["S"]) == K5_STEP_SHAPE)
     k7_entry = dict(
@@ -2245,13 +2348,7 @@ def main() -> int:
              "g32); no single PyTorch call computes it")
     # the per-shape rows and every phase's numbers, on a line of their own
     # (the kernels line stays short)
-    log("details " + json.dumps(dict(
-        qdot_per_shape=rows, attn_per_shape=attn_rows, k5_per_shape=k5_rows,
-        main_path=main_res, serving=serve_res, gpu_vs_cpu=ref_res,
-        http=http_res, lfm2_offline=lfm2_res, lfm2_serving=lfm2_serve,
-        lfm2_gpu_vs_cpu=lfm2_ref, variants_per_shape=var_rows,
-        q4km_offline=q4km_res, q4km_gpu_vs_cpu=q4km_ref,
-        bf16_per_shape=bf16_rows, probes=probes)))
+    log("details " + json.dumps(res))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [qdot_entry, attn_entry, k5_entry]
                       + variant_entries + [bf16_entry, k7_entry, k8_entry]}))
@@ -2263,4 +2360,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -29,8 +29,9 @@ _L = ctypes.c_longlong
 # cudaError_t of its launch as an int
 KERNELS = {
     "qdot": ("qdot.cu", {
-        # x, x_is_bf16, v, packed, s, mins, y, M, K, N, group, stream
-        "qdot_launch": [_P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P],
+        # x, x_is_bf16, v, packed, s, mins, y, ws, tickets, M, K, N, group,
+        # bm, splits, k_split, stream
+        "qdot_launch": [_P, _I, _P, _I, _P, _P, _P, _P, _P] + [_I] * 7 + [_P],
     }),
     "qdot_gemv": ("qdot_gemv.cu", {
         # x, v, s, mins, y, x_is_bf16, M, K, N, group, stream
@@ -42,8 +43,10 @@ KERNELS = {
         "qdot_w8a8_packed_launch": [_P] * 5 + [_I] * 4 + [_P],
     }),
     "qdot_bf16": ("qdot_bf16.cu", {
-        # x, x_is_bf16, v, packed, s, mins, y, M, K, N, group, after, stream
-        "qdot_bf16_launch": [_P, _I, _P, _I, _P, _P, _P] + [_I] * 5 + [_P],
+        # x, x_is_bf16, v, packed, s, mins, y, ws, tickets, M, K, N, group,
+        # bm, splits, k_split, after, stream
+        "qdot_bf16_launch": [_P, _I, _P, _I, _P, _P, _P, _P, _P] + [_I] * 8
+                            + [_P],
     }),
     "dma_floor": ("dma_floor.cu", {
         # k, v, out, sink, B, H_kv, S, D, dtype, stream

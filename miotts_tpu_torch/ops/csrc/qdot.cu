@@ -16,8 +16,8 @@
 //   mins  f32 [K/g, N] or null
 //   y     [M, N] in x's type
 // Dequantization and accumulation are f32 (the TPU kernel's default
-// bf16_dot=False path); the mins term is fused into the dequant.  The output
-// is rounded once to x's type.
+// bf16_dot=False path): the same function as ops/qmat.py:qdot_plain in
+// another order of f32 sums.  The output is rounded once to x's type.
 //
 // What bounds it on the H100: at M = 1 (decode) every weight byte is read
 // once for 2 flops, so the kernel is bound by the bytes of v + s + mins over
@@ -34,35 +34,27 @@
 // no order, so the TPU kernel's K-grid accumulator in scratch becomes the K
 // loop inside the block.
 //
-// At M > 1 (prefill, M = prompt bucket) a 64 x 64 output tile per block
-// loops over K in steps of 32: the x tile (as f32) and the dequantized
-// weight tile go through shared memory, and each of the 256 threads keeps a
-// 4 x 4 block of f32 accumulators (FMA on the CUDA cores, which keeps the
-// f32 dequant exact) and reads its 4 x and 4 w values of a k as one 16-byte
-// load each.  The next K-step's global loads go into registers before this
-// step's FMAs, so their latency is hidden behind the arithmetic (a block
-// that waited on each step's loads in turn ran ~6 us per step).  Ragged
-// M / N / K edges are masked.
+// At M > 1 (prefill, batched decode, the m8 route) the shared tile of
+// qdot_tile.cuh: tensor-core products of bf16 x (an f32 x in three exact
+// bf16 parts) with the raw stored integers, a 4-stage cp.async ring of the
+// quantized bytes, an f32 fold of s and mins per quant group, and a
+// deterministic split-K in the same launch.  Its note says what bounds it.
 //
-// Plain C interface for ctypes: qdot_launch returns cudaGetLastError().
+// Plain C interface for ctypes: qdot_launch returns cudaGetLastError().  At
+// M > 1 it takes the tile plan of ops/qmat.py:_tile_plan (bm, splits,
+// k_split), the f32 workspace [splits][tiles][bm][128] (tiles = the output
+// tiles, row-major) and the per-tile tickets.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "qdot_tile.cuh"
+
 namespace {
 
-template <typename T> __device__ __forceinline__ float to_f32(T v);
-template <> __device__ __forceinline__ float to_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
+using qtile::from_f32;
+using qtile::to_f32;
 
 // ---------------------------------------------------------------- M == 1
 constexpr int GEMV_COLS = 32;   // lanes: one output column each
@@ -123,183 +115,77 @@ qdot_gemv_kernel(const T* __restrict__ x, const uint8_t* __restrict__ v,
   }
 }
 
-// ---------------------------------------------------------------- M > 1
-constexpr int TM = 64, TN = 64, TK = 32, TILE_THREADS = 256;
-constexpr int XR = TM * TK / TILE_THREADS;    // x elements each thread loads
-constexpr int WR = TK * TN / TILE_THREADS;    // weight elements each thread loads
-constexpr int XM_STEP = TILE_THREADS / TK;    // rows between a thread's x loads
-constexpr int WK_STEP = TILE_THREADS / TN;    // rows between a thread's w loads
-constexpr int XS_STRIDE = TM + 4;             // 16-byte rows, 4-way store conflicts
-
-// One K-step's global loads, held raw in registers until the step is stored
-// to shared memory.  Out-of-range elements load from a clamped address (so
-// the loads carry no branch and issue back to back) and are zeroed at the
-// store.
 template <typename T, bool PACKED, bool MINS, int G>
-struct TileLoads {
-  T xr[XR];
-  int qr[WR];          // int8 value, or the whole byte of a packed pair
-  float sr[WR], mr[WR];
-
-  __device__ __forceinline__ void load(const T* x, const uint8_t* v,
-                                       const float* s, const float* mins,
-                                       int M, int K, int N, int m0, int n,
-                                       int xm, int xk, int wk, int k0) {
-#pragma unroll
-    for (int r = 0; r < XR; ++r) {
-      const int m = min(m0 + xm + XM_STEP * r, M - 1), k = min(k0 + xk, K - 1);
-      xr[r] = x[(size_t)m * K + k];
-    }
-    const int nc = min(n, N - 1);
-#pragma unroll
-    for (int r = 0; r < WR; ++r) {
-      const int k = min(k0 + wk + WK_STEP * r, K - 1);
-      const int b = k / G;
-      if (PACKED) {
-        constexpr int H = G / 2;
-        const int rr = k - b * G;
-        qr[r] = v[((size_t)b * H + (rr < H ? rr : rr - H)) * N + nc];
-      } else {
-        qr[r] = reinterpret_cast<const int8_t*>(v)[(size_t)k * N + nc];
-      }
-      sr[r] = s[(size_t)b * N + nc];
-      mr[r] = MINS ? mins[(size_t)b * N + nc] : 0.f;
-    }
+cudaError_t gemv(const void* x, const void* v, const float* s, const float* mins,
+                 void* y, int K, int N, cudaStream_t stream) {
+  const size_t smem = (size_t)(K + GEMV_COLS * GEMV_WARPS) * sizeof(float);
+  if (smem > 48 * 1024) {
+    cudaFuncSetAttribute(qdot_gemv_kernel<T, PACKED, MINS, G>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   }
-
-  __device__ __forceinline__ void store(float (*xs)[XS_STRIDE], float (*ws)[TN],
-                                        int M, int K, int N, int m0, int n,
-                                        int xm, int xk, int wk, int wn,
-                                        int k0) const {
-#pragma unroll
-    for (int r = 0; r < XR; ++r) {
-      const int mm = xm + XM_STEP * r;
-      xs[xk][mm] = (m0 + mm < M && k0 + xk < K) ? to_f32(xr[r]) : 0.f;
-    }
-#pragma unroll
-    for (int r = 0; r < WR; ++r) {
-      const int kk = wk + WK_STEP * r, k = k0 + kk;
-      int q = qr[r];
-      if (PACKED) q = (k % G < G / 2) ? (q & 0xF) : (q >> 4);
-      float w = (float)q * sr[r];
-      if (MINS) w -= mr[r];
-      ws[kk][wn] = (k < K && n < N) ? w : 0.f;
-    }
-  }
-};
-
-template <typename T, bool PACKED, bool MINS, int G>
-__global__ void __launch_bounds__(TILE_THREADS)
-qdot_tiled_kernel(const T* __restrict__ x, const uint8_t* __restrict__ v,
-                  const float* __restrict__ s, const float* __restrict__ mins,
-                  T* __restrict__ y, int M, int K, int N) {
-  __shared__ __align__(16) float xs[TK][XS_STRIDE];  // x tile, transposed: xs[k][m]
-  __shared__ __align__(16) float ws[TK][TN];         // dequantized weight tile
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;   // outputs (4 ty + i, 4 tx + j)
-  const int m0 = blockIdx.y * TM, n0 = blockIdx.x * TN;
-  // load coordinates: neighbouring threads read neighbouring k of x and
-  // neighbouring n of v / s / mins
-  const int xk = tid % TK, xm = tid / TK;
-  const int wn = tid % TN, wk = tid / TN;
-  const int n = n0 + wn;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  TileLoads<T, PACKED, MINS, G> next;
-  next.load(x, v, s, mins, M, K, N, m0, n, xm, xk, wk, 0);
-  for (int k0 = 0; k0 < K; k0 += TK) {
-    next.store(xs, ws, M, K, N, m0, n, xm, xk, wk, wn, k0);
-    __syncthreads();
-    // the next step's loads are in flight while this step's FMAs run
-    if (k0 + TK < K) next.load(x, v, s, mins, M, K, N, m0, n, xm, xk, wk, k0 + TK);
-#pragma unroll
-    for (int kk = 0; kk < TK; ++kk) {
-      const float4 a4 = *reinterpret_cast<const float4*>(&xs[kk][4 * ty]);
-      const float4 b4 = *reinterpret_cast<const float4*>(&ws[kk][4 * tx]);
-      const float a[4] = {a4.x, a4.y, a4.z, a4.w};
-      const float bw[4] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], bw[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + 4 * ty + i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int nn = n0 + 4 * tx + j;
-      if (nn < N) y[(size_t)m * N + nn] = from_f32<T>(acc[i][j]);
-    }
-  }
+  dim3 block(GEMV_COLS, GEMV_WARPS);
+  dim3 grid((N + GEMV_COLS - 1) / GEMV_COLS);
+  qdot_gemv_kernel<T, PACKED, MINS, G><<<grid, block, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const uint8_t*>(v), s, mins,
+      static_cast<T*>(y), K, N);
+  return cudaGetLastError();
 }
 
-template <typename T, bool PACKED, bool MINS, int G>
-void launch(const void* x, const void* v, const float* s, const float* mins,
-            void* y, int M, int K, int N, cudaStream_t stream) {
-  const T* xt = static_cast<const T*>(x);
-  const uint8_t* vt = static_cast<const uint8_t*>(v);
-  T* yt = static_cast<T*>(y);
-  if (M == 1) {
-    const size_t smem = (size_t)(K + GEMV_COLS * GEMV_WARPS) * sizeof(float);
-    if (smem > 48 * 1024) {
-      cudaFuncSetAttribute(qdot_gemv_kernel<T, PACKED, MINS, G>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    }
-    dim3 block(GEMV_COLS, GEMV_WARPS);
-    dim3 grid((N + GEMV_COLS - 1) / GEMV_COLS);
-    qdot_gemv_kernel<T, PACKED, MINS, G><<<grid, block, smem, stream>>>(
-        xt, vt, s, mins, yt, K, N);
-  } else {
-    dim3 grid((N + TN - 1) / TN, (M + TM - 1) / TM);
-    qdot_tiled_kernel<T, PACKED, MINS, G><<<grid, TILE_THREADS, 0, stream>>>(
-        xt, vt, s, mins, yt, M, K, N);
+template <typename T, bool PACKED, int G>
+cudaError_t by_mins(const void* x, const void* v, const float* s,
+                    const float* mins, void* y, float* ws, int* tickets, int M,
+                    int K, int N, int bm, int splits, int k_split,
+                    cudaStream_t stream) {
+  if (M > 1) {
+    return qtile::tile_by_bm<T, PACKED, G, false>(x, v, s, mins, y, ws, tickets, M, K,
+                                                  N, bm, splits, k_split, false,
+                                                  stream);
   }
-}
-
-template <typename T, bool PACKED, bool MINS>
-void by_group(const void* x, const void* v, const float* s, const float* mins,
-              void* y, int M, int K, int N, int group, cudaStream_t stream) {
-  if (group == 16) launch<T, PACKED, MINS, 16>(x, v, s, mins, y, M, K, N, stream);
-  else launch<T, PACKED, MINS, 32>(x, v, s, mins, y, M, K, N, stream);
+  if (mins) return gemv<T, PACKED, true, G>(x, v, s, mins, y, K, N, stream);
+  return gemv<T, PACKED, false, G>(x, v, s, mins, y, K, N, stream);
 }
 
 template <typename T>
-void dispatch(const void* x, const void* v, int packed, const float* s,
-              const float* mins, void* y, int M, int K, int N, int group,
-              cudaStream_t stream) {
+cudaError_t dispatch(const void* x, const void* v, int packed, const float* s,
+                     const float* mins, void* y, float* ws, int* tickets, int M,
+                     int K, int N, int group, int bm, int splits, int k_split,
+                     cudaStream_t stream) {
   if (packed) {
-    if (mins) by_group<T, true, true>(x, v, s, mins, y, M, K, N, group, stream);
-    else by_group<T, true, false>(x, v, s, mins, y, M, K, N, group, stream);
-  } else {
-    if (mins) by_group<T, false, true>(x, v, s, mins, y, M, K, N, group, stream);
-    else by_group<T, false, false>(x, v, s, mins, y, M, K, N, group, stream);
+    if (group == 16)
+      return by_mins<T, true, 16>(x, v, s, mins, y, ws, tickets, M, K, N, bm, splits,
+                                  k_split, stream);
+    return by_mins<T, true, 32>(x, v, s, mins, y, ws, tickets, M, K, N, bm, splits,
+                                k_split, stream);
   }
+  if (group == 16)
+    return by_mins<T, false, 16>(x, v, s, mins, y, ws, tickets, M, K, N, bm, splits,
+                                 k_split, stream);
+  return by_mins<T, false, 32>(x, v, s, mins, y, ws, tickets, M, K, N, bm, splits,
+                               k_split, stream);
 }
 
 }  // namespace
 
 extern "C" int qdot_launch(const void* x, int x_is_bf16, const void* v,
                            int packed, const void* s, const void* mins,
-                           void* y, int M, int K, int N, int group,
+                           void* y, void* ws, void* tickets, int M, int K,
+                           int N, int group, int bm, int splits, int k_split,
                            void* stream) {
   if (M < 1 || K < 1 || N < 1 || (group != 16 && group != 32) || K % group) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (M > 1 && !qtile::plan_ok(M, K, N, bm, splits, k_split, ws, tickets)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* sf = static_cast<const float*>(s);
   const float* mf = static_cast<const float*>(mins);
+  float* wsf = static_cast<float*>(ws);
+  int* tk = static_cast<int*>(tickets);
   if (x_is_bf16) {
-    dispatch<__nv_bfloat16>(x, v, packed, sf, mf, y, M, K, N, group, st);
-  } else {
-    dispatch<float>(x, v, packed, sf, mf, y, M, K, N, group, st);
+    return (int)dispatch<__nv_bfloat16>(x, v, packed, sf, mf, y, wsf, tk, M, K, N,
+                                        group, bm, splits, k_split, st);
   }
-  return (int)cudaGetLastError();
+  return (int)dispatch<float>(x, v, packed, sf, mf, y, wsf, tk, M, K, N, group, bm,
+                              splits, k_split, st);
 }

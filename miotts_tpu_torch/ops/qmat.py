@@ -30,14 +30,16 @@ kernel as the JAX package's `qdot` does, by the weight's `QdotRoute`:
                       (MIOTTS_QDOT_BF16=1 / after)
 
 A CUDA tensor goes through the hand-written kernel (`ops/csrc/qdot.cu`,
-`ops/csrc/qdot_gemv.cu`, `ops/csrc/qdot_bf16.cu`) and raises if it cannot
-build or launch; a CPU tensor goes through the kernel's plain torch version
-(`*_plain`).  `qdot_dma_floor` (K8, `ops/csrc/dma_floor.cu`) is a probe
+`ops/csrc/qdot_gemv.cu`, `ops/csrc/qdot_bf16.cu`; at M > 1 K1 and K1v share
+the tile of `ops/csrc/qdot_tile.cuh`, planned by `_tile_plan`) and raises
+if it cannot build or launch; a CPU tensor goes through the kernel's plain
+torch version (`*_plain`).  `qdot_dma_floor` (K8, `ops/csrc/dma_floor.cu`) is a probe
 that streams K1's blocks; no linear calls it.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 from dataclasses import dataclass, replace
 
@@ -459,35 +461,141 @@ def _launch(fn: str, x, qt: QTensor, y, *ints) -> None:
         torch.cuda.current_stream(x.device).cuda_stream), fn)
 
 
-def _qdot_cuda(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
-    """K1: `qdot_launch` (ops/csrc/qdot.cu)."""
+# the M > 1 tile of K1 and K1v (ops/csrc/qdot_tile.cuh, whose BN and BK
+# these are): TILE_BN output columns of a bm-row tile and TILE_BK of K per
+# stage.  16-row tiles serve M <= 16, and any M when the weight has fewer
+# than TILE_BM16_MAX_KN values (a small linear is bound by latency: four
+# 16-row tiles in parallel beat one 64-row tile).  K is split over blocks
+# until they reach TILE_BLOCKS_PER_SM[bm] per SM, keeping SPLIT_MIN_STEPS
+# stages or more in a split.  scripts/torch_qdot_tile_sweep.py times the
+# choices.
+TILE_BN = 128
+TILE_BK = 64
+TILE_BM16_MAX_KN = 1 << 22
+TILE_BLOCKS_PER_SM = {16: 2, 64: 1}
+SPLIT_MIN_STEPS = 2
+H100_SMS = 132
+
+
+@dataclass(frozen=True)
+class TilePlan:
+    """How the M > 1 tile covers y [M, N] = x [M, K] @ w: `bm` rows by
+    TILE_BN columns a block, `splits` blocks along K of `k_split` each (the
+    last one ragged)."""
+    bm: int
+    splits: int
+    k_split: int
+    n_tiles: int
+    m_tiles: int
+
+
+@functools.lru_cache(maxsize=None)
+def _tile_plan(M: int, K: int, N: int, group: int,
+               sms: int = H100_SMS) -> TilePlan:
+    """The M > 1 tile plan of x [M, K] against a [K, N] weight of quant group
+    `group` on a card of `sms` SMs: 16-row tiles for M <= 16 or a weight of
+    fewer than TILE_BM16_MAX_KN values, 64 above, and K split as
+    `_plan_for` says."""
+    return _plan_for(16 if M <= 16 or K * N < TILE_BM16_MAX_KN else 64,
+                     M, K, N, group, sms)
+
+
+def _plan_for(bm: int, M: int, K: int, N: int, group: int,
+              sms: int = H100_SMS) -> TilePlan:
+    """The plan of bm-row tiles: K split over blocks in whole TILE_BK stages
+    (no stage crosses a split) toward TILE_BLOCKS_PER_SM[bm] blocks an SM,
+    with at least SPLIT_MIN_STEPS stages in a split."""
+    if M < 2 or K < 1 or N < 1 or group not in (16, 32) or K % group:
+        raise ValueError(f"no tile plan for M={M} K={K} N={N} group={group}")
+    n_tiles, m_tiles = -(-N // TILE_BN), -(-M // bm)
+    steps = -(-K // TILE_BK)
+    want = -(-TILE_BLOCKS_PER_SM[bm] * sms // (n_tiles * m_tiles))
+    per = -(-steps // max(1, min(want, steps // SPLIT_MIN_STEPS)))
+    return TilePlan(bm=bm, splits=-(-steps // per), k_split=per * TILE_BK,
+                    n_tiles=n_tiles, m_tiles=m_tiles)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+# per device: the tile kernels' split-K tickets, one int32 per output tile,
+# zeroed once here and reset to 0 by the block that uses them last
+_TICKETS: dict = {}
+
+
+def _tickets(device, n: int) -> torch.Tensor:
+    """The split-K tickets of `device`, at least `n`.  One array serves
+    every launch on the device, so two tile launches must not run at once:
+    the port launches on one stream a device."""
+    t = _TICKETS.get(device)
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _TICKETS[device] = t
+    return t
+
+
+def _tile_args(name: str, x: torch.Tensor, qt: QTensor, N: int,
+               plan: TilePlan | None) -> tuple:
+    """(workspace, tickets, bm, splits, k_split) of the launch, under `plan`
+    (None: `_tile_plan`'s); the M = 1 GEMV takes none of them."""
+    M, K = x.shape
+    if M == 1:
+        return None, None, 0, 1, 0
+    if x.data_ptr() % 16 or qt.values.data_ptr() % 16:
+        raise ValueError(f"{name} kernel: x and values must be 16-byte "
+                         f"aligned at M > 1")
+    if plan is None:
+        plan = _tile_plan(M, K, N, qt.group, _sm_count(x.device))
+    if plan.splits == 1:
+        return None, None, plan.bm, 1, plan.k_split
+    tiles = plan.n_tiles * plan.m_tiles
+    ws = torch.empty((plan.splits, tiles, plan.bm, TILE_BN),
+                     dtype=torch.float32, device=x.device)
+    tickets = _tickets(x.device, tiles)
+    return ws, tickets, plan.bm, plan.splits, plan.k_split
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _qdot_cuda(x: torch.Tensor, qt: QTensor,
+               plan: TilePlan | None = None) -> torch.Tensor:
+    """K1: `qdot_launch` (ops/csrc/qdot.cu); at M > 1 under `plan` (None:
+    `_tile_plan`'s)."""
     from ._build import load_kernels
     N = _checked("qdot", x, qt)
     M, K = x.shape
+    ws, tickets, bm, splits, k_split = _tile_args("qdot", x, qt, N, plan)
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     _raise_on(load_kernels()["qdot"].qdot_launch(
         x.data_ptr(), int(x.dtype == torch.bfloat16), qt.values.data_ptr(),
-        int(qt.packed), qt.scales.data_ptr(),
-        None if qt.mins is None else qt.mins.data_ptr(), y.data_ptr(),
-        M, K, N, qt.group, torch.cuda.current_stream(x.device).cuda_stream),
-        "qdot_launch")
+        int(qt.packed), qt.scales.data_ptr(), _ptr(qt.mins), y.data_ptr(),
+        _ptr(ws), _ptr(tickets), M, K, N, qt.group, bm, splits, k_split,
+        torch.cuda.current_stream(x.device).cuda_stream), "qdot_launch")
     qdot.kernel_launches += 1
     return y
 
 
-def _qdot_bf16_cuda(x: torch.Tensor, qt: QTensor, mode: str) -> torch.Tensor:
-    """K1v: `qdot_bf16_launch` (ops/csrc/qdot_bf16.cu)."""
+def _qdot_bf16_cuda(x: torch.Tensor, qt: QTensor, mode: str,
+                    plan: TilePlan | None = None) -> torch.Tensor:
+    """K1v: `qdot_bf16_launch` (ops/csrc/qdot_bf16.cu); at M > 1 under
+    `plan` (None: `_tile_plan`'s)."""
     from ._build import load_kernels
     _bf16_mode_checked(mode)
     N = _checked("qdot_bf16", x, qt)
     M, K = x.shape
+    ws, tickets, bm, splits, k_split = _tile_args("qdot_bf16", x, qt, N,
+                                                  plan)
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     _raise_on(load_kernels()["qdot_bf16"].qdot_bf16_launch(
         x.data_ptr(), int(x.dtype == torch.bfloat16), qt.values.data_ptr(),
-        int(qt.packed), qt.scales.data_ptr(),
-        None if qt.mins is None else qt.mins.data_ptr(), y.data_ptr(),
-        M, K, N, qt.group, int(mode == "after"),
-        torch.cuda.current_stream(x.device).cuda_stream), "qdot_bf16_launch")
+        int(qt.packed), qt.scales.data_ptr(), _ptr(qt.mins), y.data_ptr(),
+        _ptr(ws), _ptr(tickets), M, K, N, qt.group, bm, splits, k_split,
+        int(mode == "after"), torch.cuda.current_stream(x.device).cuda_stream),
+        "qdot_bf16_launch")
     qdot_bf16.kernel_launches += 1
     return y
 

@@ -109,25 +109,34 @@ class EngineConfig:
 
 @dataclass
 class Options:
-    """Per-call overrides (negative sentinel = engine default)."""
+    """Per-call overrides (negative sentinel = engine default), the JAX
+    package's fields in its order."""
     temperature: float = -1.0
     max_tokens: int = -1
     skip_llm: bool = False
+    apply_peak_normalization: bool = True
     seed: int = -1
 
 
 class VoiceModel:
-    """Voice embedding holder: a `.emb.gguf` file, or an embedding array."""
+    """Voice embedding holder: a `.emb.gguf` file, or an embedding array.
+    Without either it is not ready (`is_ready` False), as in the JAX
+    package."""
 
-    def __init__(self, path: str = "", embedding: np.ndarray | None = None):
-        self.path = path
-        self.embedding = (np.asarray(embedding, np.float32)
-                          if embedding is not None
-                          else load_voice_embedding(path))
+    def __init__(self, path: str | None = None,
+                 embedding: np.ndarray | None = None):
+        self.path = path or ""
+        self.embedding = None
+        if embedding is not None:
+            self.embedding = np.asarray(embedding, np.float32)
+        elif path:
+            self.embedding = load_voice_embedding(path)
         self._dev_emb: dict[torch.device, torch.Tensor] = {}
 
     def device_embedding(self, device) -> torch.Tensor:
         """f32 copy of the embedding on `device`, uploaded once."""
+        if not self.is_ready:
+            raise RuntimeError("voice model is not ready")
         device = torch.device(device)
         if device not in self._dev_emb:
             self._dev_emb[device] = torch.from_numpy(
@@ -136,7 +145,7 @@ class VoiceModel:
 
     @property
     def is_ready(self) -> bool:
-        return self.embedding.size > 0
+        return self.embedding is not None and self.embedding.size > 0
 
 
 class TTSEngine:
@@ -199,10 +208,14 @@ class TTSEngine:
         return temp, max_tok, seed
 
     def generate_tokens(self, text: str, options: Options = Options(),
-                        profile: dict | None = None) -> list[int]:
-        """LLM token ids for `text`.  With `profile`, adds prefill_sec,
-        decode_sec, decode_steps (steps run on the device, 64 per chunk)
-        and llm_tokens (tokens kept) to it, synchronising the device at the
+                        on_token=None, profile: dict | None = None
+                        ) -> list[int]:
+        """LLM token ids for `text`.  `on_token(tid, n_generated)` is called
+        for each token as its chunk arrives (chunks of
+        `stream_check_interval` steps when it is given, else 64) and may
+        return False to stop, as in the JAX package.  With `profile`, adds
+        prefill_sec, decode_sec, decode_steps (steps run on the device) and
+        llm_tokens (tokens kept) to it, synchronising the device at the
         stage boundaries."""
         if self.llm_params is None or self.tokenizer is None:
             raise RuntimeError("LLM model is not loaded")
@@ -242,6 +255,8 @@ class TTSEngine:
             profile["prefill_sec"] = profile.get("prefill_sec", 0.0) + \
                 time.perf_counter() - t0
 
+        chunk = (self.config.stream_check_interval if on_token is not None
+                 else OFFLINE_CHUNK)
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
         generated: list[int] = []
@@ -251,14 +266,19 @@ class TTSEngine:
         while len(generated) < max_tok and not stopped:
             buf, cnt, done, last, cache = llm_generate_chunk(
                 self.llm_params, last, cache, temp, self._stop_ids, cfg,
-                OFFLINE_CHUNK, gen)
-            steps += OFFLINE_CHUNK
+                chunk, gen)
+            steps += chunk
             # the chunk's one host read: tokens, count and stop flag
             host = torch.cat([buf, cnt[None], done[None].long()]).cpu().numpy()
-            cnt = int(host[OFFLINE_CHUNK])
+            cnt = int(host[chunk])
             take = min(cnt, max_tok - len(generated))
-            stopped = bool(host[OFFLINE_CHUNK + 1]) or take < cnt
-            generated.extend(int(t) for t in host[:take])
+            stopped = bool(host[chunk + 1]) or take < cnt
+            for t in host[:take]:
+                generated.append(int(t))
+                if on_token is not None and not on_token(int(t),
+                                                         len(generated)):
+                    stopped = True
+                    break
         if profile is not None:
             profile["decode_sec"] = profile.get("decode_sec", 0.0) + \
                 time.perf_counter() - t1
@@ -277,8 +297,8 @@ class TTSEngine:
     # ------------------------------------------------------------------
 
     def decode_codes(self, codes, voice: VoiceModel,
-                     profile: dict | None = None,
-                     apply_peak_normalization: bool = True) -> np.ndarray:
+                     apply_peak_normalization: bool = True,
+                     profile: dict | None = None) -> np.ndarray:
         """codes -> float PCM of exactly T * samples_per_token samples,
         decoded in a power-of-2 bucket with the padding masked out and
         (unless told otherwise) peak-normalised to 0.95 on the host."""
@@ -408,12 +428,13 @@ class TTSEngine:
             codes = parse_speech_tokens(text)
         else:
             codes = self.tokens_to_codes(
-                self.generate_tokens(text, options, profile))
+                self.generate_tokens(text, options, profile=profile))
         if not codes:
             raise RuntimeError("no speech codes generated")
         if profile is not None:
             profile["n_codes"] = len(codes)
-        return self.decode_codes(codes, voice, profile)
+        return self.decode_codes(codes, voice,
+                                 options.apply_peak_normalization, profile)
 
     def synthesize_to_file(self, voice: VoiceModel, text: str, path: str,
                            options: Options = Options(),

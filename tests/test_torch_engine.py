@@ -230,3 +230,88 @@ def test_cuda_without_gpu_raises(files, monkeypatch, tmp_path, capsys):
 
 def test_engine_defaults_to_cuda():
     assert te.EngineConfig().device == "cuda"
+
+
+# ---------------------------------------------------------------------------
+# The JAX package's own call forms (tests/test_engine.py, miotts_tpu/cli.py)
+# on both engines
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("form", ["options", "decode_codes"])
+def test_reference_call_forms_skip_peak_normalization(engines, form):
+    """`Options(skip_llm=True, apply_peak_normalization=False)` through
+    synthesize, and `decode_codes(codes, voice, False)` (the flag third,
+    positionally): both engines return the same PCM, within 1e-4 of its
+    scale, and neither peak-normalizes it."""
+    jeng, jvoice, teng, tvoice = engines
+    codes = np.random.default_rng(21).integers(0, N_SPEECH, 11)
+    if form == "options":
+        opts = dict(skip_llm=True, apply_peak_normalization=False)
+        text = format_speech_tokens(codes)
+        want = jeng.synthesize(jvoice, text, je.Options(**opts))
+        got = teng.synthesize(tvoice, text, te.Options(**opts))
+    else:
+        want = jeng.decode_codes(codes, jvoice, False)
+        got = teng.decode_codes(codes, tvoice, False)
+    want = np.asarray(want)
+    assert got.shape == want.shape == (11 * teng.samples_per_token,)
+    scale = float(np.abs(want).max())
+    assert abs(scale - 0.95) > 1e-3
+    assert float(np.abs(got - want).max()) <= 1e-4 * scale
+    normed = teng.decode_codes(codes, tvoice)
+    assert abs(float(np.abs(normed).max()) - 0.95) < 1e-3
+
+
+def test_voice_model_without_a_path_is_not_ready(engines):
+    """`VoiceModel()` gives a voice that is not ready on both packages, and
+    decoding with it raises the same RuntimeError."""
+    jeng, _, teng, _ = engines
+    for pkg, eng in ((je, jeng), (te, teng)):
+        voice = pkg.VoiceModel()
+        assert not voice.is_ready
+        with pytest.raises(RuntimeError, match="not ready"):
+            eng.decode_codes([1, 2, 3], voice, False)
+
+
+@pytest.mark.parametrize("stop_at", [None, 5])
+def test_generate_tokens_on_token_matches_jax(engines, stop_at):
+    """`generate_tokens(text, options, on_token)`: the callback sees every
+    kept token with its running count, and returning False stops the
+    generation there; greedy tokens and calls equal the JAX package's."""
+    jeng, _, teng, _ = engines
+    opts = dict(temperature=0.0, max_tokens=30)
+    calls = {"jax": [], "torch": []}
+
+    def cb(key):
+        def on_token(tid, n):
+            calls[key].append((tid, n))
+            return stop_at is None or n < stop_at
+        return on_token
+
+    want = jeng.generate_tokens("hello there", je.Options(**opts), cb("jax"))
+    got = teng.generate_tokens("hello there", te.Options(**opts), cb("torch"))
+    assert got == want
+    assert calls["torch"] == calls["jax"]
+    assert [n for _, n in calls["torch"]] == list(range(1, len(got) + 1))
+    if stop_at is not None:
+        assert len(got) == stop_at
+
+
+def test_unknown_architecture_is_refused(tmp_path):
+    """A GGUF whose `general.architecture` is outside the table: the JAX
+    package loads it with qwen2's toggles; the port refuses it with a
+    ValueError (a difference by design: wrong toggles would run silently)."""
+    path = str(tmp_path / "unknown_arch.gguf")
+    cfg = dataclasses.replace(synthetic_llm_config(N_SPEECH),
+                              arch="gpt-unlisted")
+    write_synthetic_llm(path, cfg=cfg, quant_type=GGML_Q8_0, seed=5,
+                        n_speech=N_SPEECH)
+    with GGUFReader(path) as r:
+        jcfg = jl.LLMConfig.from_gguf(r)
+    qwen2 = jl._ARCH_TABLE["qwen2"]
+    assert jcfg.arch == "gpt-unlisted"
+    assert {k: getattr(jcfg, k) for k in qwen2} == qwen2
+    from miotts_tpu_torch.gguf import GGUFReader as TReader
+    with TReader(path) as r:
+        with pytest.raises(ValueError, match="unsupported LLM architecture"):
+            tl.LLMConfig.from_gguf(r)

@@ -228,3 +228,42 @@ def test_qdot_dma_floor_matches_plain_on_gpu(K, N):
     assert tq.qdot_dma_floor.kernel_launches == before + 1
     want = tq.qdot_dma_floor_plain(qt)
     assert got.shape == (1, N) and _rel_err(got, want) < 1e-6
+
+
+# ---------------------------------------------------------------------------
+# K1v's M > 1 tile (ops/csrc/qdot_tile.cuh)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["q8_0", "q6_k", "q4_k"])
+def test_bf16_tile_matches_plain_at_long_k_on_gpu(fmt):
+    """Both modes at M = 2, 8, 16, 17, 64, 65, K = 8192, ragged N (1000):
+    f32 x within 1e-5, bf16 within 1e-2, one launch per call."""
+    _need_gpu()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(len(fmt))
+    qt = _rand_qt(8192, 1000, fmt, gen)
+    for mode in MODES:
+        for m in (2, 8, 16, 17, 64, 65):
+            for dtype, tol in ((torch.float32, F32_TOL),
+                               (torch.bfloat16, BF16_TOL)):
+                _check(_x(m, 8192, dtype, seed=m), qt, mode, tol)
+
+
+@pytest.mark.cuda
+def test_bf16_tile_head_width_and_determinism_on_gpu():
+    """The head's N = 13059 at M = 16 and 64; on split-K plans two calls
+    give the same bits."""
+    _need_gpu()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    head = _rand_qt(2048, 13059, "q8_0", gen)
+    for m in (16, 64):
+        for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+            _check(_x(m, 2048, dtype, seed=m), head, "after", tol)
+    down = _rand_qt(8192, 2048, "q8_0", gen)
+    for m in (16, 64):
+        assert tq._tile_plan(m, 8192, 2048, 32).splits > 1
+        x = _x(m, 8192, torch.bfloat16, seed=m + 7)
+        assert torch.equal(tq.qdot_bf16(x, down, "after"),
+                           tq.qdot_bf16(x, down, "after"))

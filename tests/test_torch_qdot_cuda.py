@@ -7,6 +7,8 @@ without it:
 The `cuda`-marked tests skip without a GPU; the wrapper's input checks run
 everywhere (they raise before any build or launch)."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -91,3 +93,122 @@ def test_qdot_kernel_leading_dims_and_large_k_on_gpu():
     assert _rel_err(got.cpu(), want.cpu()) < 1e-5
     x1 = torch.randn((1, 16384), device="cuda")
     assert _rel_err(tq.qdot(x1, qt).cpu(), tq.qdot_plain(x1, qt).cpu()) < 1e-5
+
+
+# ---------------------------------------------------------------------------
+# The M > 1 tile (ops/csrc/qdot_tile.cuh): tensor cores, cp.async ring,
+# deterministic split-K
+# ---------------------------------------------------------------------------
+
+TILE_FORMATS = ("q8_0", "q6_k", "q4_k", "q4_k_packed", "q4_0_packed")
+TILE_MS = (2, 8, 16, 17, 64, 65)
+
+
+def _rand_qt(k, n, fmt, seed):
+    """A QTensor of GGUF format `fmt`'s planar layout, random on the card
+    (values in the format's range, scales ~1 / sqrt(K))."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    base = fmt.split("_packed")[0]
+    group = 16 if base == "q6_k" else 32
+    lo, hi = {"q8_0": (-127, 128), "q6_k": (-32, 32), "q4_k": (0, 16),
+              "q4_0": (-8, 8)}[base]
+    vals = torch.randint(lo, hi, (k, n), generator=gen, device="cuda",
+                         dtype=torch.int32).to(torch.int8)
+    scales = (torch.rand((k // group, n), generator=gen, device="cuda")
+              + 0.5) / (hi * k ** 0.5)
+    mins = None
+    if base == "q4_k":
+        mins = torch.rand((k // group, n), generator=gen, device="cuda") \
+            * (8.0 / (hi * k ** 0.5))
+    qt = tq.QTensor(values=vals, scales=scales, mins=mins, group=group,
+                    n_out=n)
+    return qt.pack4() if fmt.endswith("_packed") else qt
+
+
+def _x_gpu(m, k, dtype, seed):
+    x = np.random.default_rng(seed).standard_normal((m, k)).astype(np.float32)
+    return torch.from_numpy(x).to("cuda", dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", TILE_FORMATS)
+def test_qdot_tile_matches_plain_at_long_k_on_gpu(fmt):
+    """The tile at M = 2, 8, 16, 17, 64, 65 (both tile heights, ragged M),
+    K = 8192 (the sums the tensor cores' truncation would drift over) and a
+    ragged N (1000): f32 x within 1e-5 of the output scale, bf16 within
+    1e-2; one launch per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    qt = _rand_qt(8192, 1000, fmt, seed=len(fmt))
+    for m in TILE_MS:
+        for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
+            x = _x_gpu(m, 8192, dtype, seed=m)
+            before = tq.qdot.kernel_launches
+            got = tq.qdot(x, qt)
+            torch.cuda.synchronize()
+            assert tq.qdot.kernel_launches == before + 1
+            assert got.dtype == dtype and got.shape == (m, 1000)
+            err = _rel_err(got.float().cpu(), tq.qdot_plain(x, qt).float().cpu())
+            assert err < tol, (fmt, m, dtype, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ("q8_0", "q4_k_packed"))
+def test_qdot_tile_at_the_head_width_on_gpu(fmt):
+    """The output head's N = 13059 (odd: no weight row is 16-byte aligned)
+    at M = 16 and 64."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    qt = _rand_qt(2048, 13059, fmt, seed=3)
+    for m in (16, 64):
+        for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
+            x = _x_gpu(m, 2048, dtype, seed=m + 1)
+            got = tq.qdot(x, qt)
+            err = _rel_err(got.float().cpu(), tq.qdot_plain(x, qt).float().cpu())
+            assert err < tol, (fmt, m, dtype, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(16, 2048, 2048), (64, 8192, 2560),
+                                   (7, 2560, 3840)])
+def test_qdot_tile_split_k_is_deterministic_on_gpu(m, k, n):
+    """Shapes whose plan splits K over blocks: two calls give the same bits
+    (the last block of a tile sums the splits in split order), and each is
+    one launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    assert tq._tile_plan(m, k, n, 32).splits > 1
+    qt = _rand_qt(k, n, "q8_0", seed=k)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = _x_gpu(m, k, dtype, seed=n)
+        before = tq.qdot.kernel_launches
+        a = tq.qdot(x, qt)
+        b = tq.qdot(x, qt)
+        torch.cuda.synchronize()
+        assert tq.qdot.kernel_launches == before + 2
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bm", [16, 64])
+def test_qdot_tile_either_height_and_any_split_on_gpu(bm):
+    """Plans the plan function does not pick at this shape: either tile
+    height at M = 65 (ragged), K unsplit, in 4 parts or one stage a split.
+    f32 x within 1e-5, bf16 within 1e-2, and a repeat bit for bit equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    k, n = 2560, 1000
+    qt = _rand_qt(k, n, "q4_k_packed", seed=bm)
+    base = tq._plan_for(bm, 65, k, n, qt.group)
+    steps = k // tq.TILE_BK
+    for splits in (1, 4, steps):
+        per = -(-steps // splits)
+        plan = dataclasses.replace(base, splits=-(-steps // per),
+                                   k_split=per * tq.TILE_BK)
+        for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
+            x = _x_gpu(65, k, dtype, seed=splits)
+            got = tq._qdot_cuda(x, qt, plan)
+            assert torch.equal(got, tq._qdot_cuda(x, qt, plan))
+            err = _rel_err(got.float().cpu(), tq.qdot_plain(x, qt).float().cpu())
+            assert err < tol, (bm, splits, dtype, err)
