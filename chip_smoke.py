@@ -64,11 +64,13 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      file at full width, f32, a prefill + 20 greedy steps on the card (K1,
      K5) and on the CPU plain path: identical tokens, logits within 1e-4.
  14. the single-stream routes vs plain: K2 (`qdot_split`, packed shapes at
-     M = 1, 7, 64, f32 also against K1), K3 (`qdot_group`, bf16) and K4a /
+     M = 1, 7, 64; M = 1 f32 also against K1 within 1e-5, M > 1 bit for bit
+     equal to K1, whose tile it runs), K3 (`qdot_group`, bf16) and K4a /
      K4b (`qdot_w8a8`, f32 and bf16) at M = 1 on the 2.6B-Q4_K_M linears
      (fused QKV, wo, gate/up, w_down, output) and, for K3 / K4a, the 0.1B
      and LFM2 Q8_0 shapes; every x has an all-zero quant group; f32 within
-     1e-5, bf16 1e-2; kernel / plain / library / bound times;
+     1e-5, bf16 1e-2; K2 and K3 give the same bits on a second call;
+     kernel / eager / plain / library / bound times;
  15. 2.6B-Q4_K_M offline at full width and depth (written by the port's
      writer, timed): one engine per route (default K1, w8a8, groupdot,
      split, bf16dot, bf16after; the routes share the loaded weights) runs
@@ -474,18 +476,25 @@ def q4km_cases(torch, qmat, gen):
 def variant_work(kernel: str, qt, m: int, el: int):
     """(bytes, ops, peak ops/s) one call must move / do: the weight's values,
     scales and mins, x and y once each; 2MKN operations at the rate of their
-    type (K4: int8; K2 / K3: f32 on the CUDA cores)."""
+    type (K4: int8; K2 / K3 at M = 1: f32 on the CUDA cores; K2 at M > 1:
+    K1's tile on the bf16 tensor cores, three passes for an f32 x)."""
     K, N = qt.k, qt.shape[0]
     nbytes = qt_bytes(qt) + m * K * el + m * N * el
-    peak = PEAK_INT8_OPS if kernel.startswith("K4") else PEAK_F32_FLOPS
-    return nbytes, 2.0 * m * K * N, peak
+    ops = 2.0 * m * K * N
+    if kernel.startswith("K4"):
+        return nbytes, ops, PEAK_INT8_OPS
+    if m > 1:
+        return nbytes, ops * (3 if el == 4 else 1), PEAK_FLOPS
+    return nbytes, ops, PEAK_F32_FLOPS
 
 
 def phase_variants(torch, qmat, card: str) -> list[dict]:
     """Every single-stream kernel against its plain version on the card, with
     kernel / plain / library times: K2 on the packed shapes at M = 1, 7, 64
-    (f32 also against K1), K3 at M = 1 in bf16, K4a / K4b at M = 1 in f32 and
-    bf16.  Every x has an all-zero quant group (K4's sx = 1 rule)."""
+    (M = 1 f32 also against K1 within 1e-5; M > 1, K1's tile, bit for bit
+    equal to K1), K3 at M = 1 in bf16, K4a / K4b at M = 1 in f32 and bf16.
+    K2 and K3 give the same bits on a second call.  Every x has an all-zero
+    quant group (K4's sx = 1 rule)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(3)
     rows = []
@@ -521,7 +530,15 @@ def phase_variants(torch, qmat, card: str) -> list[dict]:
                 raise AssertionError(f"{kernel} {label} M={m} {dtype}: kernel "
                                      f"vs plain rel err {e} >= {tol}")
             e_k1 = None
-            if kernel == "K2" and dtype == torch.float32:
+            if kernel in ("K2", "K3") and not torch.equal(fn(x, qt), got):
+                raise AssertionError(f"{kernel} {label} M={m} {dtype}: two "
+                                     f"calls differ")
+            if kernel == "K2" and m > 1:
+                if not torch.equal(got, qmat._qdot_cuda(x, qt)):
+                    raise AssertionError(f"K2 {label} M={m} {dtype}: not bit "
+                                         f"for bit K1's tile")
+                e_k1 = 0.0
+            elif kernel == "K2" and dtype == torch.float32:
                 e_k1 = rel_err(got, qmat._qdot_cuda(x, qt))
                 if not e_k1 < KERNEL_TOL_F32:
                     raise AssertionError(f"K2 {label} M={m}: vs K1 rel err "
@@ -568,12 +585,13 @@ Q4KM_LAYER_LINEARS = {
 }
 
 
-def q4km_step(rows: list[dict], kernel: str, key: str):
-    """One 2.6B-Q4_K_M decode step's `key` of `kernel` (M = 1, bf16 x, the
-    engine's activations): 32 layers of its linears, plus the output head
-    where the head is its (every kernel but K4a)."""
+def q4km_step(rows: list[dict], kernel: str, key: str, m: int = 1):
+    """One 2.6B-Q4_K_M decode step's `key` of `kernel` at M = m (1: a single
+    stream; 64: a 64-slot batched step), bf16 x (the engine's activations):
+    32 layers of its linears, plus the output head where the head is its
+    (every kernel but K4a)."""
     by = {r["shape"].split()[1]: r[key] for r in rows
-          if r["kernel"] == kernel and r["M"] == 1 and r["dtype"] == "bf16"
+          if r["kernel"] == kernel and r["M"] == m and r["dtype"] == "bf16"
           and r["shape"].startswith("2.6b")}
     layer = sum(by[n] for n in Q4KM_LAYER_LINEARS[kernel])
     return Q4KM_LAYERS * layer + (by["output"] if kernel != "K4a" else 0)
@@ -1999,9 +2017,9 @@ def variant_entry(rows, offline, ref, kernel: str) -> dict:
     M = 1 bf16 rows summed over the step's linears)."""
     name, replaces, route, what = VARIANTS[kernel]
     mine = [r for r in rows if r["kernel"] == kernel]
-    step = {k: q4km_step(rows, kernel, k)
-            for k in ("ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms")}
-    return dict(
+    keys = ("ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms")
+    step = {k: q4km_step(rows, kernel, k) for k in keys}
+    entry = dict(
         name=name, route="cuda",
         source="miotts_tpu_torch/ops/csrc/qdot_gemv.cu", replaces=replaces,
         launches=offline[route]["launches"][kernel],
@@ -2017,6 +2035,10 @@ def variant_entry(rows, offline, ref, kernel: str) -> dict:
         library_ms=step["library_ms"],
         unit=f"one 2.6B-Q4_K_M decode step of {kernel} work ({what}) at M=1, "
              f"bf16 x")
+    if kernel == "K2":      # the split route's 64-slot step: K1's tile
+        entry["q4km_64_slot_step"] = {k: q4km_step(rows, kernel, k, 64)
+                                      for k in keys}
+    return entry
 
 
 def attn_step_summary(rows: list[dict], key: str):

@@ -34,10 +34,11 @@ KERNELS = {
         "qdot_launch": [_P, _I, _P, _I, _P, _P, _P, _P, _P] + [_I] * 7 + [_P],
     }),
     "qdot_gemv": ("qdot_gemv.cu", {
-        # x, v, s, mins, y, x_is_bf16, M, K, N, group, stream
-        "qdot_split_launch": [_P] * 5 + [_I] * 5 + [_P],
-        # x, v, s, mins, y, packed, K, N, group, stream
-        "qdot_group_launch": [_P] * 5 + [_I] * 4 + [_P],
+        # x, v, s, mins, y, ws, tickets, x_is_bf16, M, K, N, group, bm,
+        # splits, k_split, stream
+        "qdot_split_launch": [_P] * 7 + [_I] * 8 + [_P],
+        # x, v, s, mins, y, packed, K, N, group, splits, k_split, stream
+        "qdot_group_launch": [_P] * 5 + [_I] * 6 + [_P],
         # x, v, s, mins, y, x_is_bf16, K, N, group, stream
         "qdot_w8a8_launch": [_P] * 5 + [_I] * 4 + [_P],
         "qdot_w8a8_packed_launch": [_P] * 5 + [_I] * 4 + [_P],

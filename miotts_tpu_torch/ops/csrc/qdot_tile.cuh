@@ -536,9 +536,12 @@ qdot_tile_kernel(const T* __restrict__ x, const uint8_t* __restrict__ v,
 // Launch one tile configuration; returns cudaGetLastError().  bm is 16 or
 // 64 (rows of a tile, at any M); k_split a multiple of BK with splits *
 // k_split covering K; ws (f32 [splits][tiles][bm][BN]) and tickets (one per
-// tile, zero) are needed when splits > 1.
+// tile, zero) are needed when splits > 1.  `static`: each shared library
+// that includes this header configures its own kernels (the local static of
+// a function template with external linkage is one object in the whole
+// process, STB_GNU_UNIQUE, so a second library would skip the attribute).
 template <typename T, bool PACKED, int G, int BM, bool SCALED>
-cudaError_t launch_tile(const T* x, const uint8_t* v, const float* s,
+static cudaError_t launch_tile(const T* x, const uint8_t* v, const float* s,
                         const float* mins, T* y, float* ws, int* tickets, int M,
                         int K, int N, int splits, int k_split, bool after,
                         cudaStream_t stream) {

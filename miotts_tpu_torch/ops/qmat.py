@@ -30,8 +30,9 @@ kernel as the JAX package's `qdot` does, by the weight's `QdotRoute`:
                       (MIOTTS_QDOT_BF16=1 / after)
 
 A CUDA tensor goes through the hand-written kernel (`ops/csrc/qdot.cu`,
-`ops/csrc/qdot_gemv.cu`, `ops/csrc/qdot_bf16.cu`; at M > 1 K1 and K1v share
-the tile of `ops/csrc/qdot_tile.cuh`, planned by `_tile_plan`) and raises
+`ops/csrc/qdot_gemv.cu`, `ops/csrc/qdot_bf16.cu`; at M > 1 K1, K1v and K2
+share the tile of `ops/csrc/qdot_tile.cuh`, planned by `_tile_plan`; K2 at
+M = 1 and K3 share one split-K GEMV, planned by `_gemv_plan`) and raises
 if it cannot build or launch; a CPU tensor goes through the kernel's plain
 torch version (`*_plain`).  `qdot_dma_floor` (K8, `ops/csrc/dma_floor.cu`) is a probe
 that streams K1's blocks; no linear calls it.
@@ -452,12 +453,12 @@ def _raise_on(err: int, fn: str) -> None:
         raise RuntimeError(f"{fn} failed: CUDA error {err}")
 
 
-def _launch(fn: str, x, qt: QTensor, y, *ints) -> None:
-    """fn(x, v, s, mins, y, *ints, stream) of ops/csrc/qdot_gemv.cu."""
+def _launch(fn: str, x, qt: QTensor, y, *args) -> None:
+    """fn(x, v, s, mins, y, *args, stream) of ops/csrc/qdot_gemv.cu."""
     from ._build import load_kernels
     _raise_on(getattr(load_kernels()["qdot_gemv"], fn)(
         x.data_ptr(), qt.values.data_ptr(), qt.scales.data_ptr(),
-        None if qt.mins is None else qt.mins.data_ptr(), y.data_ptr(), *ints,
+        None if qt.mins is None else qt.mins.data_ptr(), y.data_ptr(), *args,
         torch.cuda.current_stream(x.device).cuda_stream), fn)
 
 
@@ -561,6 +562,49 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+# the M = 1 GEMV of K2 and K3 (ops/csrc/qdot_gemv.cu, whose GEMV_COLS and
+# GEMV_MAX_SPLITS these are): a block covers GEMV_COLS output columns, and K
+# is split over a thread-block cluster of at most GEMV_MAX_SPLITS blocks
+# (the portable cluster size) toward GEMV_BLOCKS_PER_SM blocks an SM.
+GEMV_COLS = 32
+GEMV_MAX_SPLITS = 8
+GEMV_BLOCKS_PER_SM = 2
+
+
+@dataclass(frozen=True)
+class GemvPlan:
+    """How the M = 1 GEMV covers y [1, N]: a block of GEMV_COLS columns is
+    a cluster of `splits` blocks along K of `k_split` each (whole quant
+    groups; the last one ragged)."""
+    splits: int
+    k_split: int
+
+
+@functools.lru_cache(maxsize=None)
+def _gemv_plan(K: int, N: int, group: int, sms: int = H100_SMS) -> GemvPlan:
+    """The GEMV plan of x [1, K] against a [K, N] weight of quant group
+    `group` on a card of `sms` SMs: K split in whole quant groups until the
+    blocks reach GEMV_BLOCKS_PER_SM an SM, at most GEMV_MAX_SPLITS splits
+    and one quant group a split.  (At N = 768 the cluster's 8 splits give
+    24 x 8 = 192 blocks, 1.45 an H100 SM.)"""
+    if K < 1 or N < 1 or group not in (16, 32) or K % group:
+        raise ValueError(f"no GEMV plan for K={K} N={N} group={group}")
+    n_tiles = -(-N // GEMV_COLS)
+    groups = K // group
+    want = -(-GEMV_BLOCKS_PER_SM * sms // n_tiles)
+    per = -(-groups // max(1, min(want, GEMV_MAX_SPLITS, groups)))
+    return GemvPlan(splits=-(-groups // per), k_split=per * group)
+
+
+def _gemv_args(x: torch.Tensor, qt: QTensor, N: int,
+               plan: GemvPlan | None) -> tuple:
+    """(splits, k_split) of an M = 1 GEMV launch under `plan` (None:
+    `_gemv_plan`'s for the card)."""
+    if plan is None:
+        plan = _gemv_plan(x.shape[1], N, qt.group, _sm_count(x.device))
+    return plan.splits, plan.k_split
+
+
 def _qdot_cuda(x: torch.Tensor, qt: QTensor,
                plan: TilePlan | None = None) -> torch.Tensor:
     """K1: `qdot_launch` (ops/csrc/qdot.cu); at M > 1 under `plan` (None:
@@ -623,23 +667,37 @@ def _qdot_dma_floor_cuda(qt: QTensor) -> torch.Tensor:
     return out
 
 
-def _qdot_split_cuda(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
-    """K2: `qdot_split_launch` (ops/csrc/qdot_gemv.cu)."""
+def _qdot_split_cuda(x: torch.Tensor, qt: QTensor,
+                     plan: TilePlan | GemvPlan | None = None) -> torch.Tensor:
+    """K2: `qdot_split_launch` (ops/csrc/qdot_gemv.cu): at M = 1 the GEMV
+    under `plan` (None: `_gemv_plan`'s), at M > 1 K1's tile under `plan`
+    (None: `_tile_plan`'s)."""
     N = _checked("qdot_split", x, qt, packed=True)
     M, K = x.shape
+    if M == 1:
+        ws = tickets = None
+        bm, (splits, k_split) = 0, _gemv_args(x, qt, N, plan)
+    else:
+        ws, tickets, bm, splits, k_split = _tile_args("qdot_split", x, qt, N,
+                                                      plan)
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    _launch("qdot_split_launch", x, qt, y,
-            int(x.dtype == torch.bfloat16), M, K, N, qt.group)
+    _launch("qdot_split_launch", x, qt, y, _ptr(ws), _ptr(tickets),
+            int(x.dtype == torch.bfloat16), M, K, N, qt.group, bm, splits,
+            k_split)
     qdot_split.kernel_launches += 1
     return y
 
 
-def _qdot_group_cuda(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
-    """K3: `qdot_group_launch` (ops/csrc/qdot_gemv.cu), bf16 x only."""
+def _qdot_group_cuda(x: torch.Tensor, qt: QTensor,
+                     plan: GemvPlan | None = None) -> torch.Tensor:
+    """K3: `qdot_group_launch` (ops/csrc/qdot_gemv.cu), bf16 x only, the
+    GEMV under `plan` (None: `_gemv_plan`'s)."""
     N = _checked("qdot_group", x, qt, xtypes=(torch.bfloat16,), gemv=True)
     K = x.shape[1]
+    splits, k_split = _gemv_args(x, qt, N, plan)
     y = torch.empty((1, N), dtype=x.dtype, device=x.device)
-    _launch("qdot_group_launch", x, qt, y, int(qt.packed), K, N, qt.group)
+    _launch("qdot_group_launch", x, qt, y, int(qt.packed), K, N, qt.group,
+            splits, k_split)
     qdot_group.kernel_launches += 1
     return y
 

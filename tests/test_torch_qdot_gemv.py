@@ -1,0 +1,192 @@
+"""The split-K GEMV of K2 (M = 1) and K3 (miotts_tpu_torch/ops/csrc/
+qdot_gemv.cu), on the CPU: its plan (ops/qmat.py:_gemv_plan) covers K in
+whole quant groups with enough blocks for the card, and its order of sums,
+emulated in plain torch, meets the kernel's bounds against the JAX package's
+Pallas kernels in interpret mode.
+
+The emulation follows the kernel step for step: each chunk (8 byte rows of
+one quant group) sums x_k * q in f32 fused multiply-adds
+in row order (a packed row's low nibble, then its high one) beside the f32
+sum X of its x; the chunk folds into its team's f32 accumulator as
+s * P, then - mins * X; chunk i of a split goes to team i % 16 of
+warp (i / 16) % 4; the teams meet by the warp's xor-shuffle tree and the
+warps in order, and the splits (the cluster's blocks) in rank order.  The kernel's own tests on the
+card are in tests/test_torch_qdot_variants_cuda.py."""
+
+import re
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from miotts_tpu.gguf import GGML_Q4_0, GGML_Q4_K, GGML_Q6_K, GGML_Q8_0
+from miotts_tpu.gguf.quants import quantize
+from miotts_tpu.ops import qmat as jq
+from miotts_tpu_torch.ops import qmat as tq
+from torch_port_util import few_torch_threads, rel_err  # noqa: F401
+
+PLAN_NS = (768, 2560, 3840, 13059, 16384)
+PLAN_KS = (768, 2048, 2560, 8192)
+TEAMS, WARPS = 64, 4      # two-lane teams and warps of a block
+
+
+@pytest.mark.parametrize("group", [16, 32])
+@pytest.mark.parametrize("k", PLAN_KS)
+def test_gemv_plan_covers_k_in_whole_groups(k, group):
+    """Splits are whole quant groups, cover K exactly (none empty), stay
+    within the portable cluster, and the blocks reach about two an SM: two
+    or more wherever the cluster's 8 splits allow it, and 1.4 or more at
+    every path shape (N = 768 caps at 24 x 8 = 192 blocks)."""
+    for n in PLAN_NS:
+        p = tq._gemv_plan(k, n, group)
+        assert p.k_split % group == 0
+        assert (p.splits - 1) * p.k_split < k <= p.splits * p.k_split
+        assert 1 <= p.splits <= tq.GEMV_MAX_SPLITS
+        n_tiles = -(-n // tq.GEMV_COLS)
+        blocks = n_tiles * p.splits
+        assert blocks >= min(2 * tq.H100_SMS,
+                             n_tiles * tq.GEMV_MAX_SPLITS)
+        assert blocks >= 1.4 * tq.H100_SMS, (k, n, p)
+
+
+def test_gemv_plan_follows_the_sm_count_and_rejects_bad_shapes():
+    """Fewer SMs, fewer splits for a narrow linear; a wide one is not
+    split; shapes the kernel does not take raise."""
+    full = tq._gemv_plan(2560, 2560, 32)
+    assert full == tq._gemv_plan(2560, 2560, 32, tq.H100_SMS)
+    half = tq._gemv_plan(2560, 2560, 32, tq.H100_SMS // 2)
+    assert half.splits * 2 == full.splits
+    assert tq._gemv_plan(2560, 16384, 32).splits == 1
+    assert tq._gemv_plan(64, 768, 32).splits == 2    # one group a split
+    for bad in ((2040, 2048, 32), (2048, 2048, 64), (0, 2048, 32)):
+        with pytest.raises(ValueError):
+            tq._gemv_plan(*bad)
+
+
+def test_gemv_constants_match_the_kernel_source():
+    """The plan's column width and split cap are the kernel's: a wider
+    block or a larger cluster would leave the plan's arithmetic wrong."""
+    src = (Path(tq.__file__).parent / "csrc" / "qdot_gemv.cu").read_text()
+    consts = dict(re.findall(
+        r"constexpr int (GEMV_TEAM|GEMV_MAX_SPLITS|GEMV_WARPS) = (\d+);",
+        src))
+    assert "constexpr int GEMV_COLS = 16 * GEMV_TEAM;" in src
+    assert consts == {"GEMV_TEAM": str(tq.GEMV_COLS // 16),
+                      "GEMV_MAX_SPLITS": str(tq.GEMV_MAX_SPLITS),
+                      "GEMV_WARPS": str(WARPS)}
+    assert TEAMS == 32 * WARPS // (tq.GEMV_COLS // 16)
+
+
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.float32)
+
+
+def gemv_emulation(x: torch.Tensor, qt) -> torch.Tensor:
+    """K2 at M = 1 (packed) or K3 in the GEMV's order of sums under the plan
+    of ops/qmat.py:_gemv_plan.  x [1, K] f32 or bf16."""
+    K, g, packed = x.shape[1], qt.group, qt.packed
+    N = qt.values.shape[1]
+    plan = tq._gemv_plan(K, N, g)
+    xf = x.float()[0]
+    rpg = g // 2 if packed else g            # byte rows of a group
+    R = min(8, rpg)                           # byte rows of a chunk
+    rows_total = K // 2 if packed else K
+    vals = qt.values.to(torch.int32)
+    s, mins = qt.scales, qt.mins
+    total = torch.zeros(N, dtype=torch.float32)
+    per = plan.k_split // 2 if packed else plan.k_split
+    for z in range(plan.splits):
+        r0, r1 = z * per, min(rows_total, (z + 1) * per)
+        acc = torch.zeros((TEAMS, N), dtype=torch.float32)
+        for ci in range((r1 - r0) // R):
+            row0 = r0 + ci * R
+            b = row0 // rpg
+            k_lo = b * g + row0 % rpg if packed else row0
+            P = torch.zeros(N, dtype=torch.float32)
+            X = torch.zeros((), dtype=torch.float32)
+            for r in range(R):
+                q = vals[row0 + r]
+                # one f32 rounding of the exact P + x * q (the FMA)
+                terms = [(xf[k_lo + r], q & 0xF if packed else q)]
+                if packed:
+                    terms.append((xf[k_lo + g // 2 + r], q >> 4))
+                for xv, qv in terms:
+                    P = _f32(P.double() + xv.double() * qv.double())
+                    X = _f32(X + xv)
+            p = ci % TEAMS
+            a = _f32(acc[p].double() + s[b].double() * P.double())
+            if mins is not None:
+                a = _f32(a.double() - mins[b].double() * X.double())
+            acc[p] = a
+        # team p = 16 * warp + q: the xor tree over q, then the warps
+        lanes = acc.reshape(WARPS, TEAMS // WARPS, N)
+        for m in (1, 2, 4, 8):
+            lanes = lanes + lanes[:, torch.arange(TEAMS // WARPS) ^ m]
+        t = torch.zeros(N, dtype=torch.float32)
+        for w in range(WARPS):
+            t = t + lanes[w, 0]
+        total = total + t
+    return total[None].to(x.dtype)
+
+
+def _pair(fmt: str, n: int, k: int, seed: int):
+    """(JAX QTensor, port QTensor) of the same GGUF bytes; "q4_k+q6_k" is
+    the 2.6B-Q4_K_M fused QKV's mix (int8 values, g16, mins)."""
+    def one(gtype, pack4, rows, sd):
+        w = np.random.default_rng(sd).standard_normal((rows, k)).astype(
+            np.float32)
+        raw = np.frombuffer(quantize(w, gtype), dtype=np.uint8)
+        return (jq.qtensor_from_raw(raw, gtype, rows, k, pack4=pack4),
+                tq.qtensor_from_raw(raw, gtype, rows, k, pack4=pack4))
+    if fmt == "q4_k+q6_k":
+        a, b = one(GGML_Q4_K, True, n // 2, seed), one(GGML_Q6_K, False,
+                                                       n - n // 2, seed + 1)
+        return (jq.concat_qtensors([a[0], b[0]]),
+                tq.concat_qtensors([a[1], b[1]]))
+    gtype, pack4 = {"q8_0": (GGML_Q8_0, False), "q4_0": (GGML_Q4_0, True),
+                    "q4_k": (GGML_Q4_K, True)}[fmt]
+    return one(gtype, pack4, n, seed)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("fmt", ["q4_k", "q4_0"])
+def test_gemv_order_of_sums_matches_split_pallas(fmt, dtype):
+    """K2 at M = 1 in the GEMV's order at K = 8192 (split over a cluster)
+    against `_qdot_pallas_split(..., interpret=True)`: f32 x within 1e-5 of
+    the output scale, bf16 x within 1e-2 (one rounding of the output on
+    either side); and against the port's plain version within the same
+    bounds."""
+    jt, pt = _pair(fmt, 200, 8192, seed=len(fmt))
+    assert tq._gemv_plan(8192, 200, pt.group).splits > 1 and pt.packed
+    tol = 1e-5 if dtype == "float32" else 1e-2
+    x = np.random.default_rng(5).standard_normal((1, 8192)).astype(np.float32)
+    x[:, 32:64] = 0.0
+    xt = torch.from_numpy(x).to(getattr(torch, dtype))
+    got = gemv_emulation(xt, pt).float().numpy()
+    want = np.asarray(jq._qdot_pallas_split(
+        jnp.asarray(xt.float().numpy()).astype(dtype), jt,
+        interpret=True).astype(jnp.float32))[:, :200]
+    assert got.shape == want.shape == (1, 200)
+    assert rel_err(got, want) < tol, rel_err(got, want)
+    plain = tq.qdot_split_plain(xt, pt).float().numpy()
+    assert rel_err(got, plain) < tol
+
+
+@pytest.mark.parametrize("fmt", ["q4_k+q6_k", "q8_0", "q4_k", "q4_0"])
+def test_gemv_order_of_sums_matches_group_pallas(fmt):
+    """K3 (bf16 x, int8 or packed values) in the GEMV's order at K = 8192
+    against `_qdot_group_pallas(..., interpret=True)` within 1e-2 (its
+    output is bf16: one rounding), and against the port's plain version."""
+    jt, pt = _pair(fmt, 200, 8192, seed=7 + len(fmt))
+    x = np.random.default_rng(6).standard_normal((1, 8192)).astype(np.float32)
+    x[:, 32:64] = 0.0
+    xb = jnp.asarray(x, jnp.bfloat16)
+    xt = torch.from_numpy(np.asarray(xb, np.float32)).to(torch.bfloat16)
+    got = gemv_emulation(xt, pt).float().numpy()
+    want = np.asarray(jq._qdot_group_pallas(xb, jt, interpret=True),
+                      np.float32)[:, :200]
+    assert rel_err(got, want) < 1e-2, rel_err(got, want)
+    plain = tq.qdot_group_plain(xt, pt).float().numpy()
+    assert rel_err(got, plain) < 1e-2

@@ -238,3 +238,84 @@ def test_route_reaches_the_kernels_on_gpu():
         assert y.shape == (x.shape[0], 512)
         assert [a - b for a, b in zip(after, before)] == [
             int(i == moved) for i in range(len(counters))], route
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [2, 7, 16, 17, 64, 65])
+def test_split_kernel_is_k1_tile_at_m_gt_1_on_gpu(m):
+    """K2 at M > 1 runs K1's tile under the same plan: the same bits as
+    `_qdot_cuda` on the same packed weight, f32 and bf16 x, at K = 8192
+    (split over blocks) and at the head's N = 13059."""
+    _need_gpu()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(m)
+    for k, n in ((8192, 640), (2560, 13059)):
+        qt = _rand_qt(k, n, "q4_k", gen)
+        for dtype in (torch.float32, torch.bfloat16):
+            x = _x(m, k, dtype, seed=m)
+            before = tq.qdot_split.kernel_launches
+            got = tq.qdot_split(x, qt)
+            assert tq.qdot_split.kernel_launches == before + 1
+            assert torch.equal(got, tq._qdot_cuda(x, qt)), (m, k, n, dtype)
+
+
+# phase 14's linears (K, N, format) of the 2.6B-Q4_K_M, 0.1B and LFM2 models
+GEMV_SHAPES = [(2560, 2560, "q4_k"), (2560, 16384, "q4_k"),
+               (2560, 13059, "q4_k"), (8192, 2560, "q6_k"),
+               (768, 1280, "q8_0"), (768, 768, "q8_0"), (768, 4096, "q8_0"),
+               (2048, 768, "q8_0"), (768, 13059, "q8_0"),
+               (2048, 6144, "q8_0"), (2048, 2048, "q8_0"),
+               (2048, 3072, "q8_0"), (2048, 16384, "q8_0"),
+               (8192, 2048, "q8_0"), (2048, 13059, "q8_0"),
+               (8192, 640, "q4_k")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n,fmt", GEMV_SHAPES)
+def test_gemv_matches_plain_at_path_shapes_on_gpu(k, n, fmt):
+    """The split-K GEMV (K2 at M = 1 for packed weights, K3 for all) against
+    the plain versions at every phase 14 shape (K = 8192, N = 13059
+    included): f32 within 1e-5, bf16 within 1e-2; one launch per call, and a
+    second call gives the same bits."""
+    _need_gpu()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(k + n)
+    qt = _rand_qt(k, n, fmt, gen)
+    runs = [(tq.qdot_group, tq.qdot_group_plain, torch.bfloat16, BF16_TOL)]
+    if qt.packed:
+        runs += [(tq.qdot_split, tq.qdot_split_plain, dt, tol)
+                 for dt, tol in ((torch.float32, F32_TOL),
+                                 (torch.bfloat16, BF16_TOL))]
+    for fn, plain, dtype, tol in runs:
+        x = _x(1, k, dtype, seed=n)
+        _check(fn, plain, x, qt, (fn, "kernel_launches"), tol)
+        assert torch.equal(fn(x, qt), fn(x, qt))
+
+
+@pytest.mark.cuda
+def test_gemv_takes_any_plan_and_unaligned_rows_on_gpu():
+    """The GEMV under other split counts than its plan's (1 to 8, a ragged
+    last split), and with x, v and s not 16-byte aligned (views one row and
+    one column in), stays within the plain version's bounds."""
+    _need_gpu()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    qt = _rand_qt(2560, 1040, "q4_k", gen)
+    x = _x(1, 2560, torch.float32, seed=12)
+    want = tq.qdot_split_plain(x, qt)
+    for splits in range(1, 9):
+        per = -(-(2560 // 32) // splits)
+        plan = tq.GemvPlan(splits=-(-(2560 // 32) // per), k_split=per * 32)
+        assert _rel_err(tq._qdot_split_cuda(x, qt, plan), want) < F32_TOL
+    # N = 1039 rows (not 16-byte multiples), x one element in
+    odd = tq.QTensor(values=qt.values[:, 1:].contiguous(),
+                     scales=qt.scales[:, 1:].contiguous(),
+                     mins=qt.mins[:, 1:].contiguous(), group=32, n_out=1039,
+                     packed=True)
+    xb = torch.zeros((1, 2561), device="cuda", dtype=torch.bfloat16)
+    xb[:, 1:] = x.to(torch.bfloat16)
+    xo = xb[:, 1:]
+    assert xo.data_ptr() % 16 and xo.is_contiguous()
+    for fn, plain in ((tq.qdot_split, tq.qdot_split_plain),
+                      (tq.qdot_group, tq.qdot_group_plain)):
+        assert _rel_err(fn(xo, odd), plain(xo, odd)) < BF16_TOL
