@@ -6,11 +6,13 @@
 Phases (any failure exits non-zero; nothing is caught and ignored):
   1. device: the card's name and power limit (nvidia-smi), kernel build;
   2. kernel vs plain: the `qdot` CUDA kernel against `qdot_plain` on the
-     card at the main path's shapes (0.1B-Q8_0 at M = 1 and 64) and at the
+     card at the main path's shapes (0.1B-Q8_0 at M = 1 and 64), at the
      2.6B-Q4_K_M formats (fused Q4_K + Q6_K, packed Q4_K wo / gate-up /
-     output, Q6_K, packed Q4_0 at M = 1, 7, 16 and 64), with kernel /
-     plain / library times; a second call must give the same bits (the
-     M > 1 tile's split-K is deterministic);
+     output, Q6_K, packed Q4_0 at M = 1, 7, 16 and 64) and at the LFM2
+     shapes (M = 1, 16), with kernel / eager / plain / library times and
+     the plan's splits (M = 1: the split-K GEMV's cluster; M > 1: the
+     tile's); a second call must give the same bits (both split K
+     deterministically);
   3. main path: synthetic full-width 0.1B-Q8_0 LLM + full-size MioCodec
      written with the port's own writer, then
      TTSEngine.synthesize_to_file on the card at temperature 0, 128 tokens;
@@ -64,8 +66,9 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      file at full width, f32, a prefill + 20 greedy steps on the card (K1,
      K5) and on the CPU plain path: identical tokens, logits within 1e-4.
  14. the single-stream routes vs plain: K2 (`qdot_split`, packed shapes at
-     M = 1, 7, 64; M = 1 f32 also against K1 within 1e-5, M > 1 bit for bit
-     equal to K1, whose tile it runs), K3 (`qdot_group`, bf16) and K4a /
+     M = 1, 7, 64; bit for bit equal to K1, whose GEMV (M = 1) and tile
+     (M > 1) it runs), K3 (`qdot_group`, bf16; bit for bit equal to K1,
+     whose GEMV it runs at bf16 x) and K4a /
      K4b (`qdot_w8a8`, f32 and bf16) at M = 1 on the 2.6B-Q4_K_M linears
      (fused QKV, wo, gate/up, w_down, output) and, for K3 / K4a, the 0.1B
      and LFM2 Q8_0 shapes; every x has an all-zero quant group; f32 within
@@ -92,8 +95,8 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      and after) against `qdot_bf16_plain` at phase 2's shapes (0.1B-Q8_0 at
      M = 1, 64; the 2.6B-Q4_K_M formats at M = 1, 7, 16, 64; LFM2 at M =
      1, 16), f32 x within 1e-5 and bf16 x within 1e-2, two calls bit for
-     bit equal, with kernel / eager / plain / library / bound times beside
-     K1's;
+     bit equal, with kernel / eager / plain / library / bound times and the
+     plan's splits beside K1's;
  18. the probes: K8 (`qdot_dma_floor`, K1's blocks) at bench_qmat.py's
      2.6B shapes (its own int8 g32 tensor, K1 timed on the same copies) and
      at the 0.1B / LFM2 Q8_0 shapes, and K7 (`dma_floor`, K5's blocks) at
@@ -201,6 +204,10 @@ Q4KM_ROUTES = {"default": {}, "w8a8": {"MIOTTS_QDOT_GEMV": "w8a8"},
 # every launch it records)
 Q4KM_AGREE_TOKENS = 32
 Q4KM_PROFILED = ("default", "bf16after")
+# the shared headers of the quantized matmul (the split-K GEMV at M = 1, the
+# tile at M > 1), beside each kernel's own source in the kernels line
+GEMV_HEADER = "miotts_tpu_torch/ops/csrc/qdot_gemv.cuh"
+TILE_HEADER = "miotts_tpu_torch/ops/csrc/qdot_tile.cuh"
 # bench_qmat.py's SHAPES: the 2.6B per-layer (K, N) of K8's own configuration
 K8_SHAPES = [(2560, 3840), (2560, 2560), (2560, 16384), (8192, 2560)]
 # GPU vs CPU under w8a8: each K4 call agrees with its plain version on the
@@ -370,6 +377,16 @@ def graph_ms(torch, fn, n: int, reps: int = 5) -> float:
     return start.elapsed_time(end) / (reps * n)
 
 
+def plan_splits(qmat, m: int, K: int, N: int, group: int) -> int:
+    """The splits of K in the plan the kernel runs: the split-K GEMV's
+    cluster at M = 1, the tile's at M > 1."""
+    import torch
+    sms = qmat._sm_count(torch.device("cuda"))
+    if m == 1:
+        return qmat._gemv_plan(K, N, group, sms).splits
+    return qmat._tile_plan(m, K, N, group, sms).splits
+
+
 def phase_kernels(torch, qmat, card: str) -> list[dict]:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -425,9 +442,8 @@ def phase_kernels(torch, qmat, card: str) -> list[dict]:
                        bound_by="bytes" if t_bytes >= t_ops else "operations",
                        max_abs_err=abs_err, rel_err_bf16=err[str(torch.bfloat16)],
                        rel_err_f32=err[str(torch.float32)],
-                       splits=(qmat._tile_plan(m, K, N, qt.group,
-                                               qmat._sm_count(x.device)).splits
-                               if m > 1 else None), bit_identical=True)
+                       splits=plan_splits(qmat, m, K, N, qt.group),
+                       bit_identical=True)
             rows.append(row)
             log(f"qdot {label:28s} M={m:<3d} K={K:<5d} N={N:<6d} "
                 f"kernel {k_ms:.4f} ms (eager {k_host:.4f})  plain {p_ms:.4f} "
@@ -491,10 +507,10 @@ def variant_work(kernel: str, qt, m: int, el: int):
 def phase_variants(torch, qmat, card: str) -> list[dict]:
     """Every single-stream kernel against its plain version on the card, with
     kernel / plain / library times: K2 on the packed shapes at M = 1, 7, 64
-    (M = 1 f32 also against K1 within 1e-5; M > 1, K1's tile, bit for bit
-    equal to K1), K3 at M = 1 in bf16, K4a / K4b at M = 1 in f32 and bf16.
-    K2 and K3 give the same bits on a second call.  Every x has an all-zero
-    quant group (K4's sx = 1 rule)."""
+    (bit for bit equal to K1: the same GEMV at M = 1, the same tile at
+    M > 1), K3 at M = 1 in bf16 (bit for bit equal to K1: the same GEMV),
+    K4a / K4b at M = 1 in f32 and bf16.  K2 and K3 give the same bits on a
+    second call.  Every x has an all-zero quant group (K4's sx = 1 rule)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(3)
     rows = []
@@ -530,19 +546,15 @@ def phase_variants(torch, qmat, card: str) -> list[dict]:
                 raise AssertionError(f"{kernel} {label} M={m} {dtype}: kernel "
                                      f"vs plain rel err {e} >= {tol}")
             e_k1 = None
-            if kernel in ("K2", "K3") and not torch.equal(fn(x, qt), got):
-                raise AssertionError(f"{kernel} {label} M={m} {dtype}: two "
-                                     f"calls differ")
-            if kernel == "K2" and m > 1:
+            if kernel in ("K2", "K3"):
+                if not torch.equal(fn(x, qt), got):
+                    raise AssertionError(f"{kernel} {label} M={m} {dtype}: "
+                                         f"two calls differ")
+                # K1 on the same plan runs the same GEMV (M = 1) or tile
                 if not torch.equal(got, qmat._qdot_cuda(x, qt)):
-                    raise AssertionError(f"K2 {label} M={m} {dtype}: not bit "
-                                         f"for bit K1's tile")
+                    raise AssertionError(f"{kernel} {label} M={m} {dtype}: "
+                                         f"not bit for bit K1")
                 e_k1 = 0.0
-            elif kernel == "K2" and dtype == torch.float32:
-                e_k1 = rel_err(got, qmat._qdot_cuda(x, qt))
-                if not e_k1 < KERNEL_TOL_F32:
-                    raise AssertionError(f"K2 {label} M={m}: vs K1 rel err "
-                                         f"{e_k1}")
             xl = x.to(torch.bfloat16)
             kern = lambda i: fn(x, qts[i % n_copies])
             k_ms = graph_ms(torch, kern, max(20, min(256, n_copies)))
@@ -569,7 +581,7 @@ def phase_variants(torch, qmat, card: str) -> list[dict]:
                 f"N={N:<6d} kernel {k_ms:.4f} ms (eager {e_ms:.4f})  plain "
                 f"{p_ms:.4f} ms  library {l_ms:.4f} ms  bound "
                 f"{row['bound_ms']:.4f} ms ({row['bound_by']})  rel_err "
-                f"{e:.2e}" + ("" if e_k1 is None else f" (vs K1 {e_k1:.2e})")
+                f"{e:.2e}" + ("" if e_k1 is None else " (bit for bit K1)")
                 + f"  [{card}]")
         del qts, w_lib
         torch.cuda.empty_cache()
@@ -665,6 +677,7 @@ def phase_bf16(torch, qmat, card: str, k1_rows: list[dict]) -> list[dict]:
                        eager_ms=e_ms, bound_ms=max(t_bytes, t_ops),
                        bound_by="bytes" if t_bytes >= t_ops else "operations",
                        k1_ms=k1[(label, m)]["ms"] if k1 else None,
+                       splits=plan_splits(qmat, m, K, N, qt.group),
                        max_abs_err=abs_err, bit_identical=True,
                        rel_err_f32=max(v for (_, d), v in err.items()
                                        if d == str(torch.float32)),
@@ -2021,7 +2034,10 @@ def variant_entry(rows, offline, ref, kernel: str) -> dict:
     step = {k: q4km_step(rows, kernel, k) for k in keys}
     entry = dict(
         name=name, route="cuda",
-        source="miotts_tpu_torch/ops/csrc/qdot_gemv.cu", replaces=replaces,
+        source="miotts_tpu_torch/ops/csrc/qdot_gemv.cu",
+        sources=["miotts_tpu_torch/ops/csrc/qdot_gemv.cu"] + {
+            "K2": [GEMV_HEADER, TILE_HEADER], "K3": [GEMV_HEADER]}.get(
+                kernel, []), replaces=replaces,
         launches=offline[route]["launches"][kernel],
         launches_by_path={f"q4km_{route}_offline":
                           offline[route]["launches"][kernel],
@@ -2089,6 +2105,29 @@ def lfm2_step_summary(rows: list[dict], key: str, m: int = 1) -> float:
     n_attn = len(LFM2_ATTN_IDX)
     return ((LFM2_LAYERS - n_attn) * (by["in_proj"] + by["out_proj/wo"] + ffn)
             + n_attn * (by["wqkv"] + by["out_proj/wo"] + ffn) + by["output"])
+
+
+def single_stream_steps(res: dict) -> dict:
+    """One decode step of K1's M = 1 work on the 0.1B, LFM2 and 2.6B paths
+    (phase 2's rows) and of K1v's on the 2.6B path (phase 17's, both
+    modes), with the two int8 output heads' rows: the numbers a change of
+    the M = 1 GEMV is read by.  `res` is the `details` dict of a run (of
+    this script or of an earlier commit's)."""
+    out = {}
+    rows = res.get("qdot_per_shape") or []
+    keys = ("ms", "eager_ms", "plain_ms", "library_ms", "bound_ms")
+    if rows:
+        out["k1_0.1b"] = {k: step_summary(rows, k) for k in keys}
+        out["k1_lfm2"] = {k: lfm2_step_summary(rows, k) for k in keys}
+        out["k1_2.6b"] = {k: q4km_k1_step(rows, k) for k in keys}
+        out["k1_heads_ms"] = {r["shape"]: r["ms"] for r in rows if r["M"] == 1
+                              and r["shape"] in ("0.1b output q8_0",
+                                                 "lfm2 output q8_0")}
+    bf16_rows = res.get("bf16_per_shape") or []
+    if bf16_rows:
+        out["k1v_2.6b"] = {k: q4km_k1_step(bf16_rows, k)
+                           for k in keys + ("ms_mode1",)}
+    return out
 
 
 # every phase (3 runs 3-5), and what a phase needs run before it
@@ -2218,6 +2257,7 @@ def main(argv=None) -> int:
 
     if run != set(ALL_PHASES):
         log("details " + json.dumps(res))
+        log("steps " + json.dumps(single_stream_steps(res)))
         log(f"total {time.perf_counter() - t_start:.1f} s (phases "
             f"{sorted(run)} only: no summary)")
         return 0
@@ -2228,8 +2268,10 @@ def main(argv=None) -> int:
     var_rows, bf16_rows, probes = (res["variants_per_shape"],
                                    res["bf16_per_shape"], res["probes"])
     q4km_res, q4km_ref = res["q4km_offline"], res["q4km_gpu_vs_cpu"]
+    steps = single_stream_steps(res)
     qdot_entry = dict(
         name="qdot", route="cuda", source="miotts_tpu_torch/ops/csrc/qdot.cu",
+        sources=["miotts_tpu_torch/ops/csrc/qdot.cu", GEMV_HEADER, TILE_HEADER],
         replaces="miotts_tpu/ops/qmat.py:191",
         launches=serve_res["bf16"]["qdot_launches"],
         max_abs_err=max(r["max_abs_err"] for r in rows),
@@ -2243,14 +2285,11 @@ def main(argv=None) -> int:
         library_ms=step_summary(rows, "library_ms", SLOTS),
         unit="one 0.1B-Q8_0 64-slot batched decode step of qdot work "
              "(12 x 4 linears + output) at M=64, bf16 x",
-        single_stream_step={k: step_summary(rows, k) for k in
-                            ("ms", "plain_ms", "bound_ms", "library_ms")},
-        lfm2_single_stream_step={k: lfm2_step_summary(rows, k) for k in
-                                 ("ms", "plain_ms", "bound_ms", "library_ms")},
+        single_stream_step=steps["k1_0.1b"],
+        lfm2_single_stream_step=steps["k1_lfm2"],
         lfm2_16_slot_step={k: lfm2_step_summary(rows, k, LFM2_SLOTS) for k in
                            ("ms", "plain_ms", "bound_ms", "library_ms")},
-        q4km_single_stream_step={k: q4km_k1_step(rows, k) for k in
-                                 ("ms", "plain_ms", "bound_ms", "library_ms")},
+        q4km_single_stream_step=steps["k1_2.6b"],
         q4km_64_slot_step={k: q4km_k1_step(rows, k, 64) for k in
                            ("ms", "plain_ms", "bound_ms", "library_ms")},
         launches_by_path={"serving_bf16": serve_res["bf16"]["qdot_launches"],
@@ -2311,6 +2350,8 @@ def main(argv=None) -> int:
     bf16_entry = dict(
         name="qdot_bf16", route="cuda",
         source="miotts_tpu_torch/ops/csrc/qdot_bf16.cu",
+        sources=["miotts_tpu_torch/ops/csrc/qdot_bf16.cu", GEMV_HEADER,
+                 TILE_HEADER],
         replaces="miotts_tpu/ops/qmat.py:191",
         launches=lfm2_after["qdot_bf16_launches"],
         launches_by_path={
@@ -2330,9 +2371,8 @@ def main(argv=None) -> int:
         mode1_ms=step16["ms_mode1"],
         unit="one LFM2-1.2B 16-slot batched decode step of K1v work (65 "
              "linears at M=16), mode after, bf16 x",
-        q4km_single_stream_step={k: q4km_k1_step(bf16_rows, k) for k in
-                                 ("ms", "ms_mode1", "plain_ms", "bound_ms",
-                                  "library_ms", "k1_ms")},
+        q4km_single_stream_step=dict(steps["k1v_2.6b"],
+                                     k1_ms=q4km_k1_step(bf16_rows, "k1_ms")),
         q4km_64_slot_step={k: q4km_k1_step(bf16_rows, k, 64) for k in
                            ("ms", "ms_mode1", "plain_ms", "bound_ms",
                             "library_ms", "k1_ms")})

@@ -28,13 +28,15 @@
 // the JAX function's f32 multiply and one cast).  So the mode is a property
 // of the scale alone and costs nothing per weight.
 //
-// M = 1 (decode): K1's GEMV layout (qdot.cu).  One thread owns one output
-// column, so the 32 lanes of a warp read 32 neighbouring bytes of a row of v
-// in one sector; 16 warps split K by quant group; bf16(x) and the group sums
-// of x are staged once per block in shared memory; each weight is rounded to
-// bf16 in registers before its FMA.  Kernel and plain version differ only in
-// the order of the f32 sums.  Bound: the bytes of v + s + mins over 3.35
-// TB/s, as K1.
+// M = 1 (decode): the split-K GEMV of qdot_gemv.cuh in its bf16-weight
+// form: each chunk of a quant group loads s' for its 16 columns before its
+// products, rounds each w = bf16(q * s') in registers and sums bf16(x) * w
+// from zero in f32 FMAs (every product exact), which an IEEE f32 add folds
+// into the lane's accumulator; then the chunk's mins term, from its f32
+// sum of the unrounded x.  16-byte loads a lane and K split over a
+// thread-block cluster that sums in rank order, as K1, K2 and K3 (the plan:
+// ops/qmat.py:_gemv_plan).  Kernel and plain version differ only in the
+// order of the f32 sums.
 //
 // M > 1 (prefill, batched decode): the shared tile of qdot_tile.cuh with
 // the variant's transform: each weight is rounded to bf16(q * s') from the
@@ -46,116 +48,33 @@
 // group sums of the unrounded x.  A 4-stage cp.async ring of the quantized
 // bytes and a deterministic split-K in the same launch, as K1's.
 //
-// Plain C interface for ctypes: qdot_bf16_launch returns cudaGetLastError();
-// at M > 1 it takes the tile plan, workspace and tickets as qdot_launch.
+// Plain C interface for ctypes: qdot_bf16_launch returns the launch's
+// cudaError_t; it takes the GEMV plan at M = 1 and the tile plan, workspace
+// and tickets at M > 1, as qdot_launch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "qdot_gemv.cuh"
 #include "qdot_tile.cuh"
 
 namespace {
 
-using qtile::bf16_round;
-using qtile::from_f32;
-using qtile::to_f32;
-
-// the scale the weight is multiplied by: bf16(s) in mode 1, s in mode after
-__device__ __forceinline__ float mode_scale(float s, bool after) {
-  return after ? s : bf16_round(s);
-}
-
-// one weight: bf16(q * s') (no FMA contraction: the product is rounded
-// alone)
-__device__ __forceinline__ float bf16_weight(int q, float sp) {
-  return bf16_round(__fmul_rn((float)q, sp));
-}
-
-// ---------------------------------------------------------------- M == 1
-constexpr int GEMV_COLS = 32;   // lanes: one output column each
-constexpr int GEMV_WARPS = 16;  // warps: split K by quant group
-constexpr int GEMV_THREADS = GEMV_COLS * GEMV_WARPS;
-
-template <typename T, bool PACKED, int G>
-__global__ void __launch_bounds__(GEMV_THREADS)
-qdot_bf16_gemv_kernel(const T* __restrict__ x, const uint8_t* __restrict__ v,
-                      const float* __restrict__ s, const float* __restrict__ mins,
-                      T* __restrict__ y, int K, int N, bool after) {
-  extern __shared__ float smem[];
-  const int n_groups = K / G;
-  float* xs = smem;                 // [K]    bf16(x), as f32
-  float* xg = smem + K;             // [K/G]  f32 group sums of x
-  float* red = xg + n_groups;       // [GEMV_WARPS][GEMV_COLS]
-  const int lane = threadIdx.x;
-  const int warp = threadIdx.y;
-  const int tid = warp * GEMV_COLS + lane;
-  for (int k = tid; k < K; k += GEMV_THREADS) xs[k] = bf16_round(to_f32(x[k]));
-  if (mins) {
-    for (int b = tid; b < n_groups; b += GEMV_THREADS) {
-      float t = 0.f;
-#pragma unroll
-      for (int r = 0; r < G; ++r) t += to_f32(x[b * G + r]);
-      xg[b] = t;
-    }
+template <typename T, bool PACKED>
+cudaError_t by_m(const void* x, const void* v, const float* s, const float* mins,
+                 void* y, float* ws, int* tickets, int M, int K, int N, int group,
+                 int bm, int splits, int k_split, bool after, cudaStream_t stream) {
+  if (M == 1) {
+    return qgemv::gemv<T, PACKED, true>(x, v, s, mins, y, K, N, group, splits,
+                                        k_split, stream, after);
   }
-  __syncthreads();
-
-  const int n = blockIdx.x * GEMV_COLS + lane;
-  float acc = 0.f;
-  if (n < N) {
-    for (int b = warp; b < n_groups; b += GEMV_WARPS) {
-      const float sp = mode_scale(s[(size_t)b * N + n], after);
-      const float* xb = xs + b * G;
-      if (PACKED) {
-        constexpr int H = G / 2;
-        const uint8_t* vp = v + (size_t)b * H * N + n;
-#pragma unroll 8
-        for (int r = 0; r < H; ++r) {
-          const int q = vp[(size_t)r * N];
-          acc = fmaf(xb[r], bf16_weight(q & 0xF, sp), acc);
-          acc = fmaf(xb[r + H], bf16_weight(q >> 4, sp), acc);
-        }
-      } else {
-        const int8_t* vp = reinterpret_cast<const int8_t*>(v) + (size_t)b * G * N + n;
-        int q[G];
-#pragma unroll
-        for (int r = 0; r < G; ++r) q[r] = vp[(size_t)r * N];
-#pragma unroll
-        for (int r = 0; r < G; ++r) acc = fmaf(xb[r], bf16_weight(q[r], sp), acc);
-      }
-      if (mins) acc = fmaf(-xg[b], mins[(size_t)b * N + n], acc);
-    }
+  if (group == 16) {
+    return qtile::tile_by_bm<T, PACKED, 16, true>(x, v, s, mins, y, ws, tickets, M, K,
+                                                  N, bm, splits, k_split, after, stream);
   }
-  red[warp * GEMV_COLS + lane] = acc;
-  __syncthreads();
-  if (warp == 0 && n < N) {
-    float t = 0.f;
-#pragma unroll
-    for (int w = 0; w < GEMV_WARPS; ++w) t += red[w * GEMV_COLS + lane];
-    y[n] = from_f32<T>(t);
-  }
-}
-
-template <typename T, bool PACKED, int G>
-cudaError_t launch(const void* x, const void* v, const float* s, const float* mins,
-                   void* y, float* ws, int* tickets, int M, int K, int N, int bm,
-                   int splits, int k_split, bool after, cudaStream_t stream) {
-  if (M > 1) {
-    return qtile::tile_by_bm<T, PACKED, G, true>(x, v, s, mins, y, ws, tickets, M, K,
-                                                 N, bm, splits, k_split, after, stream);
-  }
-  const size_t smem = (size_t)(K + K / G + GEMV_THREADS) * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaFuncSetAttribute(qdot_bf16_gemv_kernel<T, PACKED, G>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  }
-  dim3 block(GEMV_COLS, GEMV_WARPS);
-  dim3 grid((N + GEMV_COLS - 1) / GEMV_COLS);
-  qdot_bf16_gemv_kernel<T, PACKED, G><<<grid, block, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const uint8_t*>(v), s, mins,
-      static_cast<T*>(y), K, N, after);
-  return cudaGetLastError();
+  return qtile::tile_by_bm<T, PACKED, 32, true>(x, v, s, mins, y, ws, tickets, M, K, N,
+                                                bm, splits, k_split, after, stream);
 }
 
 template <typename T>
@@ -164,17 +83,11 @@ cudaError_t dispatch(const void* x, const void* v, int packed, const float* s,
                      int K, int N, int group, int bm, int splits, int k_split,
                      bool after, cudaStream_t stream) {
   if (packed) {
-    if (group == 16)
-      return launch<T, true, 16>(x, v, s, mins, y, ws, tickets, M, K, N, bm, splits,
-                                 k_split, after, stream);
-    return launch<T, true, 32>(x, v, s, mins, y, ws, tickets, M, K, N, bm, splits,
-                               k_split, after, stream);
+    return by_m<T, true>(x, v, s, mins, y, ws, tickets, M, K, N, group, bm, splits,
+                         k_split, after, stream);
   }
-  if (group == 16)
-    return launch<T, false, 16>(x, v, s, mins, y, ws, tickets, M, K, N, bm, splits,
-                                k_split, after, stream);
-  return launch<T, false, 32>(x, v, s, mins, y, ws, tickets, M, K, N, bm, splits,
-                              k_split, after, stream);
+  return by_m<T, false>(x, v, s, mins, y, ws, tickets, M, K, N, group, bm, splits,
+                        k_split, after, stream);
 }
 
 }  // namespace
@@ -187,7 +100,8 @@ extern "C" int qdot_bf16_launch(const void* x, int x_is_bf16, const void* v,
   if (M < 1 || K < 1 || N < 1 || (group != 16 && group != 32) || K % group) {
     return (int)cudaErrorInvalidValue;
   }
-  if (M > 1 && !qtile::plan_ok(M, K, N, bm, splits, k_split, ws, tickets)) {
+  if (M > 1 ? !qtile::plan_ok(M, K, N, bm, splits, k_split, ws, tickets)
+            : !qgemv::gemv_plan_ok(K, group, splits, k_split)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);

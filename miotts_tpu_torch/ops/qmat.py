@@ -31,8 +31,9 @@ kernel as the JAX package's `qdot` does, by the weight's `QdotRoute`:
 
 A CUDA tensor goes through the hand-written kernel (`ops/csrc/qdot.cu`,
 `ops/csrc/qdot_gemv.cu`, `ops/csrc/qdot_bf16.cu`; at M > 1 K1, K1v and K2
-share the tile of `ops/csrc/qdot_tile.cuh`, planned by `_tile_plan`; K2 at
-M = 1 and K3 share one split-K GEMV, planned by `_gemv_plan`) and raises
+share the tile of `ops/csrc/qdot_tile.cuh`, planned by `_tile_plan`; at
+M = 1 K1, K1v, K2 and K3 share the split-K GEMV of
+`ops/csrc/qdot_gemv.cuh`, planned by `_gemv_plan`) and raises
 if it cannot build or launch; a CPU tensor goes through the kernel's plain
 torch version (`*_plain`).  `qdot_dma_floor` (K8, `ops/csrc/dma_floor.cu`) is a probe
 that streams K1's blocks; no linear calls it.
@@ -538,12 +539,14 @@ def _tickets(device, n: int) -> torch.Tensor:
 
 
 def _tile_args(name: str, x: torch.Tensor, qt: QTensor, N: int,
-               plan: TilePlan | None) -> tuple:
-    """(workspace, tickets, bm, splits, k_split) of the launch, under `plan`
-    (None: `_tile_plan`'s); the M = 1 GEMV takes none of them."""
+               plan: TilePlan | GemvPlan | None) -> tuple:
+    """(workspace, tickets, bm, splits, k_split) of the launch under `plan`
+    (None: the card's own): at M = 1 the GEMV's splits and k_split
+    (`_gemv_plan`; no workspace, no tickets, bm unused), at M > 1 the
+    tile's (`_tile_plan`)."""
     M, K = x.shape
     if M == 1:
-        return None, None, 0, 1, 0
+        return (None, None, 0) + _gemv_args(x, qt, N, plan)
     if x.data_ptr() % 16 or qt.values.data_ptr() % 16:
         raise ValueError(f"{name} kernel: x and values must be 16-byte "
                          f"aligned at M > 1")
@@ -562,20 +565,28 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-# the M = 1 GEMV of K2 and K3 (ops/csrc/qdot_gemv.cu, whose GEMV_COLS and
-# GEMV_MAX_SPLITS these are): a block covers GEMV_COLS output columns, and K
-# is split over a thread-block cluster of at most GEMV_MAX_SPLITS blocks
-# (the portable cluster size) toward GEMV_BLOCKS_PER_SM blocks an SM.
+# the M = 1 GEMV of K1, K1v, K2 and K3 (ops/csrc/qdot_gemv.cuh, whose
+# GEMV_COLS, GEMV_TEAM_UNALIGNED and GEMV_MAX_SPLITS these are): a block
+# covers GEMV_COLS output columns (16 x GEMV_TEAM_UNALIGNED where rows are
+# not 16-byte aligned, N % 16 != 0), and K is split over a thread-block
+# cluster of at most GEMV_MAX_SPLITS blocks (the portable cluster size)
+# toward GEMV_BLOCKS_PER_SM blocks an SM.
 GEMV_COLS = 32
+GEMV_TEAM_UNALIGNED = 8
 GEMV_MAX_SPLITS = 8
 GEMV_BLOCKS_PER_SM = 2
 
 
+def _gemv_cols(N: int) -> int:
+    """Output columns of a GEMV block on a weight of N columns."""
+    return GEMV_COLS if N % 16 == 0 else 16 * GEMV_TEAM_UNALIGNED
+
+
 @dataclass(frozen=True)
 class GemvPlan:
-    """How the M = 1 GEMV covers y [1, N]: a block of GEMV_COLS columns is
-    a cluster of `splits` blocks along K of `k_split` each (whole quant
-    groups; the last one ragged)."""
+    """How the M = 1 GEMV covers y [1, N]: a block of `_gemv_cols(N)`
+    columns is a cluster of `splits` blocks along K of `k_split` each
+    (whole quant groups; the last one ragged)."""
     splits: int
     k_split: int
 
@@ -589,7 +600,7 @@ def _gemv_plan(K: int, N: int, group: int, sms: int = H100_SMS) -> GemvPlan:
     24 x 8 = 192 blocks, 1.45 an H100 SM.)"""
     if K < 1 or N < 1 or group not in (16, 32) or K % group:
         raise ValueError(f"no GEMV plan for K={K} N={N} group={group}")
-    n_tiles = -(-N // GEMV_COLS)
+    n_tiles = -(-N // _gemv_cols(N))
     groups = K // group
     want = -(-GEMV_BLOCKS_PER_SM * sms // n_tiles)
     per = -(-groups // max(1, min(want, GEMV_MAX_SPLITS, groups)))
@@ -597,7 +608,7 @@ def _gemv_plan(K: int, N: int, group: int, sms: int = H100_SMS) -> GemvPlan:
 
 
 def _gemv_args(x: torch.Tensor, qt: QTensor, N: int,
-               plan: GemvPlan | None) -> tuple:
+               plan: GemvPlan | None) -> tuple[int, int]:
     """(splits, k_split) of an M = 1 GEMV launch under `plan` (None:
     `_gemv_plan`'s for the card)."""
     if plan is None:
@@ -606,8 +617,9 @@ def _gemv_args(x: torch.Tensor, qt: QTensor, N: int,
 
 
 def _qdot_cuda(x: torch.Tensor, qt: QTensor,
-               plan: TilePlan | None = None) -> torch.Tensor:
-    """K1: `qdot_launch` (ops/csrc/qdot.cu); at M > 1 under `plan` (None:
+               plan: TilePlan | GemvPlan | None = None) -> torch.Tensor:
+    """K1: `qdot_launch` (ops/csrc/qdot.cu): at M = 1 the GEMV under `plan`
+    (None: `_gemv_plan`'s), at M > 1 the tile under `plan` (None:
     `_tile_plan`'s)."""
     from ._build import load_kernels
     N = _checked("qdot", x, qt)
@@ -624,9 +636,10 @@ def _qdot_cuda(x: torch.Tensor, qt: QTensor,
 
 
 def _qdot_bf16_cuda(x: torch.Tensor, qt: QTensor, mode: str,
-                    plan: TilePlan | None = None) -> torch.Tensor:
-    """K1v: `qdot_bf16_launch` (ops/csrc/qdot_bf16.cu); at M > 1 under
-    `plan` (None: `_tile_plan`'s)."""
+                    plan: TilePlan | GemvPlan | None = None) -> torch.Tensor:
+    """K1v: `qdot_bf16_launch` (ops/csrc/qdot_bf16.cu): at M = 1 the GEMV
+    under `plan` (None: `_gemv_plan`'s), at M > 1 the tile under `plan`
+    (None: `_tile_plan`'s)."""
     from ._build import load_kernels
     _bf16_mode_checked(mode)
     N = _checked("qdot_bf16", x, qt)
@@ -674,12 +687,7 @@ def _qdot_split_cuda(x: torch.Tensor, qt: QTensor,
     (None: `_tile_plan`'s)."""
     N = _checked("qdot_split", x, qt, packed=True)
     M, K = x.shape
-    if M == 1:
-        ws = tickets = None
-        bm, (splits, k_split) = 0, _gemv_args(x, qt, N, plan)
-    else:
-        ws, tickets, bm, splits, k_split = _tile_args("qdot_split", x, qt, N,
-                                                      plan)
+    ws, tickets, bm, splits, k_split = _tile_args("qdot_split", x, qt, N, plan)
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     _launch("qdot_split_launch", x, qt, y, _ptr(ws), _ptr(tickets),
             int(x.dtype == torch.bfloat16), M, K, N, qt.group, bm, splits,

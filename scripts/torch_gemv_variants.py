@@ -1,16 +1,23 @@
-"""Time the split-K GEMV of K2 (M = 1) and K3 (miotts_tpu_torch/ops/csrc/
-qdot_gemv.cu) against variants of its design, on one GPU.
+"""Time the split-K GEMV shared by K1, K1v, K2 (M = 1) and K3
+(miotts_tpu_torch/ops/csrc/qdot_gemv.cuh) against variants of its design,
+on one GPU.
 
     python3 scripts/torch_gemv_variants.py [--out chiprun_out/gemv_variants.json]
+        [--variants committed,team4,...]
 
-Each variant is the committed source with one constant changed (rows of a
-chunk, warps of a block, lanes of a team) or the plan's blocks per SM
-changed; each is built by nvcc into build/gemv_variants/ and swapped in for
-the port's qdot_gemv library.  Every variant is checked against the plain
-version (bf16, 1e-2) and timed as chip_smoke.py times a kernel: CUDA-graph
+Each variant is the committed header with one design choice changed (rows
+of a chunk, warps of a block, lanes of a team where rows are or are not
+16-byte aligned, the blocks an SM the registers must allow, how unaligned
+rows and their x are read, when their scales are loaded) or the plan's
+blocks per SM changed.  Each is built by nvcc into build/gemv_variants/
+(the K2 / K3 library, qdot_gemv.cu, and the K1v library, qdot_bf16.cu,
+against the changed header) and swapped in for the port's libraries.  K3 at bf16 x is K1's instantiation at bf16 x, so its
+rows are K1's decode rows.  Every variant is checked against the plain
+versions (bf16, 1e-2) and timed as chip_smoke.py times a kernel: CUDA-graph
 replay over weight copies larger than the L2.  The variants run in order,
 then in reverse order.  Prints, per run, the µs of each shape and one
-2.6B-Q4_K_M decode step of K2 and of K3 work (bf16 x)."""
+2.6B-Q4_K_M decode step of K2, K3 (= K1) and K1v (mode after) work, bf16
+x."""
 
 from __future__ import annotations
 
@@ -24,34 +31,103 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-# name: (substitutions in qdot_gemv.cu, GEMV_BLOCKS_PER_SM, GEMV_COLS)
+LIBS = ("qdot_gemv", "qdot_bf16")     # the libraries rebuilt per variant
+
+# unaligned rows read as two aligned 16-byte blocks and a select of their
+# words (the earlier reading), not as five 4-byte words
+_BLOCKS16 = ("""  const size_t base = a & ~(size_t)3;
+  const unsigned sh = 8 * (unsigned)(a & 3);
+  uint32_t sel[5];
+#pragma unroll
+  for (int i = 0; i < 5; ++i)
+    sel[i] = base + 4 * i < end
+        ? __ldg(reinterpret_cast<const uint32_t*>(v + base) + i) : 0u;
+""", """  const size_t base = a & ~(size_t)15;
+  const uint4 z = make_uint4(0u, 0u, 0u, 0u);
+  const uint4 b0 = base < end ? __ldg(reinterpret_cast<const uint4*>(v + base)) : z;
+  const uint4 b1 = base + 16 < end
+      ? __ldg(reinterpret_cast<const uint4*>(v + base + 16)) : z;
+  const uint32_t w[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+  const unsigned off = (unsigned)(a & 15), wi = off >> 2, sh = 8 * (off & 3);
+  uint32_t sel[5];
+#pragma unroll
+  for (int i = 0; i < 5; ++i)
+    sel[i] = wi == 0 ? w[i] : wi == 1 ? w[i + 1] : wi == 2 ? w[i + 2] : w[i + 3];
+""")
+
+
+def _const(name: str, old, new):
+    return (f"constexpr int {name} = {old};", f"constexpr int {name} = {new};")
+
+
+def _uteam(n: int):
+    """Unaligned rows (the output heads) in teams of n lanes."""
+    return ([_const("GEMV_TEAM_UNALIGNED", 8, n)], {"GEMV_TEAM_UNALIGNED": n})
+
+
+# name: (substitutions in qdot_gemv.cuh, the plan's constants in ops/qmat.py)
 VARIANTS = {
-    "committed": ([], 2, 32),
+    "committed": ([], {}),
     "rows16": ([("constexpr int R = RPG < 8 ? RPG : 8;",
-                 "constexpr int R = RPG < 16 ? RPG : 16;")], 2, 32),
-    "warps8": ([("constexpr int GEMV_WARPS = 4;",
-                 "constexpr int GEMV_WARPS = 8;")], 2, 32),
-    "team4": ([("constexpr int GEMV_TEAM = 2;",
-                "constexpr int GEMV_TEAM = 4;")], 2, 64),
-    "team8": ([("constexpr int GEMV_TEAM = 2;",
-                "constexpr int GEMV_TEAM = 8;")], 2, 128),
-    "blocks4": ([], 4, 32),
+                 "constexpr int R = RPG < 16 ? RPG : 16;")], {}),
+    "warps8": ([_const("GEMV_WARPS", 4, 8)], {}),
+    "team4": ([_const("GEMV_TEAM", 2, 4)], {"GEMV_COLS": 64}),
+    "blocks4": ([], {"GEMV_BLOCKS_PER_SM": 4}),
+    "minblocks1": ([_const("GEMV_MIN_BLOCKS", 4, 1),
+                    _const("GEMV_MIN_BLOCKS_UNALIGNED", 3, 1)], {}),
+    "uteam2": _uteam(2),
+    "uteam4": _uteam(4),
+    "uteam16": _uteam(16),
+    "ublocks16": ([_BLOCKS16], {}),
+    "ulate": ([("constexpr bool EARLY = !ALIGNED && !SCALED;",
+                "constexpr bool EARLY = false;")], {}),
+    "uminblocks4": ([_const("GEMV_MIN_BLOCKS_UNALIGNED", 3, 4)], {}),
+    "uminblocks2": ([_const("GEMV_MIN_BLOCKS_UNALIGNED", 3, 2)], {}),
+    # x by 16-byte loads where rows are unaligned (x is aligned here)
+    "uxvec": ([("load_x<T, R, ALIGNED>(x, k_lo, xl);",
+                "load_x<T, R, true>(x, k_lo, xl);"),
+               ("load_x<T, R, ALIGNED>(x, k_lo + G / 2, xh);",
+                "load_x<T, R, true>(x, k_lo + G / 2, xh);")], {}),
 }
 
 
-def build(name: str, subs, out_dir: str, build_mod):
-    src = (build_mod.CSRC / "qdot_gemv.cu").read_text()
+def build(name: str, subs, out_dir: str, build_mod) -> list:
+    """Start nvcc on each of LIBS beside the variant's header in
+    out_dir/name/ (a quoted include finds that header first; qdot_tile.cuh
+    comes from the sources).  Returns the processes."""
+    hdr = (build_mod.CSRC / "qdot_gemv.cuh").read_text()
     for old, new in subs:
-        if old not in src:
-            raise RuntimeError(f"variant {name}: {old!r} not in the source")
-        src = src.replace(old, new)
-    path = os.path.join(out_dir, f"{name}.cu")
-    with open(path, "w") as f:
-        f.write(src)
-    cmd = [build_mod._nvcc(), *build_mod.NVCC_FLAGS, "-I", str(build_mod.CSRC),
-           "-o", path[:-3] + ".so", path]
-    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
+        if old not in hdr:
+            raise RuntimeError(f"variant {name}: {old!r} not in the header")
+        hdr = hdr.replace(old, new)
+    d = os.path.join(out_dir, name)
+    os.makedirs(d, exist_ok=True)
+    with open(os.path.join(d, "qdot_gemv.cuh"), "w") as f:
+        f.write(hdr)
+    procs = []
+    for lib in LIBS:
+        src = build_mod.KERNELS[lib][0]
+        path = os.path.join(d, src)
+        with open(path, "w") as f:
+            f.write((build_mod.CSRC / src).read_text())
+        cmd = [build_mod._nvcc(), *build_mod.NVCC_FLAGS, "-I",
+               str(build_mod.CSRC), "-o", os.path.join(d, f"{lib}.so"), path]
+        procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True))
+    return procs
+
+
+def load(name: str, out_dir: str, build_mod) -> dict:
+    """The variant's libraries, their C functions typed as _build types
+    them."""
+    libs = {}
+    for lib in LIBS:
+        cdll = ctypes.CDLL(os.path.join(out_dir, name, f"{lib}.so"))
+        for fn, argtypes in build_mod.KERNELS[lib][1].items():
+            getattr(cdll, fn).argtypes = argtypes
+            getattr(cdll, fn).restype = ctypes.c_int
+        libs[lib] = cdll
+    return libs
 
 
 def main() -> int:
@@ -61,27 +137,32 @@ def main() -> int:
         return 2
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None)
+    ap.add_argument("--variants", default=",".join(VARIANTS),
+                    help="comma-separated names (default: all)")
     args = ap.parse_args()
+    names = [v for v in args.variants.split(",") if v]
+    if set(names) - set(VARIANTS):
+        ap.error(f"unknown variants {sorted(set(names) - set(VARIANTS))}")
     import chip_smoke as cs
     from miotts_tpu_torch.ops import _build, qmat
 
     out_dir = os.path.join(ROOT, "build", "gemv_variants")
     os.makedirs(out_dir, exist_ok=True)
-    procs = {name: build(name, subs, out_dir, _build)
-             for name, (subs, _, _) in VARIANTS.items() if subs or
-             name == "committed"}
+    procs = {name: build(name, VARIANTS[name][0], out_dir, _build)
+             for name in names}
     _build.load_kernels()
-    libs = {}
-    for name, proc in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
-        lib = ctypes.CDLL(os.path.join(out_dir, f"{name}.so"))
-        for fn, argtypes in _build.KERNELS["qdot_gemv"][1].items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
-        libs[name] = lib
-    libs["blocks4"] = libs["committed"]
+    libs, regs = {}, {}
+    for name, ps in procs.items():
+        logs = []
+        for proc in ps:
+            log, _ = proc.communicate()
+            if proc.returncode:
+                raise RuntimeError(f"nvcc failed for {name}:\n{log}")
+            logs.append(log)
+        libs[name] = load(name, out_dir, _build)
+        regs[name] = sorted({line.split("Used")[1].split(",")[0].strip()
+                             for log in logs for line in log.splitlines()
+                             if "Used" in line})
 
     card = cs.nvidia_smi_line()
     gen = torch.Generator(device="cuda")
@@ -99,15 +180,18 @@ def main() -> int:
         "0.1b output q8_0": q(768, 13059, "q8_0"),
         "lfm2 output q8_0": q(2048, 13059, "q8_0"),
     }
+    k1v = lambda x, qt: qmat.qdot_bf16(x, qt, "after")
+    k1v_plain = lambda x, qt: qmat.qdot_bf16_plain(x, qt, "after")
     runs = []
-    order = list(VARIANTS) + list(reversed(VARIANTS))
-    default_bps, default_cols = qmat.GEMV_BLOCKS_PER_SM, qmat.GEMV_COLS
+    order = names + names[::-1]
+    plan_keys = ("GEMV_BLOCKS_PER_SM", "GEMV_COLS", "GEMV_TEAM_UNALIGNED")
+    defaults = {k: getattr(qmat, k) for k in plan_keys}
     try:
         for name in order:
-            _, bps, cols = VARIANTS[name]
-            qmat.GEMV_BLOCKS_PER_SM, qmat.GEMV_COLS = bps, cols
+            for k, v in dict(defaults, **VARIANTS[name][1]).items():
+                setattr(qmat, k, v)
             qmat._gemv_plan.cache_clear()
-            _build._loaded["qdot_gemv"] = libs[name]
+            _build._loaded.update(libs[name])
             us = {}
             for label, qt in cases.items():
                 n_copies = max(2, min(256, -(-cs.L2_FLUSH_BYTES
@@ -115,7 +199,8 @@ def main() -> int:
                 qts = cs.copies_of(torch, qmat, qt, n_copies)
                 x = torch.randn((1, qt.k), generator=gen,
                                 device="cuda").to(torch.bfloat16)
-                fns = [("K3", qmat.qdot_group, qmat.qdot_group_plain)]
+                fns = [("K3", qmat.qdot_group, qmat.qdot_group_plain),
+                       ("K1v", k1v, k1v_plain)]
                 if qt.packed:
                     fns.append(("K2", qmat.qdot_split, qmat.qdot_split_plain))
                 for kernel, fn, plain in fns:
@@ -127,17 +212,21 @@ def main() -> int:
                         torch, lambda i: fn(x, qts[i % n_copies]),
                         max(20, min(256, n_copies)))
                 del qts
+            layer = ("wqkv", "wo", "w_gateup", "w_down")
             k2 = (cs.Q4KM_LAYERS * (us["K2 wo"] + us["K2 w_gateup"])
                   + us["K2 output"]) / 1e3
-            k3 = (cs.Q4KM_LAYERS * sum(us[f"K3 {n}"] for n in (
-                "wqkv", "wo", "w_gateup", "w_down")) + us["K3 output"]) / 1e3
-            run = dict(variant=name, us=us, k2_step_ms=k2, k3_step_ms=k3)
+            k3, k1v_step = ((cs.Q4KM_LAYERS * sum(us[f"{k} {n}"] for n in layer)
+                             + us[f"{k} output"]) / 1e3 for k in ("K3", "K1v"))
+            run = dict(variant=name, us=us, k2_step_ms=k2, k3_step_ms=k3,
+                       k1v_step_ms=k1v_step, registers=regs[name])
             runs.append(run)
-            print(f"{name:10s} K2 step {k2:.4f} ms  K3 step {k3:.4f} ms  "
+            print(f"{name:20s} K2 step {k2:.4f} ms  K3 step {k3:.4f} ms  K1v "
+                  f"step {k1v_step:.4f} ms  registers {regs[name]}  "
                   + json.dumps({k: round(v, 2) for k, v in us.items()})
                   + f"  [{card}]", flush=True)
     finally:
-        qmat.GEMV_BLOCKS_PER_SM, qmat.GEMV_COLS = default_bps, default_cols
+        for k, v in defaults.items():
+            setattr(qmat, k, v)
         qmat._gemv_plan.cache_clear()
     if args.out:
         with open(args.out, "w") as f:

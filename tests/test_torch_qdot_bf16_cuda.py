@@ -267,3 +267,89 @@ def test_bf16_tile_head_width_and_determinism_on_gpu():
         x = _x(m, 8192, torch.bfloat16, seed=m + 7)
         assert torch.equal(tq.qdot_bf16(x, down, "after"),
                            tq.qdot_bf16(x, down, "after"))
+
+
+# ---------------------------------------------------------------------------
+# K1v at M = 1: the split-K GEMV of ops/csrc/qdot_gemv.cuh in its bf16-weight
+# form
+# ---------------------------------------------------------------------------
+
+# chip_smoke.py phase 2's and 17's linears (K, N, format): the 0.1B-Q8_0 and
+# LFM2-1.2B-Q8_0 models, the 2.6B-Q4_K_M mix, the output heads (N = 13059)
+GEMV_SHAPES = [(768, 1280, "q8_0"), (768, 768, "q8_0"), (768, 4096, "q8_0"),
+               (2048, 768, "q8_0"), (768, 13059, "q8_0"),
+               (2560, 3840, "q4_k+q6_k"), (2560, 16384, "q4_k"),
+               (8192, 2560, "q6_k"), (2560, 2560, "q4_k"),
+               (2560, 13059, "q4_k"), (2048, 6144, "q8_0"),
+               (2048, 2048, "q8_0"), (2048, 3072, "q8_0"),
+               (2048, 16384, "q8_0"), (8192, 2048, "q8_0"),
+               (2048, 13059, "q8_0")]
+
+
+def _gemv_qt(k, n, fmt, seed):
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    if fmt == "q4_k+q6_k":      # the 2.6B fused QKV: int8 g16 with mins
+        parts = [_rand_qt(k, n - 1280, "q4_k", gen),
+                 _rand_qt(k, 640, "q4_k", gen), _rand_qt(k, 640, "q6_k", gen)]
+        return tq.concat_qtensors(parts)
+    return _rand_qt(k, n, fmt, gen)
+
+
+def _zero_group_x(k, dtype, seed):
+    """x [1, k] on the card with an all-zero quant group (columns 32..63)."""
+    x = _x(1, k, torch.float32, seed)
+    x[:, 32:64] = 0.0
+    return x.to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n,fmt", GEMV_SHAPES)
+def test_bf16_gemv_matches_plain_at_path_shapes_on_gpu(k, n, fmt):
+    """K1v at M = 1, both modes, against `qdot_bf16_plain` at every phase 2 /
+    17 shape: f32 x within 1e-5 of the output scale, bf16 x within 1e-2;
+    one launch a call, and a second call gives the same bits."""
+    _need_gpu()
+    qt = _gemv_qt(k, n, fmt, seed=k + n)
+    for mode in MODES:
+        for dtype, tol in ((torch.float32, F32_TOL),
+                           (torch.bfloat16, BF16_TOL)):
+            x = _zero_group_x(k, dtype, seed=n)
+            _check(x, qt, mode, tol)
+            assert torch.equal(tq.qdot_bf16(x, qt, mode),
+                               tq.qdot_bf16(x, qt, mode))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["q8_0", "q6_k", "q4_k"])
+def test_bf16_gemv_takes_any_plan_and_unaligned_rows_on_gpu(fmt):
+    """K1v at M = 1 under every split count from 1 to 8 (a ragged last
+    split) stays within the plain version's bounds and repeats bit for bit;
+    with x, v and s not 16-byte aligned (views one element and one column
+    in, N = 1039) it still does."""
+    _need_gpu()
+    k = 2560
+    qt = _gemv_qt(k, 1040, fmt, seed=len(fmt))
+    groups = k // qt.group
+    for mode in MODES:
+        for dtype, tol in ((torch.float32, F32_TOL),
+                           (torch.bfloat16, BF16_TOL)):
+            x = _zero_group_x(k, dtype, seed=12)
+            want = tq.qdot_bf16_plain(x, qt, mode)
+            for splits in range(1, 9):
+                per = -(-groups // splits)
+                plan = tq.GemvPlan(splits=-(-groups // per),
+                                   k_split=per * qt.group)
+                got = tq._qdot_bf16_cuda(x, qt, mode, plan)
+                assert _rel_err(got, want) < tol, (fmt, mode, splits)
+                assert torch.equal(got, tq._qdot_bf16_cuda(x, qt, mode, plan))
+            odd = tq.QTensor(values=qt.values[:, 1:].contiguous(),
+                             scales=qt.scales[:, 1:].contiguous(),
+                             mins=None if qt.mins is None
+                             else qt.mins[:, 1:].contiguous(),
+                             group=qt.group, n_out=1039, packed=qt.packed)
+            xp = torch.zeros((1, k + 1), device="cuda", dtype=dtype)
+            xp[:, 1:] = x
+            xo = xp[:, 1:]
+            assert xo.data_ptr() % 16 and xo.is_contiguous()
+            _check(xo, odd, mode, tol)

@@ -82,8 +82,8 @@ def test_qdot_kernel_matches_plain_on_gpu(gtype, pack4):
 
 @pytest.mark.cuda
 def test_qdot_kernel_leading_dims_and_large_k_on_gpu():
-    """[B, S, K] input and K = 16384 (shared memory above 48 KB for the
-    GEMV's staged x)."""
+    """[B, S, K] input and K = 16384 (the GEMV's K split over a cluster of
+    whole quant groups)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU")
     qt = _qt(GGML_Q8_0, False, 256, 16384).to("cuda")
@@ -212,3 +212,112 @@ def test_qdot_tile_either_height_and_any_split_on_gpu(bm):
             assert torch.equal(got, tq._qdot_cuda(x, qt, plan))
             err = _rel_err(got.float().cpu(), tq.qdot_plain(x, qt).float().cpu())
             assert err < tol, (bm, splits, dtype, err)
+
+
+# ---------------------------------------------------------------------------
+# K1 at M = 1: the split-K GEMV of ops/csrc/qdot_gemv.cuh, shared with K1v,
+# K2 and K3
+# ---------------------------------------------------------------------------
+
+# chip_smoke.py phase 2's and 17's linears (K, N, format): the 0.1B-Q8_0 and
+# LFM2-1.2B-Q8_0 models, the 2.6B-Q4_K_M mix (fused QKV q4_k + q6_k: int8
+# g16 with mins), the output heads (N = 13059: no row 16-byte aligned)
+GEMV_SHAPES = [(768, 1280, "q8_0"), (768, 768, "q8_0"), (768, 4096, "q8_0"),
+               (2048, 768, "q8_0"), (768, 13059, "q8_0"),
+               (2560, 3840, "q4_k+q6_k"), (2560, 16384, "q4_k_packed"),
+               (8192, 2560, "q6_k"), (2560, 2560, "q4_0_packed"),
+               (2560, 2560, "q4_k_packed"), (2560, 13059, "q4_k_packed"),
+               (2048, 6144, "q8_0"), (2048, 2048, "q8_0"),
+               (2048, 3072, "q8_0"), (2048, 16384, "q8_0"),
+               (8192, 2048, "q8_0"), (2048, 13059, "q8_0")]
+
+
+def _path_qt(k, n, fmt, seed):
+    if fmt == "q4_k+q6_k":       # the 2.6B fused QKV: q, k in Q4_K, v in Q6_K
+        return tq.concat_qtensors([
+            _rand_qt(k, n - 1280, "q4_k", seed), _rand_qt(k, 640, "q4_k", seed + 1),
+            _rand_qt(k, 640, "q6_k", seed + 2)])
+    return _rand_qt(k, n, fmt, seed)
+
+
+def _zero_group_x(k, dtype, seed):
+    """x [1, k] on the card with an all-zero quant group (columns 32..63)."""
+    x = _x_gpu(1, k, torch.float32, seed)
+    x[:, 32:64] = 0.0
+    return x.to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n,fmt", GEMV_SHAPES)
+def test_qdot_gemv_matches_plain_at_path_shapes_on_gpu(k, n, fmt):
+    """K1 at M = 1 against `qdot_plain` at every phase 2 / 17 shape: f32 x
+    within 1e-5 of the output scale, bf16 x within 1e-2; one launch a call,
+    and a second call gives the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    qt = _path_qt(k, n, fmt, seed=k + n)
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
+        x = _zero_group_x(k, dtype, seed=n)
+        before = tq.qdot.kernel_launches
+        got = tq.qdot(x, qt)
+        torch.cuda.synchronize()
+        assert tq.qdot.kernel_launches == before + 1
+        assert got.dtype == dtype and got.shape == (1, n)
+        err = _rel_err(got.float().cpu(), tq.qdot_plain(x, qt).float().cpu())
+        assert err < tol, (k, n, fmt, dtype, err)
+        assert torch.equal(tq.qdot(x, qt), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n,fmt", GEMV_SHAPES)
+def test_qdot_gemv_is_k3_and_k2_bit_for_bit_on_gpu(k, n, fmt):
+    """On one plan K1 at M = 1 launches K3's GEMV for bf16 x (int8 and
+    packed values) and K2's for f32 x on packed values: the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    qt = _path_qt(k, n, fmt, seed=k + n)
+    plan = tq._gemv_plan(k, n, qt.group, tq._sm_count(torch.device("cuda")))
+    xb = _zero_group_x(k, torch.bfloat16, seed=n + 1)
+    assert torch.equal(tq._qdot_cuda(xb, qt, plan),
+                       tq._qdot_group_cuda(xb, qt, plan)), (k, n, fmt)
+    if qt.packed:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = _zero_group_x(k, dtype, seed=n + 2)
+            assert torch.equal(tq._qdot_cuda(x, qt, plan),
+                               tq._qdot_split_cuda(x, qt, plan)), (k, n, fmt,
+                                                                   dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["q8_0", "q6_k", "q4_k_packed"])
+def test_qdot_gemv_takes_any_plan_and_unaligned_rows_on_gpu(fmt):
+    """K1 at M = 1 under every split count from 1 to 8 (a ragged last split)
+    stays within the plain version's bounds and repeats bit for bit; with
+    x, v and s not 16-byte aligned (views one element and one column in,
+    N = 1039) it still does."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    k = 2560
+    qt = _rand_qt(k, 1040, fmt, seed=len(fmt))
+    groups = k // qt.group
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
+        x = _zero_group_x(k, dtype, seed=12)
+        want = tq.qdot_plain(x, qt).float().cpu()
+        for splits in range(1, 9):
+            per = -(-groups // splits)
+            plan = tq.GemvPlan(splits=-(-groups // per), k_split=per * qt.group)
+            got = tq._qdot_cuda(x, qt, plan)
+            assert _rel_err(got.float().cpu(), want) < tol, (fmt, splits)
+            assert torch.equal(got, tq._qdot_cuda(x, qt, plan))
+        odd = tq.QTensor(values=qt.values[:, 1:].contiguous(),
+                         scales=qt.scales[:, 1:].contiguous(),
+                         mins=None if qt.mins is None
+                         else qt.mins[:, 1:].contiguous(),
+                         group=qt.group, n_out=1039, packed=qt.packed)
+        xp = torch.zeros((1, k + 1), device="cuda", dtype=dtype)
+        xp[:, 1:] = x
+        xo = xp[:, 1:]
+        assert xo.data_ptr() % 16 and xo.is_contiguous()
+        got = tq.qdot(xo, odd)
+        err = _rel_err(got.float().cpu(), tq.qdot_plain(xo, odd).float().cpu())
+        assert err < tol, (fmt, dtype, err)

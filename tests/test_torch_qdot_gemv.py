@@ -1,17 +1,23 @@
-"""The split-K GEMV of K2 (M = 1) and K3 (miotts_tpu_torch/ops/csrc/
-qdot_gemv.cu), on the CPU: its plan (ops/qmat.py:_gemv_plan) covers K in
-whole quant groups with enough blocks for the card, and its order of sums,
-emulated in plain torch, meets the kernel's bounds against the JAX package's
-Pallas kernels in interpret mode.
+"""The split-K GEMV shared by K1, K1v, K2 (M = 1) and K3
+(miotts_tpu_torch/ops/csrc/qdot_gemv.cuh), on the CPU: its plan
+(ops/qmat.py:_gemv_plan) covers K in whole quant groups with enough blocks
+for the card, and its order of sums, emulated in plain torch, meets the
+kernel's bounds against the JAX package's Pallas kernels in interpret mode.
 
 The emulation follows the kernel step for step: each chunk (8 byte rows of
-one quant group) sums x_k * q in f32 fused multiply-adds
-in row order (a packed row's low nibble, then its high one) beside the f32
-sum X of its x; the chunk folds into its team's f32 accumulator as
-s * P, then - mins * X; chunk i of a split goes to team i % 16 of
-warp (i / 16) % 4; the teams meet by the warp's xor-shuffle tree and the
-warps in order, and the splits (the cluster's blocks) in rank order.  The kernel's own tests on the
-card are in tests/test_torch_qdot_variants_cuda.py."""
+one quant group) sums x_k * q in f32 fused multiply-adds in row order (a
+packed row's low nibble, then its high one) beside the f32 sum X of its x;
+the chunk folds into its team's f32 accumulator as s * P, then - mins * X.
+K1v's bf16-weight form sums bf16(x_k) * bf16(q * s') instead (s' = bf16(s)
+in mode 1, s in mode after; X still of the unrounded x) and folds P as it
+is, then - mins * X.  Chunk i of a split goes to team i % T of warp
+(i / T) % 4 (T teams a warp: 16 of two lanes, fewer but wider where the
+rows are not 16-byte aligned); the teams meet by the warp's xor-shuffle
+tree and the warps in order, and the splits (the cluster's blocks) in rank
+order.  The
+kernels' own tests on the card are in tests/test_torch_qdot_cuda.py (K1),
+tests/test_torch_qdot_bf16_cuda.py (K1v) and
+tests/test_torch_qdot_variants_cuda.py (K2, K3)."""
 
 import re
 from pathlib import Path
@@ -29,7 +35,7 @@ from torch_port_util import few_torch_threads, rel_err  # noqa: F401
 
 PLAN_NS = (768, 2560, 3840, 13059, 16384)
 PLAN_KS = (768, 2048, 2560, 8192)
-TEAMS, WARPS = 64, 4      # two-lane teams and warps of a block
+WARPS, THREADS = 4, 128   # warps and threads of a block
 
 
 @pytest.mark.parametrize("group", [16, 32])
@@ -44,7 +50,7 @@ def test_gemv_plan_covers_k_in_whole_groups(k, group):
         assert p.k_split % group == 0
         assert (p.splits - 1) * p.k_split < k <= p.splits * p.k_split
         assert 1 <= p.splits <= tq.GEMV_MAX_SPLITS
-        n_tiles = -(-n // tq.GEMV_COLS)
+        n_tiles = -(-n // tq._gemv_cols(n))
         blocks = n_tiles * p.splits
         assert blocks >= min(2 * tq.H100_SMS,
                              n_tiles * tq.GEMV_MAX_SPLITS)
@@ -66,29 +72,40 @@ def test_gemv_plan_follows_the_sm_count_and_rejects_bad_shapes():
 
 
 def test_gemv_constants_match_the_kernel_source():
-    """The plan's column width and split cap are the kernel's: a wider
+    """The plan's column widths (rows 16-byte aligned or not) and split cap
+    are the kernel's (the shared header of K1, K1v, K2 and K3): a wider
     block or a larger cluster would leave the plan's arithmetic wrong."""
-    src = (Path(tq.__file__).parent / "csrc" / "qdot_gemv.cu").read_text()
+    src = (Path(tq.__file__).parent / "csrc" / "qdot_gemv.cuh").read_text()
     consts = dict(re.findall(
-        r"constexpr int (GEMV_TEAM|GEMV_MAX_SPLITS|GEMV_WARPS) = (\d+);",
-        src))
+        r"constexpr int (GEMV_TEAM|GEMV_TEAM_UNALIGNED|GEMV_MAX_SPLITS|"
+        r"GEMV_WARPS) = (\d+);", src))
     assert "constexpr int GEMV_COLS = 16 * GEMV_TEAM;" in src
+    assert "return aligned ? GEMV_TEAM : GEMV_TEAM_UNALIGNED;" in src
     assert consts == {"GEMV_TEAM": str(tq.GEMV_COLS // 16),
+                      "GEMV_TEAM_UNALIGNED": str(tq.GEMV_TEAM_UNALIGNED),
                       "GEMV_MAX_SPLITS": str(tq.GEMV_MAX_SPLITS),
                       "GEMV_WARPS": str(WARPS)}
-    assert TEAMS == 32 * WARPS // (tq.GEMV_COLS // 16)
+    assert tq._gemv_cols(2560) == tq.GEMV_COLS
+    assert tq._gemv_cols(13059) == 16 * tq.GEMV_TEAM_UNALIGNED
 
 
 def _f32(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.float32)
 
 
-def gemv_emulation(x: torch.Tensor, qt) -> torch.Tensor:
-    """K2 at M = 1 (packed) or K3 in the GEMV's order of sums under the plan
-    of ops/qmat.py:_gemv_plan.  x [1, K] f32 or bf16."""
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
+def gemv_emulation(x: torch.Tensor, qt, mode: str | None = None) -> torch.Tensor:
+    """The GEMV in its order of sums under the plan of
+    ops/qmat.py:_gemv_plan: the group-partial form of K1, K2 and K3 (mode
+    None), or K1v's bf16-weight form (mode "1" or "after").  x [1, K] f32
+    or bf16."""
     K, g, packed = x.shape[1], qt.group, qt.packed
     N = qt.values.shape[1]
     plan = tq._gemv_plan(K, N, g)
+    teams = THREADS // (tq._gemv_cols(N) // 16)   # the block's teams
     xf = x.float()[0]
     rpg = g // 2 if packed else g            # byte rows of a group
     R = min(8, rpg)                           # byte rows of a chunk
@@ -99,31 +116,42 @@ def gemv_emulation(x: torch.Tensor, qt) -> torch.Tensor:
     per = plan.k_split // 2 if packed else plan.k_split
     for z in range(plan.splits):
         r0, r1 = z * per, min(rows_total, (z + 1) * per)
-        acc = torch.zeros((TEAMS, N), dtype=torch.float32)
+        acc = torch.zeros((teams, N), dtype=torch.float32)
         for ci in range((r1 - r0) // R):
             row0 = r0 + ci * R
             b = row0 // rpg
             k_lo = b * g + row0 % rpg if packed else row0
+            sp = s[b] if mode in (None, "after") else _bf16(s[b])
             P = torch.zeros(N, dtype=torch.float32)
             X = torch.zeros((), dtype=torch.float32)
             for r in range(R):
                 q = vals[row0 + r]
-                # one f32 rounding of the exact P + x * q (the FMA)
                 terms = [(xf[k_lo + r], q & 0xF if packed else q)]
                 if packed:
                     terms.append((xf[k_lo + g // 2 + r], q >> 4))
                 for xv, qv in terms:
-                    P = _f32(P.double() + xv.double() * qv.double())
+                    if mode is None:
+                        xa, w = xv, qv.double()
+                    else:    # bf16(q * s'), the f32 product rounded alone
+                        xa, w = _bf16(xv), _bf16(qv.float() * sp).double()
+                    # one f32 rounding of the exact P + x * w (the FMA)
+                    P = _f32(P.double() + xa.double() * w)
                     X = _f32(X + xv)
-            p = ci % TEAMS
-            a = _f32(acc[p].double() + s[b].double() * P.double())
+            p = ci % teams
+            if mode is None:
+                a = _f32(acc[p].double() + s[b].double() * P.double())
+            else:
+                a = acc[p] + P
             if mins is not None:
                 a = _f32(a.double() - mins[b].double() * X.double())
             acc[p] = a
-        # team p = 16 * warp + q: the xor tree over q, then the warps
-        lanes = acc.reshape(WARPS, TEAMS // WARPS, N)
-        for m in (1, 2, 4, 8):
-            lanes = lanes + lanes[:, torch.arange(TEAMS // WARPS) ^ m]
+        # team p = tpw * warp + q: the xor tree over q, then the warps
+        tpw = teams // WARPS
+        lanes = acc.reshape(WARPS, tpw, N)
+        m = 1
+        while m < tpw:
+            lanes = lanes + lanes[:, torch.arange(tpw) ^ m]
+            m *= 2
         t = torch.zeros(N, dtype=torch.float32)
         for w in range(WARPS):
             t = t + lanes[w, 0]
@@ -190,3 +218,60 @@ def test_gemv_order_of_sums_matches_group_pallas(fmt):
     assert rel_err(got, want) < 1e-2, rel_err(got, want)
     plain = tq.qdot_group_plain(xt, pt).float().numpy()
     assert rel_err(got, plain) < 1e-2
+
+
+FORMATS = ["q4_k+q6_k", "q8_0", "q4_k", "q4_0"]
+MODES = {"1": True, "after": "after"}       # port mode -> JAX bf16_dot
+
+
+def _x_with_zero_group(seed: int, dtype: str) -> torch.Tensor:
+    """x [1, 8192] from a seed, quant group 32..63 all zero, in `dtype`."""
+    x = np.random.default_rng(seed).standard_normal((1, 8192)).astype(
+        np.float32)
+    x[:, 32:64] = 0.0
+    return torch.from_numpy(x).to(getattr(torch, dtype))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_gemv_order_of_sums_matches_qdot_pallas(fmt, dtype):
+    """K1 at M = 1 in the GEMV's group-partial order at K = 8192 (split over
+    a cluster) against `_qdot_pallas(..., interpret=True)`, the TPU
+    kernel's f32 dequantize-first path: f32 x within 1e-5 of the output
+    scale, bf16 x within 1e-2 (one rounding of the output on either side);
+    and against the port's `qdot_plain` within the same bounds."""
+    jt, pt = _pair(fmt, 200, 8192, seed=11 + len(fmt))
+    assert tq._gemv_plan(8192, 200, pt.group).splits > 1
+    tol = 1e-5 if dtype == "float32" else 1e-2
+    xt = _x_with_zero_group(8, dtype)
+    got = gemv_emulation(xt, pt).float().numpy()
+    want = np.asarray(jq._qdot_pallas(
+        jnp.asarray(xt.float().numpy()).astype(dtype), jt,
+        interpret=True).astype(jnp.float32))[:, :200]
+    assert got.shape == want.shape == (1, 200)
+    assert rel_err(got, want) < tol, rel_err(got, want)
+    plain = tq.qdot_plain(xt, pt).float().numpy()
+    assert rel_err(got, plain) < tol, rel_err(got, plain)
+
+
+@pytest.mark.parametrize("mode", sorted(MODES))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_gemv_order_of_sums_matches_bf16_pallas(fmt, dtype, mode):
+    """K1v at M = 1 in the GEMV's bf16-weight order at K = 8192 (split over
+    a cluster) against `_qdot_pallas(..., bf16_dot=True | "after",
+    interpret=True)`: f32 x within 1e-5 of the output scale, bf16 x within
+    1e-2; and against the port's `qdot_bf16_plain` within the same
+    bounds."""
+    jt, pt = _pair(fmt, 200, 8192, seed=13 + len(fmt))
+    tol = 1e-5 if dtype == "float32" else 1e-2
+    xt = _x_with_zero_group(9, dtype)
+    got = gemv_emulation(xt, pt, mode).float().numpy()
+    want = np.asarray(jq._qdot_pallas(
+        jnp.asarray(xt.float().numpy()).astype(dtype), jt, interpret=True,
+        bf16_dot=MODES[mode]).astype(jnp.float32))[:, :200]
+    assert got.shape == want.shape == (1, 200)
+    assert rel_err(got, want) < tol, rel_err(got, want)
+    plain = tq.qdot_bf16_plain(xt, pt, mode).float().numpy()
+    assert rel_err(got, plain) < tol, rel_err(got, plain)
+
