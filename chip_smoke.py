@@ -68,12 +68,13 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
  14. the single-stream routes vs plain: K2 (`qdot_split`, packed shapes at
      M = 1, 7, 64; bit for bit equal to K1, whose GEMV (M = 1) and tile
      (M > 1) it runs), K3 (`qdot_group`, bf16; bit for bit equal to K1,
-     whose GEMV it runs at bf16 x) and K4a /
-     K4b (`qdot_w8a8`, f32 and bf16) at M = 1 on the 2.6B-Q4_K_M linears
-     (fused QKV, wo, gate/up, w_down, output) and, for K3 / K4a, the 0.1B
-     and LFM2 Q8_0 shapes; every x has an all-zero quant group; f32 within
-     1e-5, bf16 1e-2; K2 and K3 give the same bits on a second call;
-     kernel / eager / plain / library / bound times;
+     whose GEMV it runs at bf16 x) and K4a / K4b (`qdot_w8a8`, f32 and
+     bf16; the same split-K GEMV in its integer-partial form) at M = 1 on
+     the 2.6B-Q4_K_M linears (fused QKV, wo, gate/up, w_down, output) and,
+     for K3 / K4a, the 0.1B and LFM2 Q8_0 shapes; every x has an all-zero
+     quant group; f32 within 1e-5, bf16 1e-2; K2, K3 and K4 give the same
+     bits on a second call; kernel / eager / plain / library / bound times
+     and each row's plan splits;
  15. 2.6B-Q4_K_M offline at full width and depth (written by the port's
      writer, timed): one engine per route (default K1, w8a8, groupdot,
      split, bf16dot, bf16after; the routes share the loaded weights) runs
@@ -509,8 +510,9 @@ def phase_variants(torch, qmat, card: str) -> list[dict]:
     kernel / plain / library times: K2 on the packed shapes at M = 1, 7, 64
     (bit for bit equal to K1: the same GEMV at M = 1, the same tile at
     M > 1), K3 at M = 1 in bf16 (bit for bit equal to K1: the same GEMV),
-    K4a / K4b at M = 1 in f32 and bf16.  K2 and K3 give the same bits on a
-    second call.  Every x has an all-zero quant group (K4's sx = 1 rule)."""
+    K4a / K4b at M = 1 in f32 and bf16 (the GEMV's integer-partial form).
+    K2, K3 and K4 give the same bits on a second call.  Every x has an
+    all-zero quant group (K4's sx = 1 rule)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(3)
     rows = []
@@ -546,10 +548,10 @@ def phase_variants(torch, qmat, card: str) -> list[dict]:
                 raise AssertionError(f"{kernel} {label} M={m} {dtype}: kernel "
                                      f"vs plain rel err {e} >= {tol}")
             e_k1 = None
+            if not torch.equal(fn(x, qt), got):
+                raise AssertionError(f"{kernel} {label} M={m} {dtype}: "
+                                     f"two calls differ")
             if kernel in ("K2", "K3"):
-                if not torch.equal(fn(x, qt), got):
-                    raise AssertionError(f"{kernel} {label} M={m} {dtype}: "
-                                         f"two calls differ")
                 # K1 on the same plan runs the same GEMV (M = 1) or tile
                 if not torch.equal(got, qmat._qdot_cuda(x, qt)):
                     raise AssertionError(f"{kernel} {label} M={m} {dtype}: "
@@ -566,6 +568,7 @@ def phase_variants(torch, qmat, card: str) -> list[dict]:
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             t_ops = ops / peak * 1e3
             dt = "f32" if dtype == torch.float32 else "bf16"
+            splits = plan_splits(qmat, m, K, N, qt.group)
             row = dict(kernel=kernel, shape=label, M=m, K=K, N=N, dtype=dt,
                        group=qt.group, packed=qt.packed,
                        mins=qt.mins is not None, bytes=nbytes, ops=ops,
@@ -575,10 +578,12 @@ def phase_variants(torch, qmat, card: str) -> list[dict]:
                        bound_by="bytes" if t_bytes >= t_ops else "operations",
                        max_abs_err=float((got.float() - want.float()).abs()
                                          .max()),
-                       rel_err=e, rel_err_vs_k1=e_k1)
+                       rel_err=e, rel_err_vs_k1=e_k1, splits=splits,
+                       bit_identical=True)
             rows.append(row)
             log(f"{kernel:3s} {label:22s} M={m:<3d} {dt:4s} K={K:<5d} "
-                f"N={N:<6d} kernel {k_ms:.4f} ms (eager {e_ms:.4f})  plain "
+                f"N={N:<6d} splits {splits}  kernel {k_ms:.4f} ms (eager "
+                f"{e_ms:.4f})  plain "
                 f"{p_ms:.4f} ms  library {l_ms:.4f} ms  bound "
                 f"{row['bound_ms']:.4f} ms ({row['bound_by']})  rel_err "
                 f"{e:.2e}" + ("" if e_k1 is None else " (bit for bit K1)")
@@ -2035,9 +2040,8 @@ def variant_entry(rows, offline, ref, kernel: str) -> dict:
     entry = dict(
         name=name, route="cuda",
         source="miotts_tpu_torch/ops/csrc/qdot_gemv.cu",
-        sources=["miotts_tpu_torch/ops/csrc/qdot_gemv.cu"] + {
-            "K2": [GEMV_HEADER, TILE_HEADER], "K3": [GEMV_HEADER]}.get(
-                kernel, []), replaces=replaces,
+        sources=["miotts_tpu_torch/ops/csrc/qdot_gemv.cu", GEMV_HEADER]
+        + ([TILE_HEADER] if kernel == "K2" else []), replaces=replaces,
         launches=offline[route]["launches"][kernel],
         launches_by_path={f"q4km_{route}_offline":
                           offline[route]["launches"][kernel],

@@ -39,9 +39,9 @@ KERNELS = {
         "qdot_split_launch": [_P] * 7 + [_I] * 8 + [_P],
         # x, v, s, mins, y, packed, K, N, group, splits, k_split, stream
         "qdot_group_launch": [_P] * 5 + [_I] * 6 + [_P],
-        # x, v, s, mins, y, x_is_bf16, K, N, group, stream
-        "qdot_w8a8_launch": [_P] * 5 + [_I] * 4 + [_P],
-        "qdot_w8a8_packed_launch": [_P] * 5 + [_I] * 4 + [_P],
+        # x, v, s, mins, y, x_is_bf16, K, N, group, splits, k_split, stream
+        "qdot_w8a8_launch": [_P] * 5 + [_I] * 6 + [_P],
+        "qdot_w8a8_packed_launch": [_P] * 5 + [_I] * 6 + [_P],
     }),
     "qdot_bf16": ("qdot_bf16.cu", {
         # x, x_is_bf16, v, packed, s, mins, y, ws, tickets, M, K, N, group,

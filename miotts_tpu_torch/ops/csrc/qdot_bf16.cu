@@ -66,8 +66,8 @@ cudaError_t by_m(const void* x, const void* v, const float* s, const float* mins
                  void* y, float* ws, int* tickets, int M, int K, int N, int group,
                  int bm, int splits, int k_split, bool after, cudaStream_t stream) {
   if (M == 1) {
-    return qgemv::gemv<T, PACKED, true>(x, v, s, mins, y, K, N, group, splits,
-                                        k_split, stream, after);
+    return qgemv::gemv<T, PACKED, qgemv::BF16_WEIGHT>(x, v, s, mins, y, K, N, group,
+                                                      splits, k_split, stream, after);
   }
   if (group == 16) {
     return qtile::tile_by_bm<T, PACKED, 16, true>(x, v, s, mins, y, ws, tickets, M, K,

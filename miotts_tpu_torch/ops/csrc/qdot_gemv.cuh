@@ -1,15 +1,18 @@
-// The M = 1 GEMV shared by K1 (qdot.cu), K1v (qdot_bf16.cu), K2 and K3
-// (qdot_gemv.cu), for Hopper (sm_90a).  It replaces the M = 1 bodies of
+// The M = 1 GEMV shared by K1 (qdot.cu), K1v (qdot_bf16.cu), K2, K3, K4a and
+// K4b (qdot_gemv.cu), for Hopper (sm_90a).  It replaces the M = 1 bodies of
 // miotts_tpu/ops/qmat.py:_qdot_kernel (bf16_dot=False and True / "after"),
-// _qdot_split_kernel and _qdot_group_kernel: every decode step of a single
-// stream on the default, split, groupdot and bf16-dot routes.
+// _qdot_split_kernel, _qdot_group_kernel, _qdot_w8a8_kernel and
+// _qdot_w8a8_packed_kernel: every decode step of a single stream on the
+// default, split, groupdot, bf16-dot and w8a8 routes.
 //
-// Two forms of the chunk's products, by the template's SCALED:
+// Three forms of the chunk's products, by the template's Form:
 //
 //   group-partial (K1, K2, K3)
 //       y[n] = sum_c ( s[b, n] * P[c, n] - mins[b, n] * X[c] )
 //   bf16-weight (K1v)
 //       y[n] = sum_c ( Q[c, n] - mins[b, n] * X[c] )
+//   integer-partial (K4a, K4b)
+//       y[n] = sum_c ( (s[b, n] * sx[b]) * D[c, n] - mins[b, n] * (sx[b] * Xq[c]) )
 //
 // P[c, n] = sum over a chunk c of quant group b of x_k * q[k, n] (f32; every
 // product exact for a bf16 x), Q the same with w = bf16(q * s') in place of
@@ -24,6 +27,21 @@
 // is K3's instantiation and K1 with f32 x on packed values is K2's: the
 // same bits.
 //
+// D[c, n] = sum over chunk c of xq_k * q[k, n] (int32, exact) and Xq[c] the
+// sum of its xq, where x is quantized per quant group as the plain version
+// does it: sx = amax / 127 (1 where amax is 0), xq = clip(rint(x / sx),
+// -127, 127) by IEEE division.  Where rows are 16-byte aligned, each team
+// quantizes its chunk's own values in registers (the group's amax from its
+// G values by 16-byte loads); where they are not (the heads), each block
+// quantizes its own K slice once into shared memory (int8, contiguous along
+// k, and sx a group) and a team reads four xq as one broadcast word.  Four
+// xq in a word are __dp4a's operand against a column's four int8 values:
+// 4 x 4 bytes of four rows transposed by 8 byte permutes, nibbles split
+// into their two planes after the transpose (values 0-15 are valid signed
+// int8).  |D| <= 16 * 128 * 127 a chunk, so float(D) is exact, and f32
+// products on xq give the same bits, slower (PERF.md measured both, and
+// both places of the quantization on both row layouts).
+//
 // Inputs: the planar layout of qdot.cu (K1):
 //   x     bf16 or f32 [1, K]
 //   v     int8 [K, N], or uint8 [K/2, N] nibble-packed PER GROUP: byte row r
@@ -37,12 +55,14 @@
 // HBM; the CUDA cores' issue rate comes within ~2x of it for nibbles (two
 // values a byte, ~3.3 instructions a value in the group-partial form: a byte
 // permute, an add, an FMA; ~5.5 in the bf16-weight form: the scale's
-// multiply, a rounding and its unpacking besides).  What bounds this design
-// is latency: a lane's chunk is loads, then ~800 dependent-free
-// instructions, then the fold, and an SM holds too few of them to cover
-// HBM's latency with work (PERF.md: on aligned rows taller chunks,
-// bigger blocks, prefetching the next chunk or the scales, and more splits
-// were each slower).  The design:
+// multiply, a rounding and its unpacking besides; ~0.75 an int8 value and
+// ~0.9 a nibble in the integer-partial form: 8 byte permutes a 4 x 4 block
+// of bytes, a dp4a for four products, the nibble planes' masks).  What
+// bounds this design is latency: a lane's chunk is loads, then ~800
+// dependent-free instructions, then the fold, and an SM holds too few of
+// them to cover HBM's latency with work (PERF.md: on aligned rows taller
+// chunks, bigger blocks, prefetching the next chunk or the scales, and more
+// splits were each slower).  The design:
 //
 // * Wide loads: a lane owns 16 neighbouring columns and reads 16 bytes of a
 //   row of v per load (16 int8 columns, or 16 packed bytes = 16 columns x
@@ -83,9 +103,11 @@
 //   slowed K1v's step to 2.54 ms and the int8 heads by 43-47 % (PERF.md).
 //
 // Registers per thread (-Xptxas -v, CUDA 12.8, sm_90a): group-partial form
-// 96 for aligned int8 rows, 108 (f32 x) and 120 (bf16 x) for aligned packed
+// 96 for aligned int8 rows, 108 (f32 x) and 118 (bf16 x) for aligned packed
 // rows, 163-168 for unaligned rows; bf16-weight form 128, with a 64-68 byte
-// spill for unaligned packed rows (K1v's 2.6B head).
+// spill for unaligned packed rows (K1v's 2.6B head); integer-partial form
+// 96-124 for aligned rows (x quantized in the chunk), 154-157 for
+// unaligned rows (the slice in shared memory), no spill.
 //
 // Everything here has internal linkage (an anonymous namespace): each
 // shared library that includes the header has its own kernels and
@@ -121,6 +143,9 @@ constexpr int GEMV_MAX_SPLITS = 8;             // the portable cluster size
 // products (EARLY) and get more registers
 constexpr int GEMV_MIN_BLOCKS = 4;
 constexpr int GEMV_MIN_BLOCKS_UNALIGNED = 3;
+
+// the forms of a chunk's products (the note above)
+enum Form { GROUP_PARTIAL, BF16_WEIGHT, INT_PARTIAL };
 
 // lanes of a team: a team covers the block's columns
 __host__ __device__ constexpr int gemv_team(bool aligned) {
@@ -212,16 +237,128 @@ __device__ __forceinline__ void products4(float (&P)[16], int c, float xv,
   }
 }
 
+// four values quantized by the scale sx as the plain version does it
+// (IEEE division, round half to even, clipped to +-127), packed as int8
+__device__ __forceinline__ uint32_t quantize4(const float (&v)[4], float sx) {
+  uint32_t word = 0;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int q = max(-127, min(127, __float2int_rn(__fdiv_rn(v[e], sx))));
+    word |= (uint32_t)(q & 0xFF) << (8 * e);
+  }
+  return word;
+}
+
+// The block's K slice x[k0, k0 + len) quantized per quant group into
+// shared memory: xq [len / 4] words of four int8, sx [len / G].  A thread
+// takes four neighbouring values (VEC: one 16- or 8-byte load), G / 4
+// lanes a group meet for its amax by a shuffle tree; every lane of a warp
+// takes part in each round.
+template <typename T, int G, bool VEC>
+__device__ __forceinline__ void quantize_slice(const T* __restrict__ x, int k0,
+                                               int len, uint32_t* xq, float* sx) {
+  constexpr int TPG = G / 4;                    // lanes of a group
+  for (int i = threadIdx.x; i - (int)threadIdx.x < len / 4; i += GEMV_THREADS) {
+    const bool ok = i < len / 4;
+    const int k = k0 + 4 * i;
+    float v[4] = {0.f, 0.f, 0.f, 0.f};
+    if (ok) {
+      if constexpr (VEC && sizeof(T) == 4) {
+        const float4 f = __ldg(reinterpret_cast<const float4*>(x + k));
+        v[0] = f.x; v[1] = f.y; v[2] = f.z; v[3] = f.w;
+      } else if constexpr (VEC) {       // bf16 -> f32: the bits, shifted
+        const uint2 u = __ldg(reinterpret_cast<const uint2*>(x + k));
+        v[0] = __uint_as_float(u.x << 16); v[1] = __uint_as_float(u.x & 0xFFFF0000u);
+        v[2] = __uint_as_float(u.y << 16); v[3] = __uint_as_float(u.y & 0xFFFF0000u);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) v[e] = to_f32(x[k + e]);
+      }
+    }
+    float amax = fmaxf(fmaxf(fabsf(v[0]), fabsf(v[1])), fmaxf(fabsf(v[2]), fabsf(v[3])));
+#pragma unroll
+    for (int m = 1; m < TPG; m <<= 1) amax = fmaxf(amax, __shfl_xor_sync(0xFFFFFFFFu, amax, m));
+    const float scale = amax > 0.f ? __fdiv_rn(amax, 127.f) : 1.f;
+    if (ok) {
+      xq[i] = quantize4(v, scale);
+      if (i % TPG == 0) sx[i / TPG] = scale;
+    }
+  }
+}
+
+// Where the integer-partial form takes xq from: unaligned rows (the heads:
+// a few chunks a team) quantize the block's K slice once into shared
+// memory; aligned rows quantize in each chunk, with no prologue and no
+// barrier (PERF.md measured both on both)
+__host__ __device__ constexpr bool xq_slice(Form form, bool aligned) {
+  return form == INT_PARTIAL && !aligned;
+}
+
+// dynamic shared memory of a block that quantizes its slice: the xq of its
+// K slice and a scale a group
+__host__ __device__ constexpr size_t int_smem(int k_split, int G) {
+  return (size_t)k_split + sizeof(float) * (size_t)(k_split / G);
+}
+
+__device__ __forceinline__ uint32_t word_of(const uint4& u, int q) {
+  return q == 0 ? u.x : q == 1 ? u.y : q == 2 ? u.z : u.w;
+}
+
+// 4 x 4 bytes transposed: t[j] holds byte j of a, b, c and d
+__device__ __forceinline__ void transpose4(uint32_t a, uint32_t b, uint32_t c,
+                                           uint32_t d, uint32_t (&t)[4]) {
+  const uint32_t ab_lo = __byte_perm(a, b, 0x5140), ab_hi = __byte_perm(a, b, 0x7362);
+  const uint32_t cd_lo = __byte_perm(c, d, 0x5140), cd_hi = __byte_perm(c, d, 0x7362);
+  t[0] = __byte_perm(ab_lo, cd_lo, 0x5410);
+  t[1] = __byte_perm(ab_lo, cd_lo, 0x7632);
+  t[2] = __byte_perm(ab_hi, cd_hi, 0x5410);
+  t[3] = __byte_perm(ab_hi, cd_hi, 0x7632);
+}
+
+// D[c] += the chunk's products xq_k * q[k, c] by __dp4a: rows r..r+3 of a
+// column in one word (transpose4) against the word of their four xq (ql:
+// the rows' k; qh: k + G/2, the high nibbles)
+template <bool PACKED, int R>
+__device__ __forceinline__ void int_products(int (&d)[16], const uint4 (&w)[R],
+                                             const uint32_t (&ql)[R / 4],
+                                             const uint32_t (&qh)[R / 4]) {
+#pragma unroll
+  for (int r = 0; r < R; r += 4) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      uint32_t t[4];
+      transpose4(word_of(w[r], q), word_of(w[r + 1], q), word_of(w[r + 2], q),
+                 word_of(w[r + 3], q), t);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if constexpr (PACKED) {
+          d[4 * q + j] = __dp4a((int)(t[j] & 0x0F0F0F0Fu), (int)ql[r / 4], d[4 * q + j]);
+          d[4 * q + j] = __dp4a((int)((t[j] >> 4) & 0x0F0F0F0Fu), (int)qh[r / 4],
+                                d[4 * q + j]);
+        } else {
+          d[4 * q + j] = __dp4a((int)t[j], (int)ql[r / 4], d[4 * q + j]);
+        }
+      }
+    }
+  }
+}
+
 // y[1, N] = x[1, K] . (v * s - mins), K split over the cluster's blocks
 // (gridDim.y = cluster size; block y takes K [y * k_split, (y+1) * k_split)).
-// ALIGNED: N % 16 == 0 and x, v, s, mins 16-byte aligned.  SCALED: the
-// bf16-weight form of K1v (mode after if `after`, else mode 1).
-template <typename T, bool PACKED, int G, bool ALIGNED, bool SCALED>
+// ALIGNED: N % 16 == 0 and x, v, s, mins 16-byte aligned.  FORM: the
+// chunk's products (BF16_WEIGHT: K1v's, mode after if `after`, else mode
+// 1; INT_PARTIAL where xq_slice: int_smem(k_split, G) bytes of dynamic
+// shared memory).
+template <typename T, bool PACKED, int G, bool ALIGNED, Form FORM>
 __global__ void __launch_bounds__(
-    GEMV_THREADS, ALIGNED || SCALED ? GEMV_MIN_BLOCKS : GEMV_MIN_BLOCKS_UNALIGNED)
+    GEMV_THREADS,
+    ALIGNED || FORM == BF16_WEIGHT ? GEMV_MIN_BLOCKS : GEMV_MIN_BLOCKS_UNALIGNED)
 qdot_gemv_kernel(const T* __restrict__ x, const uint8_t* __restrict__ v,
                  const float* __restrict__ s, const float* __restrict__ mins,
                  T* __restrict__ y, int K, int N, int k_split, bool after) {
+  constexpr bool SCALED = FORM == BF16_WEIGHT;
+  constexpr bool INT = FORM == INT_PARTIAL;
+  constexpr bool XQ_SLICE = xq_slice(FORM, ALIGNED);
   constexpr int RPG = PACKED ? G / 2 : G;       // byte rows of a group
   constexpr int R = RPG < 8 ? RPG : 8;          // byte rows of a chunk
   constexpr int TEAM = gemv_team(ALIGNED);      // lanes of a team
@@ -229,21 +366,28 @@ qdot_gemv_kernel(const T* __restrict__ x, const uint8_t* __restrict__ v,
   constexpr int TEAMS = GEMV_THREADS / TEAM;    // teams of the block
   __shared__ float red[GEMV_WARPS][COLS];
   __shared__ float part[COLS];
+  extern __shared__ uint32_t xq_s[];            // INT: the slice's xq, then sx
   cg::cluster_group cluster = cg::this_cluster();
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int c0 = blockIdx.x * COLS + 16 * (lane % TEAM);  // its columns
   const bool live = c0 < N;
   const bool has_mins = mins != nullptr;
+  const int k0 = blockIdx.y * k_split;          // the block's K slice
   const int rows_total = PACKED ? K / 2 : K;
-  const int r_begin = blockIdx.y * (PACKED ? k_split / 2 : k_split);
+  const int r_begin = PACKED ? k0 / 2 : k0;
   const int r_end = min(rows_total, r_begin + (PACKED ? k_split / 2 : k_split));
   const int n_chunks = live ? (r_end - r_begin) / R : 0;
   const size_t v_end = (size_t)rows_total * N;
+  float* sx_s = reinterpret_cast<float*>(xq_s + k_split / 4);
 
   float acc[16];
 #pragma unroll
   for (int c = 0; c < 16; ++c) acc[c] = 0.f;
 
+  if constexpr (XQ_SLICE) {
+    quantize_slice<T, G, ALIGNED>(x, k0, min(k_split, K - k0), xq_s, sx_s);
+    __syncthreads();
+  }
   constexpr int TPW = 32 / TEAM;                // teams of a warp
   for (int ci = TPW * warp + lane / TEAM; ci < n_chunks; ci += TEAMS) {
     const int row0 = r_begin + ci * R;
@@ -256,11 +400,43 @@ qdot_gemv_kernel(const T* __restrict__ x, const uint8_t* __restrict__ v,
                      : load_row16(v, a, v_end);
     }
     // x of the chunk: rows k = row0 + r (int8), or k = b*G + rr and its
-    // partner b*G + G/2 + rr (packed)
+    // partner b*G + G/2 + rr (packed); INT: their xq, four a word, and sx
     const int k_lo = PACKED ? b * G + row0 % RPG : row0;
     float xl[R], xh[PACKED ? R : 1];
-    load_x<T, R, ALIGNED>(x, k_lo, xl);
-    if constexpr (PACKED) load_x<T, R, ALIGNED>(x, k_lo + G / 2, xh);
+    uint32_t ql[R / 4], qh[R / 4];
+    float sxb = 1.f;
+    if constexpr (XQ_SLICE) {
+      const uint32_t* xw = xq_s + (k_lo - k0) / 4;
+#pragma unroll
+      for (int i = 0; i < R / 4; ++i) {
+        ql[i] = xw[i];
+        qh[i] = PACKED ? xw[G / 8 + i] : 0u;
+      }
+      sxb = sx_s[(k_lo - k0) / G];
+    } else {
+      load_x<T, R, ALIGNED>(x, k_lo, xl);
+      if constexpr (PACKED) load_x<T, R, ALIGNED>(x, k_lo + G / 2, xh);
+    }
+    if constexpr (INT && !XQ_SLICE) {
+      // the group's sx from its G values (the same IEEE steps as the
+      // slice's), then the chunk's xq
+      float xg[G];
+      load_x<T, G, ALIGNED>(x, b * G, xg);
+      float amax = 0.f;
+#pragma unroll
+      for (int e = 0; e < G; ++e) amax = fmaxf(amax, fabsf(xg[e]));
+      sxb = amax > 0.f ? __fdiv_rn(amax, 127.f) : 1.f;
+#pragma unroll
+      for (int i = 0; i < R / 4; ++i) {
+        const float a4[4] = {xl[4 * i], xl[4 * i + 1], xl[4 * i + 2], xl[4 * i + 3]};
+        ql[i] = quantize4(a4, sxb);
+        qh[i] = 0u;
+        if constexpr (PACKED) {
+          const float b4[4] = {xh[4 * i], xh[4 * i + 1], xh[4 * i + 2], xh[4 * i + 3]};
+          qh[i] = quantize4(b4, sxb);
+        }
+      }
+    }
     // the group's scales and mins: SCALED multiplies every value by s', so
     // it loads s before the products; EARLY loads both with the rows, so
     // the fold waits on no load (unaligned rows: a few chunks a team, each
@@ -276,43 +452,63 @@ qdot_gemv_kernel(const T* __restrict__ x, const uint8_t* __restrict__ v,
       for (int c = 0; c < 16; ++c) sv[c] = after ? sv[c] : bf16_round(sv[c]);
     }
     float P[16];
-#pragma unroll
-    for (int c = 0; c < 16; ++c) P[c] = 0.f;
     float X = 0.f;
+    int d[16];
+    int Xq = 0;
+    if constexpr (INT) {
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const uint32_t wd[4] = {w[r].x, w[r].y, w[r].z, w[r].w};
-      X += xl[r];
-      const float xa = SCALED ? bf16_round(xl[r]) : xl[r];
-      if constexpr (PACKED) {
-        X += xh[r];
-        const float xb = SCALED ? bf16_round(xh[r]) : xh[r];
+      for (int c = 0; c < 16; ++c) d[c] = 0;
+      int_products<PACKED, R>(d, w, ql, qh);
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const uint32_t lo = wd[q] & 0x0F0F0F0Fu, hi = (wd[q] >> 4) & 0x0F0F0F0Fu;
-          if constexpr (SCALED) {
-            products4<true>(P, 4 * q, xa, lo, sv);
-            products4<true>(P, 4 * q, xb, hi, sv);
-          } else {
-            // low then high nibble of each byte, as one FMA chain per column
+      for (int i = 0; i < R / 4; ++i) {
+        Xq = __dp4a((int)ql[i], 0x01010101, Xq);
+        if (PACKED) Xq = __dp4a((int)qh[i], 0x01010101, Xq);
+      }
+    } else {
 #pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              P[4 * q + j] = fmaf(xa, qtile::i8_f32(lo, j), P[4 * q + j]);
-              P[4 * q + j] = fmaf(xb, qtile::i8_f32(hi, j), P[4 * q + j]);
+      for (int c = 0; c < 16; ++c) P[c] = 0.f;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const uint32_t wd[4] = {w[r].x, w[r].y, w[r].z, w[r].w};
+        X += xl[r];
+        const float xa = SCALED ? bf16_round(xl[r]) : xl[r];
+        if constexpr (PACKED) {
+          X += xh[r];
+          const float xb = SCALED ? bf16_round(xh[r]) : xh[r];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const uint32_t lo = wd[q] & 0x0F0F0F0Fu, hi = (wd[q] >> 4) & 0x0F0F0F0Fu;
+            if constexpr (SCALED) {
+              products4<true>(P, 4 * q, xa, lo, sv);
+              products4<true>(P, 4 * q, xb, hi, sv);
+            } else {
+              // low then high nibble of each byte, as one FMA chain per column
+#pragma unroll
+              for (int j = 0; j < 4; ++j) {
+                P[4 * q + j] = fmaf(xa, qtile::i8_f32(lo, j), P[4 * q + j]);
+                P[4 * q + j] = fmaf(xb, qtile::i8_f32(hi, j), P[4 * q + j]);
+              }
             }
           }
-        }
-      } else {
+        } else {
 #pragma unroll
-        for (int q = 0; q < 4; ++q) products4<SCALED>(P, 4 * q, xa, wd[q], sv);
+          for (int q = 0; q < 4; ++q) products4<SCALED>(P, 4 * q, xa, wd[q], sv);
+        }
       }
     }
-    // the fold: s * P (or Q as it is), then - mins * X, IEEE f32
+    // the fold: s * P (or Q as it is), then - mins * X, IEEE f32; INT:
+    // (s * sx) * D, then - mins * (sx * Xq), the scale formed first as in
+    // the TPU kernel
     if constexpr (!SCALED && !EARLY) load_cols16<ALIGNED>(s_row, c0, N, sv);
     if (!EARLY && has_mins) load_cols16<ALIGNED>(m_row, c0, N, mv);
+    if constexpr (INT) X = __fmul_rn(sxb, (float)Xq);
 #pragma unroll
     for (int c = 0; c < 16; ++c) {
-      acc[c] = SCALED ? acc[c] + P[c] : fmaf(sv[c], P[c], acc[c]);
+      if constexpr (INT) {
+        acc[c] = fmaf(__fmul_rn(sv[c], sxb), (float)d[c], acc[c]);
+      } else {
+        acc[c] = SCALED ? acc[c] + P[c] : fmaf(sv[c], P[c], acc[c]);
+      }
       if (has_mins) acc[c] = fmaf(-mv[c], X, acc[c]);
     }
   }
@@ -346,15 +542,20 @@ qdot_gemv_kernel(const T* __restrict__ x, const uint8_t* __restrict__ v,
 }
 
 // One GEMV launch: a cluster of `splits` blocks along K per block of columns.
-template <typename T, bool PACKED, int G, bool ALIGNED, bool SCALED>
+template <typename T, bool PACKED, int G, bool ALIGNED, Form FORM>
 cudaError_t launch_gemv(const void* x, const uint8_t* v, const float* s,
                         const float* mins, void* y, int K, int N, int splits,
                         int k_split, bool after, cudaStream_t stream) {
+  auto kernel = qdot_gemv_kernel<T, PACKED, G, ALIGNED, FORM>;
   cudaLaunchConfig_t cfg = {};
   constexpr int cols = 16 * gemv_team(ALIGNED);
   cfg.gridDim = dim3((N + cols - 1) / cols, splits, 1);
   cfg.blockDim = dim3(GEMV_THREADS, 1, 1);
-  cfg.dynamicSmemBytes = 0;
+  cfg.dynamicSmemBytes = xq_slice(FORM, ALIGNED) ? int_smem(k_split, G) : 0;
+  if (cfg.dynamicSmemBytes > 48 * 1024) {
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)cfg.dynamicSmemBytes);
+  }
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -364,14 +565,13 @@ cudaError_t launch_gemv(const void* x, const uint8_t* v, const float* s,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, qdot_gemv_kernel<T, PACKED, G, ALIGNED, SCALED>,
-      static_cast<const T*>(x), v, s, mins, static_cast<T*>(y), K, N, k_split,
-      after);
+      &cfg, kernel, static_cast<const T*>(x), v, s, mins, static_cast<T*>(y), K,
+      N, k_split, after);
   const cudaError_t last = cudaGetLastError();
   return err != cudaSuccess ? err : last;
 }
 
-template <typename T, bool PACKED, int G, bool SCALED>
+template <typename T, bool PACKED, int G, Form FORM>
 cudaError_t gemv_by_alignment(const void* x, const uint8_t* v, const float* s,
                               const float* mins, void* y, int K, int N,
                               int splits, int k_split, bool after,
@@ -379,27 +579,27 @@ cudaError_t gemv_by_alignment(const void* x, const uint8_t* v, const float* s,
   const uintptr_t addr = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(v)
                          | reinterpret_cast<uintptr_t>(s) | reinterpret_cast<uintptr_t>(mins);
   if (N % 16 == 0 && addr % 16 == 0) {
-    return launch_gemv<T, PACKED, G, true, SCALED>(x, v, s, mins, y, K, N, splits,
-                                                   k_split, after, stream);
+    return launch_gemv<T, PACKED, G, true, FORM>(x, v, s, mins, y, K, N, splits,
+                                                 k_split, after, stream);
   }
-  return launch_gemv<T, PACKED, G, false, SCALED>(x, v, s, mins, y, K, N, splits,
-                                                  k_split, after, stream);
+  return launch_gemv<T, PACKED, G, false, FORM>(x, v, s, mins, y, K, N, splits,
+                                                k_split, after, stream);
 }
 
 // The GEMV of x [1, K] (T: bf16 or f32) against the values v (PACKED:
-// nibbles) under a plan that gemv_plan_ok accepts; SCALED: K1v's
-// bf16-weight form (`after`: its mode).
-template <typename T, bool PACKED, bool SCALED = false>
+// nibbles) under a plan that gemv_plan_ok accepts, in the products' form
+// FORM (BF16_WEIGHT: `after` is its mode).
+template <typename T, bool PACKED, Form FORM = GROUP_PARTIAL>
 cudaError_t gemv(const void* x, const void* v, const float* s,
                  const float* mins, void* y, int K, int N, int group, int splits,
                  int k_split, cudaStream_t stream, bool after = false) {
   const uint8_t* vb = static_cast<const uint8_t*>(v);
   if (group == 16) {
-    return gemv_by_alignment<T, PACKED, 16, SCALED>(x, vb, s, mins, y, K, N, splits,
-                                                    k_split, after, stream);
-  }
-  return gemv_by_alignment<T, PACKED, 32, SCALED>(x, vb, s, mins, y, K, N, splits,
+    return gemv_by_alignment<T, PACKED, 16, FORM>(x, vb, s, mins, y, K, N, splits,
                                                   k_split, after, stream);
+  }
+  return gemv_by_alignment<T, PACKED, 32, FORM>(x, vb, s, mins, y, K, N, splits,
+                                                k_split, after, stream);
 }
 
 // the checks of a GEMV plan that the kernel relies on: whole quant groups

@@ -32,7 +32,7 @@ kernel as the JAX package's `qdot` does, by the weight's `QdotRoute`:
 A CUDA tensor goes through the hand-written kernel (`ops/csrc/qdot.cu`,
 `ops/csrc/qdot_gemv.cu`, `ops/csrc/qdot_bf16.cu`; at M > 1 K1, K1v and K2
 share the tile of `ops/csrc/qdot_tile.cuh`, planned by `_tile_plan`; at
-M = 1 K1, K1v, K2 and K3 share the split-K GEMV of
+M = 1 K1, K1v, K2, K3 and K4 share the split-K GEMV of
 `ops/csrc/qdot_gemv.cuh`, planned by `_gemv_plan`) and raises
 if it cannot build or launch; a CPU tensor goes through the kernel's plain
 torch version (`*_plain`).  `qdot_dma_floor` (K8, `ops/csrc/dma_floor.cu`) is a probe
@@ -565,7 +565,7 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-# the M = 1 GEMV of K1, K1v, K2 and K3 (ops/csrc/qdot_gemv.cuh, whose
+# the M = 1 GEMV of K1, K1v, K2, K3 and K4 (ops/csrc/qdot_gemv.cuh, whose
 # GEMV_COLS, GEMV_TEAM_UNALIGNED and GEMV_MAX_SPLITS these are): a block
 # covers GEMV_COLS output columns (16 x GEMV_TEAM_UNALIGNED where rows are
 # not 16-byte aligned, N % 16 != 0), and K is split over a thread-block
@@ -710,14 +710,18 @@ def _qdot_group_cuda(x: torch.Tensor, qt: QTensor,
     return y
 
 
-def _qdot_w8a8_cuda(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
+def _qdot_w8a8_cuda(x: torch.Tensor, qt: QTensor,
+                    plan: GemvPlan | None = None) -> torch.Tensor:
     """K4a (unpacked) / K4b (packed): `qdot_w8a8_launch` /
-    `qdot_w8a8_packed_launch` (ops/csrc/qdot_gemv.cu)."""
+    `qdot_w8a8_packed_launch` (ops/csrc/qdot_gemv.cu), the GEMV's
+    integer-partial form under `plan` (None: `_gemv_plan`'s)."""
     N = _checked("qdot_w8a8", x, qt, gemv=True)
     K = x.shape[1]
+    splits, k_split = _gemv_args(x, qt, N, plan)
     y = torch.empty((1, N), dtype=x.dtype, device=x.device)
     fn = "qdot_w8a8_packed_launch" if qt.packed else "qdot_w8a8_launch"
-    _launch(fn, x, qt, y, int(x.dtype == torch.bfloat16), K, N, qt.group)
+    _launch(fn, x, qt, y, int(x.dtype == torch.bfloat16), K, N, qt.group,
+            splits, k_split)
     if qt.packed:
         qdot_w8a8.packed_launches += 1
     else:

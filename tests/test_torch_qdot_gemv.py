@@ -1,4 +1,4 @@
-"""The split-K GEMV shared by K1, K1v, K2 (M = 1) and K3
+"""The split-K GEMV shared by K1, K1v, K2 (M = 1), K3, K4a and K4b
 (miotts_tpu_torch/ops/csrc/qdot_gemv.cuh), on the CPU: its plan
 (ops/qmat.py:_gemv_plan) covers K in whole quant groups with enough blocks
 for the card, and its order of sums, emulated in plain torch, meets the
@@ -10,14 +10,18 @@ packed row's low nibble, then its high one) beside the f32 sum X of its x;
 the chunk folds into its team's f32 accumulator as s * P, then - mins * X.
 K1v's bf16-weight form sums bf16(x_k) * bf16(q * s') instead (s' = bf16(s)
 in mode 1, s in mode after; X still of the unrounded x) and folds P as it
-is, then - mins * X.  Chunk i of a split goes to team i % T of warp
+is, then - mins * X.  K4's integer-partial form quantizes each split's K
+slice of x per quant group (sx = amax / 127, or 1; xq = clip(rint(x /
+sx), -127, 127)), sums the chunk's int32 D = sum xq * q and Xq = sum xq
+exactly, and folds (s * sx) * D, then - mins * (sx * Xq), each scale
+formed in f32 first.  Chunk i of a split goes to team i % T of warp
 (i / T) % 4 (T teams a warp: 16 of two lanes, fewer but wider where the
 rows are not 16-byte aligned); the teams meet by the warp's xor-shuffle
 tree and the warps in order, and the splits (the cluster's blocks) in rank
 order.  The
 kernels' own tests on the card are in tests/test_torch_qdot_cuda.py (K1),
 tests/test_torch_qdot_bf16_cuda.py (K1v) and
-tests/test_torch_qdot_variants_cuda.py (K2, K3)."""
+tests/test_torch_qdot_variants_cuda.py (K2, K3, K4a, K4b)."""
 
 import re
 from pathlib import Path
@@ -100,8 +104,8 @@ def _bf16(t: torch.Tensor) -> torch.Tensor:
 def gemv_emulation(x: torch.Tensor, qt, mode: str | None = None) -> torch.Tensor:
     """The GEMV in its order of sums under the plan of
     ops/qmat.py:_gemv_plan: the group-partial form of K1, K2 and K3 (mode
-    None), or K1v's bf16-weight form (mode "1" or "after").  x [1, K] f32
-    or bf16."""
+    None), K1v's bf16-weight form (mode "1" or "after"), or K4's
+    integer-partial form (mode "w8a8").  x [1, K] f32 or bf16."""
     K, g, packed = x.shape[1], qt.group, qt.packed
     N = qt.values.shape[1]
     plan = tq._gemv_plan(K, N, g)
@@ -117,10 +121,35 @@ def gemv_emulation(x: torch.Tensor, qt, mode: str | None = None) -> torch.Tensor
     for z in range(plan.splits):
         r0, r1 = z * per, min(rows_total, (z + 1) * per)
         acc = torch.zeros((teams, N), dtype=torch.float32)
+        if mode == "w8a8":    # the block's K slice, quantized per group
+            k0 = z * plan.k_split
+            xs = xf[k0:min(K, k0 + plan.k_split)].reshape(-1, g)
+            amax = xs.abs().amax(dim=1)
+            sx = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+            xq = torch.clamp(torch.round(xs / sx[:, None]), -127, 127)
+            xq = xq.to(torch.int64).reshape(-1)
         for ci in range((r1 - r0) // R):
             row0 = r0 + ci * R
             b = row0 // rpg
             k_lo = b * g + row0 % rpg if packed else row0
+            p = ci % teams
+            if mode == "w8a8":
+                kk = torch.arange(k_lo, k_lo + R) - k0
+                q = vals[row0:row0 + R].to(torch.int64)
+                D = (xq[kk, None] * (q & 0xF if packed else q)).sum(0)
+                Xq = xq[kk].sum()
+                if packed:
+                    D = D + (xq[kk + g // 2, None] * (q >> 4)).sum(0)
+                    Xq = Xq + xq[kk + g // 2].sum()
+                sxb = sx[b - k0 // g]
+                # one f32 rounding of the exact acc + (s * sx) * D (the FMA)
+                a = _f32(acc[p].double()
+                         + (s[b] * sxb).double() * D.double())
+                if mins is not None:
+                    a = _f32(a.double() - mins[b].double()
+                             * (sxb * Xq.float()).double())
+                acc[p] = a
+                continue
             sp = s[b] if mode in (None, "after") else _bf16(s[b])
             P = torch.zeros(N, dtype=torch.float32)
             X = torch.zeros((), dtype=torch.float32)
@@ -137,7 +166,6 @@ def gemv_emulation(x: torch.Tensor, qt, mode: str | None = None) -> torch.Tensor
                     # one f32 rounding of the exact P + x * w (the FMA)
                     P = _f32(P.double() + xa.double() * w)
                     X = _f32(X + xv)
-            p = ci % teams
             if mode is None:
                 a = _f32(acc[p].double() + s[b].double() * P.double())
             else:
@@ -275,3 +303,45 @@ def test_gemv_order_of_sums_matches_bf16_pallas(fmt, dtype, mode):
     plain = tq.qdot_bf16_plain(xt, pt, mode).float().numpy()
     assert rel_err(got, plain) < tol, rel_err(got, plain)
 
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_gemv_order_of_sums_matches_w8a8_pallas(fmt, dtype):
+    """K4a (int8 values) / K4b (packed) in the GEMV's integer-partial order
+    at K = 8192 (split over a cluster) with an all-zero quant group (sx = 1)
+    against `_qdot_w8a8_pallas(..., interpret=True)`: f32 x within 1e-5 of
+    the output scale, bf16 x within 1e-2; and against the port's
+    `qdot_w8a8_plain` within the same bounds."""
+    jt, pt = _pair(fmt, 200, 8192, seed=17 + len(fmt))
+    assert tq._gemv_plan(8192, 200, pt.group).splits > 1
+    tol = 1e-5 if dtype == "float32" else 1e-2
+    xt = _x_with_zero_group(10, dtype)
+    got = gemv_emulation(xt, pt, "w8a8").float().numpy()
+    want = np.asarray(jq._qdot_w8a8_pallas(
+        jnp.asarray(xt.float().numpy()).astype(dtype), jt,
+        interpret=True).astype(jnp.float32))[:, :200]
+    assert got.shape == want.shape == (1, 200)
+    assert rel_err(got, want) < tol, rel_err(got, want)
+    plain = tq.qdot_w8a8_plain(xt, pt).float().numpy()
+    assert rel_err(got, plain) < tol, rel_err(got, plain)
+
+
+def test_gemv_w8a8_unaligned_rows_match_pallas():
+    """K4b at the 2.6B head's N = 13059 (rows not 16-byte aligned: 8-lane
+    teams, 128 columns a block, 3 splits), f32 x: within 1e-5 of
+    `_qdot_w8a8_pallas(..., interpret=True)` and of `qdot_w8a8_plain`."""
+    jt, pt = _pair("q4_k", 13059, 2560, seed=19)
+    assert tq._gemv_cols(13059) == 128
+    assert tq._gemv_plan(2560, 13059, pt.group).splits > 1 and pt.packed
+    x = np.random.default_rng(11).standard_normal((1, 2560)).astype(
+        np.float32)
+    x[:, 32:64] = 0.0
+    xt = torch.from_numpy(x)
+    got = gemv_emulation(xt, pt, "w8a8").numpy()
+    want = np.asarray(jq._qdot_w8a8_pallas(jnp.asarray(x), jt,
+                                           interpret=True))[:, :13059]
+    assert got.shape == want.shape == (1, 13059)
+    assert rel_err(got, want) < 1e-5, rel_err(got, want)
+    plain = tq.qdot_w8a8_plain(xt, pt).numpy()
+    assert rel_err(got, plain) < 1e-5, rel_err(got, plain)

@@ -1,6 +1,6 @@
 """The single-stream quantized-matmul kernels (K2 split, K3 group-dot, K4a /
-K4b W8A8: miotts_tpu_torch/ops/csrc/qdot_gemv.cu) against their plain torch
-versions.  Imports nothing of JAX, so it runs on a GPU machine without it:
+K4b W8A8: miotts_tpu_torch/ops/csrc/qdot_gemv.cu; at M = 1 all on the
+split-K GEMV of qdot_gemv.cuh) against their plain torch versions.  Imports nothing of JAX, so it runs on a GPU machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_qdot_variants_cuda.py
 
@@ -319,3 +319,60 @@ def test_gemv_takes_any_plan_and_unaligned_rows_on_gpu():
     for fn, plain in ((tq.qdot_split, tq.qdot_split_plain),
                       (tq.qdot_group, tq.qdot_group_plain)):
         assert _rel_err(fn(xo, odd), plain(xo, odd)) < BF16_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n,fmt", GEMV_SHAPES)
+def test_w8a8_gemv_matches_plain_at_path_shapes_on_gpu(k, n, fmt):
+    """K4a (int8 values) / K4b (packed) on the GEMV's integer-partial form at
+    every phase 14 shape (K = 8192, N = 13059 included) against
+    `qdot_w8a8_plain`: f32 within 1e-5, bf16 within 1e-2; one launch per
+    call on the kernel's own count, and a second call gives the same
+    bits."""
+    _need_gpu()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(k + n + 1)
+    qt = _rand_qt(k, n, fmt, gen)
+    counter = (tq.qdot_w8a8, "packed_launches" if qt.packed
+               else "kernel_launches")
+    for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+        x = _x(1, k, dtype, seed=n + 1)
+        _check(tq.qdot_w8a8, tq.qdot_w8a8_plain, x, qt, counter, tol)
+        assert torch.equal(tq.qdot_w8a8(x, qt), tq.qdot_w8a8(x, qt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["q4_k", "q6_k", "q8_0"])
+def test_w8a8_takes_any_plan_and_unaligned_rows_on_gpu(fmt):
+    """K4 under explicit plans of 1 to 8 splits at K = 8192 (a ragged last
+    split included) within 1e-5 of the plain version at f32 x, each plan's
+    repeat bit for bit; and on rows that are not 16-byte aligned (N = 1039:
+    a view one column in; the head's N = 13059) with x one element in, at
+    bf16 x within 1e-2."""
+    _need_gpu()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+    qt = _rand_qt(8192, 1040, fmt, gen)
+    g = qt.group
+    x = _x(1, 8192, torch.float32, seed=14)
+    want = tq.qdot_w8a8_plain(x, qt)
+    for splits in range(1, 9):
+        per = -(-(8192 // g) // splits)
+        plan = tq.GemvPlan(splits=-(-(8192 // g) // per), k_split=per * g)
+        got = tq._qdot_w8a8_cuda(x, qt, plan)
+        assert _rel_err(got, want) < F32_TOL, (splits, _rel_err(got, want))
+        assert torch.equal(got, tq._qdot_w8a8_cuda(x, qt, plan)), splits
+    cut = lambda t: None if t is None else t[:, 1:].contiguous()
+    rows = 8192 // 2 if qt.packed else 8192
+    odd = tq.QTensor(values=cut(qt.values), scales=cut(qt.scales),
+                     mins=cut(qt.mins), group=g, n_out=1039,
+                     packed=qt.packed)
+    assert odd.values.shape == (rows, 1039)
+    head = _rand_qt(2560, 13059, fmt, gen)
+    for w, k in ((odd, 8192), (head, 2560)):
+        xb = torch.zeros((1, k + 1), device="cuda", dtype=torch.bfloat16)
+        xb[:, 1:] = _x(1, k, torch.bfloat16, seed=k)
+        xo = xb[:, 1:]
+        assert xo.data_ptr() % 16 and xo.is_contiguous()
+        err = _rel_err(tq.qdot_w8a8(xo, w), tq.qdot_w8a8_plain(xo, w))
+        assert err < BF16_TOL, (k, err)
