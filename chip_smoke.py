@@ -26,10 +26,14 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
   6. attention kernel vs plain: the batched decode-attention CUDA kernel
      (`decode_attention_batched`) against its plain version at the serving
      shapes (0.1B: B=64, H=12/4, D=64, S=128/256/512; 2.6B: B=64, H=32/8,
-     D=80, S=256/512, and B=128, S=256), bf16 and int8 caches with
+     D=80, S=256/512/1024, and B=128, S=256; LFM2: B=16, H=32/8, D=64,
+     S=128/256 and the long rows 1024/2048), bf16 and int8 caches with
      staggered fills and idle rows, with kernel / eager / plain / bound
-     times and, for bf16, the library time of
-     scaled_dot_product_attention (timed only; the port never calls it);
+     times, the plan's cluster split (ranks) and the time on one rank
+     beside it, and, for bf16, the library time of
+     scaled_dot_product_attention (timed only; the port never calls it); a
+     second call must give the same bits, and one rank must agree with the
+     plan's split (1e-5; int8's accumulator bit for bit);
   7. batched serving at full width: ContinuousBatcher(64 slots, 20-step
      chunks, serving defaults) over the phase-3 0.1B-Q8_0 files serves 80
      requests on a bf16 cache, then 16 on an int8 cache; checks every
@@ -161,8 +165,13 @@ ATTN_SHAPES = [("0.1b", 64, 12, 4, 64, 128), ("0.1b", 64, 12, 4, 64, 256),
                ("0.1b", 64, 12, 4, 64, 512), ("2.6b", 64, 32, 8, 80, 256),
                ("2.6b", 64, 32, 8, 80, 512), ("2.6b", 128, 32, 8, 80, 256),
                ("lfm2-1.2b", 16, 32, 8, 64, 128),   # LFM2 serving: 16 slots,
-               ("lfm2-1.2b", 16, 32, 8, 64, 256)]   # the attn_len buckets
+               ("lfm2-1.2b", 16, 32, 8, 64, 256),   # the attn_len buckets,
+               ("lfm2-1.2b", 16, 32, 8, 64, 1024),  # and long rows
+               ("lfm2-1.2b", 16, 32, 8, 64, 2048),
+               ("2.6b", 64, 32, 8, 80, 1024)]
 ATTN_STEP_SHAPE = ("0.1b", 64, 12, 4, 64, 256)   # the serving phase's shape
+ATTN_SPLIT_TOL = 1e-5          # K6 on one rank vs its plan's split: f32 sums
+                               # in another order (int8: of the row scale)
 
 # LFM2-1.2B-Q8_0: the widths of the published LFM2-1.2B
 # (huggingface.co/LiquidAI/LFM2-1.2B, config.json): hidden 2048, 16 layers
@@ -206,9 +215,11 @@ Q4KM_ROUTES = {"default": {}, "w8a8": {"MIOTTS_QDOT_GEMV": "w8a8"},
 Q4KM_AGREE_TOKENS = 32
 Q4KM_PROFILED = ("default", "bf16after")
 # the shared headers of the quantized matmul (the split-K GEMV at M = 1, the
-# tile at M > 1), beside each kernel's own source in the kernels line
+# tile at M > 1) and of the attention kernels, beside each kernel's own
+# source in the kernels line
 GEMV_HEADER = "miotts_tpu_torch/ops/csrc/qdot_gemv.cuh"
 TILE_HEADER = "miotts_tpu_torch/ops/csrc/qdot_tile.cuh"
+ATTN_HEADER = "miotts_tpu_torch/ops/csrc/attn_common.cuh"
 # bench_qmat.py's SHAPES: the 2.6B per-layer (K, N) of K8's own configuration
 K8_SHAPES = [(2560, 3840), (2560, 2560), (2560, 16384), (8192, 2560)]
 # GPU vs CPU under w8a8: each K4 call agrees with its plain version on the
@@ -885,22 +896,59 @@ def attn_work(torch, B, H, H_kv, D, mode, fill, q_pos, S):
     return nbytes, ops
 
 
+def row_rel(got, want) -> float:
+    """Largest difference relative to each output row's own scale."""
+    scale = want.abs().amax(dim=-1, keepdim=True).clamp(min=1e-30)
+    return float(((got - want).abs() / scale).max())
+
+
+def check_one_rank(torch, da, inp, plan, label: str) -> float:
+    """K6 on one rank against the plan's split on the same inputs: m the
+    same bits, int8's acc the same bits (the same p_i8, integer rank sums),
+    the output within ATTN_SPLIT_TOL (int8: of the row scale).  Returns the
+    output's difference."""
+    one = da.AttnPlan(ranks=1)
+    acc, m, _ = da.decode_attention_batched(*inp, return_stats=True,
+                                            plan=plan)
+    acc1, m1, _ = da.decode_attention_batched(*inp, return_stats=True,
+                                              plan=one)
+    out = da.decode_attention_batched(*inp, plan=plan)
+    out1 = da.decode_attention_batched(*inp, plan=one)
+    torch.cuda.synchronize()
+    int8 = inp[1].dtype == torch.int8
+    e = row_rel(out, out1) if int8 else rel_err(out, out1)
+    if (not torch.equal(m, m1) or (int8 and not torch.equal(acc, acc1))
+            or not e < ATTN_SPLIT_TOL):
+        raise AssertionError(f"attn {label}: {plan.ranks} ranks vs one: "
+                             f"err {e}, m equal {torch.equal(m, m1)}, acc "
+                             f"equal {torch.equal(acc, acc1)}")
+    return e
+
+
 def phase_attn_kernels(torch, card: str) -> list[dict]:
-    from miotts_tpu_torch.ops import decode_attn as da
+    from miotts_tpu_torch.ops import decode_attn, qmat
+    da = decode_attn
     F = torch.nn.functional
+    sms = qmat._sm_count(torch.device("cuda"))
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
     rows = []
     for label, B, H, H_kv, D, S in ATTN_SHAPES:
         for mode in ("bf16", "int8"):
+            plan = da._attn_plan(B, H_kv, S, sms, mode == "int8")
             inp = attn_inputs(torch, B, H, H_kv, D, S, mode, gen)
             q, k, v, fill, q_pos, ks, vs = inp
             errs = {}
             for stats in (False, True):
                 got = da.decode_attention_batched(*inp, return_stats=stats)
+                again = da.decode_attention_batched(*inp, return_stats=stats)
                 want = da.decode_attention_batched_plain(*inp,
                                                          return_stats=stats)
                 torch.cuda.synchronize()
+                if not all(torch.equal(x, y) for x, y in zip(
+                        got if stats else (got,), again if stats else (again,))):
+                    raise AssertionError(f"attn {label} S={S} {mode} stats="
+                                         f"{stats}: a second call differs")
                 g0 = got[0] if stats else got
                 w0 = want[0] if stats else want
                 if g0.shape != (B, H, D) or not torch.isfinite(g0).all():
@@ -916,6 +964,8 @@ def phase_attn_kernels(torch, card: str) -> list[dict]:
                                          f"{stats}: kernel vs plain err {e}")
                 errs[stats] = e
             abs_err = float((g0 - w0).abs().max())
+            split_err = (check_one_rank(torch, da, inp, plan, f"{label} S={S}"
+                                        f" {mode}") if plan.ranks > 1 else 0.0)
             cache_bytes = 2 * k.numel() * k.element_size()
             n_copies = max(2, min(64, -(-L2_FLUSH_BYTES // cache_bytes)))
             copies = [(k, v, ks, vs)] + [
@@ -928,11 +978,19 @@ def phase_attn_kernels(torch, card: str) -> list[dict]:
                 return da.decode_attention_batched(q, c[0], c[1], fill, q_pos,
                                                    c[2], c[3])
 
+            def kern_one(i):
+                c = copies[i % n_copies]
+                return da.decode_attention_batched(
+                    q, c[0], c[1], fill, q_pos, c[2], c[3],
+                    plan=da.AttnPlan(ranks=1))
+
             def plain(i):
                 c = copies[i % n_copies]
                 return da.decode_attention_batched_plain(
                     q, c[0], c[1], fill, q_pos, c[2], c[3])
             k_ms = graph_ms(torch, kern, max(20, n_copies))
+            r1_ms = (graph_ms(torch, kern_one, max(20, n_copies))
+                     if plan.ranks > 1 else k_ms)
             p_ms = graph_ms(torch, plain, 4)
             e_ms = time_ms(torch, kern, 50)
             l_ms = None
@@ -958,15 +1016,17 @@ def phase_attn_kernels(torch, card: str) -> list[dict]:
                        plain_ms=p_ms, library_ms=l_ms,
                        bound_ms=max(t_bytes, t_ops),
                        bound_by="bytes" if t_bytes >= t_ops else "operations",
+                       ranks=plan.ranks, r1_ms=r1_ms, split_err=split_err,
                        max_abs_err=abs_err, err=errs[False],
                        err_stats=errs[True])
             rows.append(row)
             lib = "none" if l_ms is None else f"{l_ms:.4f} ms"
-            log(f"attn {label} B={B:<3d} H={H}/{H_kv} D={D} S={S:<3d} {mode:4s}"
-                f" kernel {k_ms:.4f} ms (eager {e_ms:.4f})  plain {p_ms:.4f} ms"
-                f"  library {lib}  bound {row['bound_ms']:.4f} ms "
-                f"({row['bound_by']})  err {errs[False]:.2e} / stats "
-                f"{errs[True]:.2e}  [{card}]")
+            log(f"attn {label} B={B:<3d} H={H}/{H_kv} D={D} S={S:<4d} {mode:4s}"
+                f" kernel {k_ms:.4f} ms (eager {e_ms:.4f}; {plan.ranks} ranks,"
+                f" one rank {r1_ms:.4f})  plain {p_ms:.4f} ms  library {lib}"
+                f"  bound {row['bound_ms']:.4f} ms ({row['bound_by']})  err "
+                f"{errs[False]:.2e} / stats {errs[True]:.2e} / split "
+                f"{split_err:.1e}  [{card}]")
             del copies
             torch.cuda.empty_cache()
     return rows
@@ -2061,12 +2121,12 @@ def variant_entry(rows, offline, ref, kernel: str) -> dict:
     return entry
 
 
-def attn_step_summary(rows: list[dict], key: str):
+def attn_step_summary(rows: list[dict], key: str, mode: str = "bf16"):
     """One 0.1B serving decode step's attention: 12 layers at the serving
-    phase's shape, bf16 cache."""
+    phase's shape, bf16 (or int8) cache."""
     r = next(r for r in rows if (r["shape"], r["B"], r["H"], r["H_kv"],
                                  r["D"], r["S"]) == ATTN_STEP_SHAPE
-             and r["mode"] == "bf16")
+             and r["mode"] == mode)
     return None if r[key] is None else LAYERS * r[key]
 
 
@@ -2308,9 +2368,13 @@ def main(argv=None) -> int:
     step_rows = [r for r in attn_rows if r["mode"] == "bf16"
                  and (r["shape"], r["B"], r["H"], r["H_kv"], r["D"],
                       r["S"]) == ATTN_STEP_SHAPE]
+    int8_step = next(r for r in attn_rows if r["mode"] == "int8"
+                     and (r["shape"], r["B"], r["H"], r["H_kv"], r["D"],
+                          r["S"]) == ATTN_STEP_SHAPE)
     attn_entry = dict(
         name="decode_attention_batched", route="cuda",
         source="miotts_tpu_torch/ops/csrc/decode_attn.cu",
+        sources=["miotts_tpu_torch/ops/csrc/decode_attn.cu", ATTN_HEADER],
         replaces="miotts_tpu/ops/decode_attn.py:181",
         launches=serve_res["bf16"]["attn_launches"],
         max_abs_err=max(r["max_abs_err"] for r in attn_rows),
@@ -2322,6 +2386,14 @@ def main(argv=None) -> int:
         library_ms=attn_step_summary(attn_rows, "library_ms"),
         unit="one 0.1B serving decode step of attention (12 layers) at "
              "B=64, H=12/4, D=64, S=256, bf16 cache",
+        ranks=step_rows[0]["ranks"],
+        one_rank_ms=attn_step_summary(attn_rows, "r1_ms"),
+        int8_step=dict(
+            {k: attn_step_summary(attn_rows, k, "int8")
+             for k in ("ms", "plain_ms", "bound_ms", "r1_ms")},
+            bound_by=int8_step["bound_by"], library_ms=None,
+            unit="the same step on an int8 cache; no single PyTorch call "
+                 "computes its quantized-p function"),
         launches_by_path={"serving_bf16": serve_res["bf16"]["attn_launches"],
                           "serving_int8": serve_res["int8"]["attn_launches"],
                           "lfm2_serving": lfm2_serve["attn_launches"]})
@@ -2331,6 +2403,8 @@ def main(argv=None) -> int:
     k5_entry = dict(
         name="decode_attention", route="cuda",
         source="miotts_tpu_torch/ops/csrc/decode_attn_single.cu",
+        sources=["miotts_tpu_torch/ops/csrc/decode_attn_single.cu",
+                 ATTN_HEADER],
         replaces="miotts_tpu/ops/decode_attn.py:55",
         launches=lfm2_res["k5_launches"],
         max_abs_err=max(r["max_abs_err"] for r in k5_rows),

@@ -56,10 +56,10 @@ KERNELS = {
         "qdot_dma_floor_launch": [_P] * 4 + [_I] * 3 + [_P],
     }),
     "decode_attn": ("decode_attn.cu", {
-        # q, q_scale, k, v, k_scale, v_scale, fill, q_pos, out, out_m, out_l,
-        # B, H, H_kv, S, D, dtype, k/v strides (b, h, s), k/v scale strides
-        # (b, h), scale, stream
-        "decode_attn_launch": [_P] * 11 + [_I] * 6 + [_L] * 10
+        # q, q_f32, k, v, k_scale, v_scale, fill, q_pos, out, out_m, out_l,
+        # B, H, H_kv, S, D, dtype, ranks, k/v strides (b, h, s), k/v scale
+        # strides (b, h), scale, stream
+        "decode_attn_launch": [_P, _I] + [_P] * 9 + [_I] * 7 + [_L] * 10
                               + [ctypes.c_float, _P],
     }),
     "decode_attn_single": ("decode_attn_single.cu", {

@@ -1,7 +1,10 @@
 // Device helpers shared by the decode-attention kernels (decode_attn.cu,
-// decode_attn_single.cu): 16-byte row loaders, scalar upcasts and warp
-// reductions.  Each source includes this header into its own translation
-// unit; _build.py hashes it with every source, so an edit rebuilds both.
+// decode_attn_single.cu): 16-byte row loaders, scalar upcasts, warp
+// reductions, cp.async copies and a 4 x 4 byte transpose.  Each source
+// includes this header into its own translation unit; _build.py hashes it
+// with every source, so an edit rebuilds both.  Everything has internal
+// linkage (an anonymous namespace): no object is shared between the
+// libraries loaded into one process.
 
 #pragma once
 
@@ -61,6 +64,42 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
+}
+
+// 16 bytes global -> shared, bypassing L1; `bytes` < 16 zero-fills the rest
+// (0: a row of zeros, nothing read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes = 16) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(d), "l"(src), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's committed groups are in flight
+template <int N> __device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// 4 x 4 bytes transposed: t[j] holds byte j of a, b, c and d (in that
+// order, a in the low byte): four rows' bytes of one column in a word, the
+// operand __dp4a takes
+__device__ __forceinline__ void transpose4(uint32_t a, uint32_t b, uint32_t c,
+                                           uint32_t d, uint32_t (&t)[4]) {
+  const uint32_t ab_lo = __byte_perm(a, b, 0x5140), ab_hi = __byte_perm(a, b, 0x7362);
+  const uint32_t cd_lo = __byte_perm(c, d, 0x5140), cd_hi = __byte_perm(c, d, 0x7362);
+  t[0] = __byte_perm(ab_lo, cd_lo, 0x5410);
+  t[1] = __byte_perm(ab_lo, cd_lo, 0x7632);
+  t[2] = __byte_perm(ab_hi, cd_hi, 0x5410);
+  t[3] = __byte_perm(ab_hi, cd_hi, 0x7632);
 }
 
 }  // namespace

@@ -21,10 +21,15 @@ current-token columns.  Returns f32 [B, H, D], or (acc [B, H, D]
 unnormalised, m [B, H], l [B, H]) with return_stats.  Float mode computes
 in the cache's type: q is cast to it, probabilities are rounded to it
 before the PV product, sums are f32.  int8 mode quantizes q per (b, h)
-row, takes int8 x int8 scores and quantizes the probabilities (times the v
-scales) to int8 per query row per tile of S_TILE keys — a grouping that is
-part of the result (~1 % of the row scale).  The TPU grid's b_tile and its
-VMEM-driven tile halving have no counterpart here.
+row (`quantize_query`; the kernel does it itself, with the bits
+`quantize_query` gives on a CUDA tensor), takes int8 x int8 scores and
+quantizes the probabilities (times the v scales) to int8 per query row per
+tile of S_TILE keys (`quantize_probs`) — a grouping that is part of the
+result (~1 % of the row scale).  The TPU grid's b_tile and its
+VMEM-driven tile halving have no counterpart here.  The kernel splits each
+tile's valid keys over a thread-block cluster of `_attn_plan(...).ranks`
+blocks, in contiguous shares; the ranks swap their row maxima, so p (and
+p_i8) are the one-block values at any split.
 
 `dma_floor` (K7, kernel `ops/csrc/dma_floor.cu`): a probe that streams the
 k / v rows in K5's layout with (almost) no arithmetic, the floor of that
@@ -33,9 +38,13 @@ layout's time; no attention calls it.
 
 from __future__ import annotations
 
+import functools
 import math
+from dataclasses import dataclass
 
 import torch
+
+from .qmat import H100_SMS, _sm_count
 
 NEG = -1e9
 S_TILE = 512                      # keys per tile: the int8 quantization group
@@ -43,10 +52,64 @@ HEAD_DIMS = (64, 80, 128)
 MAX_REP = 8
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
+# K6's split (ops/csrc/decode_attn.cu, whose MAX_RANKS this is): a (b, kv
+# head) is a thread-block cluster of at most ATTN_MAX_RANKS blocks (the
+# portable cluster size), toward ATTN_BLOCKS_PER_SM blocks an SM, each rank
+# taking at least ATTN_MIN_RANK_KEYS keys of a full tile; an int8 cache
+# splits only rows of ATTN_INT8_MIN_SPLIT keys or more.
+ATTN_MAX_RANKS = 8
+ATTN_BLOCKS_PER_SM = 2
+ATTN_MIN_RANK_KEYS = 128
+ATTN_INT8_MIN_SPLIT = 512
+
+
+@dataclass(frozen=True)
+class AttnPlan:
+    """How K6 covers a (b, kv head): a cluster of `ranks` blocks, each
+    taking a contiguous share of every tile's valid keys."""
+    ranks: int
+
+
+@functools.lru_cache(maxsize=None)
+def _attn_plan(B: int, H_kv: int, S: int, sms: int = H100_SMS,
+               int8: bool = False) -> AttnPlan:
+    """K6's plan for B slots of H_kv kv heads over an S-key cache (attn_len)
+    on a card of `sms` SMs, from shapes and the cache's type only (never
+    the fills: no host sync).  One rank where the B * H_kv clusters already
+    give ATTN_BLOCKS_PER_SM blocks an SM (a split only adds barriers
+    there), and for an int8 cache of fewer than ATTN_INT8_MIN_SPLIT keys
+    (its ps maxima cost a second cluster barrier a tile: on the H100 one
+    rank was faster at S = 256, PERF.md); else enough ranks for that, or
+    one a tile of the longest row, whichever is more, at most
+    ATTN_MAX_RANKS and at most one per ATTN_MIN_RANK_KEYS keys of a tile
+    (one rank was faster on 128-key rows).  (0.1B's 64 x 4 = 256 clusters:
+    2 ranks at S = 256 and 512, int8 1 at 256; LFM2's 16 x 8 = 128: 2 at S
+    = 256 (int8 1), 3 at 1024, 4 at 2048; the 2.6B's 64 x 8 = 512: 1.)"""
+    if B < 1 or H_kv < 1 or S < 1 or sms < 1:
+        raise ValueError(f"no attention plan for B={B} H_kv={H_kv} S={S} "
+                         f"sms={sms}")
+    if (B * H_kv >= ATTN_BLOCKS_PER_SM * sms
+            or (int8 and S < ATTN_INT8_MIN_SPLIT)):
+        return AttnPlan(ranks=1)
+    occupancy = -(-ATTN_BLOCKS_PER_SM * sms // (B * H_kv))
+    length = -(-S // S_TILE)
+    cap = max(1, min(S, S_TILE) // ATTN_MIN_RANK_KEYS)
+    return AttnPlan(ranks=min(ATTN_MAX_RANKS, cap, max(occupancy, length)))
+
+
+def quantize_probs(ps: torch.Tensor):
+    """int8 mode's probability quantization over the last axis (one tile's
+    keys of a query row): psc = max(max(ps), 1e-20) / 127, p_i8 =
+    trunc(ps / psc + 0.5), as int-valued f32.  Returns (p_i8, psc)."""
+    psc = ps.amax(dim=-1, keepdim=True).clamp(min=1e-20) / 127.0
+    return torch.trunc(ps / psc + 0.5), psc
+
 
 def quantize_query(q: torch.Tensor):
     """Per-(b, h) symmetric int8 of q [B, H, D] (round half to even, clip
-    +-127): (int-valued f32 [B, H, D], scale f32 [B, H])."""
+    +-127): (int-valued f32 [B, H, D], scale f32 [B, H]).  On a CUDA tensor
+    PyTorch divides by the scalar 127 as a multiplication by its f32
+    reciprocal, on a CPU tensor it divides; K6 reproduces the CUDA bits."""
     qf = q.float()
     qs = qf.abs().amax(dim=-1).clamp(min=1e-20) / 127.0
     return torch.round(qf / qs[..., None]).clamp(-127, 127), qs
@@ -91,9 +154,7 @@ def decode_attention_batched_plain(q, k_cache, v_cache, fill, q_pos,
         alpha = torch.exp(m - m_new)
         l = l * alpha + p.sum(dim=-1, keepdim=True)
         if int8:
-            ps = p * v_scale[:, :, None, t0:t1]
-            psc = ps.amax(dim=-1, keepdim=True).clamp(min=1e-20) / 127.0
-            p8 = torch.trunc(ps / psc + 0.5)
+            p8, psc = quantize_probs(p * v_scale[:, :, None, t0:t1])
             pv = torch.einsum("bgrt,bgtd->bgrd", p8, vt) * psc
         else:
             pv = torch.einsum("bgrt,bgtd->bgrd", p.to(cdt).float(), vt)
@@ -162,21 +223,30 @@ def _check_inputs(q, k_cache, v_cache, fill, q_pos, k_scale, v_scale,
 
 
 def _decode_attention_cuda(q, k_cache, v_cache, fill, q_pos, k_scale,
-                           v_scale, return_stats):
+                           v_scale, return_stats, plan: AttnPlan | None = None):
     """Launch `decode_attn_launch` (ops/csrc/decode_attn.cu) on the current
-    stream.  The cache may be a strided view; it is never copied."""
+    stream under `plan` (None: `_attn_plan`'s for the card).  The cache may
+    be a strided view; it is never copied."""
     from ._build import load_kernels
+    if plan is not None and not 1 <= plan.ranks <= ATTN_MAX_RANKS:
+        raise ValueError(f"decode_attn kernel takes 1..{ATTN_MAX_RANKS} "
+                         f"ranks, got {plan.ranks}")
     _check_inputs(q, k_cache, v_cache, fill, q_pos, k_scale, v_scale,
                   "decode_attn")
     B, H, D = q.shape
     _, H_kv, S, _ = k_cache.shape
     int8 = k_cache.dtype == torch.int8
-    if int8:
-        qq, qs = quantize_query(q)
-        q_arg, qs_arg = qq.to(torch.int8).contiguous(), qs.contiguous()
+    if plan is None:
+        plan = _attn_plan(B, H_kv, S, _sm_count(q.device), int8)
+    if int8:       # q as it is: the kernel quantizes it (quantize_query's bits)
+        q_arg = q.contiguous()
+        if q_arg.data_ptr() % 16:          # q is read 8 or 16 bytes at a time
+            q_arg = q_arg.clone()
         kss, vss = k_scale.stride(), v_scale.stride()
     else:
-        q_arg, qs_arg = q.to(k_cache.dtype).contiguous(), None
+        q_arg = q.to(k_cache.dtype).contiguous()
+        if q_arg.data_ptr() % 16:
+            q_arg = q_arg.clone()
         kss = vss = (0, 0, 0)
     fill32 = fill.to(torch.int32).contiguous()
     qpos32 = q_pos.to(torch.int32).contiguous()
@@ -189,10 +259,11 @@ def _decode_attention_cuda(q, k_cache, v_cache, fill, q_pos, k_scale,
     ks, vs = k_cache.stride(), v_cache.stride()
     lib = load_kernels()["decode_attn"]
     err = lib.decode_attn_launch(
-        ptr(q_arg), ptr(qs_arg), ptr(k_cache), ptr(v_cache),
+        ptr(q_arg), int(q_arg.dtype == torch.float32), ptr(k_cache),
+        ptr(v_cache),
         ptr(k_scale if int8 else None), ptr(v_scale if int8 else None),
         ptr(fill32), ptr(qpos32), ptr(out), ptr(m), ptr(l),
-        B, H, H_kv, S, D, _DTYPE_CODE[k_cache.dtype],
+        B, H, H_kv, S, D, _DTYPE_CODE[k_cache.dtype], plan.ranks,
         ks[0], ks[1], ks[2], vs[0], vs[1], vs[2], kss[0], kss[1], vss[0],
         vss[1], 1.0 / math.sqrt(D),
         torch.cuda.current_stream(q.device).cuda_stream)
@@ -204,13 +275,14 @@ def _decode_attention_cuda(q, k_cache, v_cache, fill, q_pos, k_scale,
 
 
 def decode_attention_batched(q, k_cache, v_cache, fill, q_pos, k_scale=None,
-                             v_scale=None, return_stats: bool = False):
+                             v_scale=None, return_stats: bool = False,
+                             plan: AttnPlan | None = None):
     """Single-position attention of every slot against its cache rows (see
-    the module docstring).  CUDA tensors: the kernel; CPU tensors: the
-    plain version."""
+    the module docstring).  CUDA tensors: the kernel under `plan` (None:
+    `_attn_plan`'s); CPU tensors: the plain version."""
     if q.is_cuda:
         return _decode_attention_cuda(q, k_cache, v_cache, fill, q_pos,
-                                      k_scale, v_scale, return_stats)
+                                      k_scale, v_scale, return_stats, plan)
     return decode_attention_batched_plain(q, k_cache, v_cache, fill, q_pos,
                                           k_scale, v_scale, return_stats)
 
