@@ -48,10 +48,13 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      four concurrent /synthesize requests (2 wav, 2 pcm), then drains;
  10. (a) K5 vs plain: the single-query decode-attention CUDA kernel
      (`decode_attention`) against its plain version at the LFM2-1.2B
-     decode shapes (B=1, H=32/8, D=64, S=256/512/1024; B=4 with staggered
-     fills and an idle row), the 0.1B heads (12/4) and D=80, bf16 / f32 /
-     int8 caches, within 1e-5, with kernel / eager / plain / bound times
-     and the library time of scaled_dot_product_attention (timed only);
+     decode shapes (B=1, H=32/8, D=64, S=256/512/1024/2048; B=4 with
+     staggered fills and an idle row), the 0.1B heads (12/4) and D=80,
+     bf16 / f32 / int8 caches, within 1e-5, with kernel / eager / plain /
+     bound times, the plan's cluster split (ranks) and the time on one rank
+     beside it, and the library time of scaled_dot_product_attention (timed
+     only); a second call must give the same bits, and one rank must agree
+     with the plan's split within 1e-5;
  11. (b) LFM2-1.2B-Q8_0 offline: the synthetic full-width hybrid model
      (written by the port's writer, timed) + the phase-3 codec through
      TTSEngine.synthesize_to_file at temperature 0, 128 tokens; checks the
@@ -189,10 +192,16 @@ LFM2_AFTER_REQ = 16                        # serving under MIOTTS_QDOT_BF16=afte
 LFM2_REF_LAYERS = 6                        # GPU vs CPU: layers 0-5, 2 attention
 # K5 shapes (label, B, H, H_kv, D, S)
 K5_SHAPES = [("lfm2-1.2b", 1, 32, 8, 64, 256), ("lfm2-1.2b", 1, 32, 8, 64, 512),
-             ("lfm2-1.2b", 1, 32, 8, 64, 1024), ("lfm2-1.2b", 4, 32, 8, 64, 512),
+             ("lfm2-1.2b", 1, 32, 8, 64, 1024), ("lfm2-1.2b", 1, 32, 8, 64, 2048),
+             ("lfm2-1.2b", 4, 32, 8, 64, 512),
              ("0.1b", 1, 12, 4, 64, 256), ("d80", 2, 32, 8, 80, 512)]
 K5_STEP_SHAPE = ("lfm2-1.2b", 1, 32, 8, 64, 256)   # the offline decode's
+# the offline decode's default cache (engine.py: max_tokens 700 -> S = 1024)
+# and the port's n_ctx (2048)
+K5_LONG_SHAPES = (("lfm2-1.2b", 1, 32, 8, 64, 1024),
+                  ("lfm2-1.2b", 1, 32, 8, 64, 2048))
 K5_TOL = 1e-5                  # kernel vs plain: both f32, summation order
+K5_SPLIT_TOL = 1e-5            # one rank vs the plan's split: f32 sums only
 
 # 2.6B-Q4_K_M: bench.py's "2.6b-q4_k" widths (qwen2, dim 2560, 32 layers,
 # 32/8 heads of 80, ff 8192, QKV bias, rope theta 1e6), written with
@@ -1065,25 +1074,38 @@ def k5_inputs(torch, B, H, H_kv, D, S, mode, gen):
 
 
 def phase_k5(torch, card: str) -> list[dict]:
-    from miotts_tpu_torch.ops import decode_attn as da
+    from miotts_tpu_torch.ops import decode_attn as da, qmat
     F = torch.nn.functional
+    sms = qmat._sm_count(torch.device("cuda"))
+    one = da.AttnPlan(ranks=1)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2)
     rows = []
     for label, B, H, H_kv, D, S in K5_SHAPES:
+        plan = da._single_plan(B, H_kv, S, sms)
         for mode in ("bf16", "f32", "int8"):
             inp = k5_inputs(torch, B, H, H_kv, D, S, mode, gen)
             q, k, v, fill, q_pos, ks, vs = inp
             got = da.decode_attention(*inp)
+            again = da.decode_attention(*inp)
+            got1 = da.decode_attention(*inp, plan=one)
             want = da.decode_attention_plain(*inp)
             torch.cuda.synchronize()
             if (got.shape != (B, H, D) or not torch.isfinite(got).all()
                     or not (got[fill == 0] == 0).all()):
                 raise AssertionError(f"k5 {label} S={S} {mode}: bad output")
+            if not torch.equal(got, again):
+                raise AssertionError(f"k5 {label} B={B} S={S} {mode}: a "
+                                     f"second call differs")
             e = rel_err(got, want)
             if not e < K5_TOL:
                 raise AssertionError(f"k5 {label} B={B} S={S} {mode}: kernel "
                                      f"vs plain rel err {e} >= {K5_TOL}")
+            split_err = rel_err(got, got1)
+            if not split_err < K5_SPLIT_TOL:
+                raise AssertionError(f"k5 {label} B={B} S={S} {mode}: "
+                                     f"{plan.ranks} ranks vs one: rel err "
+                                     f"{split_err} >= {K5_SPLIT_TOL}")
             abs_err = float((got - want).abs().max())
             cache_bytes = 2 * k.numel() * k.element_size() + (
                 0 if ks is None else 2 * ks.numel() * 4)
@@ -1092,20 +1114,21 @@ def phase_k5(torch, card: str) -> list[dict]:
                 (k.clone(), v.clone(), None if ks is None else ks.clone(),
                  None if vs is None else vs.clone())
                 for _ in range(n_copies - 1)]
-            q32 = q.float()     # the kernel's own input: the graph holds K5 alone
 
-            def kern(i, q=q):
+            def kern(i, plan=None):
                 c = copies[i % n_copies]
                 return da.decode_attention(q, c[0], c[1], fill, q_pos, c[2],
-                                           c[3])
+                                           c[3], plan=plan)
 
             def plain(i):
                 c = copies[i % n_copies]
                 return da.decode_attention_plain(q, c[0], c[1], fill, q_pos,
                                                  c[2], c[3])
-            k_ms = graph_ms(torch, lambda i: kern(i, q32), n_copies)
+            k_ms = graph_ms(torch, kern, n_copies)
+            r1_ms = (graph_ms(torch, lambda i: kern(i, one), n_copies)
+                     if plan.ranks > 1 else k_ms)
             p_ms = graph_ms(torch, plain, 4)
-            e_ms = time_ms(torch, kern, 50)     # bf16 q: the wrapper's upcast too
+            e_ms = time_ms(torch, kern, 50)
             l_ms = None
             if mode != "int8":
                 # scaled_dot_product_attention over each row's valid keys,
@@ -1135,13 +1158,15 @@ def phase_k5(torch, card: str) -> list[dict]:
                        ms=k_ms, eager_ms=e_ms, plain_ms=p_ms, library_ms=l_ms,
                        bound_ms=max(t_bytes, t_ops),
                        bound_by="bytes" if t_bytes >= t_ops else "operations",
+                       ranks=plan.ranks, r1_ms=r1_ms, split_err=split_err,
                        max_abs_err=abs_err, err=e)
             rows.append(row)
             lib = "none" if l_ms is None else f"{l_ms:.4f} ms"
             log(f"k5 {label} B={B} H={H}/{H_kv} D={D} S={S:<4d} {mode:4s} "
-                f"kernel {k_ms:.4f} ms (eager {e_ms:.4f})  plain {p_ms:.4f} "
-                f"ms  library {lib}  bound {row['bound_ms']:.5f} ms "
-                f"({row['bound_by']})  err {e:.2e}  [{card}]")
+                f"kernel {k_ms:.4f} ms (eager {e_ms:.4f}; {plan.ranks} ranks,"
+                f" one rank {r1_ms:.4f})  plain {p_ms:.4f} ms  library {lib}"
+                f"  bound {row['bound_ms']:.5f} ms ({row['bound_by']})  err "
+                f"{e:.2e} / split {split_err:.1e}  [{card}]")
             del copies
             torch.cuda.empty_cache()
     return rows
@@ -2397,8 +2422,10 @@ def main(argv=None) -> int:
         launches_by_path={"serving_bf16": serve_res["bf16"]["attn_launches"],
                           "serving_int8": serve_res["int8"]["attn_launches"],
                           "lfm2_serving": lfm2_serve["attn_launches"]})
-    k5_step = next(r for r in k5_rows if r["mode"] == "bf16" and (
-        r["shape"], r["B"], r["H"], r["H_kv"], r["D"], r["S"]) == K5_STEP_SHAPE)
+    def k5_row(shape):
+        return next(r for r in k5_rows if r["mode"] == "bf16" and (
+            r["shape"], r["B"], r["H"], r["H_kv"], r["D"], r["S"]) == shape)
+    k5_step = k5_row(K5_STEP_SHAPE)
     n_attn = len(LFM2_ATTN_IDX)
     k5_entry = dict(
         name="decode_attention", route="cuda",
@@ -2414,6 +2441,10 @@ def main(argv=None) -> int:
         library_ms=n_attn * k5_step["library_ms"],
         unit="one LFM2-1.2B offline decode step of attention (6 layers) at "
              "B=1, H=32/8, D=64, S=256 (190 valid keys), bf16 cache",
+        ranks=k5_step["ranks"], one_rank_ms=n_attn * k5_step["r1_ms"],
+        long_rows={str(shape[-1]): {k: k5_row(shape)[k] for k in (
+            "valid_keys", "ranks", "ms", "r1_ms", "library_ms", "bound_ms")}
+            for shape in K5_LONG_SHAPES},
         launches_by_path={"lfm2_offline": lfm2_res["k5_launches"],
                           "lfm2_serving": lfm2_serve["k5_launches"],
                           "lfm2_gpu_vs_cpu": lfm2_ref["k5_launches"],

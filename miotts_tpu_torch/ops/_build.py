@@ -63,11 +63,11 @@ KERNELS = {
                               + [ctypes.c_float, _P],
     }),
     "decode_attn_single": ("decode_attn_single.cu", {
-        # q (f32), k, v, k_scale, v_scale, fill, q_pos, out, B, H, H_kv, S,
-        # D, dtype, k/v strides (b, h, s), k/v scale strides (b, h), scale,
-        # stream
-        "decode_attn_single_launch": [_P] * 8 + [_I] * 6 + [_L] * 10
-                                     + [ctypes.c_float, _P],
+        # q, q_f32, k, v, k_scale, v_scale, fill, q_pos, out, B, H, H_kv,
+        # S, D, dtype, ranks, k/v strides (b, h, s), k/v scale strides
+        # (b, h), scale, stream
+        "decode_attn_single_launch": [_P, _I] + [_P] * 7 + [_I] * 7
+                                     + [_L] * 10 + [ctypes.c_float, _P],
     }),
 }
 

@@ -1,6 +1,7 @@
 // Device helpers shared by the decode-attention kernels (decode_attn.cu,
-// decode_attn_single.cu): 16-byte row loaders, scalar upcasts, warp
-// reductions, cp.async copies and a 4 x 4 byte transpose.  Each source
+// decode_attn_single.cu): 16-byte row loaders, q's 4-value loader, scalar
+// upcasts, warp reductions, cp.async copies, a 4 x 4 byte transpose and the
+// thread-block cluster's start barrier and rank pointers.  Each source
 // includes this header into its own translation unit; _build.py hashes it
 // with every source, so an edit rebuilds both.  Everything has internal
 // linkage (an anonymous namespace): no object is shared between the
@@ -8,10 +9,13 @@
 
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 // one 16-byte chunk of a cache row -> N floats
 template <typename T> struct Chunk;
@@ -47,6 +51,21 @@ template <> struct Chunk<int8_t> {
     }
   }
 };
+
+// four neighbouring values of q from element idx (f32: one 16-byte load,
+// bf16: one 8-byte load), as f32
+__device__ __forceinline__ void load_q4(const void* q, bool f32, long long idx,
+                                        float (&o)[4]) {
+  if (f32) {
+    const float4 f = *reinterpret_cast<const float4*>(static_cast<const float*>(q) + idx);
+    o[0] = f.x; o[1] = f.y; o[2] = f.z; o[3] = f.w;
+  } else {
+    const uint2 u = *reinterpret_cast<const uint2*>(
+        static_cast<const __nv_bfloat16*>(q) + idx);
+    o[0] = __uint_as_float(u.x << 16); o[1] = __uint_as_float(u.x & 0xFFFF0000u);
+    o[2] = __uint_as_float(u.y << 16); o[3] = __uint_as_float(u.y & 0xFFFF0000u);
+  }
+}
 
 template <typename T> __device__ __forceinline__ float to_f32(T v);
 template <> __device__ __forceinline__ float to_f32<float>(float v) { return v; }
@@ -100,6 +119,24 @@ __device__ __forceinline__ void transpose4(uint32_t a, uint32_t b, uint32_t c,
   t[1] = __byte_perm(ab_lo, cd_lo, 0x7632);
   t[2] = __byte_perm(ab_hi, cd_hi, 0x5410);
   t[3] = __byte_perm(ab_hi, cd_hi, 0x7632);
+}
+
+// The split start barrier of a cluster: every thread arrives at its block's
+// entry (relaxed: it orders nothing) and waits before its first write into
+// another rank's shared memory, so no rank writes into a block that has not
+// started, and the entry does not wait.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// p in rank r's shared memory (distributed shared memory) in a cluster of R
+// blocks; a one-block cluster keeps its own pointer
+template <typename P>
+__device__ __forceinline__ P* in_rank(cg::cluster_group& cluster, int R, P* p, int r) {
+  return R > 1 ? cluster.map_shared_rank(p, r) : p;
 }
 
 }  // namespace

@@ -97,7 +97,6 @@
 // Plain C interface for ctypes: decode_attn_launch returns the launch's
 // cudaError_t.
 
-#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -105,8 +104,6 @@
 #include "attn_common.cuh"
 
 namespace {
-
-namespace cg = cooperative_groups;
 
 constexpr int THREADS = 256;
 constexpr int TILE = 512;         // keys per tile (the int8 quantization group)
@@ -211,21 +208,6 @@ __device__ __forceinline__ void load_pair<__nv_bfloat16>(const unsigned char* ro
   y = __uint_as_float(w & 0xFFFF0000u);
 }
 
-// four neighbouring values of q from element idx (f32: one 16-byte load,
-// bf16: one 8-byte load), as f32
-__device__ __forceinline__ void load_q4(const void* q, bool f32, long long idx,
-                                        float (&o)[4]) {
-  if (f32) {
-    const float4 f = *reinterpret_cast<const float4*>(static_cast<const float*>(q) + idx);
-    o[0] = f.x; o[1] = f.y; o[2] = f.z; o[3] = f.w;
-  } else {
-    const uint2 u = *reinterpret_cast<const uint2*>(
-        static_cast<const __nv_bfloat16*>(q) + idx);
-    o[0] = __uint_as_float(u.x << 16); o[1] = __uint_as_float(u.x & 0xFFFF0000u);
-    o[2] = __uint_as_float(u.y << 16); o[3] = __uint_as_float(u.y & 0xFFFF0000u);
-  }
-}
-
 struct Args {
   const void* q;
   const void* k;
@@ -265,7 +247,7 @@ decode_attn_kernel(Args a) {
   mark(0);
   // no rank writes into another before every rank has started: arrive now,
   // wait once this block is set up
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  cluster_arrive_relaxed();
   cg::cluster_group cluster = cg::this_cluster();
   const int R = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
@@ -275,7 +257,6 @@ decode_attn_kernel(Args a) {
   auto cluster_sync = [&]() {
     if (R > 1) cluster.sync(); else __syncthreads();
   };
-  auto in_rank = [&](auto* p, int r) { return R > 1 ? cluster.map_shared_rank(p, r) : p; };
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int b = blockIdx.y / a.H_kv;
   const int g = blockIdx.y % a.H_kv;
@@ -391,7 +372,7 @@ decode_attn_kernel(Args a) {
   for (int i = tid; i < rd; i += THREADS) acc[i] = 0.f;
   if (tid < rep) { m_s[tid] = NEG; l_s[tid] = 0.f; }
   __syncthreads();
-  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  cluster_wait();
   mark(2);
 
   // The ring's consumer: wait for the next stage, free the slot the last
@@ -509,7 +490,7 @@ decode_attn_kernel(Args a) {
       float tmax = NEG;
       for (int j = lane; j < m; j += 32) tmax = fmaxf(tmax, row[j]);
       tmax = warp_max(tmax);
-      if (lane < R) *in_rank(&mx_all[rank][warp], lane) = tmax;
+      if (lane < R) *in_rank(cluster, R, &mx_all[rank][warp], lane) = tmax;
     }
     cluster_sync();   // every rank's row maxima (and the last tile's reads done)
     mark(5, t == 0);
@@ -541,10 +522,10 @@ decode_attn_kernel(Args a) {
       ps_sum = warp_sum(ps_sum);
       if constexpr (INT8) {
         pmax = warp_max(pmax);
-        if (lane < R) *in_rank(&psm_all[rank][r], lane) = pmax;
+        if (lane < R) *in_rank(cluster, R, &psm_all[rank][r], lane) = pmax;
       }
       if (lane == 0) {
-        *in_rank(&psum_all[rank][r], 0) = ps_sum;
+        *in_rank(cluster, R, &psum_all[rank][r], 0) = ps_sum;
         alpha_s[r] = expf(m_prev - m_new);
         m_s[r] = m_new;
       }
@@ -565,7 +546,7 @@ decode_attn_kernel(Args a) {
 
     // ---- 3. PV: thread (key group kg, columns), a slot at a time
     mark(6, t == 0);
-    int* to0 = in_rank(part_all, 0) + rank * rd;   // rank 0's row
+    int* to0 = in_rank(cluster, R, part_all, 0) + rank * rd;   // rank 0's row
     {
       const int cw = tid % L::TPR, kg = tid / L::TPR;
       if constexpr (INT8) {

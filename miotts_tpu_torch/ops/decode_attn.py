@@ -10,9 +10,13 @@ kernel (and raises if it cannot build or launch); a CPU tensor goes through
 the `*_plain` version, the same function in plain torch.
 
 `decode_attention` (kernel `ops/csrc/decode_attn_single.cu`): the hybrid
-decode's attention, all in f32.  q and k are upcast, an int8 cache is
-dequantized by its scales, probabilities are not rounded.  Returns f32
-[B, H, D] = acc / max(l, 1e-20); a row with no valid key returns 0.
+decode's attention, all in f32.  q (bf16 or f32, upcast in the kernel) and
+k are upcast, an int8 cache is dequantized by its scales, probabilities are
+not rounded.  Returns f32 [B, H, D] = acc / max(l, 1e-20); a row with no
+valid key returns 0.  The kernel splits each row's valid keys over a
+thread-block cluster of `_single_plan(...).ranks` blocks, in contiguous
+shares; each rank keeps its own flash state and rank 0 combines them in
+rank order (only the order of f32 sums depends on the split).
 
 `decode_attention_batched` (kernel `ops/csrc/decode_attn.cu`): the
 attention of batched serving, as a flash state (acc, m, l) that
@@ -63,10 +67,18 @@ ATTN_MIN_RANK_KEYS = 128
 ATTN_INT8_MIN_SPLIT = 512
 
 
+# K5's split (ops/csrc/decode_attn_single.cu, whose MAX_RANKS is
+# ATTN_MAX_RANKS too): a (b, kv head) is a cluster of at most ATTN_MAX_RANKS
+# blocks, one block an SM at most, each rank taking at least
+# SINGLE_MIN_RANK_KEYS keys of the cache.
+SINGLE_MIN_RANK_KEYS = 32
+
+
 @dataclass(frozen=True)
 class AttnPlan:
-    """How K6 covers a (b, kv head): a cluster of `ranks` blocks, each
-    taking a contiguous share of every tile's valid keys."""
+    """How K5 or K6 covers a (b, kv head): a cluster of `ranks` blocks,
+    each taking a contiguous share of the row's (K6: of every tile's) valid
+    keys."""
     ranks: int
 
 
@@ -95,6 +107,21 @@ def _attn_plan(B: int, H_kv: int, S: int, sms: int = H100_SMS,
     length = -(-S // S_TILE)
     cap = max(1, min(S, S_TILE) // ATTN_MIN_RANK_KEYS)
     return AttnPlan(ranks=min(ATTN_MAX_RANKS, cap, max(occupancy, length)))
+
+
+@functools.lru_cache(maxsize=None)
+def _single_plan(B: int, H_kv: int, S: int, sms: int = H100_SMS) -> AttnPlan:
+    """K5's plan for B rows of H_kv kv heads over an S-key cache on a card
+    of `sms` SMs, from shapes only (never the fills: no host sync): as many
+    ranks as fit one block an SM (sms // (B * H_kv)), at most
+    ATTN_MAX_RANKS and at most one per SINGLE_MIN_RANK_KEYS keys of S, at
+    least one.  (LFM2's offline decode, B = 1 x 8 kv heads: 8 ranks, 64
+    blocks, from S = 256 on; 4 rows x 8: 4.)"""
+    if B < 1 or H_kv < 1 or S < 1 or sms < 1:
+        raise ValueError(f"no attention plan for B={B} H_kv={H_kv} S={S} "
+                         f"sms={sms}")
+    return AttnPlan(ranks=max(1, min(ATTN_MAX_RANKS, sms // (B * H_kv),
+                                     S // SINGLE_MIN_RANK_KEYS)))
 
 
 def quantize_probs(ps: torch.Tensor):
@@ -313,30 +340,40 @@ def decode_attention_plain(q, k_cache, v_cache, fill, q_pos, k_scale=None,
 
 
 def _decode_attention_single_cuda(q, k_cache, v_cache, fill, q_pos, k_scale,
-                                  v_scale):
+                                  v_scale, plan: AttnPlan | None = None):
     """Launch `decode_attn_single_launch` (ops/csrc/decode_attn_single.cu)
-    on the current stream.  q goes in as f32; the cache may be a strided
-    view (a layer of the stacked cache) and is never copied."""
+    on the current stream under `plan` (None: `_single_plan`'s for the
+    card).  q goes in as it is (bf16 or f32: the kernel upcasts it); the
+    cache may be a strided view (a layer of the stacked cache) and is never
+    copied."""
     from ._build import load_kernels
+    if plan is not None and not 1 <= plan.ranks <= ATTN_MAX_RANKS:
+        raise ValueError(f"decode_attn_single kernel takes 1..{ATTN_MAX_RANKS}"
+                         f" ranks, got {plan.ranks}")
     _check_inputs(q, k_cache, v_cache, fill, q_pos, k_scale, v_scale,
                   "decode_attn_single")
     B, H, D = q.shape
     _, H_kv, S, _ = k_cache.shape
     int8 = k_cache.dtype == torch.int8
+    if plan is None:
+        plan = _single_plan(B, H_kv, S, _sm_count(q.device))
     kss = k_scale.stride() if int8 else (0, 0, 0)
     vss = v_scale.stride() if int8 else (0, 0, 0)
-    q32 = q.float().contiguous()
+    q_arg = q.contiguous()
+    if q_arg.data_ptr() % 16:              # q is read 8 or 16 bytes at a time
+        q_arg = q_arg.clone()
     fill32 = fill.to(torch.int32).contiguous()
     qpos32 = q_pos.to(torch.int32).contiguous()
     out = torch.empty((B, H, D), dtype=torch.float32, device=q.device)
     ks, vs = k_cache.stride(), v_cache.stride()
     lib = load_kernels()["decode_attn_single"]
     err = lib.decode_attn_single_launch(
-        q32.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        q_arg.data_ptr(), int(q_arg.dtype == torch.float32),
+        k_cache.data_ptr(), v_cache.data_ptr(),
         k_scale.data_ptr() if int8 else None,
         v_scale.data_ptr() if int8 else None,
         fill32.data_ptr(), qpos32.data_ptr(), out.data_ptr(),
-        B, H, H_kv, S, D, _DTYPE_CODE[k_cache.dtype],
+        B, H, H_kv, S, D, _DTYPE_CODE[k_cache.dtype], plan.ranks,
         ks[0], ks[1], ks[2], vs[0], vs[1], vs[2], kss[0], kss[1], vss[0],
         vss[1], 1.0 / math.sqrt(D),
         torch.cuda.current_stream(q.device).cuda_stream)
@@ -348,13 +385,13 @@ def _decode_attention_single_cuda(q, k_cache, v_cache, fill, q_pos, k_scale,
 
 
 def decode_attention(q, k_cache, v_cache, fill, q_pos, k_scale=None,
-                     v_scale=None):
+                     v_scale=None, plan: AttnPlan | None = None):
     """Single-query attention of each row against its cache rows, all in
-    f32 (see the module docstring).  CUDA tensors: the kernel; CPU tensors:
-    the plain version."""
+    f32 (see the module docstring).  CUDA tensors: the kernel under `plan`
+    (None: `_single_plan`'s); CPU tensors: the plain version."""
     if q.is_cuda:
         return _decode_attention_single_cuda(q, k_cache, v_cache, fill,
-                                             q_pos, k_scale, v_scale)
+                                             q_pos, k_scale, v_scale, plan)
     return decode_attention_plain(q, k_cache, v_cache, fill, q_pos, k_scale,
                                   v_scale)
 

@@ -9,7 +9,10 @@ everywhere (they raise before any build or launch).
 
 Tolerance 1e-5 of the output scale in every cache type: kernel and plain
 version both compute in f32 from the same inputs, so only the summation
-order and `exp` differ."""
+order and `exp` differ.  The same holds for the kernel on one rank against
+its plan's cluster split (`_single_plan`), and for every cluster size 1-8;
+a second call gives the same bits, and a bf16 q the bits of its f32
+upcast (the kernel upcasts it exactly)."""
 
 import pytest
 import torch
@@ -86,6 +89,19 @@ def test_wrapper_rejects_bad_inputs(bad):
             torch.zeros(2, dtype=torch.int32), ks, ks)
 
 
+@pytest.mark.parametrize("ranks", [0, 9])
+def test_wrapper_rejects_a_plan_outside_a_portable_cluster(ranks):
+    """1..8 ranks (the portable cluster size); checked before anything
+    else, so it raises here on the CPU too."""
+    q = torch.zeros((1, 32, 64))
+    kv = torch.zeros((1, 8, 256, 64))
+    with pytest.raises(ValueError, match="ranks"):
+        tda._decode_attention_single_cuda(
+            q, kv, kv, torch.full((1,), 190, dtype=torch.int32),
+            torch.full((1,), 189, dtype=torch.int32), None, None,
+            plan=tda.AttnPlan(ranks=ranks))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["bf16", "f32", "int8"])
 @pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
@@ -124,3 +140,56 @@ def test_kernel_reads_a_strided_view(mode):
         None if vs is None else vs.contiguous())
     torch.cuda.synchronize()
     assert _rel(got, want) < TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["bf16", "f32", "int8"])
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_one_rank_matches_the_plan_and_repeats_bit_for_bit(shape, mode):
+    """The plan's split against one rank (1e-5: f32 sums in another
+    order), and a second call of each equal bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    inp = _inputs(*shape[1:], mode)
+    one = tda.AttnPlan(ranks=1)
+    got = tda.decode_attention(*inp)
+    again = tda.decode_attention(*inp)
+    got1 = tda.decode_attention(*inp, plan=one)
+    again1 = tda.decode_attention(*inp, plan=one)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again) and torch.equal(got1, again1)
+    assert _rel(got, got1) < TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ranks", range(1, 9))
+@pytest.mark.parametrize("mode", ["bf16", "int8"])
+def test_every_cluster_size_matches_plain(mode, ranks):
+    """Cluster sizes 1-8 over rows of 0, 3, 9 and 301 valid keys (fewer
+    keys than ranks, empty shares, an idle row), 512 keys a row at most."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    q, k, v, fill, q_pos, ks, vs = _inputs(4, 32, 8, 64, 512, mode)
+    fill.copy_(torch.tensor([301, 0, 3, 9], dtype=torch.int32))
+    q_pos.copy_(fill - 1)
+    got = tda.decode_attention(q, k, v, fill, q_pos, ks, vs,
+                               plan=tda.AttnPlan(ranks=ranks))
+    want = tda.decode_attention_plain(q, k, v, fill, q_pos, ks, vs)
+    torch.cuda.synchronize()
+    assert _rel(got, want) < TOL
+    assert (got[1] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["bf16", "int8"])
+def test_bf16_q_gives_the_bits_of_its_f32_upcast(mode):
+    """The kernel upcasts a bf16 q itself (exactly): the same bits as the
+    f32 q the wrapper no longer makes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    q, k, v, fill, q_pos, ks, vs = _inputs(1, 32, 8, 64, 1024, mode)
+    q = q.bfloat16()
+    got = tda.decode_attention(q, k, v, fill, q_pos, ks, vs)
+    want = tda.decode_attention(q.float(), k, v, fill, q_pos, ks, vs)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
