@@ -110,10 +110,11 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      at the 0.1B / LFM2 Q8_0 shapes, and K7 (`dma_floor`, K5's blocks) at
      phase 10's and phase 6's shapes (bf16 cache): each called once per
      shape with the counts at 0 (the probe path), then against its plain
-     version (K7 bit for bit, K8 within 1e-6) and timed over copies larger
-     than the L2; prints each probe's GB/s beside the kernel it floors and
-     fails if a probe streams faster than 1.05 x 3.35 TB/s (skipped
-     bytes).
+     version (K7 bit for bit, K8 within 1e-6) on its plan (K7: K5's
+     `_single_plan`, K8: K1's `_gemv_plan`) and on one rank / one split, a
+     second call bit for bit, and timed on both over copies larger than the
+     L2; prints each probe's GB/s beside the kernel it floors and fails if
+     a probe streams faster than 1.05 x 3.35 TB/s (skipped bytes).
 
 Kernel times are device times: the calls are captured in a CUDA graph and
 replayed between CUDA events, cycling over weight (or KV-cache) copies
@@ -753,12 +754,14 @@ def probe_counters(qmat, da):
 def phase_probes(torch, qmat, card: str, k5_rows: list[dict],
                  attn_rows: list[dict]) -> dict:
     """The probe path (each probe once per shape, counted), then each probe
-    against its plain version (K7 bit for bit, K8 within 1e-6) and timed
-    over copies larger than the L2, beside the kernel it floors: K8 beside
-    K1 at M = 1 (bf16 x) on the same copies, K7 beside K5 (phase 10) and
-    K6 (phase 6) at the same shape (bf16 cache).  Fails if a probe streams
-    faster than PROBE_MAX_RATE."""
+    against its plain version (K7 bit for bit, K8 within 1e-6) on its plan
+    and on one rank / one split (the parent's decomposition), a second call
+    bit for bit, each timed over copies larger than the L2, beside the
+    kernel it floors: K8 beside K1 at M = 1 (bf16 x) on the same copies, K7
+    beside K5 (phase 10) and K6 (phase 6) at the same shape (bf16 cache).
+    Fails if a probe streams faster than PROBE_MAX_RATE."""
     from miotts_tpu_torch.ops import decode_attn as da
+    sms = qmat._sm_count(torch.device("cuda"))
     gen = torch.Generator(device="cuda")
     gen.manual_seed(4)
     k8_cases = probe_qtensors(torch, qmat, gen)
@@ -791,12 +794,19 @@ def phase_probes(torch, qmat, card: str, k5_rows: list[dict],
     k8_rows = []
     for label, qt in k8_cases:
         K, N = qt.k, qt.shape[0]
+        plan = qmat._gemv_plan(K, N, 32, sms)
+        one = qmat.GemvPlan(splits=1, k_split=K)
         got = qmat.qdot_dma_floor(qt)
+        again = qmat.qdot_dma_floor(qt)
+        got1 = qmat.qdot_dma_floor(qt, one)
         want = qmat.qdot_dma_floor_plain(qt)
         torch.cuda.synchronize()
-        e = rel_err(got, want)
-        if got.shape != (1, N) or not e < PROBE_TOL:
-            raise AssertionError(f"K8 {label}: kernel vs plain rel err {e}")
+        e, e1 = rel_err(got, want), rel_err(got1, want)
+        if got.shape != (1, N) or not (e < PROBE_TOL and e1 < PROBE_TOL):
+            raise AssertionError(f"K8 {label}: kernel vs plain rel err {e} "
+                                 f"({plan.splits} splits), {e1} (one)")
+        if not torch.equal(got, again):
+            raise AssertionError(f"K8 {label}: a second call differs")
         streamed = qt.values.numel() + qt.scales.numel() * 4
         n_copies = max(2, min(256, -(-L2_FLUSH_BYTES // streamed)))
         qts = copies_of(torch, qmat, qt, n_copies)
@@ -804,6 +814,8 @@ def phase_probes(torch, qmat, card: str, k5_rows: list[dict],
         n_graph = max(20, min(256, n_copies))
         p_ms = graph_ms(torch, lambda i: qmat.qdot_dma_floor(
             qts[i % n_copies]), n_graph)
+        one_ms = graph_ms(torch, lambda i: qmat.qdot_dma_floor(
+            qts[i % n_copies], one), n_graph)
         plain_ms = graph_ms(torch, lambda i: qmat.qdot_dma_floor_plain(
             qts[i % n_copies]), 10)
         k1_ms = graph_ms(torch, lambda i: qmat._qdot_cuda(
@@ -811,14 +823,18 @@ def phase_probes(torch, qmat, card: str, k5_rows: list[dict],
         nbytes = streamed + 4 * N
         k1_bytes = qt_bytes(qt) + 2 * K + 2 * N
         rate = check_rate("K8", label, nbytes, p_ms)
-        row = dict(shape=label, K=K, N=N, bytes=nbytes, ms=p_ms,
-                   plain_ms=plain_ms, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
-                   gb_s=rate / 1e9, k1_ms=k1_ms, k1_bytes=k1_bytes,
-                   k1_gb_s=k1_bytes / (k1_ms * 1e-3) / 1e9,
-                   max_abs_err=float((got - want).abs().max()), rel_err=e)
+        check_rate("K8 one split", label, nbytes, one_ms)
+        row = dict(shape=label, K=K, N=N, bytes=nbytes, splits=plan.splits,
+                   ms=p_ms, one_ms=one_ms, plain_ms=plain_ms,
+                   bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, gb_s=rate / 1e9,
+                   one_gb_s=nbytes / (one_ms * 1e-3) / 1e9, k1_ms=k1_ms,
+                   k1_bytes=k1_bytes, k1_gb_s=k1_bytes / (k1_ms * 1e-3) / 1e9,
+                   max_abs_err=float((got - want).abs().max()), rel_err=e,
+                   rel_err_one=e1)
         k8_rows.append(row)
         log(f"K8 {label:26s} K={K:<5d} N={N:<6d} probe {p_ms:.4f} ms "
-            f"({row['gb_s']:.1f} GB/s)  plain {plain_ms:.4f} ms  bound "
+            f"({row['gb_s']:.1f} GB/s, {plan.splits} splits; one split "
+            f"{one_ms:.4f} ms)  plain {plain_ms:.4f} ms  bound "
             f"{row['bound_ms']:.4f} ms  | K1 M=1 {k1_ms:.4f} ms "
             f"({row['k1_gb_s']:.1f} GB/s)  rel_err {e:.2e}  [{card}]")
         del qts
@@ -832,28 +848,40 @@ def phase_probes(torch, qmat, card: str, k5_rows: list[dict],
             ms=r["ms"], gb_s=r["bytes"] / (r["ms"] * 1e-3) / 1e9)
 
     k7_rows = []
+    one = da.AttnPlan(ranks=1)
     for key, k, v in k7_cases:
         label, B, H, H_kv, D, S = key
+        plan = da._single_plan(B, H_kv, S, sms)
         got = da.dma_floor(k, v)
+        again = da.dma_floor(k, v)
+        got1 = da.dma_floor(k, v, one)
         want = da.dma_floor_plain(k, v)
         torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            raise AssertionError(f"K7 {key}: kernel differs from plain (max "
-                                 f"{float((got - want).abs().max())})")
+        for name, out in (("plan", got), ("second call", again),
+                          ("one rank", got1)):
+            if not torch.equal(out, want):
+                raise AssertionError(
+                    f"K7 {key}: kernel ({name}) differs from plain (max "
+                    f"{float((out - want).abs().max())})")
         s_tile = min(S, 512)
         streamed = 2 * B * H_kv * (S // s_tile) * s_tile * D * k.element_size()
         n_copies = max(2, min(512, -(-L2_FLUSH_BYTES // streamed)))
         copies = [(k, v)] + [(k.clone(), v.clone())
                              for _ in range(n_copies - 1)]
+        n_graph = max(20, n_copies)
         p_ms = graph_ms(torch, lambda i: da.dma_floor(
-            *copies[i % n_copies]), max(20, n_copies))
+            *copies[i % n_copies]), n_graph)
+        one_ms = graph_ms(torch, lambda i: da.dma_floor(
+            *copies[i % n_copies], one), n_graph)
         plain_ms = graph_ms(torch, lambda i: da.dma_floor_plain(
             *copies[i % n_copies]), 4)
         nbytes = streamed + B * H_kv * 8 * D * 4
         rate = check_rate("K7", key, nbytes, p_ms)
+        check_rate("K7 one rank", key, nbytes, one_ms)
         row = dict(shape=label, B=B, H=H, H_kv=H_kv, D=D, S=S, bytes=nbytes,
-                   ms=p_ms, plain_ms=plain_ms,
-                   bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, gb_s=rate / 1e9,
+                   ranks=plan.ranks, ms=p_ms, one_ms=one_ms,
+                   plain_ms=plain_ms, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                   gb_s=rate / 1e9, one_gb_s=nbytes / (one_ms * 1e-3) / 1e9,
                    k5=beside(k5_rows, key), k6=beside(attn_rows, key),
                    max_abs_err=0.0)
         k7_rows.append(row)
@@ -861,8 +889,9 @@ def phase_probes(torch, qmat, card: str, k5_rows: list[dict],
                          for n, r in (("K5", row["k5"]), ("K6", row["k6"]))
                          if r is not None)
         log(f"K7 {label} B={B:<3d} H_kv={H_kv} D={D} S={S:<4d} probe "
-            f"{p_ms:.4f} ms ({row['gb_s']:.1f} GB/s)  plain {plain_ms:.4f} ms"
-            f"  bound {row['bound_ms']:.5f} ms  {near}  [{card}]")
+            f"{p_ms:.4f} ms ({row['gb_s']:.1f} GB/s, {plan.ranks} ranks; one "
+            f"rank {one_ms:.4f} ms)  plain {plain_ms:.4f} ms  bound "
+            f"{row['bound_ms']:.5f} ms  {near}  [{card}]")
         del copies
         torch.cuda.empty_cache()
     return dict(launches=launches, k8=k8_rows, k7=k7_rows)
@@ -2490,13 +2519,15 @@ def main(argv=None) -> int:
     k7_entry = dict(
         name="attn_dma_floor", route="cuda",
         source="miotts_tpu_torch/ops/csrc/dma_floor.cu",
+        sources=["miotts_tpu_torch/ops/csrc/dma_floor.cu", ATTN_HEADER],
         replaces="miotts_tpu/ops/decode_attn.py:391",
         launches=probes["launches"]["K7"],
         launches_by_path={"probes": probes["launches"]["K7"]},
         max_abs_err=0.0, rel_err=0.0,
         ms=n_attn * k7_step["ms"], plain_ms=n_attn * k7_step["plain_ms"],
         bound_ms=n_attn * k7_step["bound_ms"], bound_by="bytes",
-        library_ms=None, gb_s=k7_step["gb_s"],
+        library_ms=None, gb_s=k7_step["gb_s"], ranks=k7_step["ranks"],
+        one_rank_ms=n_attn * k7_step["one_ms"],
         unit="one LFM2-1.2B offline decode step of K5's k/v streams (6 "
              "layers) at B=1, H_kv=8, D=64, S=256 (all rows), bf16 cache; "
              "no single PyTorch call computes it")
@@ -2504,7 +2535,10 @@ def main(argv=None) -> int:
     k8_entry = dict(
         name="qdot_dma_floor", route="cuda",
         source="miotts_tpu_torch/ops/csrc/dma_floor.cu",
+        sources=["miotts_tpu_torch/ops/csrc/dma_floor.cu", ATTN_HEADER],
         replaces="benchmarks/bench_qmat.py:57",
+        splits=[r["splits"] for r in k8_bench],
+        one_rank_ms=Q4KM_LAYERS * sum(r["one_ms"] for r in k8_bench),
         launches=probes["launches"]["K8"],
         launches_by_path={"probes": probes["launches"]["K8"]},
         max_abs_err=max(r["max_abs_err"] for r in probes["k8"]),

@@ -50,10 +50,10 @@ KERNELS = {
                             + [_P],
     }),
     "dma_floor": ("dma_floor.cu", {
-        # k, v, out, sink, B, H_kv, S, D, dtype, stream
-        "attn_dma_floor_launch": [_P] * 4 + [_I] * 5 + [_P],
-        # v, s, out, sink, K, N, tile_k, stream
-        "qdot_dma_floor_launch": [_P] * 4 + [_I] * 3 + [_P],
+        # k, v, out, B, H_kv, S, D, dtype, ranks, stream
+        "attn_dma_floor_launch": [_P] * 3 + [_I] * 6 + [_P],
+        # v, s, out, K, N, tile_k, splits, k_split, stream
+        "qdot_dma_floor_launch": [_P] * 3 + [_I] * 5 + [_P],
     }),
     "decode_attn": ("decode_attn.cu", {
         # q, q_f32, k, v, k_scale, v_scale, fill, q_pos, out, out_m, out_l,

@@ -36,8 +36,9 @@ blocks, in contiguous shares; the ranks swap their row maxima, so p (and
 p_i8) are the one-block values at any split.
 
 `dma_floor` (K7, kernel `ops/csrc/dma_floor.cu`): a probe that streams the
-k / v rows in K5's layout with (almost) no arithmetic, the floor of that
-layout's time; no attention calls it.
+k / v rows in K5's layout (its cluster split from `_single_plan`, its chunks
+staged by `cp.async`) with no arithmetic beyond its 8 output rows a tile,
+the floor of that layout's time; no attention calls it.
 """
 
 from __future__ import annotations
@@ -414,10 +415,14 @@ def dma_floor_plain(k_cache, v_cache):
     return out
 
 
-def _dma_floor_cuda(k_cache, v_cache):
+def _dma_floor_cuda(k_cache, v_cache, plan: AttnPlan | None = None):
     """Launch `attn_dma_floor_launch` (ops/csrc/dma_floor.cu) on the current
-    stream: contiguous k / v of one dtype on one GPU, 16-byte rows."""
+    stream under `plan` (None: `_single_plan`'s for the card, K5's split):
+    contiguous k / v of one dtype on one GPU, 16-byte rows."""
     from ._build import load_kernels
+    if plan is not None and not 1 <= plan.ranks <= ATTN_MAX_RANKS:
+        raise ValueError(f"dma_floor kernel takes 1..{ATTN_MAX_RANKS} ranks, "
+                         f"got {plan.ranks}")
     if k_cache.dim() != 4 or k_cache.shape != v_cache.shape:
         raise ValueError(f"k/v cache must both be [B, H_kv, S, D], got "
                          f"{tuple(k_cache.shape)} / {tuple(v_cache.shape)}")
@@ -436,12 +441,13 @@ def _dma_floor_cuda(k_cache, v_cache):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("dma_floor kernel: k and v must be contiguous "
                              "and 16-byte aligned")
+    if plan is None:
+        plan = _single_plan(B, H_kv, S, _sm_count(k_cache.device))
     out = torch.empty((B, H_kv, 8, D), dtype=torch.float32,
                       device=k_cache.device)
-    sink = torch.empty((1,), dtype=torch.int32, device=k_cache.device)
     err = load_kernels()["dma_floor"].attn_dma_floor_launch(
-        k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
-        sink.data_ptr(), B, H_kv, S, D, _DTYPE_CODE[k_cache.dtype],
+        k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(), B, H_kv, S,
+        D, _DTYPE_CODE[k_cache.dtype], plan.ranks,
         torch.cuda.current_stream(k_cache.device).cuda_stream)
     if err:
         raise RuntimeError(f"attn_dma_floor kernel launch failed: CUDA "
@@ -450,11 +456,12 @@ def _dma_floor_cuda(k_cache, v_cache):
     return out
 
 
-def dma_floor(k_cache, v_cache):
+def dma_floor(k_cache, v_cache, plan: AttnPlan | None = None):
     """K7 on k / v [B, H_kv, S, D] -> f32 [B, H_kv, 8, D].  CUDA tensors:
-    the kernel; CPU tensors: the plain version."""
+    the kernel under `plan` (None: `_single_plan`'s); CPU tensors: the plain
+    version."""
     if k_cache.is_cuda:
-        return _dma_floor_cuda(k_cache, v_cache)
+        return _dma_floor_cuda(k_cache, v_cache, plan)
     return dma_floor_plain(k_cache, v_cache)
 
 

@@ -36,7 +36,8 @@ M = 1 K1, K1v, K2, K3 and K4 share the split-K GEMV of
 `ops/csrc/qdot_gemv.cuh`, planned by `_gemv_plan`) and raises
 if it cannot build or launch; a CPU tensor goes through the kernel's plain
 torch version (`*_plain`).  `qdot_dma_floor` (K8, `ops/csrc/dma_floor.cu`) is a probe
-that streams K1's blocks; no linear calls it.
+that streams K1's value and scale rows in the GEMV's split (`_gemv_plan`),
+staged by `cp.async`; no linear calls it.
 """
 
 from __future__ import annotations
@@ -657,24 +658,30 @@ def _qdot_bf16_cuda(x: torch.Tensor, qt: QTensor, mode: str,
     return y
 
 
-def _qdot_dma_floor_cuda(qt: QTensor) -> torch.Tensor:
-    """K8: `qdot_dma_floor_launch` (ops/csrc/dma_floor.cu)."""
+def _qdot_dma_floor_cuda(qt: QTensor,
+                         plan: GemvPlan | None = None) -> torch.Tensor:
+    """K8: `qdot_dma_floor_launch` (ops/csrc/dma_floor.cu) under `plan`
+    (None: `_gemv_plan`'s for the card, K1's M = 1 split)."""
     from ._build import load_kernels
+    if plan is not None and not 1 <= plan.splits <= GEMV_MAX_SPLITS:
+        raise ValueError(f"qdot_dma_floor kernel takes 1..{GEMV_MAX_SPLITS} "
+                         f"splits, got {plan.splits}")
     tile_k = _k8_checked(qt)
     K, N = qt.values.shape
     for t in (qt.values, qt.scales):
         if not t.is_cuda or t.device != qt.values.device:
             raise ValueError("qdot_dma_floor kernel: values and scales must "
                              "be on one GPU")
-        if not t.is_contiguous():
+        if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("qdot_dma_floor kernel: tensors must be "
-                             "contiguous")
+                             "contiguous and 16-byte aligned")
     dev = qt.values.device
+    if plan is None:
+        plan = _gemv_plan(K, N, qt.group, _sm_count(dev))
     out = torch.empty((1, N), dtype=torch.float32, device=dev)
-    sink = torch.empty((1,), dtype=torch.int32, device=dev)
     _raise_on(load_kernels()["dma_floor"].qdot_dma_floor_launch(
-        qt.values.data_ptr(), qt.scales.data_ptr(), out.data_ptr(),
-        sink.data_ptr(), K, N, tile_k,
+        qt.values.data_ptr(), qt.scales.data_ptr(), out.data_ptr(), K, N,
+        tile_k, plan.splits, plan.k_split,
         torch.cuda.current_stream(dev).cuda_stream), "qdot_dma_floor_launch")
     qdot_dma_floor.kernel_launches += 1
     return out
@@ -754,9 +761,10 @@ def qdot_bf16(x: torch.Tensor, qt: QTensor, mode: str) -> torch.Tensor:
             else qdot_bf16_plain(x, qt, mode))
 
 
-def qdot_dma_floor(qt: QTensor) -> torch.Tensor:
-    """K8 on an int8 g32 QTensor -> f32 [1, N]."""
-    return (_qdot_dma_floor_cuda(qt) if qt.values.is_cuda
+def qdot_dma_floor(qt: QTensor, plan: GemvPlan | None = None) -> torch.Tensor:
+    """K8 on an int8 g32 QTensor -> f32 [1, N].  CUDA tensors: the kernel
+    under `plan` (None: `_gemv_plan`'s); CPU tensors: the plain version."""
+    return (_qdot_dma_floor_cuda(qt, plan) if qt.values.is_cuda
             else qdot_dma_floor_plain(qt))
 
 
