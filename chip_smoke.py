@@ -114,7 +114,28 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      `_single_plan`, K8: K1's `_gemv_plan`) and on one rank / one split, a
      second call bit for bit, and timed on both over copies larger than the
      L2; prints each probe's GB/s beside the kernel it floors and fails if
-     a probe streams faster than 1.05 x 3.35 TB/s (skipped bytes).
+     a probe streams faster than 1.05 x 3.35 TB/s (skipped bytes);
+ 19. 0.1B streaming: TTSEngine.synthesize_stream on phase 3's files and
+     prompt at temperature 0, 128 tokens, after warmup(): the fused path at
+     stream_pipeline_depth 1 and 2, the unfused path, the pipelined-codec
+     path and the window mode (64 codes); each keeps the offline path's
+     tokens (phase 3's), ends with is_last on its last sample, and
+     launches qdot 49 x (1 + steps) and K5 never; fused vs unfused within
+     1e-4 with the same callbacks and decodes, depth 1 bit for bit depth 2,
+     pipelined codec within 1e-6 of unfused; the skip-llm stream of the
+     offline codes within 1e-6 of their offline decode; decode_codes_async
+     makes no synchronizing call (PyTorch's sync debug mode) and equals
+     decode_codes, with its kernel launches and the launch queue's
+     back-pressure behind a spin logged; an abort
+     at depth 3 gives one callback; `cli bench`, `cli compare` and `cli stream -o
+     FILE` in process (the file within one s16 step of the fused stream);
+     each run's stream_bench.* numbers with the stage split after
+     attribute_stages(), and the device-busy share of a traced 60-token
+     fused stream (runtime/profile.device_trace);
+ 20. LFM2-1.2B streaming on phase 11's engine (full depth) at temperature
+     0, 128 tokens: the fused and unfused paths keep phase 11's offline
+     tokens, agree within 1e-4 with the same callbacks and decodes, and
+     launch K5 6 and qdot 65 per step (qdot 65 for the prefill).
 
 Kernel times are device times: the calls are captured in a CUDA graph and
 replayed between CUDA events, cycling over weight (or KV-cache) copies
@@ -241,6 +262,13 @@ K8_SHAPES = [(2560, 3840), (2560, 2560), (2560, 16384), (8192, 2560)]
 # package's own tolerance of W8A8 against the dense product (rtol 0.05,
 # tests/test_qmat.py:441), on the RMS relative difference.
 W8A8_REF_TOL = 5e-2
+# streaming (phases 19-20)
+STREAM_TOL = 1e-4          # fused vs unfused PCM
+STREAM_OFFLINE_TOL = 1e-6  # a skip-llm stream (one emit) vs the offline
+                           # decode; the pipelined-codec vs the unfused path
+STREAM_WINDOW = 64         # phase 19's window mode (stream_window_codes)
+STREAM_TRACE_TOKENS = 60   # the traced stream: the first commit (40 codes)
+                           # and the final flush
 BF16_REF_TOL = 2e-2            # GPU vs CPU in bf16 (groupdot)
 
 
@@ -1230,6 +1258,7 @@ def phase_main_path(torch, qmat, paths: dict, out_dir: str, card: str) -> dict:
     from miotts_tpu_torch.audio.wav import wav_read
     from miotts_tpu_torch.runtime.engine import (EngineConfig, Options,
                                                  TTSEngine, VoiceModel)
+    from miotts_tpu_torch.runtime.profile import StreamProfile
     t0 = time.perf_counter()
     eng = TTSEngine(EngineConfig(model_path=paths["llm"],
                                  codec_path=paths["codec"], device="cuda",
@@ -1242,7 +1271,7 @@ def phase_main_path(torch, qmat, paths: dict, out_dir: str, card: str) -> dict:
 
     from miotts_tpu_torch.ops import decode_attn
     wav = os.path.join(out_dir, "main.wav")
-    prof: dict = {}
+    prof = StreamProfile()
     qmat.qdot.kernel_launches = 0
     decode_attn.decode_attention.kernel_launches = 0
     t0 = time.perf_counter()
@@ -1256,7 +1285,7 @@ def phase_main_path(torch, qmat, paths: dict, out_dir: str, card: str) -> dict:
                              f"{k5} times")
 
     audio, sr = wav_read(wav)
-    n_codes = prof["n_codes"]
+    n_codes = prof.decoded_codes
     if not (np.isfinite(audio).all() and sr == eng.sample_rate
             and audio.size == n_codes * eng.samples_per_token):
         raise AssertionError(f"bad WAV: {audio.size} samples at {sr} Hz for "
@@ -1264,17 +1293,18 @@ def phase_main_path(torch, qmat, paths: dict, out_dir: str, card: str) -> dict:
     peak = float(np.max(np.abs(audio)))
     if abs(peak - 0.95) > 1e-3:
         raise AssertionError(f"peak {peak} != 0.95")
-    want = QDOT_PER_STEP * (1 + prof["decode_steps"])
+    want = QDOT_PER_STEP * (1 + prof.decode_steps)
     if launches != want:
         raise AssertionError(f"qdot kernel launches {launches} != {want} "
                              f"(49 per decode step + 49 for the prefill)")
     audio_s = audio.size / sr
-    res = dict(prefill_ms=prof["prefill_sec"] * 1e3,
-               decode_tok_s=prof["decode_steps"] / prof["decode_sec"],
-               decode_steps=prof["decode_steps"], llm_tokens=prof["llm_tokens"],
-               n_codes=n_codes, codec_istft_s=prof["codec_sec"],
+    res = dict(prefill_ms=prof.prefill_sec * 1e3,
+               decode_tok_s=prof.decode_steps / prof.llm_sec,
+               decode_steps=prof.decode_steps, llm_tokens=prof.llm_tokens,
+               n_codes=n_codes, codec_istft_s=prof.codec_sec + prof.istft_sec,
                audio_s=audio_s, wall_s=wall, x_realtime=audio_s / wall,
-               qdot_launches=launches, k5_launches=k5)
+               qdot_launches=launches, k5_launches=k5,
+               tokens=list(prof.token_ids))
     for k in ("prefill_ms", "decode_tok_s", "codec_istft_s", "audio_s",
               "wall_s", "x_realtime"):
         log(f"main: {k} {res[k]:.4f}  [{card}]")
@@ -1374,7 +1404,7 @@ def profile_decode(torch, eng, text, Options, card: str,
                    label: str = "prefill + 64 decode steps") -> dict:
     """Where one generate_tokens call (prefill + one 64-step chunk) spends
     its time."""
-    opts = Options(temperature=0.0, max_tokens=16)
+    opts = Options(temperature=0.0, max_tokens=64)
     eng.generate_tokens(text, opts)
 
     def run():
@@ -1637,6 +1667,7 @@ def phase_lfm2_offline(torch, paths: dict, out_dir: str, card: str):
     from miotts_tpu_torch.ops import decode_attn, qmat
     from miotts_tpu_torch.runtime.engine import (EngineConfig, Options,
                                                  TTSEngine, VoiceModel)
+    from miotts_tpu_torch.runtime.profile import StreamProfile
     t0 = time.perf_counter()
     eng = TTSEngine(EngineConfig(model_path=paths["lfm2"],
                                  codec_path=paths["codec"], device="cuda",
@@ -1647,7 +1678,7 @@ def phase_lfm2_offline(torch, paths: dict, out_dir: str, card: str):
     eng.synthesize(voice, text, Options(temperature=0.0, max_tokens=8))
 
     wav = os.path.join(out_dir, "lfm2.wav")
-    prof: dict = {}
+    prof = StreamProfile()
     counters = (qmat.qdot, decode_attn.decode_attention,
                 decode_attn.decode_attention_batched)
     for c in counters:
@@ -1661,13 +1692,13 @@ def phase_lfm2_offline(torch, paths: dict, out_dir: str, card: str):
     qd, k5, k6 = (c.kernel_launches for c in counters)
 
     audio, sr = wav_read(wav)
-    n_codes = prof["n_codes"]
+    n_codes = prof.decoded_codes
     if not (np.isfinite(audio).all() and sr == eng.sample_rate
             and audio.size == n_codes * eng.samples_per_token
             and abs(float(np.max(np.abs(audio))) - 0.95) < 1e-3):
         raise AssertionError(f"lfm2: bad WAV, {audio.size} samples at {sr} "
                              f"Hz for {n_codes} codes")
-    steps = prof["decode_steps"]
+    steps = prof.decode_steps
     n_attn = len(LFM2_ATTN_IDX)
     if k5 != n_attn * steps:
         raise AssertionError(f"lfm2: K5 launches {k5} != {n_attn} x {steps} "
@@ -1678,11 +1709,12 @@ def phase_lfm2_offline(torch, paths: dict, out_dir: str, card: str):
     if k6:
         raise AssertionError(f"lfm2: the offline path launched K6 {k6} times")
     audio_s = audio.size / sr
-    res = dict(prefill_ms=prof["prefill_sec"] * 1e3,
-               decode_tok_s=steps / prof["decode_sec"], decode_steps=steps,
-               llm_tokens=prof["llm_tokens"], n_codes=n_codes,
-               codec_istft_s=prof["codec_sec"], audio_s=audio_s, wall_s=wall,
-               x_realtime=audio_s / wall, qdot_launches=qd, k5_launches=k5)
+    res = dict(prefill_ms=prof.prefill_sec * 1e3,
+               decode_tok_s=steps / prof.llm_sec, decode_steps=steps,
+               llm_tokens=prof.llm_tokens, n_codes=n_codes,
+               codec_istft_s=prof.codec_sec + prof.istft_sec, audio_s=audio_s,
+               wall_s=wall, x_realtime=audio_s / wall, qdot_launches=qd,
+               k5_launches=k5, tokens=list(prof.token_ids))
     for k in ("prefill_ms", "decode_tok_s", "codec_istft_s", "audio_s",
               "wall_s", "x_realtime"):
         log(f"lfm2: {k} {res[k]:.4f}  [{card}]")
@@ -1831,6 +1863,380 @@ def phase_lfm2_gpu_vs_cpu(torch, path: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phases 19-20: streaming synthesis (0.1B-Q8_0, LFM2-1.2B-Q8_0)
+# ---------------------------------------------------------------------------
+
+def stream_run(torch, eng, voice, text, opts, cb_ok=True, **cfg) -> dict:
+    """One synthesize_stream with `cfg` set on the engine's config (and
+    restored): its PCM, (n_samples, is_last) events, profile, result and
+    wall time.  With cb_ok False every callback returns False (an abort)."""
+    import numpy as np
+    from miotts_tpu_torch.runtime.profile import StreamProfile
+    saved = {k: getattr(eng.config, k) for k in cfg}
+    chunks, events = [], []
+
+    def cb(samples, sr, is_last):
+        events.append((0 if samples is None else len(samples), is_last))
+        if samples is not None:
+            chunks.append(samples.copy())
+        return cb_ok
+
+    prof = StreamProfile()
+    try:
+        for k, v in cfg.items():
+            setattr(eng.config, k, v)
+        t0 = time.perf_counter()
+        ok = eng.synthesize_stream(voice, text, cb, options=opts, profile=prof)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        for k, v in saved.items():
+            setattr(eng.config, k, v)
+    pcm = np.concatenate(chunks) if chunks else np.zeros(0, np.float32)
+    return dict(pcm=pcm, events=events, profile=prof, ok=ok, wall=wall)
+
+
+def stream_numbers(eng, run: dict) -> dict:
+    """A run's stream_bench.* numbers, the stage split after
+    attribute_stages, and its decode buckets."""
+    prof = run["profile"]
+    eng.attribute_stages(prof)
+    m = prof.as_metrics(run["pcm"].size / eng.sample_rate)
+    out = {k[len("stream_bench."):]: v for k, v in m.items()}
+    out.update(stages_trusted=prof.stages_trusted,
+               decode_bucket_codes=list(prof.decode_bucket_codes),
+               decode_steps=prof.decode_steps, wall_s=run["wall"])
+    return out
+
+
+def log_stream(label: str, name: str, num: dict, card: str) -> None:
+    total = max(num["total_sec"], 1e-12)
+    stages = ", ".join(
+        f"{k[6:-4]} {num[k]:.4f} s ({100 * num[k] / total:.1f}%)"
+        for k in ("stage.prefill_sec", "stage.llm_sec", "stage.codec_sec",
+                  "stage.istft_sec", "stage.callback_sec") if k in num)
+    log(f"{label}[{name}]: first_audio_sec {num.get('first_audio_sec', -1):.4f}"
+        f", x_realtime {num['x_realtime']:.4f}, total {num['total_sec']:.4f} "
+        f"s, {num['llm_tokens']} tokens, decode_calls {num['decode_calls']}, "
+        f"decoded_codes {num['decoded_codes']} (buckets "
+        f"{num['decode_bucket_codes']}); stages: {stages}  [{card}]")
+
+
+def check_stream(label: str, name: str, run: dict, offline: list) -> None:
+    """Every stream: True, the offline path's tokens, the last sample out
+    with is_last."""
+    prof, ev = run["profile"], run["events"]
+    if not run["ok"] or not ev or not ev[-1][1] or not ev[-1][0]:
+        raise AssertionError(f"{label}[{name}]: ok {run['ok']}, last events "
+                             f"{ev[-3:]} (the last sample must go out with "
+                             f"is_last)")
+    if prof.token_ids != offline:
+        raise AssertionError(f"{label}[{name}]: {len(prof.token_ids)} tokens "
+                             f"differ from the offline path's {len(offline)}")
+
+
+def same_stream(label: str, a: str, b: str, runs: dict, tol: float) -> float:
+    """Two runs of one stream: the same events and decode counts, PCM
+    within `tol` (0: bit for bit).  Returns the max difference."""
+    import numpy as np
+    ra, rb = runs[a], runs[b]
+    pa, pb = ra["profile"], rb["profile"]
+    if (ra["events"] != rb["events"]
+            or (pa.decode_calls, pa.decoded_codes)
+            != (pb.decode_calls, pb.decoded_codes)
+            or ra["pcm"].shape != rb["pcm"].shape):
+        raise AssertionError(f"{label}: {a} and {b} differ in their emit "
+                             f"schedule or decodes")
+    err = float(np.max(np.abs(ra["pcm"] - rb["pcm"]))) if ra["pcm"].size else 0.0
+    log(f"{label}: {a} vs {b}: the same {len(ra['events'])} callbacks and "
+        f"{pa.decode_calls} decodes, PCM max |diff| {err:.3e} (tol {tol})")
+    if err > tol:
+        raise AssertionError(f"{label}: {a} vs {b} PCM differ by {err}")
+    return err
+
+
+def launches_of(torch, fn) -> int:
+    """The kernels the host launches in fn(), from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if e.key in (
+        "cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
+
+
+def queue_wait_s(torch, n: int) -> float:
+    """Host seconds to enqueue n one-element kernels behind a 1e9-cycle
+    spin (0.5 s at the H100's 1.98 GHz peak clock): about 0 while the
+    launch queue has room for them, about the spin once it has not."""
+    x = torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda._sleep(1_000_000_000)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        x.add_(1.0)
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt
+
+
+def trace_busy(path: str, wall: float) -> dict:
+    """The device's busy time in a Chrome trace (the union of its kernel,
+    copy and set intervals) over the traced run's wall time."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+                   and "dur" in e)
+    busy, end = 0.0, -1.0
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return dict(device_busy_s=busy * 1e-6, wall_s=wall,
+                busy_share=busy * 1e-6 / wall if wall else None,
+                device_events=len(spans))
+
+
+def phase_stream_0p1b(torch, qmat, paths: dict, d: str, card: str,
+                      phase3_tokens=None) -> dict:
+    """0.1B-Q8_0 streaming on phase 3's files and prompt at temperature 0:
+    warmup; the fused path at depth 1 and 2, the unfused and pipelined-
+    codec paths, the window mode; the skip-llm stream against the offline
+    decode; an abort with steps in flight; `cli bench`, `cli compare` and
+    `cli stream -o FILE` in process; a traced fused stream."""
+    import io
+    import numpy as np
+    from miotts_tpu_torch import cli
+    from miotts_tpu_torch.audio.wav import f32_to_s16
+    from miotts_tpu_torch.ops import decode_attn
+    from miotts_tpu_torch.runtime.engine import (EngineConfig, Options,
+                                                 TTSEngine, VoiceModel)
+    from miotts_tpu_torch.runtime.profile import device_trace
+    from miotts_tpu_torch.text import (build_prompt, format_speech_tokens,
+                                       normalize_tts_text)
+    label = "stream"
+    t0 = time.perf_counter()
+    eng = TTSEngine(EngineConfig(model_path=paths["llm"],
+                                 codec_path=paths["codec"], device="cuda",
+                                 max_tokens=MAX_TOKENS, temperature=0.0))
+    voice = VoiceModel(paths["voice"])
+    text = "The quick brown fox jumps over the lazy dog."
+    opts = Options(temperature=0.0, max_tokens=MAX_TOKENS)
+    n_prompt = len(eng.tokenizer.encode(build_prompt(normalize_tts_text(text)),
+                                        add_special=True, parse_special=True))
+    t1 = time.perf_counter()
+    eng.warmup(max_codes=MAX_TOKENS, prompt_len=n_prompt)
+    torch.cuda.synchronize()
+    res = dict(load_s=t1 - t0, warmup_s=time.perf_counter() - t1)
+    offline = eng.generate_tokens(text, opts)
+    if phase3_tokens is not None and offline != phase3_tokens:
+        raise AssertionError(f"{label}: generate_tokens gave other tokens "
+                             f"than phase 3's synthesize")
+    codes = eng.tokens_to_codes(offline)
+    off_pcm = eng.decode_codes(codes, voice, apply_peak_normalization=False)
+    log(f"{label}: engine load {res['load_s']:.2f} s, warmup "
+        f"{res['warmup_s']:.2f} s; offline {len(offline)} tokens, "
+        f"{len(codes)} codes")
+
+    runs, nums = {}, {}
+    for name, cfg in (("fused_depth1", dict(stream_pipeline_depth=1)),
+                      ("fused_depth2", {}),
+                      ("unfused", dict(fused_streaming=False)),
+                      ("pipelined_codec", dict(pipeline_codec=True)),
+                      ("window", dict(stream_window_codes=STREAM_WINDOW))):
+        qmat.qdot.kernel_launches = 0
+        decode_attn.decode_attention.kernel_launches = 0
+        r = runs[name] = stream_run(torch, eng, voice, text, opts, **cfg)
+        r["qdot_launches"] = qmat.qdot.kernel_launches
+        k5 = decode_attn.decode_attention.kernel_launches
+        check_stream(label, name, r, offline)
+        want = QDOT_PER_STEP * (1 + r["profile"].decode_steps)
+        if r["qdot_launches"] != want or k5:
+            raise AssertionError(f"{label}[{name}]: qdot launches "
+                                 f"{r['qdot_launches']} != {want} (49 x (1 + "
+                                 f"{r['profile'].decode_steps} steps)), K5 {k5}")
+        nums[name] = stream_numbers(eng, r)
+        nums[name]["qdot_launches"] = r["qdot_launches"]
+        log_stream(label, name, nums[name], card)
+        log(f"{label}[{name}]: launches qdot {r['qdot_launches']} "
+            f"({QDOT_PER_STEP} x (1 + {r['profile'].decode_steps})), K5 0")
+    res["runs"] = nums
+    res["max_abs_diff"] = {
+        "fused_vs_unfused": same_stream(label, "fused_depth2", "unfused",
+                                        runs, STREAM_TOL),
+        "depth1_vs_depth2": same_stream(label, "fused_depth1",
+                                        "fused_depth2", runs, 0.0),
+        "pipelined_vs_unfused": same_stream(label, "pipelined_codec",
+                                            "unfused", runs,
+                                            STREAM_OFFLINE_TOL)}
+    full, win = runs["fused_depth2"], runs["window"]
+    if ([e[0] for e in win["events"]] != [e[0] for e in full["events"]]
+            or win["profile"].decode_calls != full["profile"].decode_calls
+            or win["profile"].decoded_codes > full["profile"].decoded_codes):
+        raise AssertionError(f"{label}: the window mode's commit schedule "
+                             f"differs from the full re-decode's")
+    res["max_abs_diff"]["window_vs_full"] = float(
+        np.max(np.abs(win["pcm"] - full["pcm"])))
+    log(f"{label}: window {STREAM_WINDOW} vs full re-decode: the same "
+        f"schedule, PCM max |diff| {res['max_abs_diff']['window_vs_full']:.3e}"
+        f" (peak {float(np.max(np.abs(full['pcm']))):.3e}; decode buckets "
+        f"{win['profile'].decode_bucket_codes} in window mode, "
+        f"{full['profile'].decode_bucket_codes} in full mode)")
+
+    # skip-llm: one decode, one emit, nothing blended
+    r = stream_run(torch, eng, voice, format_speech_tokens(codes),
+                   Options(skip_llm=True))
+    err = (float(np.max(np.abs(r["pcm"] - off_pcm)))
+           if r["pcm"].shape == off_pcm.shape else float("inf"))
+    log(f"{label}: skip-llm stream of the {len(codes)} offline codes vs their "
+        f"offline decode: max |diff| {err:.3e} (tol {STREAM_OFFLINE_TOL})")
+    if not (r["ok"] and r["events"][-1][1] and err <= STREAM_OFFLINE_TOL):
+        raise AssertionError(f"{label}: skip-llm stream differs from the "
+                             f"offline decode ({err})")
+    res["max_abs_diff"]["skip_llm_vs_offline"] = err
+
+    # decode_codes_async enqueues and returns without a host sync: PyTorch's
+    # sync debug mode raises on any call in it that waits for the device (a
+    # blocking copy, .item(), a synchronize); the decode read later equals
+    # decode_codes' bit for bit.  Whether the stream is still busy when it
+    # returns says nothing here: one decode launches more kernels than the
+    # card's launch queue holds, so behind a long kernel the host waits for
+    # room in the queue (the probe below), not for a sync
+    n_launch = launches_of(torch, lambda: eng.decode_codes_async(codes, voice))
+    wait = {n: queue_wait_s(torch, n) for n in (256, 4096)}
+    log(f"{label}: one decode_codes_async launches {n_launch} kernels; "
+        f"behind a 1e9-cycle spin the host enqueues 256 tiny kernels in "
+        f"{wait[256]:.4f} s and 4096 in {wait[4096]:.4f} s (the launch "
+        f"queue's back-pressure)  [{card}]")
+    res["decode_async"] = dict(launches=n_launch, queue_wait_s=wait)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        audio_dev, n_dec = eng.decode_codes_async(codes, voice)
+    except RuntimeError as e:
+        raise AssertionError(f"{label}: decode_codes_async waited for the "
+                             f"device: {e}") from e
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    got = audio_dev[:n_dec * eng.samples_per_token].cpu().numpy()
+    same = bool(got.shape == off_pcm.shape and np.array_equal(got, off_pcm))
+    log(f"{label}: decode_codes_async made no synchronizing call; its decode "
+        f"{'equals' if same else 'DIFFERS from'} decode_codes'")
+    if not same:
+        raise AssertionError(f"{label}: decode_codes_async decoded other "
+                             f"samples than decode_codes")
+
+    # an abort at the first emit, two chunks still in flight
+    r = stream_run(torch, eng, voice, text, opts, cb_ok=False,
+                   stream_pipeline_depth=3)
+    log(f"{label}: abort at depth 3: returned {r['ok']}, "
+        f"{len(r['events'])} callback(s)")
+    if r["ok"] or len(r["events"]) != 1:
+        raise AssertionError(f"{label}: an abort gave {len(r['events'])} "
+                             f"callbacks (want 1), returned {r['ok']}")
+
+    # the CLI in process (each builds its own engine on the card)
+    model = ["-m", paths["llm"], "-c", paths["codec"], "-v", paths["voice"],
+             "-p", text, "-t", "0", "--max-tokens", str(MAX_TOKENS)]
+    res["cli"] = {}
+    for sub in ("bench", "compare"):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main([sub] + model)
+        lines = dict(line.split("=", 1) for line in buf.getvalue().splitlines()
+                     if "=" in line)
+        res["cli"][sub] = lines
+        for k, v in lines.items():
+            log(f"{label}: cli {sub}: {k}={v}  [{card}]")
+        if rc != 0:
+            raise AssertionError(f"{label}: cli {sub} exited {rc}")
+    cmp = res["cli"]["compare"]
+    n_samples = len(codes) * eng.samples_per_token
+    if (int(cmp["compare.offline_samples"]) != n_samples
+            or int(cmp["compare.stream_samples"]) != n_samples
+            or float(cmp["compare.max_abs"]) > STREAM_OFFLINE_TOL):
+        raise AssertionError(f"{label}: cli compare: {cmp}")
+    if "stream_bench.first_audio_sec" not in res["cli"]["bench"]:
+        raise AssertionError(f"{label}: cli bench printed no first audio")
+    pcm_path = os.path.join(d, "stream.pcm")
+    if cli.main(["stream"] + model + ["-o", pcm_path]) != 0:
+        raise AssertionError(f"{label}: cli stream failed")
+    got = np.fromfile(pcm_path, dtype="<i2").astype(np.int32)
+    want = f32_to_s16(full["pcm"]).astype(np.int32)
+    step = (int(np.max(np.abs(got - want))) if got.size == want.size
+            else None)
+    log(f"{label}: cli stream -o FILE: {got.size} s16 samples, max |diff| "
+        f"{step} s16 steps against the fused stream")
+    if step is None or step > 1:
+        raise AssertionError(f"{label}: cli stream's PCM differs from the "
+                             f"fused stream's")
+    res["cli"]["stream_s16_max_step"] = step
+
+    # where a fused stream's time goes: a Chrome trace of a shorter stream
+    # (the prefill, the first commit at 40 codes and the final flush; the
+    # profiler's processing grows with every launch it records)
+    trace_dir = os.path.join(d, "stream_trace")
+    with device_trace(trace_dir):
+        r = stream_run(torch, eng, voice, text,
+                       Options(temperature=0.0,
+                               max_tokens=STREAM_TRACE_TOKENS))
+    res["trace"] = trace_busy(os.path.join(trace_dir, "trace.json"),
+                              r["wall"])
+    res["trace"]["decode_calls"] = r["profile"].decode_calls
+    res["trace"]["steps"] = r["profile"].decode_steps
+    t = res["trace"]
+    log(f"{label}: traced fused stream of {t['steps']} steps and "
+        f"{t['decode_calls']} decodes: wall {t['wall_s']:.4f} s, device busy "
+        f"{t['device_busy_s']:.4f} s ({100 * (t['busy_share'] or 0):.1f}%) "
+        f"over {t['device_events']} device events  [{card}]")
+    return res
+
+
+def phase_stream_lfm2(torch, eng, voice, card: str, offline: list) -> dict:
+    """LFM2-1.2B-Q8_0 streaming on phase 11's engine at temperature 0: the
+    fused and the unfused path; phase 11's offline tokens, the same
+    schedule, PCM within STREAM_TOL; K5 6 and K1 65 launches a step."""
+    from miotts_tpu_torch.ops import decode_attn, qmat
+    from miotts_tpu_torch.runtime.engine import Options
+    from miotts_tpu_torch.text import build_prompt, normalize_tts_text
+    label = "lfm2 stream"
+    text = "The quick brown fox jumps over the lazy dog."
+    opts = Options(temperature=0.0, max_tokens=MAX_TOKENS)
+    t0 = time.perf_counter()
+    eng.warmup(max_codes=MAX_TOKENS, prompt_len=len(eng.tokenizer.encode(
+        build_prompt(normalize_tts_text(text)), add_special=True,
+        parse_special=True)))
+    torch.cuda.synchronize()
+    res = dict(warmup_s=time.perf_counter() - t0)
+    runs, nums = {}, {}
+    n_attn = len(LFM2_ATTN_IDX)
+    for name, cfg in (("fused_depth2", {}),
+                      ("unfused", dict(fused_streaming=False))):
+        qmat.qdot.kernel_launches = 0
+        decode_attn.decode_attention.kernel_launches = 0
+        r = runs[name] = stream_run(torch, eng, voice, text, opts, **cfg)
+        qd = qmat.qdot.kernel_launches
+        k5 = decode_attn.decode_attention.kernel_launches
+        check_stream(label, name, r, offline)
+        steps = r["profile"].decode_steps
+        if qd != LFM2_QDOT_PER_STEP * (1 + steps) or k5 != n_attn * steps:
+            raise AssertionError(f"{label}[{name}]: qdot {qd}, K5 {k5} for 1 "
+                                 f"prefill + {steps} steps")
+        nums[name] = stream_numbers(eng, r)
+        nums[name].update(qdot_launches=qd, k5_launches=k5)
+        log_stream(label, name, nums[name], card)
+        log(f"{label}[{name}]: launches K5 {k5} ({n_attn} x {steps}), qdot "
+            f"{qd} ({LFM2_QDOT_PER_STEP} x (1 + {steps}))")
+    res["runs"] = nums
+    res["max_abs_diff"] = {"fused_vs_unfused": same_stream(
+        label, "fused_depth2", "unfused", runs, STREAM_TOL)}
+    return res
+
+
+# ---------------------------------------------------------------------------
 # Phases 15-16: 2.6B-Q4_K_M offline under each route, GPU vs CPU
 # ---------------------------------------------------------------------------
 
@@ -1945,6 +2351,7 @@ def phase_q4km_offline(torch, qmat, paths: dict, out_dir: str,
     from miotts_tpu_torch.ops import decode_attn
     from miotts_tpu_torch.runtime.engine import (EngineConfig, Options,
                                                  TTSEngine, VoiceModel)
+    from miotts_tpu_torch.runtime.profile import StreamProfile
     t0 = time.perf_counter()
     base = TTSEngine(EngineConfig(model_path=paths["q4km"],
                                   codec_path=paths["codec"], device="cuda",
@@ -1963,7 +2370,7 @@ def phase_q4km_offline(torch, qmat, paths: dict, out_dir: str,
         tokens[name] = eng.generate_tokens(
             text, Options(temperature=0.0, max_tokens=Q4KM_AGREE_TOKENS))
         wav = os.path.join(out_dir, f"q4km_{name}.wav")
-        prof: dict = {}
+        prof = StreamProfile()
         reset_counts(counters)
         decode_attn.decode_attention.kernel_launches = 0
         t0 = time.perf_counter()
@@ -1976,13 +2383,13 @@ def phase_q4km_offline(torch, qmat, paths: dict, out_dir: str,
         got = read_counts(counters)
         k5 = decode_attn.decode_attention.kernel_launches
         audio, sr = wav_read(wav)
-        n_codes = prof["n_codes"]
+        n_codes = prof.decoded_codes
         if not (np.isfinite(audio).all() and sr == eng.sample_rate
                 and audio.size == n_codes * eng.samples_per_token
                 and abs(float(np.max(np.abs(audio))) - 0.95) < 1e-3):
             raise AssertionError(f"q4km[{name}]: bad WAV, {audio.size} "
                                  f"samples at {sr} Hz for {n_codes} codes")
-        steps = prof["decode_steps"]
+        steps = prof.decode_steps
         want = expected_counts(name, steps, 2 * Q4KM_LAYERS,
                                2 * Q4KM_LAYERS + 1)
         if got != want or k5:
@@ -1991,10 +2398,11 @@ def phase_q4km_offline(torch, qmat, paths: dict, out_dir: str,
         same = sum(a == b for a, b in zip(tokens[name], tokens["default"]))
         compared = min(len(tokens[name]), len(tokens["default"]))
         audio_s = audio.size / sr
-        res = dict(route=env, prefill_ms=prof["prefill_sec"] * 1e3,
-                   decode_tok_s=steps / prof["decode_sec"],
-                   decode_steps=steps, llm_tokens=prof["llm_tokens"],
-                   n_codes=n_codes, codec_istft_s=prof["codec_sec"],
+        res = dict(route=env, prefill_ms=prof.prefill_sec * 1e3,
+                   decode_tok_s=steps / prof.llm_sec,
+                   decode_steps=steps, llm_tokens=prof.llm_tokens,
+                   n_codes=n_codes,
+                   codec_istft_s=prof.codec_sec + prof.istft_sec,
                    audio_s=audio_s, wall_s=wall, x_realtime=audio_s / wall,
                    launches=got,
                    launches_per_step={k: v / steps for k, v in got.items()
@@ -2249,9 +2657,10 @@ def single_stream_steps(res: dict) -> dict:
 
 
 # every phase (3 runs 3-5), and what a phase needs run before it
-ALL_PHASES = (2, 3, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18)
-PHASE_NEEDS = {9: {7}, 12: {11}}
-MODEL_PHASES = {3, 7, 8, 9, 11, 12, 13, 15, 16}   # the 0.1B files, the codec
+ALL_PHASES = (2, 3, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20)
+PHASE_NEEDS = {9: {7}, 12: {11}, 20: {11}}
+MODEL_PHASES = {3, 7, 8, 9, 11, 12, 13, 15, 16, 19, 20}   # the 0.1B files,
+                                                          # the codec
 
 
 def parse_phases(argv) -> set:
@@ -2261,7 +2670,7 @@ def parse_phases(argv) -> set:
     ap = argparse.ArgumentParser(description="Chip smoke test of the port.")
     ap.add_argument("--phases", default="",
                     help="comma-separated phase numbers to run (3 runs 3-5; "
-                         "9 brings 7, 12 brings 11); default: all")
+                         "9 brings 7, 12 and 20 bring 11); default: all")
     args = ap.parse_args(argv)
     if not args.phases:
         return set(ALL_PHASES)
@@ -2316,6 +2725,12 @@ def main(argv=None) -> int:
         if 3 in run:
             res["main_path"] = phase_main_path(torch, qmat, paths, d, card)
             done("3/4/5")
+        if 19 in run:
+            res["stream"] = phase_stream_0p1b(
+                torch, qmat, paths, d, card,
+                res.get("main_path", {}).get("tokens"))
+            done("19")
+            torch.cuda.empty_cache()
         attn_rows = []
         if 6 in run:
             attn_rows = res["attn_per_shape"] = phase_attn_kernels(torch, card)
@@ -2347,6 +2762,11 @@ def main(argv=None) -> int:
                 res["lfm2_serving"] = phase_lfm2_serving(torch, lfm2_eng,
                                                          lfm2_voice, card)
                 done("12 (d)")
+            if 20 in run:
+                res["lfm2_stream"] = phase_stream_lfm2(
+                    torch, lfm2_eng, lfm2_voice, card,
+                    res["lfm2_offline"]["tokens"])
+                done("20")
             del lfm2_eng
             torch.cuda.empty_cache()
         if 13 in run:
@@ -2386,6 +2806,7 @@ def main(argv=None) -> int:
     var_rows, bf16_rows, probes = (res["variants_per_shape"],
                                    res["bf16_per_shape"], res["probes"])
     q4km_res, q4km_ref = res["q4km_offline"], res["q4km_gpu_vs_cpu"]
+    stream_res, lfm2_stream = res["stream"], res["lfm2_stream"]
     steps = single_stream_steps(res)
     qdot_entry = dict(
         name="qdot", route="cuda", source="miotts_tpu_torch/ops/csrc/qdot.cu",
@@ -2413,7 +2834,11 @@ def main(argv=None) -> int:
         launches_by_path={"serving_bf16": serve_res["bf16"]["qdot_launches"],
                           "serving_int8": serve_res["int8"]["qdot_launches"],
                           "offline": main_res["qdot_launches"],
+                          "stream": stream_res["runs"]["fused_depth2"][
+                              "qdot_launches"],
                           "lfm2_offline": lfm2_res["qdot_launches"],
+                          "lfm2_stream": lfm2_stream["runs"]["fused_depth2"][
+                              "qdot_launches"],
                           "lfm2_serving": lfm2_serve["qdot_launches"],
                           "lfm2_serving_after": lfm2_serve["after"][
                               "qdot_launches"],
@@ -2475,6 +2900,8 @@ def main(argv=None) -> int:
             "valid_keys", "ranks", "ms", "r1_ms", "library_ms", "bound_ms")}
             for shape in K5_LONG_SHAPES},
         launches_by_path={"lfm2_offline": lfm2_res["k5_launches"],
+                          "stream": lfm2_stream["runs"]["fused_depth2"][
+                              "k5_launches"],
                           "lfm2_serving": lfm2_serve["k5_launches"],
                           "lfm2_gpu_vs_cpu": lfm2_ref["k5_launches"],
                           "offline": main_res["k5_launches"],

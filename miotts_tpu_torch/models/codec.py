@@ -18,7 +18,8 @@ keys, GroupNorm statistics, conv inputs), so a padded decode equals an
 unpadded one and rows never see each other; the batch dimension takes the
 place of the JAX package's `jax.vmap` over streams.  Every matmul and convolution is full f32:
 `codec_decode_spec` runs under `exact_f32`, which turns TF32 off for cuBLAS
-and cuDNN (cuDNN convolutions default to TF32 on the GPU).  Per-layer
+and cuDNN (cuDNN convolutions default to TF32 on the GPU) and keeps cuDNN
+to its deterministic algorithms (the same codes, the same bits).  Per-layer
 weights are lists of dicts, iterated in Python.
 """
 
@@ -125,16 +126,21 @@ class CodecConfig:
 @contextlib.contextmanager
 def exact_f32():
     """Full-f32 matmuls and convolutions (TF32 off for cuBLAS and cuDNN),
-    restored on exit — the counterpart of JAX's Precision.HIGHEST."""
+    restored on exit — the counterpart of JAX's Precision.HIGHEST — and
+    cuDNN's deterministic algorithms: its default transposed convolution
+    gave decodes of the same codes that differed by ~6e-6 from call to call
+    on the H100, and a stream's paths must give the same bits."""
     old = (torch.backends.cuda.matmul.allow_tf32,
-           torch.backends.cudnn.allow_tf32)
+           torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
     try:
         yield
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32) = old
+         torch.backends.cudnn.allow_tf32,
+         torch.backends.cudnn.deterministic) = old
 
 
 # ---------------------------------------------------------------------------

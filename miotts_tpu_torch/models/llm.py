@@ -639,7 +639,8 @@ def sample_token(logits, temperature: float,
 @torch.no_grad()
 def llm_generate_chunk(params: dict, last_logits, cache: dict,
                        temperature: float, stop_ids, cfg: LLMConfig,
-                       n_steps: int, generator: torch.Generator | None = None):
+                       n_steps: int, generator: torch.Generator | None = None,
+                       done=None):
     """Generate up to `n_steps` tokens (single sequence) with no host sync:
     sample -> stop-check -> decode runs `n_steps` times on the device, and
     the stop flag, token buffer and count stay there until the caller reads
@@ -649,6 +650,9 @@ def llm_generate_chunk(params: dict, last_logits, cache: dict,
     count, `fill` and a hybrid model's conv state stop advancing and
     `last_logits` is kept (the masked steps still run; their k/v writes
     land at `fill`, which no later token attends before rewriting it).
+    `done` (0-d bool on the device, default False) carries the stop latch
+    in from an earlier chunk, so a chunk enqueued before the host has read
+    its predecessor's stop runs as masked steps only.
 
     last_logits [1, V]; stop_ids int [n_stop] (pad with -1).  Returns
     (tokens [n_steps] (-1 padded), n_generated, done, last_logits, cache)
@@ -657,7 +661,8 @@ def llm_generate_chunk(params: dict, last_logits, cache: dict,
     stop_ids = stop_ids.to(dev)
     buf = torch.full((n_steps,), -1, dtype=torch.int64, device=dev)
     count = torch.zeros((), dtype=torch.int64, device=dev)
-    done = torch.zeros((), dtype=torch.bool, device=dev)
+    if done is None:
+        done = torch.zeros((), dtype=torch.bool, device=dev)
     last = last_logits
     for i in range(n_steps):
         tok = sample_token(last, temperature, generator)

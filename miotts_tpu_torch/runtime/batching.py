@@ -34,7 +34,8 @@ import torch
 from ..models.llm import (init_kv_cache, llm_generate_chunk_batched,
                           llm_prefill_slots)
 from ..text import build_prompt, normalize_tts_text
-from .engine import Options, TTSEngine, VoiceModel, _bucket_len, _round_up
+from .engine import (Options, TTSEngine, VoiceModel, _bucket_len, _Readback,
+                     _round_up, emit_chunks)
 
 
 @dataclass
@@ -58,30 +59,6 @@ class Request:
     first_audio_at: float = -1.0
     finished_at: float = 0.0
     emitted_samples: int = 0
-
-
-class _Readback:
-    """Device tensors copied to the host without waiting: on a GPU into
-    pinned memory behind a CUDA event recorded right after the copy, so
-    get() waits only for work enqueued before it."""
-
-    def __init__(self, *tensors: torch.Tensor):
-        self._event = None
-        if tensors[0].is_cuda:
-            self._host = []
-            for t in tensors:
-                h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                h.copy_(t, non_blocking=True)
-                self._host.append(h)
-            self._event = torch.cuda.Event()
-            self._event.record()
-        else:
-            self._host = [t.clone() for t in tensors]
-
-    def get(self) -> list[np.ndarray]:
-        if self._event is not None:
-            self._event.synchronize()
-        return [h.numpy() for h in self._host]
 
 
 class ContinuousBatcher:
@@ -358,29 +335,20 @@ class ContinuousBatcher:
     def _emit_samples(self, req: Request, audio: np.ndarray, begin: int,
                       end: int, is_final: bool) -> bool:
         """Chunked emission of audio[begin:end] with a ~30 ms linear
-        crossfade against the previous chunk's tail."""
-        eng = self.engine
-        sr = eng.sample_rate
-        crossfade = min(sr * 3 // 100, 4096)
-        i, first = begin, True
-        while i < end:
-            n = min(eng.config.chunk_samples, end - i)
-            chunk = audio[i:i + n].copy()
-            if first and req.tail.size:
-                xf = min(req.tail.size, chunk.size)
-                a = (np.arange(xf, dtype=np.float32) + 1.0) / (xf + 1.0)
-                chunk[:xf] = (1.0 - a) * req.tail[:xf] + a * chunk[:xf]
-            req.tail = (chunk[-crossfade:].copy() if n >= crossfade
-                        else chunk.copy())
-            last_chunk = is_final and (i + n >= end)
+        crossfade against the previous chunk's tail (engine.emit_chunks)."""
+        sr = self.engine.sample_rate
+
+        def send(chunk, is_last):
             if req.first_audio_at < 0:
                 req.first_audio_at = time.perf_counter()
-            if not req.callback(chunk, sr, last_chunk):
+            if not req.callback(chunk, sr, is_last):
                 return False
-            req.emitted_samples += n
-            i += n
-            first = False
-        return True
+            req.emitted_samples += chunk.size
+            return True
+
+        ok, req.tail = emit_chunks(audio, begin, end, is_final, req.tail,
+                                   self.engine.config.chunk_samples, sr, send)
+        return ok
 
     # ------------------------------------------------------------------
     def step(self) -> None:

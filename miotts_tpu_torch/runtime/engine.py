@@ -1,14 +1,27 @@
-"""Offline TTS engine on PyTorch: text -> speech tokens -> codec -> PCM.
+"""TTS engine on PyTorch: text -> speech tokens -> codec -> PCM, offline and
+streaming.
 
-Counterpart of the offline path of `miotts_tpu/runtime/engine.py`
-(`TTSEngine.synthesize`), keeping its contract: prompt format and
-normalisation, greedy / temperature sampling with on-device chunks of 64
-tokens, token -> code mapping through the vocab table, a bucketed codec
-decode with exact output length T * samples_per_token, and peak
-normalisation to 0.95 on the host.  For batched serving
-(`runtime/batching.py`) it adds the streaming-policy fields of
-`EngineConfig` and a batched codec decode that returns only each stream's
-emission slice (`decode_codes_batch_sliced[_async]`).
+Counterpart of `miotts_tpu/runtime/engine.py`, keeping its contract: prompt
+format and normalisation, greedy / temperature sampling in on-device chunks,
+token -> code mapping through the vocab table, a bucketed codec decode with
+exact output length T * samples_per_token, peak normalisation to 0.95 on
+the host, and the reference's streaming policy (`synthesize_stream`: a
+check every 20 tokens, 32 codes held back, commits of >= 24 codes, the
+full-prefix re-decode or a trailing window, ~30 ms crossfades, chunked
+callbacks).  For batched serving (`runtime/batching.py`) it adds a batched
+codec decode that returns only each stream's emission slice
+(`decode_codes_batch_sliced[_async]`).
+
+Streaming takes one of three paths, as in the JAX package:
+  * fused (the default): each chunk's generation, code append and commit
+    policy are enqueued on the device with no host sync (`_fused_chunk`),
+    chunk k + 1 before chunk k's small outputs are read back
+    (`stream_pipeline_depth`); the codec decode chunk k's policy asked for
+    is enqueued when the host reads k, over the code buffer as k left it;
+  * unfused: `generate_tokens` in chunks of `stream_check_interval`, the
+    policy checked on the host after each;
+  * pipelined codec (`pipeline_codec=True`): the unfused path with each
+    commit's audio read back one check interval later.
 
 Everything runs on `EngineConfig.device` ("cuda" by default).  Asking for
 the GPU when none is available raises; the engine never carries on quietly
@@ -21,7 +34,9 @@ from __future__ import annotations
 
 import copy
 import time
+from collections import Counter
 from dataclasses import dataclass, replace
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -38,6 +53,9 @@ from .profile import StreamProfile
 
 # tokens per on-device generation chunk (one host read per chunk)
 OFFLINE_CHUNK = 64
+
+# StreamCallback(samples_or_None, sample_rate, is_last) -> keep_going
+StreamCallback = Callable[[Optional[np.ndarray], int, bool], bool]
 
 
 def resolve_device(device) -> torch.device:
@@ -66,6 +84,56 @@ def _bucket_len(n: int, min_bucket: int) -> int:
     return b
 
 
+class _Readback:
+    """Device tensors copied to the host without waiting: on a GPU into
+    pinned memory behind a CUDA event recorded right after the copy, so
+    get() waits only for work enqueued before it."""
+
+    def __init__(self, *tensors: torch.Tensor):
+        self._event = None
+        if tensors[0].is_cuda:
+            self._host = []
+            for t in tensors:
+                h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                h.copy_(t, non_blocking=True)
+                self._host.append(h)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host = [t.clone() for t in tensors]
+
+    def get(self) -> list[np.ndarray]:
+        if self._event is not None:
+            self._event.synchronize()
+        return [h.numpy() for h in self._host]
+
+
+def emit_chunks(audio: np.ndarray, begin: int, end: int, is_final: bool,
+                tail: np.ndarray, chunk_samples: int, sample_rate: int,
+                send) -> tuple[bool, np.ndarray]:
+    """Chunked emission of audio[begin:end]: pieces of at most
+    `chunk_samples`, the first blended into `tail` (the end of the previous
+    emission) by a linear crossfade of up to ~30 ms (min(sr * 3 // 100,
+    4096) samples).  `send(chunk, is_last)` delivers a piece and returns
+    False to stop.  Returns (ok, the new tail).  The one copy of this math,
+    shared by the engine's streams and the batcher."""
+    crossfade = min(sample_rate * 3 // 100, 4096)
+    i, first = begin, True
+    while i < end:
+        n = min(chunk_samples, end - i)
+        chunk = audio[i:i + n].copy()
+        if first and tail.size:
+            xf = min(tail.size, chunk.size)
+            a = (np.arange(xf, dtype=np.float32) + 1.0) / (xf + 1.0)
+            chunk[:xf] = (1.0 - a) * tail[:xf] + a * chunk[:xf]
+        tail = chunk[-crossfade:].copy() if n >= crossfade else chunk.copy()
+        if not send(chunk, is_final and i + n >= end):
+            return False, tail
+        i += n
+        first = False
+    return True, tail
+
+
 @dataclass
 class EngineConfig:
     """Engine-level knobs (the JAX package's defaults) plus `device`."""
@@ -75,23 +143,41 @@ class EngineConfig:
     max_tokens: int = 700
     seed: int = 42
     n_ctx: int = 2048
-    # streaming policy (commit holdback) of batched serving
+    # streaming policy (commit holdback)
     stream_check_interval: int = 20
     holdback_codes: int = 32
     min_commit_step_codes: int = 24
-    # smaller threshold for a stream's FIRST commit only (<= 0: uniform)
+    # smaller threshold for a stream's FIRST commit only: with the 20-token
+    # check, the first commit goes out at 40 codes (target 40 - 32 = 8)
+    # instead of 56 (<= 0: the reference's uniform cadence)
     first_commit_codes: int = 8
     chunk_samples: int = 4096
-    # 0 = full-prefix re-decode per commit; W > 0 re-decodes only the last
-    # W codes (O(T) streaming; the final flush stays full-prefix)
-    stream_window_codes: int = 0
     prompt_bucket: int = 64
     code_bucket: int = 32
     llm_dtype: str = "bfloat16"
-    # batched serving: defer each non-final commit's audio read-back by one
-    # scheduler step (None = on), and ship emission slices as int16 (None =
-    # on; False keeps them float-exact)
+    # Fused streaming: a chunk's generation, code append and commit policy
+    # are enqueued on the device with no host sync, so the host reads a
+    # chunk's outputs while the next chunk runs.  Stage timing: the chunk
+    # loop, the codec decodes it enqueues included, is llm_sec;
+    # attribute_stages() moves their device-measured share to codec_sec /
+    # istft_sec.
+    fused_streaming: bool = True
+    # Fused chunks enqueued ahead of the host's read: with the stop latch,
+    # commit watermark and code buffer on the device, chunk k + 1 is
+    # enqueued before chunk k's outputs come back through pinned memory.
+    # 1 = synchronous (for A/B measurement).  A commit's decode queues
+    # behind the chunk already enqueued on the one CUDA stream.
+    stream_pipeline_depth: int = 2
+    # 0 = full-prefix re-decode per commit; W > 0 re-decodes only the last
+    # W codes (O(T) streaming; the final flush stays full-prefix)
+    stream_window_codes: int = 0
+    # Read each non-final commit's audio back one check interval (single
+    # stream) or one scheduler step (batched serving) later.  Single
+    # stream: None or False takes the fused path, True the unfused path
+    # with the deferred read.  Batched serving: None = on.
     pipeline_codec: bool | None = None
+    # batched serving: ship emission slices as int16 (None = on; False
+    # keeps them float-exact)
     i16_transfer: bool | None = None
     device: str = "cuda"
     # the kernel route of every quantized linear (None: from the
@@ -174,6 +260,10 @@ class TTSEngine:
                 self.llm_params = with_route(params, self.config.qdot_route)
                 self.tokenizer = Tokenizer.from_gguf(r)
             self.code_table = self.tokenizer.speech_code_table()
+            # the token -> code table on the device (the fused stream's
+            # code append)
+            self._code_table_dev = torch.from_numpy(
+                self.code_table.astype(np.int64)).to(self.device)
             im_end = self.tokenizer.token_to_id.get("<|im_end|>", -1)
             self._stop_ids = torch.tensor([self.tokenizer.eos_id, im_end],
                                           dtype=torch.int64, device=self.device)
@@ -196,6 +286,132 @@ class TTSEngine:
         eng._cache = None
         return eng
 
+    def _code_buckets(self, max_codes: int, first: int) -> list[int]:
+        """The geometric code buckets from the one holding `first` codes up
+        to the first >= max_codes."""
+        out = [_bucket_len(first, self.config.code_bucket)]
+        while out[-1] < max_codes:
+            out.append(out[-1] * 2)
+        return out
+
+    def warmup(self, max_codes: int | None = None,
+               prompt_len: int = 64) -> None:
+        """Run every path a synthesis takes once, before a timed one: the
+        codec + iSTFT at every code bucket up to `max_codes`, the prefill
+        bucket of `prompt_len`, the chunk loop at both chunk sizes (the
+        stream check interval and the offline 64) and the fused streaming
+        step at each full-mode code bucket (the one window bucket in window
+        mode).  On a GPU this builds the CUDA kernels, sets up cuDNN's plans
+        and primes the caching allocator, so none of it lands in a stream's
+        time to first audio.  (The JAX package also warms a speculative
+        draft model; speculative decoding is not ported.)"""
+        cfgE = self.config
+        dev = self.device
+        emb = torch.zeros(self.codec_cfg.adaln_dim, device=dev)
+        if max_codes is None:
+            max_codes = cfgE.max_tokens
+        for T in self._code_buckets(max_codes, 1):
+            self._codec_audio(torch.zeros(T, dtype=torch.int64, device=dev),
+                              emb, min(T, max_codes))
+        if self.llm_params is None:
+            _sync(dev)
+            return
+        cfg = self.llm_cfg
+        bucket_p = _round_up(prompt_len, cfgE.prompt_bucket)
+        # the cache-size bucket rule of generate_tokens
+        s_cache = min(_bucket_len(bucket_p + cfgE.max_tokens + 64, 256),
+                      cfgE.n_ctx)
+        cache = init_kv_cache(cfg, 1, s_cache, dtype=self.dtype, device=dev)
+        last, cache = llm_prefill(
+            self.llm_params, torch.zeros((1, bucket_p), dtype=torch.int64,
+                                         device=dev),
+            torch.tensor([8], dtype=torch.int32), cache, cfg)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        chunk = cfgE.stream_check_interval
+        for n in sorted({chunk, OFFLINE_CHUNK}):
+            _, _, _, last, cache = llm_generate_chunk(
+                self.llm_params, last, cache, 1.0, self._stop_ids, cfg, n, gen)
+        if cfgE.fused_streaming:
+            win = cfgE.stream_window_codes > 0
+            buckets = ([self._window_bucket()] if win
+                       else self._code_buckets(max_codes, chunk))
+            for b in buckets:
+                st = self._fused_state(last, cache, b)
+                self._fused_chunk(st, chunk, 1.0, gen, b, win, 1 << 30)
+                last, cache = st["last"], st["cache"]
+        _sync(dev)
+        self._cache = cache
+
+    def attribute_stages(self, profile: StreamProfile,
+                         reps: int = 8) -> StreamProfile:
+        """Device-measured codec / iSTFT split for a fused stream's profile
+        (the reference's per-stage contract, `stream-benchmark.cpp:163-166`,
+        which the fused path's single chunk-loop timer otherwise folds into
+        llm_sec).  Times the codec and the iSTFT alone at each code bucket
+        in `profile.decode_bucket_codes` (the standalone measurement, not
+        events around the stream's own decodes): `reps` back-to-back calls
+        between CUDA events on a GPU (host clock on the CPU), and moves
+        that time times the bucket's decode count from llm_sec to codec_sec
+        / istft_sec; the stage sum is kept.  Runs after a timed stream, so
+        it never adds to its latency; a second call does nothing
+        (`stages_calibrated`).  A measurement that reads 0 is retried with
+        4x the reps; reading 0 again clears `stages_trusted`."""
+        if profile.stages_calibrated or not profile.decode_bucket_codes:
+            return profile
+        dev = self.device
+        emb = torch.zeros(self.codec_cfg.adaln_dim, device=dev)
+
+        def timed(fn, n: int) -> float:
+            if dev.type == "cuda":
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                for _ in range(n):
+                    fn()
+                end.record()
+                end.synchronize()
+                return start.elapsed_time(end) * 1e-3 / n
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            return (time.perf_counter() - t0) / n
+
+        def measured(fn) -> float:
+            fn()
+            _sync(dev)
+            dt = timed(fn, reps)
+            if dt <= 0.0:
+                dt = timed(fn, 4 * reps)
+                if dt <= 0.0:
+                    profile.stages_trusted = False
+            return max(dt, 0.0)
+
+        codec_total = istft_total = 0.0
+        for b, n_calls in sorted(Counter(profile.decode_bucket_codes).items()):
+            codes = torch.zeros(b, dtype=torch.int64, device=dev)
+            lm, ph = self._codec_spec(codes, emb, b)
+            codec_total += n_calls * measured(
+                lambda: self._codec_spec(codes, emb, b))
+            istft_total += n_calls * measured(
+                lambda: self._spec_to_audio(lm, ph, b))
+        moved = codec_total + istft_total
+        cap = 0.9 * profile.llm_sec
+        if moved > cap > 0:
+            # the standalone measurement exceeds what the chunk loop can
+            # hold (noise): scale it down, never to a free LLM stage
+            scale = cap / moved
+            codec_total *= scale
+            istft_total *= scale
+            moved = cap
+        elif profile.llm_sec <= 0:
+            return profile
+        profile.llm_sec -= moved
+        profile.codec_sec += codec_total
+        profile.istft_sec += istft_total
+        profile.stages_calibrated = True
+        return profile
+
     # ------------------------------------------------------------------
     # LLM: speech-token generation
     # ------------------------------------------------------------------
@@ -207,39 +423,26 @@ class TTSEngine:
         seed = options.seed if options.seed >= 0 else c.seed
         return temp, max_tok, seed
 
-    def generate_tokens(self, text: str, options: Options = Options(),
-                        on_token=None, profile: dict | None = None
-                        ) -> list[int]:
-        """LLM token ids for `text`.  `on_token(tid, n_generated)` is called
-        for each token as its chunk arrives (chunks of
-        `stream_check_interval` steps when it is given, else 64) and may
-        return False to stop, as in the JAX package.  With `profile`, adds
-        prefill_sec, decode_sec, decode_steps (steps run on the device) and
-        llm_tokens (tokens kept) to it, synchronising the device at the
-        stage boundaries."""
-        if self.llm_params is None or self.tokenizer is None:
-            raise RuntimeError("LLM model is not loaded")
-        temp, max_tok, seed = self._resolve(options)
-        cfg = self.llm_cfg
+    def _prefill(self, text: str, max_tok: int):
+        """Tokenize `text`'s prompt, clamp the budget to n_ctx and prefill
+        the reused cache.  Returns (last_logits, cache, max_tok)."""
+        cfgE = self.config
         dev = self.device
-
         prompt = build_prompt(normalize_tts_text(text))
         ids = self.tokenizer.encode(prompt, add_special=True,
                                     parse_special=True)
         n = len(ids)
-        if n + max_tok > self.config.n_ctx:
-            max_tok = max(0, self.config.n_ctx - n)
-        bucket = _round_up(n, self.config.prompt_bucket)
+        if n + max_tok > cfgE.n_ctx:
+            max_tok = max(0, cfgE.n_ctx - n)
+        bucket = _round_up(n, cfgE.prompt_bucket)
         toks = torch.zeros((1, bucket), dtype=torch.int64)
         toks[0, :n] = torch.tensor(ids, dtype=torch.int64)
-
-        t0 = time.perf_counter()
         # cache sized to a geometric bucket of prompt + budget: decode
         # attention reads the whole cache length every step
-        s_cache = min(_bucket_len(bucket + max_tok + 64, 256), self.config.n_ctx)
+        s_cache = min(_bucket_len(bucket + max_tok + 64, 256), cfgE.n_ctx)
         if self._cache is None or self._cache["k"].shape[3] != s_cache:
-            self._cache = init_kv_cache(cfg, 1, s_cache, dtype=self.dtype,
-                                        device=dev)
+            self._cache = init_kv_cache(self.llm_cfg, 1, s_cache,
+                                        dtype=self.dtype, device=dev)
         cache = dict(self._cache,
                      fill=torch.zeros((1,), dtype=torch.int32, device=dev))
         if "conv" in cache:
@@ -249,11 +452,30 @@ class TTSEngine:
             cache["conv"].zero_()
         last, cache = llm_prefill(self.llm_params, toks.to(dev),
                                   torch.tensor([n], dtype=torch.int32), cache,
-                                  cfg)
+                                  self.llm_cfg)
+        return last, cache, max_tok
+
+    def generate_tokens(self, text: str, options: Options = Options(),
+                        on_token=None, profile: StreamProfile | None = None
+                        ) -> list[int]:
+        """LLM token ids for `text`.  `on_token(tid, n_generated)` is called
+        for each token as its chunk arrives (chunks of
+        `stream_check_interval` steps when it is given, else 64) and may
+        return False to stop, as in the JAX package.  No chunk runs past
+        the budget: the last one is cut to the tokens left, so no step
+        writes past the last cache column when the budget was clamped to
+        n_ctx.  With `profile`, fills prefill_sec, llm_sec (the chunk
+        loop), llm_tokens, decode_steps and token_ids, synchronising the
+        device after the prefill."""
+        if self.llm_params is None or self.tokenizer is None:
+            raise RuntimeError("LLM model is not loaded")
+        temp, max_tok, seed = self._resolve(options)
+        dev = self.device
+        t0 = time.perf_counter()
+        last, cache, max_tok = self._prefill(text, max_tok)
         if profile is not None:
             _sync(dev)
-            profile["prefill_sec"] = profile.get("prefill_sec", 0.0) + \
-                time.perf_counter() - t0
+            profile.prefill_sec += time.perf_counter() - t0
 
         chunk = (self.config.stream_check_interval if on_token is not None
                  else OFFLINE_CHUNK)
@@ -261,31 +483,37 @@ class TTSEngine:
         gen.manual_seed(seed)
         generated: list[int] = []
         stopped = False
-        steps = 0
-        t1 = time.perf_counter()
         while len(generated) < max_tok and not stopped:
+            t1 = time.perf_counter()
+            n_steps = min(chunk, max_tok - len(generated))
             buf, cnt, done, last, cache = llm_generate_chunk(
-                self.llm_params, last, cache, temp, self._stop_ids, cfg,
-                chunk, gen)
-            steps += chunk
+                self.llm_params, last, cache, temp, self._stop_ids,
+                self.llm_cfg, n_steps, gen)
             # the chunk's one host read: tokens, count and stop flag
             host = torch.cat([buf, cnt[None], done[None].long()]).cpu().numpy()
-            cnt = int(host[chunk])
-            take = min(cnt, max_tok - len(generated))
-            stopped = bool(host[chunk + 1]) or take < cnt
-            for t in host[:take]:
+            if profile is not None:
+                profile.llm_sec += time.perf_counter() - t1
+                profile.decode_steps += n_steps
+            stopped = bool(host[n_steps + 1])
+            for t in host[:int(host[n_steps])]:
                 generated.append(int(t))
+                if profile is not None:
+                    profile.llm_tokens = len(generated)
+                    profile.token_ids.append(int(t))
                 if on_token is not None and not on_token(int(t),
                                                          len(generated)):
                     stopped = True
                     break
-        if profile is not None:
-            profile["decode_sec"] = profile.get("decode_sec", 0.0) + \
-                time.perf_counter() - t1
-            profile["decode_steps"] = profile.get("decode_steps", 0) + steps
-            profile["llm_tokens"] = profile.get("llm_tokens", 0) + len(generated)
         self._cache = cache
         return generated
+
+    def generate_token_text(self, text: str,
+                            options: Options = Options()) -> str:
+        """Token-text output (the reference's `generate_token_text`): the
+        generated ids detokenized, or `text` itself under skip_llm."""
+        if options.skip_llm:
+            return text
+        return self.tokenizer.decode(self.generate_tokens(text, options))
 
     def tokens_to_codes(self, token_ids: list[int]) -> list[int]:
         """Sampled token ids -> codec codes via the vocab table."""
@@ -296,39 +524,84 @@ class TTSEngine:
     # Codec: codes -> audio (bucketed)
     # ------------------------------------------------------------------
 
-    def decode_codes(self, codes, voice: VoiceModel,
-                     apply_peak_normalization: bool = True,
-                     profile: dict | None = None) -> np.ndarray:
-        """codes -> float PCM of exactly T * samples_per_token samples,
-        decoded in a power-of-2 bucket with the padding masked out and
-        (unless told otherwise) peak-normalised to 0.95 on the host."""
-        if not voice.is_ready:
-            raise RuntimeError("voice model is not ready")
+    def _padded_codes(self, codes) -> tuple[torch.Tensor, int]:
+        """codes -> (the codes zero-padded to their bucket, on the device;
+        T).  On a GPU the upload goes through pinned memory and does not
+        wait: a copy from pageable memory synchronises the stream."""
         codes = np.asarray(codes, np.int32).reshape(-1)
         T = len(codes)
-        if T == 0:
-            return np.zeros(0, np.float32)
-        padded = np.zeros(_bucket_len(T, self.config.code_bucket), np.int32)
-        padded[:T] = codes
+        padded = torch.zeros(_bucket_len(T, self.config.code_bucket),
+                             dtype=torch.int32)
+        padded[:T] = torch.from_numpy(codes)
+        if self.device.type == "cuda":
+            padded = padded.pin_memory()
+        return padded.to(self.device, non_blocking=True), T
+
+    def _count(self, n: int) -> torch.Tensor:
+        """A code count as a 0-d tensor filled on the device, for a decode
+        that must not wait: a Python int would go up by a blocking copy."""
+        return torch.full((), n, dtype=torch.int64, device=self.device)
+
+    def _codec_spec(self, codes: torch.Tensor, emb: torch.Tensor, n_real):
+        return codec_decode_spec(self.codec_params, codes, emb, self.codec_cfg,
+                                 n_real=n_real)
+
+    def _spec_to_audio(self, log_mag, phase, n_real) -> torch.Tensor:
+        """The iSTFT in exact f32 (TF32 off, as codec_decode_spec does for
+        the codec): every caller goes through here."""
         cfg = self.codec_cfg
         p = self.codec_params
-        t0 = time.perf_counter()
-        log_mag, phase = codec_decode_spec(
-            p, torch.from_numpy(padded).to(self.device),
-            voice.device_embedding(self.device), cfg, n_real=T)
         with torch.no_grad(), exact_f32():
-            audio = spec_to_audio_bucketed(
+            return spec_to_audio_bucketed(
                 log_mag, phase, p["istft_cos_basis"], p["istft_sin_basis"],
-                p["istft_hann"], cfg.hop_length, cfg.total_upsample, T)
-        audio = audio[: T * cfg.samples_per_token].cpu().numpy()
+                p["istft_hann"], cfg.hop_length, cfg.total_upsample, n_real)
+
+    def _codec_audio(self, codes: torch.Tensor, emb: torch.Tensor,
+                     n_real) -> torch.Tensor:
+        """Codec + iSTFT of bucketed codes on the device, not waited for."""
+        return self._spec_to_audio(*self._codec_spec(codes, emb, n_real),
+                                   n_real)
+
+    def decode_codes(self, codes, voice: VoiceModel,
+                     apply_peak_normalization: bool = True,
+                     profile: StreamProfile | None = None) -> np.ndarray:
+        """codes -> float PCM of exactly T * samples_per_token samples,
+        decoded in a power-of-2 bucket with the padding masked out and
+        (unless told otherwise) peak-normalised to 0.95 on the host.  With
+        `profile`, fills codec_sec and istft_sec (the device synchronised
+        between them), decode_calls and decoded_codes."""
+        if not voice.is_ready:
+            raise RuntimeError("voice model is not ready")
+        codes_dev, T = self._padded_codes(codes)
+        if T == 0:
+            return np.zeros(0, np.float32)
+        t0 = time.perf_counter()
+        n_real = self._count(T)
+        log_mag, phase = self._codec_spec(
+            codes_dev, voice.device_embedding(self.device), n_real)
         if profile is not None:
-            profile["codec_sec"] = profile.get("codec_sec", 0.0) + \
-                time.perf_counter() - t0
+            _sync(self.device)
+        t1 = time.perf_counter()
+        audio = self._spec_to_audio(log_mag, phase, n_real)
+        audio = audio[: T * self.samples_per_token].cpu().numpy()
+        if profile is not None:
+            profile.codec_sec += t1 - t0
+            profile.istft_sec += time.perf_counter() - t1
+            profile.decode_calls += 1
+            profile.decoded_codes += T
         if apply_peak_normalization:
             peak = float(np.max(np.abs(audio)))
             if peak > 1e-8:
                 audio = audio * (0.95 / peak)
         return audio.astype(np.float32)
+
+    def decode_codes_async(self, codes, voice: VoiceModel):
+        """Enqueue a bucketed codec + iSTFT decode without waiting for it (no
+        host sync).  Returns (audio on the device, T): its first T *
+        samples_per_token samples are the decode."""
+        codes_dev, T = self._padded_codes(codes)
+        return self._codec_audio(codes_dev, voice.device_embedding(self.device),
+                                 self._count(T)), T
 
     def _codec_audio_sliced(self, codes_b, embs_b, n_real_b, starts_b,
                             emit_len: int) -> torch.Tensor:
@@ -336,14 +609,7 @@ class TTSEngine:
         audio[b, starts[b] : starts[b] + emit_len] (starts pre-clamped to
         [0, total - emit_len]), as int16 when serving_i16_transfer (scale,
         clamp, truncate: audio.wav.f32_to_s16's semantics), else f32."""
-        cfg = self.codec_cfg
-        p = self.codec_params
-        log_mag, phase = codec_decode_spec(p, codes_b, embs_b, cfg,
-                                           n_real=n_real_b)
-        with torch.no_grad(), exact_f32():
-            audio = spec_to_audio_bucketed(
-                log_mag, phase, p["istft_cos_basis"], p["istft_sin_basis"],
-                p["istft_hann"], cfg.hop_length, cfg.total_upsample, n_real_b)
+        audio = self._codec_audio(codes_b, embs_b, n_real_b)
         idx = starts_b[:, None] + torch.arange(emit_len, device=audio.device)
         out = audio.gather(1, idx)
         if self.config.serving_i16_transfer:
@@ -421,7 +687,7 @@ class TTSEngine:
 
     def synthesize(self, voice: VoiceModel, text: str,
                    options: Options = Options(),
-                   profile: dict | None = None) -> np.ndarray:
+                   profile: StreamProfile | None = None) -> np.ndarray:
         """Offline text -> PCM.  With skip_llm, `text` is `<|s_N|>` token
         text decoded as it is."""
         if options.skip_llm:
@@ -431,14 +697,383 @@ class TTSEngine:
                 self.generate_tokens(text, options, profile=profile))
         if not codes:
             raise RuntimeError("no speech codes generated")
-        if profile is not None:
-            profile["n_codes"] = len(codes)
         return self.decode_codes(codes, voice,
                                  options.apply_peak_normalization, profile)
 
     def synthesize_to_file(self, voice: VoiceModel, text: str, path: str,
                            options: Options = Options(),
-                           profile: dict | None = None) -> None:
+                           profile: StreamProfile | None = None) -> None:
         from ..audio.wav import wav_write
         wav_write(path, self.synthesize(voice, text, options, profile),
                   self.sample_rate)
+
+    # ------------------------------------------------------------------
+    # Streaming synthesis
+    # ------------------------------------------------------------------
+
+    def synthesize_stream(self, voice: VoiceModel, text: str,
+                          callback: StreamCallback,
+                          chunk_samples: int = 0,
+                          options: Options = Options(),
+                          profile: StreamProfile | None = None) -> bool:
+        """Streaming synthesis with the reference commit policy
+        (`synthesize_stream_profiled`, `test-to-speech.cpp:348-626`): an
+        emit check every `stream_check_interval` tokens, `holdback_codes`
+        held back, commits of >= `min_commit_step_codes` (the first of >=
+        `first_commit_codes`), the full-prefix re-decode (or the trailing
+        `stream_window_codes`), the actual-ratio sample mapping, ~30 ms
+        crossfades, chunked callbacks, no peak normalisation.  The callback
+        returns False to abort; the stream then returns False with no
+        further callback.  Returns True when the last sample went out with
+        is_last."""
+        if profile is None:
+            profile = StreamProfile()
+        t_total0 = time.perf_counter()
+        if callback is None:
+            return False
+        if chunk_samples <= 0:
+            chunk_samples = self.config.chunk_samples
+        sr = self.sample_rate
+        tail = np.zeros(0, np.float32)
+
+        def timed_callback(samples, is_last):
+            t0 = time.perf_counter()
+            ok = callback(samples, sr, is_last)
+            profile.callback_sec += time.perf_counter() - t0
+            if samples is not None and profile.first_audio_sec < 0:
+                profile.first_audio_sec = time.perf_counter() - t_total0
+            return ok
+
+        def send(chunk, is_last):
+            if not timed_callback(chunk, is_last):
+                return False
+            profile.emitted_samples += chunk.size
+            return True
+
+        def emit_range(audio: np.ndarray, begin: int, end: int,
+                       is_final: bool) -> bool:
+            nonlocal tail
+            if begin >= end:
+                return timed_callback(None, True) if is_final else True
+            ok, tail = emit_chunks(audio, begin, end, is_final, tail,
+                                   chunk_samples, sr, send)
+            return ok
+
+        if options.skip_llm:
+            codes0 = parse_speech_tokens(text)
+            if not codes0:
+                # the reference: the decode fails on an empty parse, and no
+                # final callback comes (test-to-speech.cpp:419-423)
+                profile.total_sec = time.perf_counter() - t_total0
+                return False
+            audio = self.decode_codes(codes0, voice,
+                                      apply_peak_normalization=False,
+                                      profile=profile)
+            ok = emit_range(audio, 0, len(audio), True)
+            profile.total_sec = time.perf_counter() - t_total0
+            return ok
+
+        if (self.config.fused_streaming and self.llm_params is not None
+                and not self.config.pipeline_codec):
+            ok = self._stream_fused(voice, text, emit_range, timed_callback,
+                                    options, profile)
+            profile.total_sec = time.perf_counter() - t_total0
+            return ok
+
+        committed = 0
+        codes: list[int] = []
+        # pipelined mode: each non-final commit's audio stays on the device
+        # until the NEXT emit check reads it back, one check interval later
+        pipeline = bool(self.config.pipeline_codec)
+        spt = self.samples_per_token
+        pending: list = []            # [(audio on the device, T, begin, end)]
+
+        def flush_pending() -> bool:
+            if not pending:
+                return True
+            audio_dev, n_dec, begin, end = pending.pop()
+            t0 = time.perf_counter()
+            audio = audio_dev[: n_dec * spt].cpu().numpy()
+            profile.codec_sec += time.perf_counter() - t0
+            return emit_range(audio, begin, end, False)
+
+        def maybe_emit(is_final: bool) -> bool:
+            nonlocal committed
+            if not codes:
+                return not is_final
+            target = len(codes) if is_final else max(
+                len(codes) - self.config.holdback_codes, 0)
+            if target <= committed:
+                if is_final:
+                    if not flush_pending():
+                        return False
+                    return timed_callback(None, True)
+                return True
+            min_eff = (self._first_commit if committed == 0
+                       else self.config.min_commit_step_codes)
+            if not is_final and (target - committed) < min_eff:
+                return True
+            # the full prefix, or (stream_window_codes > 0) the trailing
+            # window, re-decoded
+            window = self.config.stream_window_codes
+            start = 0
+            if window > 0 and not is_final:
+                start = max(0, min(committed, len(codes) - window))
+            if pipeline and not is_final:
+                # enqueue this decode, then emit the PREVIOUS one's audio
+                audio_dev, n_dec = self.decode_codes_async(codes[start:],
+                                                           voice)
+                profile.decode_calls += 1
+                profile.decoded_codes += n_dec
+                ok = flush_pending()
+                pending.append((audio_dev, n_dec, (committed - start) * spt,
+                                (target - start) * spt))
+                committed = target
+                return ok
+            if not flush_pending():
+                return False
+            audio = self.decode_codes(codes[start:], voice,
+                                      apply_peak_normalization=False,
+                                      profile=profile)
+            spc = len(audio) / (len(codes) - start)
+            begin = int(round((committed - start) * spc))
+            end = int(round((target - start) * spc))
+            safe_end = min(end, len(audio))
+            if begin >= safe_end:
+                return timed_callback(None, True) if is_final else True
+            committed = target
+            return emit_range(audio, begin, safe_end, is_final)
+
+        ok_holder = {"ok": True}
+        table = self.code_table
+
+        def on_token(tid: int, n_gen: int) -> bool:
+            if 0 <= tid < len(table) and table[tid] >= 0:
+                codes.append(int(table[tid]))
+            if n_gen % self.config.stream_check_interval == 0:
+                if not maybe_emit(False):
+                    ok_holder["ok"] = False
+                    return False
+            return True
+
+        try:
+            self.generate_tokens(text, options, on_token=on_token,
+                                 profile=profile)
+        except Exception:
+            # a mid-stream LLM failure: flush what was generated, then
+            # report failure (the reference breaks its loop and flushes,
+            # test-to-speech.cpp:596-617)
+            ok_holder["ok"] = False
+            try:
+                maybe_emit(True)
+            except Exception:
+                pass
+        ok = ok_holder["ok"]
+        if ok:
+            ok = maybe_emit(True)
+        profile.total_sec = time.perf_counter() - t_total0
+        return ok
+
+    # ------------------------------------------------------------------
+    # Fused streaming
+    # ------------------------------------------------------------------
+
+    def _window_bucket(self) -> int:
+        """The fixed code-buffer size of sliding-window fused streaming:
+        the window, or the most codes the policy can leave uncommitted
+        after a full chunk (holdback + min step + chunk), plus one chunk."""
+        c = self.config
+        keep = max(c.stream_window_codes, c.holdback_codes
+                   + c.min_commit_step_codes + c.stream_check_interval)
+        return _bucket_len(keep + c.stream_check_interval, c.code_bucket)
+
+    def _fused_state(self, last, cache, bucket: int) -> dict:
+        """The fused stream's device state before its first chunk."""
+        z = torch.zeros((), dtype=torch.int64, device=self.device)
+        return dict(last=last, cache=cache, codes=z.new_zeros(bucket),
+                    n_codes=z, committed=z, n_tokens=z,
+                    done=torch.zeros((), dtype=torch.bool, device=self.device))
+
+    def _fused_chunk(self, st: dict, n_steps: int, temp: float,
+                     gen: torch.Generator | None, bucket: int,
+                     win_slide: bool, max_toks: int):
+        """Enqueue one fused streaming step with no host sync: in window
+        mode first drop committed codes from the front of the code buffer
+        when the coming chunk could overflow it; generate `n_steps` tokens
+        (the stop latch `st["done"]` carried in); append their codes to the
+        code buffer through the device code table; then the commit policy
+        (`test-to-speech.cpp:507-522`): emit only after a full chunk of
+        `stream_check_interval` tokens, target = n_codes - holdback, the
+        first commit's smaller threshold; and in full mode the final flush
+        of [committed, n_codes) once the stream stopped or spent its
+        budget (`max_toks`).
+
+        Updates `st` with new tensors: no tensor an earlier step returned
+        is written again (the code buffer is rebuilt out of place), so the
+        buffer a step leaves stays as its policy saw it until the host
+        decodes it.  Returns (outputs, code buffer): outputs is one int64
+        tensor [n_steps + 7], the chunk's tokens (-1 padded), count, done,
+        do_emit, begin, target, n_codes, flush; begin / target are code
+        positions in the buffer."""
+        c = self.config
+        dev = self.device
+        codes_buf, n_codes, committed = st["codes"], st["n_codes"], st["committed"]
+        if win_slide:
+            d = torch.minimum(torch.clamp(n_codes + n_steps - bucket, min=0),
+                              committed)
+            idx = (torch.arange(bucket, device=dev) + d) % bucket
+            codes_buf = codes_buf[idx]
+            n_codes = n_codes - d
+            committed = committed - d
+        buf, cnt, done, last, cache = llm_generate_chunk(
+            self.llm_params, st["last"], st["cache"], temp, self._stop_ids,
+            self.llm_cfg, n_steps, gen, done=st["done"])
+        # code append: the chunk's kept tokens lead buf, -1 after them
+        table = self._code_table_dev
+        code = table[buf.clamp(0, table.shape[0] - 1)]
+        valid = (buf >= 0) & (code >= 0)
+        pos = n_codes + torch.cumsum(valid, 0) - 1
+        write = valid & (pos < bucket)
+        codes_buf = torch.cat([codes_buf, codes_buf.new_zeros(1)]).scatter(
+            0, torch.where(write, pos, bucket), code)[:bucket]
+        n_codes = n_codes + write.sum()
+        n_tokens = st["n_tokens"] + cnt
+        # the commit policy
+        target = torch.clamp(n_codes - c.holdback_codes, min=0)
+        min_eff = torch.where(committed == 0, self._first_commit,
+                              c.min_commit_step_codes)
+        do_emit = ((cnt == c.stream_check_interval) & (n_codes > 0)
+                   & (target > committed) & (target - committed >= min_eff))
+        begin = committed
+        committed = torch.where(do_emit, target, committed)
+        if win_slide:
+            flush = torch.zeros_like(done)
+        else:
+            flush = (done | (n_tokens >= max_toks)) & (n_codes > committed)
+            committed = torch.where(flush, n_codes, committed)
+        st.update(last=last, cache=cache, codes=codes_buf, n_codes=n_codes,
+                  committed=committed, n_tokens=n_tokens, done=done)
+        out = torch.cat([buf, torch.stack(
+            [cnt, done.long(), do_emit.long(), begin, target, n_codes,
+             flush.long()])])
+        return out, codes_buf
+
+    def _stream_fused(self, voice: VoiceModel, text: str, emit_range,
+                      timed_callback, options: Options,
+                      profile: StreamProfile) -> bool:
+        """Streaming through `_fused_chunk`: chunk k + 1 is enqueued before
+        chunk k's outputs are read (`stream_pipeline_depth` deep, through
+        pinned memory behind a CUDA event), and when chunk k's policy fired
+        the host enqueues the decode over the code buffer chunk k left:
+        full mode decodes its first bucket(n_codes) codes (the unfused
+        path's bucket), window mode the whole window buffer.  Full mode's
+        buffer grows out of place at the dispatch count's bucket points;
+        window mode keeps one buffer the device slides.  After an abort the
+        outputs still in flight are dropped unprocessed.  The chunk loop's
+        time, the host's callbacks left out, is llm_sec (see
+        attribute_stages)."""
+        cfgE = self.config
+        dev = self.device
+        temp, max_tok, seed = self._resolve(options)
+        t0 = time.perf_counter()
+        last, cache, max_tok = self._prefill(text, max_tok)
+        _sync(dev)
+        profile.prefill_sec += time.perf_counter() - t0
+
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        emb = voice.device_embedding(dev)
+        table = self.code_table
+        spt = self.samples_per_token
+        chunk = cfgE.stream_check_interval
+        win_mode = cfgE.stream_window_codes > 0
+        cur_bucket = (self._window_bucket() if win_mode else
+                      _bucket_len(min(chunk, max_tok), cfgE.code_bucket))
+        st = self._fused_state(last, cache, cur_bucket)
+        codes: list[int] = []          # host mirror of the stream's codes
+        committed = 0                  # global commit watermark (host)
+        n_gen = 0
+        stopped = flushed = False
+        depth = max(1, cfgE.stream_pipeline_depth)
+        pending: list = []             # (readback, code buffer, steps)
+
+        def process(rb, codes_buf, n_steps) -> bool:
+            """Consume one step's outputs: the host mirror, then the emit."""
+            nonlocal n_gen, stopped, committed, flushed
+            t1 = time.perf_counter()
+            h = rb.get()[0]
+            cnt, done, emit, begin, target, n_codes, flush = (
+                int(v) for v in h[n_steps:])
+            for tid in h[:cnt]:
+                n_gen += 1
+                profile.token_ids.append(int(tid))
+                code = table[tid] if 0 <= tid < len(table) else -1
+                if code >= 0:
+                    codes.append(int(code))
+            profile.llm_tokens = n_gen
+            stopped = bool(done)
+            if not (emit or flush):
+                profile.llm_sec += time.perf_counter() - t1
+                return True
+            dec_bucket = (codes_buf.shape[0] if win_mode
+                          else _bucket_len(n_codes, cfgE.code_bucket))
+            profile.decode_calls += 1
+            profile.decoded_codes += n_codes
+            profile.decode_bucket_codes.append(dec_bucket)
+            end_c = n_codes if flush else target
+            audio = self._codec_audio(codes_buf[:dec_bucket], emb,
+                                      self._count(n_codes))
+            audio = audio[begin * spt:end_c * spt].cpu().numpy()
+            profile.llm_sec += time.perf_counter() - t1
+            if emit:
+                committed += target - begin
+                if not emit_range(audio, 0, (target - begin) * spt, False):
+                    return False
+            if flush:
+                # the device-side final flush: [committed, n_codes) with no
+                # holdback, in the same decode as the step's commit
+                start = target if emit else begin
+                committed += n_codes - start
+                flushed = True
+                return emit_range(audio, (start - begin) * spt,
+                                  (n_codes - begin) * spt, True)
+            return True
+
+        ok = True
+        dispatched = 0                 # steps enqueued
+        while ok and dispatched < max_tok and not stopped:
+            n_steps = min(chunk, max_tok - dispatched)
+            if not win_mode:
+                want = _bucket_len(dispatched + n_steps, cfgE.code_bucket)
+                if want != cur_bucket:
+                    st["codes"] = torch.cat(
+                        [st["codes"], st["codes"].new_zeros(want - cur_bucket)])
+                    cur_bucket = want
+            t1 = time.perf_counter()
+            out, codes_buf = self._fused_chunk(
+                st, n_steps, temp, gen, cur_bucket, win_mode, max_tok)
+            pending.append((_Readback(out), codes_buf, n_steps))
+            profile.llm_sec += time.perf_counter() - t1
+            dispatched += n_steps
+            profile.decode_steps += n_steps
+            if len(pending) >= depth:
+                ok = process(*pending.pop(0))
+        while ok and pending:
+            ok = process(*pending.pop(0))
+        self._cache = st["cache"]
+        if not ok:
+            return False
+
+        # the final flush: normally delivered by the device-side flush of
+        # the last step (full mode); here for window mode (a full-prefix
+        # decode, wider than the window buffer) and a stream whose last
+        # codes were all committed already
+        if not codes:
+            return False
+        if flushed:
+            return True
+        if len(codes) <= committed:
+            return timed_callback(None, True)
+        audio = self.decode_codes(codes, voice, apply_peak_normalization=False,
+                                  profile=profile)
+        return emit_range(audio, committed * spt, len(audio), True)

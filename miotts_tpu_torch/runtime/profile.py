@@ -1,11 +1,34 @@
 """Per-stage synthesis profile (counterpart of
-`miotts_tpu/runtime/profile.py:StreamProfile`): the reference's
-StreamProfile fields and `stream_bench.*` metric names, filled by the
-engine's codec decodes."""
+`miotts_tpu/runtime/profile.py`): the reference's StreamProfile fields and
+`stream_bench.*` metric names (`examples/stream-benchmark.cpp:148-167`),
+filled by the engine's generation, codec decodes and streaming paths, and
+a device trace around a run."""
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import contextlib
+import os
+from dataclasses import dataclass, field
+
+
+@contextlib.contextmanager
+def device_trace(trace_dir: str | None):
+    """torch.profiler around a run (host ops, and the device's kernels and
+    copies when CUDA is available), written as a Chrome trace to
+    `trace_dir`/trace.json on exit; view it in Perfetto or
+    chrome://tracing.  No-op when `trace_dir` is falsy."""
+    if not trace_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(trace_dir, exist_ok=True)
+    with profile(activities=acts) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
 
 
 @dataclass
@@ -21,6 +44,22 @@ class StreamProfile:
     emitted_samples: int = 0
     prefill_sec: float = 0.0
     first_audio_sec: float = -1.0   # time to first audio
+    # The fused streaming path times its chunk loop as one stage (llm_sec):
+    # the codec decodes it enqueues run between the chunks on the device.
+    # It records the code bucket of every decode here, and
+    # TTSEngine.attribute_stages() times codec and iSTFT at those buckets
+    # on the device and moves that time from llm_sec to codec_sec /
+    # istft_sec, so the reference's stage split holds there too.
+    decode_bucket_codes: list = field(default_factory=list)
+    stages_calibrated: bool = False
+    # False when a stage's device measurement read 0 even after the
+    # escalated retry: the codec / iSTFT split is then not to be trusted.
+    stages_trusted: bool = True
+    # Not in the JAX package's profile: the steps the device ran (whole
+    # chunks, the masked steps after a stop included: the launch count
+    # follows them) and the token ids kept, in order.
+    decode_steps: int = 0
+    token_ids: list = field(default_factory=list)
 
     def as_metrics(self, audio_sec: float) -> dict:
         """stream_bench.* key/value lines."""
