@@ -136,6 +136,28 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      0, 128 tokens: the fused and unfused paths keep phase 11's offline
      tokens, agree within 1e-4 with the same callbacks and decodes, and
      launch K5 6 and qdot 65 per step (qdot 65 for the prefill).
+ 21. speculative decoding: the 2.6B-Q4_K_M target (phase 15's bf16 engine,
+     and an f32 load) with the 0.1B-Q8_0 draft of phase 3 at k = 6: (a)
+     K1 vs plain at the verify's shapes (the five 2.6B linears at M = 2,
+     4, 7) with times, bound and library; (b) f32, temperature 0, k = 1,
+     3, 6 over 32 tokens: the tokens of plain decoding; (c) bf16, k = 6,
+     48 tokens: agreement with plain greedy (where they part, the plain
+     path's top two logits within 2e-2 of the logit scale), rounds,
+     acceptance, tok/s against plain, K1 launches = both prefills + rounds
+     x (7 x 49 + 129), and where a round's time goes (a draft step, the
+     verify, spec_accept, a plain step; one round profiled); (d) the 0.1B
+     drafting for itself at f32, k = 4, 128 tokens, accepts every draft
+     (or parts at a near tie); (e) forced acceptance
+     (MIOTTS_SPEC_FORCE_ACCEPT 0, 0.5, 0.8, 1) at bf16, 32 tokens: tok/s,
+     round time, tokens a round, p = 1 accepting all and p = 0 none; (f)
+     a chunk at
+     temperature 0 under sync debug mode "error" (at 0.8 what happens is
+     recorded, and whether one torch.multinomial draw waits for the
+     device); (g) the f32 stream of
+     48 tokens with the draft (unfused) within 1e-4 of the plain (fused)
+     stream; (h) `cli synth` and `cli bench` with --draft-model /
+     --spec-tokens in process (the 0.1B drafting for itself), bench
+     printing the two spec lines.
 
 Kernel times are device times: the calls are captured in a CUDA graph and
 replayed between CUDA events, cycling over weight (or KV-cache) copies
@@ -270,6 +292,22 @@ STREAM_WINDOW = 64         # phase 19's window mode (stream_window_codes)
 STREAM_TRACE_TOKENS = 60   # the traced stream: the first commit (40 codes)
                            # and the final flush
 BF16_REF_TOL = 2e-2            # GPU vs CPU in bf16 (groupdot)
+# speculative decoding (phase 21): bench_spec.py's defaults (the 0.1B-Q8_0
+# draft, k = 6) on the 2.6B-Q4_K_M target; the verify runs K1 at M = k + 1
+SPEC_K = 6
+SPEC_MS = (2, 4, 7)            # M = k + 1 at k = 1, 3, 6
+SPEC_PARITY_KS = (1, 3, 6)     # f32 greedy parity with plain decoding
+SPEC_PARITY_TOKENS = 32
+# token counts cut for the phase's time (150 s budgeted): the bf16 run and
+# each forced acceptance at 128 tokens took 202 s on the H100, at 64 and
+# 64 169 s, at 64 and 32 151 s
+SPEC_TOKENS = 48               # the bf16 run
+SPEC_FORCED_TOKENS = 32        # each forced acceptance
+SPEC_FORCE_P = (0.0, 0.5, 0.8, 1.0)
+SPEC_SELF_K = 4                # the 0.1B drafting for itself
+SPEC_STREAM_TOKENS = 48        # the f32 stream; the CLI's budget
+SPEC_TIE_TOL = BF16_REF_TOL    # bf16: where spec and plain part, the plain
+                               # path's top two logits (of the logit scale)
 
 
 def lfm2_config():
@@ -440,8 +478,16 @@ def plan_splits(qmat, m: int, K: int, N: int, group: int) -> int:
 def phase_kernels(torch, qmat, card: str) -> list[dict]:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
+    return kernel_rows(torch, qmat, shape_cases(torch, qmat, gen), gen, card)
+
+
+def kernel_rows(torch, qmat, cases, gen, card: str) -> list[dict]:
+    """K1 (`qdot`) against `qdot_plain` for each (label, QTensor, Ms) case:
+    f32 x within 1e-5 and bf16 x within 1e-2, a second call bit for bit,
+    and the kernel / eager / plain / library / bound times of the bf16
+    call."""
     rows = []
-    for label, qt, ms_list in shape_cases(torch, qmat, gen):
+    for label, qt, ms_list in cases:
         K, N = qt.k, qt.shape[0]
         n_copies = max(2, min(256, -(-L2_FLUSH_BYTES // qt_bytes(qt))))
         qts = copies_of(torch, qmat, qt, n_copies)
@@ -2340,12 +2386,13 @@ def expected_counts(route: str, steps: int, unpacked: int,
 
 
 def phase_q4km_offline(torch, qmat, paths: dict, out_dir: str,
-                       card: str) -> dict:
+                       card: str, keep_engine: bool = False) -> dict:
     """2.6B-Q4_K_M text -> WAV on the card under each route: one engine
     loads the weights, one more per route shares them
     (TTSEngine.with_qdot_route).  Checks each WAV and each kernel's
     launches; reports the rates, the device-busy share and each route's
-    greedy-token agreement with the default route."""
+    greedy-token agreement with the default route.  With `keep_engine`,
+    the loaded (default-route, bf16) engine is returned as "engine"."""
     import numpy as np
     from miotts_tpu_torch.audio.wav import wav_read
     from miotts_tpu_torch.ops import decode_attn
@@ -2426,6 +2473,8 @@ def phase_q4km_offline(torch, qmat, paths: dict, out_dir: str,
             f"agreeing with the "
             f"default route {same} of {compared}  [{card}]")
         del eng
+    if keep_engine:
+        out["engine"] = base
     del base
     torch.cuda.empty_cache()
     return out
@@ -2535,6 +2584,379 @@ def phase_q4km_gpu_vs_cpu(torch, qmat, path: str) -> dict:
                          logits_rel_err=errs, logits_rms_rel=rms,
                          launches=g["launches"])
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 21: speculative decoding, the 2.6B-Q4_K_M target with the 0.1B-Q8_0
+# draft
+# ---------------------------------------------------------------------------
+
+def prompt_ids(eng, text: str) -> list:
+    """The engine's prompt token ids of `text`."""
+    from miotts_tpu_torch.text import build_prompt, normalize_tts_text
+    return eng.tokenizer.encode(build_prompt(normalize_tts_text(text)),
+                                add_special=True, parse_special=True)
+
+
+def prefilled(torch, eng, ids: list, s_max: int, draft: bool = False):
+    """(last logits, cache of s_max positions) of the target's (or the
+    draft's) prefill of `ids` on the card, in the engine's dtype."""
+    from miotts_tpu_torch.models.llm import init_kv_cache, llm_prefill
+    params, cfg = ((eng.draft_params, eng.draft_cfg) if draft
+                   else (eng.llm_params, eng.llm_cfg))
+    cache = init_kv_cache(cfg, 1, s_max, dtype=eng.dtype, device="cuda")
+    return llm_prefill(params, torch.tensor([ids], device="cuda"),
+                       torch.tensor([len(ids)]), cache, cfg)
+
+
+def top2_gap(torch, eng, text: str, prefix: list) -> dict:
+    """The plain path's top two next-token logits after the prompt of
+    `text` and `prefix`, read from one target forward over both (a
+    prefill), and their gap over the logit scale (max |logit|)."""
+    ids = prompt_ids(eng, text) + [int(t) for t in prefix]
+    last = prefilled(torch, eng, ids, len(ids))[0]
+    top = last[0].topk(2)
+    return dict(top2=top.indices.tolist(), top2_logits=top.values.tolist(),
+                gap=float((top.values[0] - top.values[1])
+                          / last[0].abs().max()))
+
+
+def near_tie(torch, eng, text: str, plain: list, spec: list,
+             label: str) -> dict:
+    """Where the speculative tokens first part from plain greedy decoding
+    (None when they never do): there the plain path's top two logits must
+    lie within SPEC_TIE_TOL of the logit scale (bf16: the sums of the M = 1
+    GEMV and of the M = k + 1 verify run in another order); a wider gap is
+    a fault."""
+    i = next((j for j, (a, b) in enumerate(zip(plain, spec)) if a != b),
+             None if len(plain) == len(spec) else min(len(plain), len(spec)))
+    if i is None:
+        return dict(first_divergence=None)
+    out = dict(first_divergence=i,
+               plain_token=plain[i] if i < len(plain) else None,
+               spec_token=spec[i] if i < len(spec) else None,
+               **top2_gap(torch, eng, text, plain[:i]))
+    log(f"spec[{label}]: first divergence from plain greedy at token {i}: "
+        f"plain {out['plain_token']}, spec {out['spec_token']}, top two "
+        f"{out['top2']} with gap {out['gap']:.3e} of the logit scale (tol "
+        f"{SPEC_TIE_TOL})")
+    if not out["gap"] <= SPEC_TIE_TOL:
+        raise AssertionError(f"spec[{label}]: tokens part at {i} where the "
+                             f"plain path's top two logits are "
+                             f"{out['gap']:.3e} apart (> {SPEC_TIE_TOL})")
+    return out
+
+
+def timed_tokens(eng, text: str, Options, n: int) -> tuple:
+    """(tokens, profile) of one greedy generate_tokens of n tokens."""
+    from miotts_tpu_torch.runtime.profile import StreamProfile
+    prof = StreamProfile()
+    toks = eng.generate_tokens(text, Options(temperature=0.0, max_tokens=n),
+                               profile=prof)
+    return toks, prof
+
+
+def spec_numbers(eng, toks: list, prof) -> dict:
+    st = dict(eng._spec_stats)
+    rounds = max(st["rounds"], 1)
+    return dict(tokens=len(toks), tok_s=len(toks) / prof.llm_sec,
+                llm_sec=prof.llm_sec, prefill_ms=prof.prefill_sec * 1e3,
+                device_rounds=prof.decode_steps, **st,
+                accept_rate=st["accepted"] / max(st["drafted"], 1),
+                round_ms=prof.llm_sec / rounds * 1e3,
+                tokens_per_round=(len(toks) - 1) / rounds)
+
+
+def spec_sync_check(torch, eng, text: str) -> dict:
+    """One speculative chunk enqueued under PyTorch's sync debug mode: at
+    temperature 0 it must make no synchronizing call; at temperature 0.8
+    (torch.multinomial's draws) what happens is recorded."""
+    from miotts_tpu_torch.models.llm import llm_generate_chunk_spec
+    ids = prompt_ids(eng, text)
+    k = eng.config.spec_tokens
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    out = {}
+    for temp in (0.0, 0.8):
+        last, cache = prefilled(torch, eng, ids, 256)
+        dcache = prefilled(torch, eng, ids, 256, draft=True)[1]
+        pending = torch.argmax(last, dim=-1)
+        limit = torch.full((), CHUNK, dtype=torch.int64, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            llm_generate_chunk_spec(
+                eng.llm_params, eng.draft_params, pending, cache, dcache,
+                temp, eng._stop_ids, eng.llm_cfg, eng.draft_cfg,
+                -(-CHUNK // (k + 1)), k, limit=limit, generator=gen)
+            out[str(temp)] = "no synchronizing call"
+        except RuntimeError as e:
+            if temp == 0.0:
+                raise AssertionError(f"spec: a temperature-0 chunk made a "
+                                     f"synchronizing call: {e}") from e
+            out[str(temp)] = f"raised: {str(e).splitlines()[0]}"
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    # the debug mode "does not yet detect all synchronizing operations":
+    # whether torch.multinomial's one draw waits for the device, behind a
+    # 1e9-cycle spin (~0.5 s)
+    probs = torch.softmax(torch.randn((1, eng.llm_cfg.n_vocab),
+                                      device="cuda"), dim=-1)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(1_000_000_000)
+    t0 = time.perf_counter()
+    torch.multinomial(probs, 1, generator=gen)
+    out["multinomial_host_s_behind_spin"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    log(f"spec: one chunk under sync debug mode 'error': temperature 0: "
+        f"{out['0.0']}; temperature 0.8: {out['0.8']}; one "
+        f"torch.multinomial draw behind a ~0.5 s spin returned after "
+        f"{out['multinomial_host_s_behind_spin']:.4f} s")
+    return out
+
+
+def round_breakdown(torch, eng, text: str, card: str, reps: int = 5) -> dict:
+    """Where a speculative round's time goes (k = spec_tokens): the host
+    time of one call (the mean of `reps` calls, then a synchronize) and
+    the kernel launches of one draft step, the verify at M = k + 1 and
+    `spec_accept`, beside one plain decode step of the target; then one
+    whole round under torch.profiler (device-busy share, launches)."""
+    from miotts_tpu_torch.models.llm import (llm_forward,
+                                             llm_generate_chunk_spec,
+                                             spec_accept)
+    ids = prompt_ids(eng, text)
+    n, k = len(ids), eng.config.spec_tokens
+    cache = prefilled(torch, eng, ids, 256)[1]
+    dcache = prefilled(torch, eng, ids, 256, draft=True)[1]
+    tok = torch.tensor([[ids[-1]]], device="cuda")
+    pos = torch.tensor([[n]], device="cuda")
+    vtoks = torch.tensor([ids[-(k + 1):]], device="cuda")
+    vpos = (n + torch.arange(k + 1, device="cuda"))[None]
+    t_logits = llm_forward(eng.llm_params, vtoks, vpos, cache,
+                           eng.llm_cfg)[0][0]
+    d_logits = t_logits[:k].flip(-1)
+    d_toks = torch.argmax(d_logits, dim=-1)
+    parts = {
+        "draft_step": lambda: llm_forward(eng.draft_params, tok, pos, dcache,
+                                          eng.draft_cfg),
+        "verify": lambda: llm_forward(eng.llm_params, vtoks, vpos, cache,
+                                      eng.llm_cfg),
+        "spec_accept": lambda: spec_accept(d_toks, t_logits, d_logits, 0.0),
+        "plain_target_step": lambda: llm_forward(eng.llm_params, tok, pos,
+                                                 cache, eng.llm_cfg)}
+    out = {}
+    for name, fn in parts.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        out[name] = dict(host_ms=(time.perf_counter() - t0) / reps * 1e3,
+                         launches=launches_of(torch, fn))
+    out["sum_ms"] = ((k + 1) * out["draft_step"]["host_ms"]
+                     + out["verify"]["host_ms"] + out["spec_accept"]["host_ms"])
+    pending = torch.tensor([ids[-1]], device="cuda")
+
+    def one_round():
+        cache["fill"] = torch.tensor([n], dtype=torch.int32, device="cuda")
+        dcache["fill"] = cache["fill"].clone()
+        llm_generate_chunk_spec(eng.llm_params, eng.draft_params, pending,
+                                cache, dcache, 0.0, eng._stop_ids,
+                                eng.llm_cfg, eng.draft_cfg, 1, k)
+        return 1
+    one_round()
+    out["round_profile"] = device_profile(torch, one_round,
+                                          f"spec round (k={k})", card)
+    log(f"spec: a round's parts (host ms a call / launches): "
+        + ", ".join(f"{p} {out[p]['host_ms']:.4f} / {out[p]['launches']}"
+                    for p in parts)
+        + f"; (k + 1) drafts + verify + accept {out['sum_ms']:.4f} ms  "
+          f"[{card}]")
+    return out
+
+
+def phase_spec(torch, qmat, paths: dict, d: str, card: str, base) -> dict:
+    """Speculative decoding on the card: the 2.6B-Q4_K_M target (phase 15's
+    bf16 engine `base`, and an f32 load) with the 0.1B-Q8_0 draft.  (a) K1
+    vs plain at the verify's shapes; (b) f32 greedy parity at k = 1, 3, 6;
+    (c) bf16 at k = 6 against plain (agreement, the near-tie rule, rates,
+    K1 launches); (d) the 0.1B drafting for itself at f32; (e) forced
+    acceptance; (f) a chunk under sync debug mode; (g) the stream with a
+    draft against the draft-less stream; (h) the CLI in process."""
+    import io
+    import numpy as np
+    from miotts_tpu_torch import cli
+    from miotts_tpu_torch.runtime.engine import (EngineConfig, Options,
+                                                 TTSEngine, VoiceModel)
+    res: dict = {}
+    text = "The quick brown fox jumps over the lazy dog."
+    voice = VoiceModel(paths["voice"])
+    counters = route_counters(qmat)
+
+    # (a) K1 at M = k + 1 on the 2.6B linears
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(21)
+    cases = [(label, qt, SPEC_MS) for label, qt, _ in shape_cases(
+        torch, qmat, gen) if label.startswith("2.6b") and "q4_0" not in label]
+    res["kernel_rows"] = kernel_rows(torch, qmat, cases, gen, card)
+    del cases
+    torch.cuda.empty_cache()
+    for m in SPEC_MS:
+        step = {k: q4km_k1_step(res["kernel_rows"], k, m)
+                for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+        log(f"spec: one verify's K1 work at M={m} (129 linears): kernel "
+            f"{step['ms']:.4f} ms, plain {step['plain_ms']:.4f}, library "
+            f"{step['library_ms']:.4f}, bound {step['bound_ms']:.4f}  [{card}]")
+
+    # (b) f32: the speculative tokens are plain greedy decoding's
+    t0 = time.perf_counter()
+    eng32 = TTSEngine(EngineConfig(
+        model_path=paths["q4km"], codec_path=paths["codec"], device="cuda",
+        llm_dtype="float32", temperature=0.0, max_tokens=SPEC_TOKENS,
+        draft_model_path=paths["llm"], spec_tokens=SPEC_K,
+        qdot_route=qmat.QdotRoute()))
+    log(f"spec: f32 target + draft load {time.perf_counter() - t0:.2f} s")
+    plain32 = eng32.with_draft("")
+    want = timed_tokens(plain32, text, Options, SPEC_PARITY_TOKENS)[0]
+    res["f32_parity"] = {}
+    for k in SPEC_PARITY_KS:
+        eng = eng32 if k == SPEC_K else eng32.with_draft(paths["llm"], k)
+        got, prof = timed_tokens(eng, text, Options, SPEC_PARITY_TOKENS)
+        num = spec_numbers(eng, got, prof)
+        res["f32_parity"][str(k)] = dict(num, identical=got == want)
+        log(f"spec[f32 k={k}]: {len(got)} tokens identical to plain: "
+            f"{got == want}; rounds {num['rounds']}, accepted "
+            f"{num['accepted']} of {num['drafted']}")
+        if got != want:
+            raise AssertionError(f"spec[f32 k={k}]: tokens differ from plain "
+                                 f"greedy: {got} against {want}")
+
+    # (g) the stream with the draft (unfused) against the plain stream
+    opts = Options(temperature=0.0, max_tokens=SPEC_STREAM_TOKENS,
+                   apply_peak_normalization=False)
+    runs = {"plain": stream_run(torch, plain32, voice, text, opts),
+            "spec": stream_run(torch, eng32, voice, text, opts)}
+    if not (runs["spec"]["ok"] and runs["plain"]["ok"]):
+        raise AssertionError("spec: a stream failed")
+    n = runs["plain"]["pcm"].size
+    err = (float(np.max(np.abs(runs["spec"]["pcm"] - runs["plain"]["pcm"])))
+           if runs["spec"]["pcm"].size == n > 0 else None)
+    res["stream"] = dict(samples=n, max_abs=err,
+                         spec_rounds=eng32._spec_stats["rounds"],
+                         plain_total_s=runs["plain"]["wall"],
+                         spec_total_s=runs["spec"]["wall"])
+    log(f"spec: f32 stream of {SPEC_STREAM_TOKENS} tokens with the draft "
+        f"(unfused) vs without (fused): {n} samples, max |diff| {err} (tol "
+        f"{STREAM_TOL})")
+    if err is None or err > STREAM_TOL:
+        raise AssertionError("spec: the stream with a draft differs from the "
+                             "plain stream")
+    del eng32, plain32, runs
+    torch.cuda.empty_cache()
+
+    # (c) bf16, k = 6: agreement, rates, K1 launches
+    spec16 = base.with_draft(paths["llm"], SPEC_K)
+    t0 = time.perf_counter()
+    spec16.warmup(max_codes=SPEC_TOKENS)
+    res["warmup_s"] = time.perf_counter() - t0
+    plain_toks, pprof = timed_tokens(base, text, Options, SPEC_TOKENS)
+    plain_rate = len(plain_toks) / pprof.llm_sec
+    reset_counts(counters)
+    toks, prof = timed_tokens(spec16, text, Options, SPEC_TOKENS)
+    got = read_counts(counters)
+    num = spec_numbers(spec16, toks, prof)
+    # both prefills, then per round k + 1 draft steps and one verify
+    want_k1 = (Q4KM_QDOT_PER_STEP + QDOT_PER_STEP + prof.decode_steps
+               * ((SPEC_K + 1) * QDOT_PER_STEP + Q4KM_QDOT_PER_STEP))
+    agree = sum(a == b for a, b in zip(toks, plain_toks))
+    res["bf16"] = dict(num, plain_tok_s=plain_rate,
+                       speedup=num["tok_s"] / plain_rate, launches=got,
+                       agreeing=agree, compared=min(len(toks),
+                                                    len(plain_toks)),
+                       near_tie=near_tie(torch, base, text, plain_toks, toks,
+                                         "bf16 k=6"))
+    log(f"spec[bf16 k=6]: {len(toks)} tokens at {num['tok_s']:.4f} tok/s "
+        f"(plain {plain_rate:.4f}, x{res['bf16']['speedup']:.4f}); rounds "
+        f"{num['rounds']} ({prof.decode_steps} run), accepted "
+        f"{num['accepted']} of {num['drafted']}, round "
+        f"{num['round_ms']:.4f} ms; {agree} of "
+        f"{res['bf16']['compared']} tokens agree with plain greedy; K1 "
+        f"launches {got['K1']} (want {want_k1}); warmup "
+        f"{res['warmup_s']:.2f} s  [{card}]")
+    if got != dict(dict.fromkeys(got, 0), K1=want_k1):
+        raise AssertionError(f"spec[bf16]: launches {got}, want K1 {want_k1} "
+                             f"only")
+    res["round"] = round_breakdown(torch, spec16, text, card)
+
+    # (e) forced acceptance: the speedup curve
+    res["forced"] = {}
+    try:
+        for p in SPEC_FORCE_P:
+            os.environ["MIOTTS_SPEC_FORCE_ACCEPT"] = str(p)
+            toks, prof = timed_tokens(spec16, text, Options,
+                                      SPEC_FORCED_TOKENS)
+            num = spec_numbers(spec16, toks, prof)
+            num["speedup"] = num["tok_s"] / plain_rate
+            res["forced"][str(p)] = num
+            log(f"spec[forced p={p}]: {len(toks)} tokens at "
+                f"{num['tok_s']:.4f} tok/s (x{num['speedup']:.4f} plain), "
+                f"round {num['round_ms']:.4f} ms, "
+                f"{num['tokens_per_round']:.4f} tokens a round, accepted "
+                f"{num['accepted']} of {num['drafted']}  [{card}]")
+            if ((p == 1.0 and num["accepted"] != num["drafted"])
+                    or (p == 0.0 and num["accepted"] != 0)):
+                raise AssertionError(f"spec[forced p={p}]: accepted "
+                                     f"{num['accepted']} of {num['drafted']}")
+    finally:
+        os.environ.pop("MIOTTS_SPEC_FORCE_ACCEPT", None)
+
+    # (f) no host sync in a temperature-0 chunk
+    res["sync"] = spec_sync_check(torch, spec16, text)
+    del spec16
+    torch.cuda.empty_cache()
+
+    # (d) the 0.1B drafting for itself at f32 accepts every draft
+    eng01 = TTSEngine(EngineConfig(
+        model_path=paths["llm"], codec_path=paths["codec"], device="cuda",
+        llm_dtype="float32", temperature=0.0, max_tokens=MAX_TOKENS,
+        draft_model_path=paths["llm"], spec_tokens=SPEC_SELF_K,
+        qdot_route=qmat.QdotRoute()))
+    plain01 = timed_tokens(eng01.with_draft(""), text, Options, MAX_TOKENS)[0]
+    toks, prof = timed_tokens(eng01, text, Options, MAX_TOKENS)
+    num = spec_numbers(eng01, toks, prof)
+    res["self_draft"] = dict(num, identical=toks == plain01,
+                             near_tie=near_tie(torch, eng01, text, plain01,
+                                               toks, "self f32 k=4"))
+    log(f"spec[self-draft f32 k={SPEC_SELF_K}]: {len(toks)} tokens, "
+        f"accepted {num['accepted']} of {num['drafted']}, identical to plain "
+        f"{toks == plain01}")
+    if num["accepted"] != num["drafted"] and toks == plain01:
+        raise AssertionError("spec[self-draft]: a draft was rejected but the "
+                             "tokens are plain greedy's")
+    del eng01
+
+    # (h) the CLI in process: a 0.1B target drafting for itself
+    model = ["-m", paths["llm"], "-c", paths["codec"], "-v", paths["voice"],
+             "-p", text, "-t", "0", "--max-tokens", str(SPEC_STREAM_TOKENS),
+             "--draft-model", paths["llm"], "--spec-tokens", str(SPEC_K)]
+    wav = os.path.join(d, "spec.wav")
+    if cli.main(["synth"] + model + ["-o", wav]) != 0 or not os.path.exists(wav):
+        raise AssertionError("spec: cli synth --draft-model failed")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["bench"] + model)
+    lines = dict(line.split("=", 1) for line in buf.getvalue().splitlines()
+                 if "=" in line)
+    res["cli_bench"] = {k: v for k, v in lines.items() if "spec" in k}
+    log(f"spec: cli bench --draft-model: {res['cli_bench']}  [{card}]")
+    if rc != 0 or set(res["cli_bench"]) != {"stream_bench.spec_rounds",
+                                            "stream_bench.spec_accept_rate"}:
+        raise AssertionError(f"spec: cli bench exited {rc}, spec lines "
+                             f"{res['cli_bench']}")
+    torch.cuda.empty_cache()
+    return res
 
 
 # kernel -> (name, source, the TPU kernel it replaces, the route that runs
@@ -2657,10 +3079,11 @@ def single_stream_steps(res: dict) -> dict:
 
 
 # every phase (3 runs 3-5), and what a phase needs run before it
-ALL_PHASES = (2, 3, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20)
-PHASE_NEEDS = {9: {7}, 12: {11}, 20: {11}}
-MODEL_PHASES = {3, 7, 8, 9, 11, 12, 13, 15, 16, 19, 20}   # the 0.1B files,
-                                                          # the codec
+ALL_PHASES = (2, 3, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20,
+              21)
+PHASE_NEEDS = {9: {7}, 12: {11}, 20: {11}, 21: {15}}
+MODEL_PHASES = {3, 7, 8, 9, 11, 12, 13, 15, 16, 19, 20, 21}   # the 0.1B
+                                                              # files, codec
 
 
 def parse_phases(argv) -> set:
@@ -2670,7 +3093,8 @@ def parse_phases(argv) -> set:
     ap = argparse.ArgumentParser(description="Chip smoke test of the port.")
     ap.add_argument("--phases", default="",
                     help="comma-separated phase numbers to run (3 runs 3-5; "
-                         "9 brings 7, 12 and 20 bring 11); default: all")
+                         "9 brings 7, 12 and 20 bring 11, 21 brings 15); "
+                         "default: all")
     args = ap.parse_args(argv)
     if not args.phases:
         return set(ALL_PHASES)
@@ -2714,7 +3138,7 @@ def main(argv=None) -> int:
         rows = res["qdot_per_shape"] = phase_kernels(torch, qmat, card)
         done("2")
 
-    writers_for = {"lfm2": {11, 12, 13}, "q4km": {15, 16}}
+    writers_for = {"lfm2": {11, 12, 13}, "q4km": {15, 16, 21}}
     keys = {k for k, phases in writers_for.items() if run & phases}
     with tempfile.TemporaryDirectory() as d, background_writes(d, keys) as writers:
         paths = {}
@@ -2786,12 +3210,18 @@ def main(argv=None) -> int:
         if "q4km" in keys:
             paths["q4km"] = written(writers, "q4km", d)
         if 15 in run:
-            res["q4km_offline"] = phase_q4km_offline(torch, qmat, paths, d, card)
+            res["q4km_offline"] = phase_q4km_offline(torch, qmat, paths, d,
+                                                     card, 21 in run)
             done("15")
         if 16 in run:
             res["q4km_gpu_vs_cpu"] = phase_q4km_gpu_vs_cpu(torch, qmat,
                                                            paths["q4km"])
             done("16")
+        if 21 in run:
+            res["spec"] = phase_spec(torch, qmat, paths, d, card,
+                                     res["q4km_offline"].pop("engine"))
+            done("21")
+            torch.cuda.empty_cache()
 
     if run != set(ALL_PHASES):
         log("details " + json.dumps(res))
@@ -2807,14 +3237,17 @@ def main(argv=None) -> int:
                                    res["bf16_per_shape"], res["probes"])
     q4km_res, q4km_ref = res["q4km_offline"], res["q4km_gpu_vs_cpu"]
     stream_res, lfm2_stream = res["stream"], res["lfm2_stream"]
+    spec_res = res["spec"]
+    spec_rows = spec_res["kernel_rows"]
     steps = single_stream_steps(res)
     qdot_entry = dict(
         name="qdot", route="cuda", source="miotts_tpu_torch/ops/csrc/qdot.cu",
         sources=["miotts_tpu_torch/ops/csrc/qdot.cu", GEMV_HEADER, TILE_HEADER],
         replaces="miotts_tpu/ops/qmat.py:191",
         launches=serve_res["bf16"]["qdot_launches"],
-        max_abs_err=max(r["max_abs_err"] for r in rows),
-        rel_err=max(max(r["rel_err_bf16"], r["rel_err_f32"]) for r in rows),
+        max_abs_err=max(r["max_abs_err"] for r in rows + spec_rows),
+        rel_err=max(max(r["rel_err_bf16"], r["rel_err_f32"])
+                    for r in rows + spec_rows),
         ms=step_summary(rows, "ms", SLOTS),
         plain_ms=step_summary(rows, "plain_ms", SLOTS),
         bound_ms=step_summary(rows, "bound_ms", SLOTS),
@@ -2831,6 +3264,12 @@ def main(argv=None) -> int:
         q4km_single_stream_step=steps["k1_2.6b"],
         q4km_64_slot_step={k: q4km_k1_step(rows, k, 64) for k in
                            ("ms", "plain_ms", "bound_ms", "library_ms")},
+        # one speculative verify's K1 work (phase 21's rows): the 2.6B's
+        # 129 linears at M = k + 1, bf16 x
+        q4km_spec_verify_step={str(m): {k: q4km_k1_step(spec_rows, k, m)
+                                        for k in ("ms", "plain_ms",
+                                                  "bound_ms", "library_ms")}
+                               for m in SPEC_MS},
         launches_by_path={"serving_bf16": serve_res["bf16"]["qdot_launches"],
                           "serving_int8": serve_res["int8"]["qdot_launches"],
                           "offline": main_res["qdot_launches"],
@@ -2843,7 +3282,8 @@ def main(argv=None) -> int:
                           "lfm2_serving_after": lfm2_serve["after"][
                               "qdot_launches"],
                           **{f"q4km_{name}_offline": r["launches"]["K1"]
-                             for name, r in q4km_res.items()}})
+                             for name, r in q4km_res.items()},
+                          "q4km_spec_bf16": spec_res["bf16"]["launches"]["K1"]})
     step_rows = [r for r in attn_rows if r["mode"] == "bf16"
                  and (r["shape"], r["B"], r["H"], r["H_kv"], r["D"],
                       r["S"]) == ATTN_STEP_SHAPE]

@@ -1,7 +1,8 @@
 """miotts-torch CLI: synthesis, streaming and serving on PyTorch / CUDA.
 
   python -m miotts_tpu_torch.cli synth -m LLM.gguf -c CODEC.gguf \\
-      -v VOICE.emb.gguf -p "text" -o out.wav [--device cuda]
+      -v VOICE.emb.gguf -p "text" -o out.wav [--device cuda] \\
+      [--draft-model DRAFT.gguf --spec-tokens 6]
   python -m miotts_tpu_torch.cli stream ... [-o out.pcm | -o -] \\
       [--device-audio]
   python -m miotts_tpu_torch.cli bench ... [--trace DIR]
@@ -18,6 +19,8 @@ Subcommands and flags follow the JAX package's CLI:
   compare    offline-vs-streaming fidelity, prints compare.* metrics
   analyze    waveform health report for WAV files
   serve      HTTP server over the continuous batcher
+`--draft-model` / `--spec-tokens` (synth, stream, bench, compare) decode
+speculatively with a draft model; `serve` ignores a draft with a warning.
 `--device` names the torch device (default cuda; the command fails when
 CUDA is asked for and absent), so the JAX package's `stream --device` (play
 on the host's sound card) is `stream --device-audio` here.
@@ -46,6 +49,13 @@ def _add_model_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--skip-llm", action="store_true",
                    help="treat --prompt as raw <|s_N|> token text")
+    p.add_argument("--draft-model", default="",
+                   help="smaller GGUF of the same vocab (e.g. the 0.1B for "
+                        "the 2.6B) for speculative decoding: the output "
+                        "distribution is exact, the tokens identical at -t 0")
+    p.add_argument("--spec-tokens", type=int, default=6,
+                   help="draft tokens per speculative round (with "
+                        "--draft-model)")
     p.add_argument("--holdback-codes", type=int, default=32,
                    help="streaming commit holdback: codes of right context "
                         "held back from every mid-stream emission (the "
@@ -61,6 +71,7 @@ def _make_engine(args):
         model_path="" if args.skip_llm else args.model,
         codec_path=args.codec, temperature=args.temp,
         max_tokens=args.max_tokens, seed=args.seed,
+        draft_model_path=args.draft_model, spec_tokens=args.spec_tokens,
         holdback_codes=args.holdback_codes, device=args.device))
 
 
@@ -180,6 +191,12 @@ def cmd_bench(args) -> int:
             print(f"{k}={v:.6f} ({100.0 * v / total:.2f}%)")
         else:
             print(f"{k}={v:.6f}" if isinstance(v, float) else f"{k}={v}")
+    st = engine._spec_stats
+    if st and st["drafted"]:
+        # speculative decoding (with --draft-model)
+        print(f"stream_bench.spec_rounds={st['rounds']}")
+        print(f"stream_bench.spec_accept_rate="
+              f"{st['accepted'] / st['drafted']:.4f}")
     return 0
 
 
@@ -255,6 +272,12 @@ def cmd_serve(args) -> int:
         print(f"Error: no *.emb.gguf files in {args.voices_dir}",
               file=sys.stderr)
         return 1
+    if args.draft_model:
+        # speculation is single-stream: batched serving reads each weight
+        # once for all its slots already, and the draft would take device
+        # memory the batched KV cache needs
+        print("Warning: --draft-model is ignored by `serve` (speculative "
+              "decoding is single-stream)", file=sys.stderr)
     try:
         engine = TTSEngine(EngineConfig(
             model_path=args.model, codec_path=args.codec,
@@ -326,6 +349,9 @@ def main(argv=None) -> int:
     p.add_argument("-t", "--temp", type=float, default=0.8)
     p.add_argument("--max-tokens", type=int, default=700)
     p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--draft-model", default="",
+                   help="ignored, with a warning: speculative decoding is "
+                        "single-stream")
     _add_device_arg(p)
     p.set_defaults(fn=cmd_serve)
     args = parser.parse_args(argv)

@@ -680,6 +680,166 @@ def llm_generate_chunk(params: dict, last_logits, cache: dict,
 
 
 # ---------------------------------------------------------------------------
+# Speculative decoding: a draft model proposes k tokens, ONE target forward
+# at M = k + 1 verifies them (the target's weights are read once a round)
+# ---------------------------------------------------------------------------
+
+def _spec_probs(logits, temperature: float):
+    """The distribution `sample_token` draws from: softmax(logits / T) for
+    T > 0, the one-hot argmax for T <= 0.  logits [..., V] f32."""
+    if temperature > 0:
+        return torch.softmax(logits / max(temperature, 1e-6), dim=-1)
+    return torch.zeros_like(logits, dtype=torch.float32).scatter_(
+        -1, torch.argmax(logits, dim=-1, keepdim=True), 1.0)
+
+
+def spec_accept(draft_tokens, target_logits, draft_logits, temperature: float,
+                generator: torch.Generator | None = None,
+                force_p: float | None = None):
+    """The speculative-sampling acceptance rule (Leviathan et al. 2023,
+    Chen et al. 2023), exact with respect to the target's sampling
+    distribution, as the JAX package's `spec_accept`.
+
+    draft_tokens [k] drawn from p_d(i) = probs(draft_logits[i]) ([k, V]);
+    target_logits [k + 1, V]: row i verifies draft i, row k is the bonus
+    distribution after all k drafts.  Returns (n_accept, next_token), 0-d
+    device tensors: the round emits draft_tokens[:n_accept] then
+    next_token, a draw from max(p_t - p_d, 0) at the first rejection or
+    from the bonus row when all k are accepted.  At temperature <= 0 both
+    distributions are one-hot: a draft is accepted iff it is the target's
+    argmax, and next_token is the argmax of the residual or bonus (no draw
+    is taken), so the output is greedy target decoding token for token.
+
+    `force_p` (a measurement harness, MIOTTS_SPEC_FORCE_ACCEPT; None or NaN
+    is off): each draft is accepted with probability force_p, whatever the
+    logits, and the emitted tokens are then NOT target-distributed.  The
+    uniforms come from `generator` (torch.rand), taken only where a draw
+    decides something: at temperature > 0 or under force_p."""
+    k = draft_tokens.shape[0]
+    dev = target_logits.device
+    p_t = _spec_probs(target_logits[:k], temperature)             # [k, V]
+    p_d = _spec_probs(draft_logits, temperature)                   # [k, V]
+    idx = torch.arange(k, device=dev)
+    d = draft_tokens.long()
+    ratio = p_t[idx, d] / p_d[idx, d].clamp(min=1e-30)
+    forced = force_p is not None and not math.isnan(force_p)
+    if temperature > 0 or forced:
+        u = torch.rand((k,), generator=generator, device=dev)
+        accept = u < (force_p if forced else ratio)
+    else:
+        accept = ratio > 0            # u < ratio with ratio 0 or >= 1
+    n_accept = torch.cumprod(accept.long(), dim=0).sum()
+    # row j of p_t and p_d by index_select: indexing by a 0-d tensor would
+    # read it on the host
+    j = n_accept.clamp(max=k - 1).view(1)
+    pt_j = p_t.index_select(0, j)[0]
+    residual = (pt_j - p_d.index_select(0, j)[0]).clamp(min=0.0)
+    rsum = residual.sum()
+    residual = torch.where(rsum > 0, residual / rsum.clamp(min=1e-30), pt_j)
+    bonus = _spec_probs(target_logits[k], temperature)
+    dist = torch.where(n_accept == k, bonus, residual)
+    if temperature > 0:
+        nxt = torch.multinomial(dist, 1, generator=generator)[0]
+    else:
+        nxt = torch.argmax(dist)
+    return n_accept, nxt
+
+
+@torch.no_grad()
+def llm_generate_chunk_spec(params: dict, dparams: dict, pending, cache: dict,
+                            dcache: dict, temperature: float, stop_ids,
+                            cfg: LLMConfig, dcfg: LLMConfig, n_rounds: int,
+                            k_spec: int, limit=None,
+                            generator: torch.Generator | None = None,
+                            force_p: float | None = None, done=None):
+    """`n_rounds` draft-propose / target-verify rounds with no host sync
+    (the JAX package's `llm_generate_chunk_spec`, whose device loop runs
+    rounds until it has `n_steps` tokens; here the host fixes the rounds).
+
+    `pending` [1]: the newest token, emitted by the caller and stop-checked
+    but not yet in either cache, at position fill (both caches hold the
+    same fill at a round's start).  Each round: the draft extends pending
+    by k_spec tokens in S = 1 decode steps, plus one alignment step so its
+    cache also covers d_k; ONE target forward over [pending, d_1..d_k] at
+    positions fill + arange(k + 1) (the write-then-attend path: every
+    linear runs at M = k + 1) verifies them; `spec_accept` keeps a prefix
+    and draws the corrective or bonus token; the round's tokens are cut
+    before the first stop token (which is not emitted, as in
+    `llm_generate_chunk`); both fills roll back to fill + 1 + kept, so the
+    rejected positions are rewritten by the next round.
+
+    A round runs masked (emits nothing, changes no fill, pending or
+    count) once a stop was seen (`done`, 0-d bool on the device, carried in
+    from an earlier chunk) or once the chunk holds `limit` tokens (0-d
+    int on the device; default no limit), as the JAX loop's condition
+    `cnt < n_steps and not done`.  A round that starts below the limit may
+    end up to k_spec tokens past it.  Masked rounds still run (their writes
+    land at or past fill, clamped to the last cache column, where no kept
+    token is attended).  The caches need k_spec + 1 positions of headroom
+    past the last active round's start.
+
+    Returns (buf [n_rounds * (k_spec + 1)] (-1 padded), count, done,
+    pending, cache, dcache, rounds, accepted), the scalars as 0-d device
+    tensors: rounds are the active rounds, accepted their accepted drafts
+    (accepted / (rounds * k_spec) is the acceptance rate)."""
+    K = k_spec
+    dev = pending.device
+    stop_ids = stop_ids.to(dev)
+    s_max = cache["k"].shape[3]
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    buf = torch.full((n_rounds * (K + 1),), -1, dtype=torch.int64, device=dev)
+    count, rounds, accepted = zero, zero, zero
+    if done is None:
+        done = torch.zeros((), dtype=torch.bool, device=dev)
+    slots = torch.arange(K + 1, device=dev)
+    pending = pending.long()
+    for _ in range(n_rounds):
+        active = ~done
+        if limit is not None:
+            active = active & (count < limit)
+        n = cache["fill"].long()                                   # [1]
+        # the draft: K proposals, then the alignment step over d_K
+        d_toks, d_logits = [], []
+        tok = pending
+        for i in range(K + 1):
+            pos = (n + i).clamp(max=s_max - 1)[:, None]
+            lg, dcache = llm_forward(dparams, tok[:, None], pos, dcache, dcfg)
+            if i == K:
+                break
+            tok = sample_token(lg[:, 0], temperature, generator)
+            d_toks.append(tok[0])
+            d_logits.append(lg[0, 0])
+        d_toks = torch.stack(d_toks)                               # [K]
+        # ONE target forward verifies every draft
+        vtoks = torch.cat([pending, d_toks])[None]                 # [1, K+1]
+        vpos = (n[:, None] + slots).clamp(max=s_max - 1)
+        t_logits, cache = llm_forward(params, vtoks, vpos, cache, cfg)
+        a, nxt = spec_accept(d_toks, t_logits[0], torch.stack(d_logits),
+                             temperature, generator, force_p)
+        # d_1..d_a then the corrective / bonus token, cut at a stop
+        out = torch.where(slots < a, d_toks[slots.clamp(max=K - 1)],
+                          torch.where(slots == a, nxt, -1))
+        is_stop = (out[:, None] == stop_ids[None, :]).any(dim=-1) & (out >= 0)
+        any_stop = is_stop.any()
+        n_emit = torch.where(any_stop, torch.argmax(is_stop.long()), a + 1)
+        n_emit = torch.where(active, n_emit, 0)
+        buf[(count + slots).clamp(max=buf.shape[0] - 1)] = torch.where(
+            slots < n_emit, out, -1)
+        # the rollback: both caches keep [.., pending, d_1..d_kept); the
+        # corrective token is the next round's pending
+        fill_new = torch.where(active, n + 1 + torch.minimum(n_emit, a),
+                               n).to(torch.int32)
+        cache["fill"] = fill_new
+        dcache["fill"] = fill_new.clone()
+        pending = torch.where(active & ~any_stop, nxt, pending)
+        done = done | (active & any_stop)
+        count = count + n_emit
+        rounds = rounds + active.long()
+        accepted = accepted + torch.where(active, a, 0)
+    return buf, count, done, pending, cache, dcache, rounds, accepted
+
+
+# ---------------------------------------------------------------------------
 # Batched serving: slot prefill, per-slot sampling, chunked batched decode
 # ---------------------------------------------------------------------------
 

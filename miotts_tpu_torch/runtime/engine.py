@@ -22,6 +22,9 @@ Streaming takes one of three paths, as in the JAX package:
     policy checked on the host after each;
   * pipelined codec (`pipeline_codec=True`): the unfused path with each
     commit's audio read back one check interval later.
+With a speculative draft model (`draft_model_path`) the tokens come from
+draft-propose / target-verify rounds (`_spec_loop`), and a stream takes the
+unfused path.
 
 Everything runs on `EngineConfig.device` ("cuda" by default).  Asking for
 the GPU when none is available raises; the engine never carries on quietly
@@ -33,6 +36,7 @@ on the CPU.  The quantized linears take the kernel route of
 from __future__ import annotations
 
 import copy
+import os
 import time
 from collections import Counter
 from dataclasses import dataclass, replace
@@ -44,7 +48,8 @@ import torch
 from ..gguf import GGUFReader, load_voice_embedding
 from ..models.codec import codec_decode_spec, exact_f32, load_codec_params
 from ..models.llm import (LLMConfig, init_kv_cache, llm_generate_chunk,
-                          llm_prefill, load_llm_params)
+                          llm_generate_chunk_spec, llm_prefill,
+                          load_llm_params, sample_token)
 from ..ops.istft import spec_to_audio_bucketed
 from ..ops.qmat import QdotRoute, with_route
 from ..text import build_prompt, normalize_tts_text, parse_speech_tokens
@@ -155,6 +160,14 @@ class EngineConfig:
     prompt_bucket: int = 64
     code_bucket: int = 32
     llm_dtype: str = "bfloat16"
+    # Speculative decoding: a small draft model of the same vocab (the
+    # 0.1B for the 2.6B) proposes `spec_tokens` tokens a round and ONE
+    # target forward at M = spec_tokens + 1 verifies them, so the target's
+    # weights are read once a round.  The output distribution is exact
+    # (models/llm.spec_accept); at temperature <= 0 the tokens are plain
+    # greedy decoding's.  Dense models only; streams take the unfused path.
+    draft_model_path: str = ""
+    spec_tokens: int = 6
     # Fused streaming: a chunk's generation, code append and commit policy
     # are enqueued on the device with no host sync, so the host reads a
     # chunk's outputs while the next chunk runs.  Stage timing: the chunk
@@ -267,6 +280,13 @@ class TTSEngine:
             im_end = self.tokenizer.token_to_id.get("<|im_end|>", -1)
             self._stop_ids = torch.tensor([self.tokenizer.eos_id, im_end],
                                           dtype=torch.int64, device=self.device)
+        self.draft_params = None
+        self.draft_cfg: LLMConfig | None = None
+        self._dcache = None
+        self._spec_stats: dict | None = None
+        if (config.model_path and config.draft_model_path
+                and config.spec_tokens > 0):
+            self._load_draft(config.draft_model_path)
         with GGUFReader(config.codec_path) as r:
             self.codec_params, self.codec_cfg = load_codec_params(
                 r, device=self.device)
@@ -276,15 +296,70 @@ class TTSEngine:
         # `fill` masks the rest); reallocated when the size bucket changes
         self._cache = None
 
+    def _load_draft(self, path: str) -> None:
+        """Load the speculative draft model on the engine's device and
+        dtype, its linears on the engine's route.  Raises ValueError for a
+        vocab other than the target's, or a hybrid target or draft (their
+        short-conv state advances on every forward and cannot roll back
+        with `fill`)."""
+        with GGUFReader(path) as r:
+            self.draft_cfg = LLMConfig.from_gguf(r)
+            params, _ = load_llm_params(r, self.draft_cfg, dtype=self.dtype,
+                                        device=self.device)
+        if self.draft_cfg.n_vocab != self.llm_cfg.n_vocab:
+            raise ValueError(
+                f"draft vocab ({self.draft_cfg.n_vocab}) != target vocab "
+                f"({self.llm_cfg.n_vocab}): speculative decoding needs a "
+                f"draft of the same tokenizer")
+        if self.llm_cfg.layer_types or self.draft_cfg.layer_types:
+            raise ValueError(
+                "speculative decoding supports dense attention models only "
+                "(a hybrid model's conv state cannot roll back)")
+        self.draft_params = with_route(params, self.config.qdot_route)
+
     def with_qdot_route(self, route: QdotRoute) -> "TTSEngine":
         """Another engine over this one's loaded weights, codec and
-        tokenizer (shared, not copied) whose quantized linears take
-        `route`, with a KV cache of its own."""
+        tokenizer (shared, not copied) whose quantized linears, the
+        draft's included, take `route`, with KV caches of its own."""
         eng = copy.copy(self)
         eng.config = replace(self.config, qdot_route=route)
         eng.llm_params = with_route(self.llm_params, route)
-        eng._cache = None
+        if self.draft_params is not None:
+            eng.draft_params = with_route(self.draft_params, route)
+        eng._cache = eng._dcache = eng._spec_stats = None
         return eng
+
+    def with_draft(self, path: str, spec_tokens: int | None = None
+                   ) -> "TTSEngine":
+        """Another engine over this one's loaded weights, codec and
+        tokenizer (shared, not copied) with the draft model at `path`
+        proposing `spec_tokens` a round ("" for none: plain decoding), with
+        KV caches of its own: plain and speculative decoding over one load.
+        The draft is loaded on this engine's device, dtype and route, or
+        shared when this engine has it loaded already."""
+        if self.llm_params is None:
+            raise RuntimeError("LLM model is not loaded")
+        k = self.config.spec_tokens if spec_tokens is None else spec_tokens
+        eng = copy.copy(self)
+        eng.config = replace(self.config, draft_model_path=path,
+                             spec_tokens=k)
+        eng._cache = eng._dcache = eng._spec_stats = None
+        if not (path and k > 0):
+            eng.draft_params = eng.draft_cfg = None
+        elif path != self.config.draft_model_path or self.draft_params is None:
+            eng._load_draft(path)
+        return eng
+
+    def _cache_len(self, bucket: int, max_tok: int) -> int:
+        """The KV cache's size bucket for a prompt bucket and a budget: a
+        geometric bucket of prompt + budget + one chunk (decode attention
+        reads the whole cache length every step), with a speculative
+        round's overshoot (spec_tokens + 8) when a draft is loaded, clamped
+        to n_ctx."""
+        need = bucket + max_tok + 64
+        if self.draft_params is not None:
+            need += self.config.spec_tokens + 8
+        return min(_bucket_len(need, 256), self.config.n_ctx)
 
     def _code_buckets(self, max_codes: int, first: int) -> list[int]:
         """The geometric code buckets from the one holding `first` codes up
@@ -301,10 +376,12 @@ class TTSEngine:
         bucket of `prompt_len`, the chunk loop at both chunk sizes (the
         stream check interval and the offline 64) and the fused streaming
         step at each full-mode code bucket (the one window bucket in window
-        mode).  On a GPU this builds the CUDA kernels, sets up cuDNN's plans
-        and primes the caching allocator, so none of it lands in a stream's
-        time to first audio.  (The JAX package also warms a speculative
-        draft model; speculative decoding is not ported.)"""
+        mode).  With a draft model the draft's prefill and one speculative
+        chunk at both chunk sizes take the place of the chunk loop and the
+        fused step, which a speculative engine never runs.  On a GPU this
+        builds the CUDA kernels, sets up cuDNN's plans and primes the
+        caching allocator, so none of it lands in a stream's time to first
+        audio."""
         cfgE = self.config
         dev = self.device
         emb = torch.zeros(self.codec_cfg.adaln_dim, device=dev)
@@ -319,27 +396,43 @@ class TTSEngine:
         cfg = self.llm_cfg
         bucket_p = _round_up(prompt_len, cfgE.prompt_bucket)
         # the cache-size bucket rule of generate_tokens
-        s_cache = min(_bucket_len(bucket_p + cfgE.max_tokens + 64, 256),
-                      cfgE.n_ctx)
+        s_cache = self._cache_len(bucket_p, cfgE.max_tokens)
         cache = init_kv_cache(cfg, 1, s_cache, dtype=self.dtype, device=dev)
-        last, cache = llm_prefill(
-            self.llm_params, torch.zeros((1, bucket_p), dtype=torch.int64,
-                                         device=dev),
-            torch.tensor([8], dtype=torch.int32), cache, cfg)
+        toks = torch.zeros((1, bucket_p), dtype=torch.int64, device=dev)
+        n_real = torch.tensor([8], dtype=torch.int32)
+        last, cache = llm_prefill(self.llm_params, toks, n_real, cache, cfg)
         gen = torch.Generator(device=dev)
         gen.manual_seed(0)
         chunk = cfgE.stream_check_interval
-        for n in sorted({chunk, OFFLINE_CHUNK}):
-            _, _, _, last, cache = llm_generate_chunk(
-                self.llm_params, last, cache, 1.0, self._stop_ids, cfg, n, gen)
-        if cfgE.fused_streaming:
-            win = cfgE.stream_window_codes > 0
-            buckets = ([self._window_bucket()] if win
-                       else self._code_buckets(max_codes, chunk))
-            for b in buckets:
-                st = self._fused_state(last, cache, b)
-                self._fused_chunk(st, chunk, 1.0, gen, b, win, 1 << 30)
-                last, cache = st["last"], st["cache"]
+        if self.draft_params is not None:
+            # with a draft every generation is speculative: the plain chunk
+            # and the fused step never run
+            dcache = init_kv_cache(self.draft_cfg, 1, s_cache,
+                                   dtype=self.dtype, device=dev)
+            _, dcache = llm_prefill(self.draft_params, toks, n_real, dcache,
+                                    self.draft_cfg)
+            pending = torch.zeros((1,), dtype=torch.int64, device=dev)
+            K = cfgE.spec_tokens
+            for n in sorted({chunk, OFFLINE_CHUNK}):
+                _, _, _, pending, cache, dcache, _, _ = llm_generate_chunk_spec(
+                    self.llm_params, self.draft_params, pending, cache,
+                    dcache, 1.0, self._stop_ids, cfg, self.draft_cfg,
+                    -(-n // (K + 1)), K, generator=gen,
+                    force_p=self._spec_force_p())
+            self._dcache = dcache
+        else:
+            for n in sorted({chunk, OFFLINE_CHUNK}):
+                _, _, _, last, cache = llm_generate_chunk(
+                    self.llm_params, last, cache, 1.0, self._stop_ids, cfg,
+                    n, gen)
+            if cfgE.fused_streaming:
+                win = cfgE.stream_window_codes > 0
+                buckets = ([self._window_bucket()] if win
+                           else self._code_buckets(max_codes, chunk))
+                for b in buckets:
+                    st = self._fused_state(last, cache, b)
+                    self._fused_chunk(st, chunk, 1.0, gen, b, win, 1 << 30)
+                    last, cache = st["last"], st["cache"]
         _sync(dev)
         self._cache = cache
 
@@ -425,7 +518,9 @@ class TTSEngine:
 
     def _prefill(self, text: str, max_tok: int):
         """Tokenize `text`'s prompt, clamp the budget to n_ctx and prefill
-        the reused cache.  Returns (last_logits, cache, max_tok)."""
+        the reused cache, and the draft's reused cache of the same size
+        when a draft is loaded.  Returns (last_logits, cache, max_tok,
+        draft cache or None)."""
         cfgE = self.config
         dev = self.device
         prompt = build_prompt(normalize_tts_text(text))
@@ -434,12 +529,15 @@ class TTSEngine:
         n = len(ids)
         if n + max_tok > cfgE.n_ctx:
             max_tok = max(0, cfgE.n_ctx - n)
+        if self.draft_params is not None:
+            # a speculative round writes positions fill .. fill + k before
+            # its rollback: reserve them below n_ctx
+            max_tok = max(0, min(max_tok,
+                                 cfgE.n_ctx - n - (cfgE.spec_tokens + 1)))
         bucket = _round_up(n, cfgE.prompt_bucket)
         toks = torch.zeros((1, bucket), dtype=torch.int64)
         toks[0, :n] = torch.tensor(ids, dtype=torch.int64)
-        # cache sized to a geometric bucket of prompt + budget: decode
-        # attention reads the whole cache length every step
-        s_cache = min(_bucket_len(bucket + max_tok + 64, 256), cfgE.n_ctx)
+        s_cache = self._cache_len(bucket, max_tok)
         if self._cache is None or self._cache["k"].shape[3] != s_cache:
             self._cache = init_kv_cache(self.llm_cfg, 1, s_cache,
                                         dtype=self.dtype, device=dev)
@@ -450,10 +548,20 @@ class TTSEngine:
             # inputs, and the prefill starts from it: clear it (`fill`
             # alone masks the old k / v, nothing masks this state)
             cache["conv"].zero_()
-        last, cache = llm_prefill(self.llm_params, toks.to(dev),
-                                  torch.tensor([n], dtype=torch.int32), cache,
+        toks = toks.to(dev)
+        n_real = torch.tensor([n], dtype=torch.int32)
+        last, cache = llm_prefill(self.llm_params, toks, n_real, cache,
                                   self.llm_cfg)
-        return last, cache, max_tok
+        if self.draft_params is None:
+            return last, cache, max_tok, None
+        if self._dcache is None or self._dcache["k"].shape[3] != s_cache:
+            self._dcache = init_kv_cache(self.draft_cfg, 1, s_cache,
+                                         dtype=self.dtype, device=dev)
+        dcache = dict(self._dcache,
+                      fill=torch.zeros((1,), dtype=torch.int32, device=dev))
+        _, dcache = llm_prefill(self.draft_params, toks, n_real, dcache,
+                                self.draft_cfg)
+        return last, cache, max_tok, dcache
 
     def generate_tokens(self, text: str, options: Options = Options(),
                         on_token=None, profile: StreamProfile | None = None
@@ -466,13 +574,14 @@ class TTSEngine:
         writes past the last cache column when the budget was clamped to
         n_ctx.  With `profile`, fills prefill_sec, llm_sec (the chunk
         loop), llm_tokens, decode_steps and token_ids, synchronising the
-        device after the prefill."""
+        device after the prefill (the draft's prefill included).  With a
+        draft model loaded, the tokens come from `_spec_loop`."""
         if self.llm_params is None or self.tokenizer is None:
             raise RuntimeError("LLM model is not loaded")
         temp, max_tok, seed = self._resolve(options)
         dev = self.device
         t0 = time.perf_counter()
-        last, cache, max_tok = self._prefill(text, max_tok)
+        last, cache, max_tok, dcache = self._prefill(text, max_tok)
         if profile is not None:
             _sync(dev)
             profile.prefill_sec += time.perf_counter() - t0
@@ -481,6 +590,9 @@ class TTSEngine:
                  else OFFLINE_CHUNK)
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
+        if dcache is not None and max_tok > 0:
+            return self._spec_loop(last, cache, dcache, temp, gen, chunk,
+                                   max_tok, on_token, profile)
         generated: list[int] = []
         stopped = False
         while len(generated) < max_tok and not stopped:
@@ -505,6 +617,108 @@ class TTSEngine:
                     stopped = True
                     break
         self._cache = cache
+        return generated
+
+    @staticmethod
+    def _spec_force_p() -> float | None:
+        """MIOTTS_SPEC_FORCE_ACCEPT as a float, None when unset: the
+        forced-acceptance measurement harness of `spec_accept`, read at
+        each call, as the JAX package's engine reads it.  Never set outside
+        a measurement: the tokens are then not the target's."""
+        v = os.environ.get("MIOTTS_SPEC_FORCE_ACCEPT", "")
+        return float(v) if v else None
+
+    def _spec_loop(self, last, cache, dcache, temp: float, gen, chunk: int,
+                   max_tok: int, on_token, profile) -> list[int]:
+        """Speculative generation (`llm_generate_chunk_spec`) after both
+        prefills: the first token is drawn on the host from the target's
+        own distribution, then chunks of draft-propose / target-verify
+        rounds follow.  At temperature <= 0 the tokens are plain greedy
+        decoding's; above it their distribution is exact but the draws
+        differ from the plain loop's.
+
+        A chunk runs ceil(min(chunk, tokens left) / (k + 1)) rounds: the
+        most that can never start past `chunk` tokens, since each active
+        round emits 1 to k + 1.  The chunk's token limit and the budget
+        left stay on the device, so a round past either, or after a stop,
+        runs masked.  Depth-2 dispatch: the next chunk is enqueued before
+        this one's tokens are read back (through pinned memory behind an
+        event), unless this one may spend the budget.  The acceptance
+        counts land in self._spec_stats (rounds, accepted, drafted);
+        profile.decode_steps counts the rounds the device ran, masked ones
+        included (each k + 1 draft steps and one verify)."""
+        cfgE = self.config
+        K = cfgE.spec_tokens
+        dev = self.device
+        force_p = self._spec_force_p()
+        stats = self._spec_stats = {"rounds": 0, "accepted": 0, "drafted": 0}
+        generated: list[int] = []
+
+        def emit(tid: int) -> bool:
+            generated.append(tid)
+            if profile is not None:
+                profile.llm_tokens = len(generated)
+                profile.token_ids.append(tid)
+            return on_token is None or on_token(tid, len(generated))
+
+        t1 = time.perf_counter()
+        pending = sample_token(last, temp, gen)
+        tid0 = int(pending[0])
+        if profile is not None:
+            profile.llm_sec += time.perf_counter() - t1
+        st = dict(pending=pending, cache=cache, dcache=dcache,
+                  done=torch.zeros((), dtype=torch.bool, device=dev),
+                  left=torch.full((), max_tok - 1, dtype=torch.int64,
+                                  device=dev))
+
+        def dispatch(bound: int):
+            """Enqueue one chunk for at most `bound` tokens (a host-side
+            upper bound of the budget left); returns (readback, rounds)."""
+            n_rounds = -(-max(1, min(chunk, bound)) // (K + 1))
+            buf, cnt, done, pending, cache, dcache, rounds, acc = (
+                llm_generate_chunk_spec(
+                    self.llm_params, self.draft_params, st["pending"],
+                    st["cache"], st["dcache"], temp, self._stop_ids,
+                    self.llm_cfg, self.draft_cfg, n_rounds, K,
+                    limit=st["left"].clamp(max=chunk), generator=gen,
+                    force_p=force_p, done=st["done"]))
+            st.update(pending=pending, cache=cache, dcache=dcache, done=done,
+                      left=st["left"] - cnt)
+            if profile is not None:
+                profile.decode_steps += n_rounds
+            return _Readback(torch.cat(
+                [buf, torch.stack([cnt, done.long(), rounds, acc])])), n_rounds
+
+        # a stop token first: nothing is emitted
+        stopped = tid0 in self._stop_ids.tolist() or not emit(tid0)
+        inflight: list = []
+        while not stopped and len(generated) < max_tok:
+            t1 = time.perf_counter()
+            if not inflight:
+                inflight.append(dispatch(max_tok - len(generated)))
+            _, r_cur = inflight[0]
+            if len(generated) + r_cur * (K + 1) < max_tok:
+                # this chunk cannot spend the budget: enqueue the next
+                # behind it (it emits at least one token a round)
+                inflight.append(dispatch(max_tok - len(generated) - r_cur))
+            rb, _ = inflight.pop(0)
+            h = rb.get()[0]
+            cnt, done, rounds, acc = (int(v) for v in h[-4:])
+            if profile is not None:
+                profile.llm_sec += time.perf_counter() - t1
+            stats["rounds"] += rounds
+            stats["accepted"] += acc
+            stats["drafted"] += rounds * K
+            take = min(cnt, max_tok - len(generated))
+            stopped = bool(done)
+            for tid in h[:take]:
+                if not emit(int(tid)):
+                    stopped = True
+                    break
+        # a chunk still in flight writes past the kept fill of both caches
+        # only, which the next prefill resets
+        self._cache = st["cache"]
+        self._dcache = st["dcache"]
         return generated
 
     def generate_token_text(self, text: str,
@@ -774,7 +988,8 @@ class TTSEngine:
             return ok
 
         if (self.config.fused_streaming and self.llm_params is not None
-                and not self.config.pipeline_codec):
+                and not self.config.pipeline_codec
+                and self.draft_params is None):
             ok = self._stream_fused(voice, text, emit_range, timed_callback,
                                     options, profile)
             profile.total_sec = time.perf_counter() - t_total0
@@ -976,7 +1191,7 @@ class TTSEngine:
         dev = self.device
         temp, max_tok, seed = self._resolve(options)
         t0 = time.perf_counter()
-        last, cache, max_tok = self._prefill(text, max_tok)
+        last, cache, max_tok, _ = self._prefill(text, max_tok)
         _sync(dev)
         profile.prefill_sec += time.perf_counter() - t0
 

@@ -268,6 +268,36 @@ def test_qdot_gemv_matches_plain_at_path_shapes_on_gpu(k, n, fmt):
         assert torch.equal(tq.qdot(x, qt), got)
 
 
+# the 2.6B-Q4_K_M linears a speculative verify runs at M = k + 1 (chip_smoke
+# phase 21 a: k = 1, 3, 6)
+VERIFY_SHAPES = [(2560, 3840, "q4_k+q6_k"), (2560, 2560, "q4_k_packed"),
+                 (2560, 16384, "q4_k_packed"), (8192, 2560, "q6_k"),
+                 (2560, 13059, "q4_k_packed")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n,fmt", VERIFY_SHAPES)
+def test_qdot_tile_at_the_verify_shapes_on_gpu(k, n, fmt):
+    """K1's tile at M = 2, 4, 7 on the speculative verify's 2.6B linears:
+    f32 x within 1e-5 of the output scale, bf16 x within 1e-2; one launch a
+    call, and a second call gives the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    qt = _path_qt(k, n, fmt, seed=k + n + 1)
+    for m in (2, 4, 7):
+        for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
+            x = _x_gpu(m, k, dtype, seed=m + n)
+            before = tq.qdot.kernel_launches
+            got = tq.qdot(x, qt)
+            torch.cuda.synchronize()
+            assert tq.qdot.kernel_launches == before + 1
+            assert got.dtype == dtype and got.shape == (m, n)
+            err = _rel_err(got.float().cpu(),
+                           tq.qdot_plain(x, qt).float().cpu())
+            assert err < tol, (k, n, fmt, m, dtype, err)
+            assert torch.equal(tq.qdot(x, qt), got)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("k,n,fmt", GEMV_SHAPES)
 def test_qdot_gemv_is_k3_and_k2_bit_for_bit_on_gpu(k, n, fmt):
