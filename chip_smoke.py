@@ -65,7 +65,7 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
  12. (d) LFM2 serving: ContinuousBatcher(16 slots, 20-step chunks) on the
      same engine serves 24 requests of 96 tokens (bf16 cache): K6 = 6 x
      device steps, qdot = 65 x (device steps + prefill waves), K5 none;
-     then profiles 16 requests x 40 tokens; then the same engine's weights
+     then profiles 16 requests x 20 tokens; then the same engine's weights
      under MIOTTS_QDOT_BF16=after serve 16 requests of 96 tokens (K1v = 65
      x (device steps + prefill waves), K6 = 6 x device steps, K1 and K5
      none) and are profiled the same way;
@@ -137,7 +137,8 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      tokens, agree within 1e-4 with the same callbacks and decodes, and
      launch K5 6 and qdot 65 per step (qdot 65 for the prefill).
  21. speculative decoding: the 2.6B-Q4_K_M target (phase 15's bf16 engine,
-     and an f32 load) with the 0.1B-Q8_0 draft of phase 3 at k = 6: (a)
+     and an f32 engine over its quantized weights, only the embedding read
+     again) with the 0.1B-Q8_0 draft of phase 3 at k = 6: (a)
      K1 vs plain at the verify's shapes (the five 2.6B linears at M = 2,
      4, 7) with times, bound and library; (b) f32, temperature 0, k = 1,
      3, 6 over 32 tokens: the tokens of plain decoding; (c) bf16, k = 6,
@@ -158,6 +159,26 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      stream; (h) `cli synth` and `cli bench` with --draft-model /
      --spec-tokens in process (the 0.1B drafting for itself), bench
      printing the two spec lines.
+ 22. fused serving on phase 7's engine and mix: (a) ContinuousBatcher(64
+     slots, 20-step chunks, fused=True), bf16 cache, 80 requests, against
+     the unfused batcher at depth 1 (the same schedule) with f32 slices:
+     per request the same tokens and sample count, PCM within 1e-4, is_last
+     on the last sample, K1 49 x (device steps + prefills) and K6 12 x
+     device steps; aggregate x_realtime, TTFA p50 and the stage split beside
+     the unfused runs' (phase 7's too); (b) the same on an int8 cache, 16
+     requests; (c) codec_fast: 16 requests' codes decoded exact and fast
+     (relative RMS within 1e-2, an exact decode after the fast one the same
+     bits, both timed), then the unfused batcher with codec_fast over the
+     mix; (d) the codec on a CUDA stream of its own (codec_device=0):
+     sample-exact against phase 7's run;
+ 23. the single-stream int8 KV cache (quantized_kv): (a) phase 3's engine,
+     128 tokens at bf16: the WAV, qdot 49 per step and per prefill, tok/s
+     beside phase 3's; (b) phase 11's LFM2 engine, 128 tokens: K5 6 per
+     decode step, every launch on the int8 cache, none in the prefill, qdot
+     65 per step and prefill, tok/s beside phase 11's; (c) GPU vs CPU, f32,
+     int8 cache, a prefill + 20 greedy steps on LFM2 layers 0-5 and on the
+     full-depth 0.1B: tokens identical, logits within 1e-2 of their scale
+     (one int8 step at a rounding tie).
 
 Kernel times are device times: the calls are captured in a CUDA graph and
 replayed between CUDA events, cycling over weight (or KV-cache) copies
@@ -168,8 +189,9 @@ The second-to-last line is the nvidia-smi name / power-limit line; before
 it, one JSON object {"kernels": [...]} (each kernel's launches, errors and
 times per decode step of its path); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
-Earlier, a line `details {...}` holds the per-shape rows and every phase's
-numbers.  Imports nothing of JAX or of the JAX package.
+Earlier, a line `details {...}` holds the per-shape rows, every phase's
+numbers and each phase's seconds (`phase_seconds`).  Imports nothing of JAX
+or of the JAX package.
 """
 
 from __future__ import annotations
@@ -207,6 +229,11 @@ MAX_TOKENS = 128
 QDOT_PER_STEP = LAYERS * 4 + 1   # fused QKV, wo, fused gate/up, down; output
 # batched serving (bench_batch.py's flagship mix at the 0.1B model)
 SLOTS, CHUNK, SERVE_TOKENS, N_REQ, N_REQ_INT8 = 64, 20, 96, 80, 16
+# the serving profiles' tokens a request (phases 7 and 12), cut from 40 for
+# the smoke's time: the profiler's processing grows with every launch it
+# records (PR 16 full2: phase 12 took 95.6 s with its two profiles at 40,
+# phase 7 62.5 s); 20 tokens still profile two chunks (40 steps)
+PROFILE_TOKENS = 20
 # attention kernel shapes (B, H, H_kv, D, S)
 ATTN_SHAPES = [("0.1b", 64, 12, 4, 64, 128), ("0.1b", 64, 12, 4, 64, 256),
                ("0.1b", 64, 12, 4, 64, 512), ("2.6b", 64, 32, 8, 80, 256),
@@ -308,6 +335,16 @@ SPEC_SELF_K = 4                # the 0.1B drafting for itself
 SPEC_STREAM_TOKENS = 48        # the f32 stream; the CLI's budget
 SPEC_TIE_TOL = BF16_REF_TOL    # bf16: where spec and plain part, the plain
                                # path's top two logits (of the logit scale)
+# phases 22-23: codec_fast against exact audio, relative RMS: TF32 (a 10-bit
+# mantissa) in the codec's matmuls and convolutions, inside the JAX
+# package's bf16-input fast mode (~1e-3 relative by its own account)
+FAST_RMS_TOL = 1e-2
+# GPU vs CPU over an int8 KV cache (f32 activations): the two paths' k / v
+# differ by ~1e-6 before quantization, so a value at a rounding tie lands
+# one int8 step (1 / 127 of its row's amax) apart; such a step moves a
+# score or a value column by under 1 % of its scale, and the logits stay
+# within that of theirs (the f32 cache's paths agree to REF_TOL)
+INT8_KV_REF_TOL = 1e-2
 
 
 def lfm2_config():
@@ -1401,6 +1438,7 @@ def phase_main_path(torch, qmat, paths: dict, out_dir: str, card: str) -> dict:
     log(f"skip-llm: {audio2.size} samples, peak "
         f"{float(np.max(np.abs(audio2))):.4f}")
     res["profile"] = profile_decode(torch, eng, text, Options, card)
+    res["engine"], res["voice"] = eng, voice    # phase 23 (a); popped
     return res
 
 
@@ -1463,24 +1501,28 @@ def profile_decode(torch, eng, text, Options, card: str,
 # Phase 7/8/9: batched serving, GPU vs CPU chunk, HTTP
 # ---------------------------------------------------------------------------
 
-def serve_requests(torch, batcher, voice, n_req: int, Options) -> dict:
+def serve_requests(torch, batcher, voice, n_req: int, Options,
+                   keep: bool = False) -> dict:
     """Submit n_req requests (bench_batch.py's mix) and run to completion;
     checks every request's audio and the launches: K6 once per attention
     layer and the quantized linears 4 per layer plus the head per batched
     step (also per prefill wave), through K1, or through K1v alone where
     the engine's route is MIOTTS_QDOT_BF16 on bf16 activations; K5 never.
-    Returns the run's numbers."""
+    Returns the run's numbers; with `keep`, also "per_request": {i: codes,
+    n_tokens, pcm, and whether the last callback was is_last with
+    samples} (not JSON: pop it before the details line)."""
     import numpy as np
     from miotts_tpu_torch.ops import decode_attn, qmat
     eng = batcher.engine
     k1v_route = bool(eng.config.qdot_route.bf16) and eng.dtype == torch.bfloat16
+    i16 = eng.config.serving_i16_transfer and not batcher.use_fused
     cfg = batcher.engine.llm_cfg
     attn_layers = len(cfg.attn_layer_idx)
     qdot_per_step = 4 * cfg.n_layers + 1
     spt = batcher.engine.samples_per_token
     sr = batcher.engine.sample_rate
     got = {i: {"samples": 0, "finite": True, "peak": 0.0, "final": False,
-               "req": None} for i in range(n_req)}
+               "req": None, "pcm": [], "last": None} for i in range(n_req)}
 
     def make_cb(i):
         def cb(samples, rate, is_last):
@@ -1489,7 +1531,11 @@ def serve_requests(torch, batcher, voice, n_req: int, Options) -> dict:
                 got[i]["samples"] += a.size
                 got[i]["finite"] &= bool(np.isfinite(a).all())
                 got[i]["peak"] = max(got[i]["peak"], float(np.abs(a).max()))
+                if keep:
+                    got[i]["pcm"].append(a.astype(np.float32))
             got[i]["final"] |= bool(is_last)
+            got[i]["last"] = (samples is not None and len(samples) > 0
+                              and bool(is_last))
             return True
         return cb
 
@@ -1517,8 +1563,9 @@ def serve_requests(torch, batcher, voice, n_req: int, Options) -> dict:
         r = g["req"]
         if r is None or not g["final"]:
             raise AssertionError(f"serving: request {i} got no final callback")
-        # the int16 wire format decodes -32768 to -32768 / 32767
-        if not g["finite"] or g["peak"] > 32768 / 32767:
+        # the int16 wire format decodes -32768 to -32768 / 32767 (f32
+        # slices, and the fused path's, are not clamped)
+        if not g["finite"] or (i16 and g["peak"] > 32768 / 32767):
             raise AssertionError(f"serving: request {i} audio not finite or "
                                  f"|x| > 1 (peak {g['peak']})")
         if not r.failed and g["samples"] != len(r.codes) * spt:
@@ -1539,7 +1586,15 @@ def serve_requests(torch, batcher, voice, n_req: int, Options) -> dict:
     audio_s = sum(g["samples"] for g in got.values()) / sr
     ttfa = sorted(g["req"].first_audio_at - g["req"].submitted_at
                   for g in got.values() if g["req"].first_audio_at >= 0)
-    return dict(n_req=n_req, wall_s=wall, audio_s=audio_s,
+    extra = {}
+    if keep:
+        extra["per_request"] = {
+            i: dict(codes=list(g["req"].codes), n_tokens=g["req"].n_tokens,
+                    pcm=(np.concatenate(g["pcm"]) if g["pcm"]
+                         else np.zeros(0, np.float32)),
+                    last_with_samples=g["last"])
+            for i, g in got.items()}
+    return dict(extra, n_req=n_req, wall_s=wall, audio_s=audio_s,
                 aggregate_x_realtime=audio_s / wall,
                 ttfa_p50_s=ttfa[len(ttfa) // 2] if ttfa else None,
                 ttfa_max_s=ttfa[-1] if ttfa else None,
@@ -1566,7 +1621,10 @@ def phase_serving(torch, paths: dict, card: str) -> dict:
         batcher.warmup(prompt_len=16)
         torch.cuda.synchronize()
         log(f"serving[{tag}]: warmup {time.perf_counter() - t0:.2f} s")
-        res = serve_requests(torch, batcher, voice, n_req, Options)
+        res = serve_requests(torch, batcher, voice, n_req, Options,
+                             keep=tag == "bf16")
+        if tag == "bf16":
+            out["bf16_requests"] = res.pop("per_request")
         out[tag] = res
         st = res["stage"]
         log(f"serving[{tag}]: {n_req} requests on {SLOTS} slots, wall "
@@ -1583,7 +1641,8 @@ def phase_serving(torch, paths: dict, card: str) -> dict:
              for k, v in st.items()}))
         del batcher
         torch.cuda.empty_cache()
-    # where a serving run's time goes: 64 requests x 40 tokens, bf16 cache
+    # where a serving run's time goes: 64 requests x PROFILE_TOKENS, bf16
+    # cache
     batcher = ContinuousBatcher(eng, n_slots=SLOTS, chunk_steps=CHUNK)
     batcher.warmup(prompt_len=16)
 
@@ -1591,10 +1650,12 @@ def phase_serving(torch, paths: dict, card: str) -> dict:
         for i in range(SLOTS):
             batcher.submit(f"profiled utterance number {i}", voice,
                            lambda *a: True,
-                           Options(max_tokens=40, temperature=0.8, seed=i))
+                           Options(max_tokens=PROFILE_TOKENS, temperature=0.8,
+                                   seed=i))
         batcher.run_until_done(max_iters=1000)
         return batcher.stage["device_steps"]
-    out["profile"] = device_profile(torch, run, "serving 64 x 40 tokens",
+    out["profile"] = device_profile(torch, run,
+                                    f"serving 64 x {PROFILE_TOKENS} tokens",
                                     card)
     out["profile"]["stage"] = dict(batcher.stage)
     del batcher
@@ -1806,16 +1867,18 @@ def phase_lfm2_serving(torch, eng, voice, card: str) -> dict:
         {k: (round(v, 6) if isinstance(v, float) else v)
          for k, v in st.items()}))
 
-    # where a batched LFM2 step's time goes: 16 requests x 40 tokens
+    # where a batched LFM2 step's time goes: 16 requests x PROFILE_TOKENS
     def run():
         steps0 = batcher.stage["device_steps"]
         for i in range(LFM2_SLOTS):
             batcher.submit(f"profiled utterance number {i}", voice,
                            lambda *a: True,
-                           Options(max_tokens=40, temperature=0.8, seed=i))
+                           Options(max_tokens=PROFILE_TOKENS, temperature=0.8,
+                                   seed=i))
         batcher.run_until_done(max_iters=1000)
         return batcher.stage["device_steps"] - steps0
-    res["profile"] = device_profile(torch, run, "lfm2 serving 16 x 40 tokens",
+    res["profile"] = device_profile(torch, run, f"lfm2 serving 16 x "
+                                    f"{PROFILE_TOKENS} tokens",
                                     card)
     res["after"] = lfm2_serving_after(torch, eng, voice, card, res)
     return res
@@ -1840,11 +1903,13 @@ def lfm2_serving_after(torch, eng, voice, card: str, default: dict) -> dict:
         for i in range(LFM2_SLOTS):
             batcher.submit(f"profiled utterance number {i}", voice,
                            lambda *a: True,
-                           Options(max_tokens=40, temperature=0.8, seed=i))
+                           Options(max_tokens=PROFILE_TOKENS, temperature=0.8,
+                                   seed=i))
         batcher.run_until_done(max_iters=1000)
         return batcher.stage["device_steps"] - steps0
     res["profile"] = device_profile(
-        torch, run, "lfm2 serving (after) 16 x 40 tokens", card)
+        torch, run, f"lfm2 serving (after) 16 x {PROFILE_TOKENS} tokens",
+        card)
     log(f"lfm2 serving[after]: {LFM2_AFTER_REQ} requests x {SERVE_TOKENS} "
         f"tokens on {LFM2_SLOTS} slots, wall {res['wall_s']:.4f} s, "
         f"aggregate x_realtime {res['aggregate_x_realtime']:.4f} (default "
@@ -2591,6 +2656,68 @@ def phase_q4km_gpu_vs_cpu(torch, qmat, path: str) -> dict:
 # draft
 # ---------------------------------------------------------------------------
 
+def engine_variant(eng, **config):
+    """Another engine over `eng`'s loaded weights, codec and tokenizer
+    (shared, not copied) with `config`'s fields replaced and KV caches of
+    its own.  A test harness's shortcut, for the fields that need no new
+    load (quantized_kv, i16_transfer, llm_dtype with f32_engine's
+    parameters); codec_fast / codec_device: codec_variant."""
+    import copy
+    v = copy.copy(eng)
+    v.config = dataclasses.replace(eng.config, **config)
+    v._cache = v._dcache = v._spec_stats = None
+    return v
+
+
+def codec_variant(torch, eng, fast: bool = False, stream: bool = False):
+    """engine_variant with the codec's fast mode (what TTSEngine does for
+    codec_fast) or its decodes on a CUDA stream of their own on the same
+    card (what it does for codec_device=0 on one GPU)."""
+    v = engine_variant(eng, codec_fast=fast, codec_device=0 if stream else -1)
+    if fast:
+        v.codec_cfg = dataclasses.replace(eng.codec_cfg, fast=True)
+    if stream:
+        v.codec_device = torch.device("cuda", 0)
+        v._codec_stream = torch.cuda.Stream(v.codec_device)
+    return v
+
+
+def f32_engine(torch, base, path: str, **config):
+    """An f32 engine over the bf16 engine `base`'s QTensors: a quantized
+    weight takes no dtype (models/llm._load_matrix), and the norms and
+    biases load in f32 whatever the dtype, so only `token_embd` (and a
+    dense output head) is read again, in f32, from `path`; a dense matrix
+    in a block (none in the 2.6B-Q4_K_M file) fails here.  Takes phase 21's 2.6B f32 target from
+    a 35-51 s load (PR 15) to the embedding's few seconds."""
+    from miotts_tpu_torch.gguf import GGUFReader
+    from miotts_tpu_torch.ops.qmat import QTensor
+
+    def check(tree, where):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                check(v, f"{where}.{k}")
+        elif isinstance(tree, list):
+            for i, v in enumerate(tree):
+                check(v, f"{where}[{i}]")
+        elif not isinstance(tree, QTensor) and tree.dtype != torch.float32:
+            raise AssertionError(f"f32_engine: {where} is a dense "
+                                 f"{tree.dtype} tensor: read it again too")
+
+    params = dict(base.llm_params)
+    dense = ["token_embd"] + [k for k in ("output",) if k in params and
+                              not isinstance(params[k], QTensor)]
+    with GGUFReader(path) as r:
+        for k in dense:
+            params[k] = torch.from_numpy(r.tensor_f32(f"{k}.weight")).to(
+                base.device, torch.float32)
+    check({k: v for k, v in params.items() if k not in dense}, "params")
+    eng = engine_variant(base, llm_dtype="float32", **config)
+    eng.dtype = torch.float32
+    eng.llm_params = params
+    eng.draft_params = eng.draft_cfg = None
+    return eng
+
+
 def prompt_ids(eng, text: str) -> list:
     """The engine's prompt token ids of `text`."""
     from miotts_tpu_torch.text import build_prompt, normalize_tts_text
@@ -2812,12 +2939,11 @@ def phase_spec(torch, qmat, paths: dict, d: str, card: str, base) -> dict:
 
     # (b) f32: the speculative tokens are plain greedy decoding's
     t0 = time.perf_counter()
-    eng32 = TTSEngine(EngineConfig(
-        model_path=paths["q4km"], codec_path=paths["codec"], device="cuda",
-        llm_dtype="float32", temperature=0.0, max_tokens=SPEC_TOKENS,
-        draft_model_path=paths["llm"], spec_tokens=SPEC_K,
-        qdot_route=qmat.QdotRoute()))
-    log(f"spec: f32 target + draft load {time.perf_counter() - t0:.2f} s")
+    eng32 = f32_engine(torch, base, paths["q4km"],
+                       max_tokens=SPEC_TOKENS).with_draft(paths["llm"], SPEC_K)
+    res["f32_load_s"] = time.perf_counter() - t0
+    log(f"spec: f32 target over phase 15's quantized weights + f32 draft "
+        f"load {res['f32_load_s']:.2f} s")
     plain32 = eng32.with_draft("")
     want = timed_tokens(plain32, text, Options, SPEC_PARITY_TOKENS)[0]
     res["f32_parity"] = {}
@@ -2959,6 +3085,256 @@ def phase_spec(torch, qmat, paths: dict, d: str, card: str, base) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phases 22-23: the fused batch step and the codec options (0.1B serving);
+# the single-stream int8 KV cache (0.1B, LFM2)
+# ---------------------------------------------------------------------------
+
+def same_requests(label: str, got: dict, want: dict, tol: float) -> float:
+    """Per request: the same codes and token count, the same sample count,
+    PCM within `tol` (0: bit for bit), and a last callback that was
+    is_last with samples.  Returns the largest |diff|."""
+    import numpy as np
+    worst = 0.0
+    for i, w in want.items():
+        g = got[i]
+        if g["codes"] != w["codes"] or g["n_tokens"] != w["n_tokens"]:
+            raise AssertionError(f"{label}: request {i} kept other tokens "
+                                 f"({g['n_tokens']} against {w['n_tokens']})")
+        if g["pcm"].shape != w["pcm"].shape:
+            raise AssertionError(f"{label}: request {i} emitted "
+                                 f"{g['pcm'].size} samples against "
+                                 f"{w['pcm'].size}")
+        if not g["last_with_samples"]:
+            raise AssertionError(f"{label}: request {i} did not end with "
+                                 f"is_last on its last sample")
+        if g["pcm"].size:
+            worst = max(worst, float(np.abs(g["pcm"] - w["pcm"]).max()))
+    if worst > tol:
+        raise AssertionError(f"{label}: PCM max |diff| {worst} > {tol}")
+    return worst
+
+
+def serving_line(res: dict) -> str:
+    return (f"aggregate x_realtime {res['aggregate_x_realtime']:.4f}, TTFA "
+            f"p50 {res['ttfa_p50_s']:.4f} s, wall {res['wall_s']:.4f} s, "
+            f"stage " + json.dumps({k: (round(v, 4) if isinstance(v, float)
+                                        else v)
+                                    for k, v in res["stage"].items()}))
+
+
+def phase_fused_serving(torch, eng, voice, card: str, phase7: dict,
+                        phase7_requests: dict) -> dict:
+    """Phase 7's engine and mix: (a) the fused batch step (64 slots, 20-step
+    chunks) against the unfused batcher at depth 1 (the same schedule, so
+    every chunk sees the same slots and attention length) with float
+    slices, bf16 cache; (b) the same on an int8 cache; (c) codec_fast on
+    the unfused batcher; (d) the codec on a CUDA stream of its own against
+    phase 7's run."""
+    import numpy as np
+    from miotts_tpu_torch.runtime.batching import ContinuousBatcher
+    from miotts_tpu_torch.runtime.engine import Options
+    out: dict = {}
+    flt = engine_variant(eng, i16_transfer=False)
+
+    def serve(e, keep=True, **kw):
+        b = ContinuousBatcher(e, n_slots=SLOTS, chunk_steps=CHUNK, **kw)
+        b.warmup(prompt_len=16)
+        n_req = N_REQ_INT8 if kw.get("quantized_kv") else N_REQ
+        return serve_requests(torch, b, voice, n_req, Options, keep=keep)
+
+    # (a), (b): fused against unfused, the same tokens and samples
+    for tag, quant in (("bf16", False), ("int8", True)):
+        ref = serve(flt, quantized_kv=quant, pipeline_depth=1)
+        fused = serve(flt, quantized_kv=quant, fused=True)
+        err = same_requests(f"fused serving[{tag}]", fused.pop("per_request"),
+                            ref.pop("per_request"), STREAM_TOL)
+        out[tag] = dict(fused=fused, unfused_depth1=ref, max_abs=err)
+        log(f"fused serving[{tag}]: {fused['n_req']} requests, tokens and "
+            f"samples equal to the unfused batcher's (depth 1, f32 slices), "
+            f"PCM max |diff| {err:.3e} (tol {STREAM_TOL}); {fused['codes']} "
+            f"codes; K6 {fused['attn_launches']}, K1 "
+            f"{fused['qdot_launches']} over {fused['stage']['device_steps']}"
+            f" steps + {fused['stage']['prefills']} prefills  [{card}]")
+        log(f"fused serving[{tag}]: fused {serving_line(fused)}")
+        log(f"fused serving[{tag}]: unfused depth 1 {serving_line(ref)}")
+    base = phase7["bf16"]
+    log(f"fused serving: phase 7's unfused run (depth 2, int16 slices) "
+        f"{serving_line(base)}")
+
+    # (c) codec_fast: the same codes through an exact and a fast decode,
+    # then bench_batch.py's setting on the unfused batcher
+    fast = codec_variant(torch, eng, fast=True)
+    spt = eng.samples_per_token
+    codes = [r["codes"] for r in list(phase7_requests.values())[:16]]
+    args = ([voice] * len(codes), [0] * len(codes), [len(c) * spt
+                                                     for c in codes])
+
+    def decode(e):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a = e.decode_codes_batch_sliced(codes, *args, i16=False)
+        return np.concatenate(a), time.perf_counter() - t0
+
+    decode(eng), decode(fast)                   # cuDNN's plans, both modes
+    exact1, t_exact = decode(eng)
+    got, t_fast = decode(fast)
+    exact2, _ = decode(eng)
+    rms = float(np.sqrt(np.mean((got.astype(np.float64) - exact1) ** 2))
+                / np.sqrt(np.mean(exact1.astype(np.float64) ** 2)))
+    same = bool(np.array_equal(exact1, exact2))
+    served = serve(fast, keep=False)
+    out["codec_fast"] = dict(rel_rms=rms, exact_after_fast_same_bits=same,
+                             decode_s=t_fast, exact_decode_s=t_exact,
+                             serving=served)
+    log(f"codec_fast: {len(codes)} requests' codes ({sum(map(len, codes))}) decoded "
+        f"exact and fast: relative RMS {rms:.3e} (tol {FAST_RMS_TOL}), "
+        f"decode {t_fast:.4f} s against {t_exact:.4f} s; an exact decode "
+        f"after the fast one {'the same bits' if same else 'DIFFERS'}  "
+        f"[{card}]")
+    log(f"codec_fast serving: {serving_line(served)}")
+    if rms > FAST_RMS_TOL or not same:
+        raise AssertionError("codec_fast: the fast decode is off or the exact "
+                             "decode after it changed")
+
+    # (d) the codec's own CUDA stream against phase 7's same-stream run
+    side = codec_variant(torch, eng, stream=True)
+    served = serve(side)
+    err = same_requests("codec stream", served.pop("per_request"),
+                        phase7_requests, 0.0)
+    out["codec_stream"] = dict(serving=served, max_abs=err)
+    log(f"codec stream: {served['n_req']} requests sample-exact against "
+        f"phase 7's run; {serving_line(served)}  [{card}]")
+    return out
+
+
+def int8_offline(torch, eng, voice, out_dir: str, card: str, label: str,
+                 per_step: int, k5_per_step: int, plain: dict) -> dict:
+    """`eng` with quantized_kv (its weights shared): synthesize_to_file at
+    temperature 0, MAX_TOKENS tokens; checks the WAV, the int8 cache, qdot
+    per_step x (1 + steps), K5 k5_per_step per decode step, every launch
+    on an int8 cache, and none in the prefill; tok/s beside `plain`'s."""
+    import numpy as np
+    from miotts_tpu_torch.audio.wav import wav_read
+    from miotts_tpu_torch.ops import decode_attn, qmat
+    from miotts_tpu_torch.runtime.engine import Options
+    from miotts_tpu_torch.runtime.profile import StreamProfile
+    e8 = engine_variant(eng, quantized_kv=True)
+    text = "The quick brown fox jumps over the lazy dog."
+    e8.synthesize(voice, text, Options(temperature=0.0, max_tokens=8))
+    if e8._cache["k"].dtype != torch.int8:
+        raise AssertionError(f"{label}: quantized_kv built a "
+                             f"{e8._cache['k'].dtype} cache")
+    single = decode_attn._decode_attention_single_cuda
+    int8_calls = [0]
+
+    def counted(q, k_cache, *a, **k):
+        int8_calls[0] += k_cache.dtype == torch.int8
+        return single(q, k_cache, *a, **k)
+
+    counters = (qmat.qdot, decode_attn.decode_attention,
+                decode_attn.decode_attention_batched)
+    for c in counters:
+        c.kernel_launches = 0
+    wav = os.path.join(out_dir, f"{label}.wav")
+    prof = StreamProfile()
+    decode_attn._decode_attention_single_cuda = counted
+    try:
+        t0 = time.perf_counter()
+        e8.synthesize_to_file(voice, text, wav, Options(
+            temperature=0.0, max_tokens=MAX_TOKENS), profile=prof)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        decode_attn._decode_attention_single_cuda = single
+    qd, k5, k6 = (c.kernel_launches for c in counters)
+    audio, sr = wav_read(wav)
+    if not (np.isfinite(audio).all() and sr == e8.sample_rate
+            and audio.size == prof.decoded_codes * e8.samples_per_token
+            and abs(float(np.max(np.abs(audio))) - 0.95) < 1e-3):
+        raise AssertionError(f"{label}: bad WAV, {audio.size} samples")
+    steps = prof.decode_steps
+    if (qd != per_step * (1 + steps) or k5 != k5_per_step * steps
+            or int8_calls[0] != k5 or k6):
+        raise AssertionError(
+            f"{label}: launches qdot {qd} (want {per_step} x (1 + {steps})),"
+            f" K5 {k5} ({int8_calls[0]} on an int8 cache; want "
+            f"{k5_per_step} x {steps}), K6 {k6}")
+    res = dict(decode_tok_s=steps / prof.llm_sec, decode_steps=steps,
+               prefill_ms=prof.prefill_sec * 1e3, llm_tokens=prof.llm_tokens,
+               x_realtime=audio.size / sr / wall, qdot_launches=qd,
+               k5_launches=k5, k5_int8_launches=int8_calls[0],
+               tokens=list(prof.token_ids),
+               bf16_cache_tok_s=plain["decode_tok_s"],
+               tokens_agreeing_with_bf16_cache=sum(
+                   a == b for a, b in zip(prof.token_ids, plain["tokens"])))
+    log(f"{label}: int8 cache, {prof.llm_tokens} tokens of {steps} steps at "
+        f"{res['decode_tok_s']:.4f} tok/s (bf16 cache "
+        f"{plain['decode_tok_s']:.4f}), prefill {res['prefill_ms']:.4f} ms, "
+        f"x_realtime {res['x_realtime']:.4f}; launches qdot {qd}, K5 {k5} "
+        f"(int8 {int8_calls[0]}); {res['tokens_agreeing_with_bf16_cache']} "
+        f"tokens agree with the bf16 cache's  [{card}]")
+    return res
+
+
+def phase_int8_gpu_vs_cpu(torch, paths: dict) -> dict:
+    """The int8 KV cache on the card and on the CPU plain path, f32, a
+    prefill + 20 greedy steps: LFM2 layers 0-5 (as phase 13: K5's int8
+    form on the card) and the 0.1B at full depth (the dense decode's
+    attention over the int8 cache, K1)."""
+    from miotts_tpu_torch.gguf import GGUFReader
+    from miotts_tpu_torch.models.llm import (LLMConfig, init_kv_cache,
+                                             llm_generate_chunk, llm_prefill,
+                                             load_llm_params)
+    from miotts_tpu_torch.ops import decode_attn
+    n_vocab = 256 + 3 + N_SPEECH
+    toks = torch.zeros((1, 48), dtype=torch.int64)
+    toks[0, :40] = (torch.arange(40) * 37 + 11) % n_vocab
+    out = {}
+    for name, path, layers in (("lfm2", paths["lfm2"], LFM2_REF_LAYERS),
+                               ("0.1b", paths["llm"], None)):
+        res = {}
+        with GGUFReader(path) as r:
+            cfg = LLMConfig.from_gguf(r)
+            if layers:
+                cfg = dataclasses.replace(
+                    cfg, n_layers=layers, layer_types=cfg.layer_types[:layers])
+            for dev in ("cuda", "cpu"):
+                params, _ = load_llm_params(r, cfg, dtype=torch.float32,
+                                            device=dev)
+                cache = init_kv_cache(cfg, 1, 128, dtype=torch.float32,
+                                      device=dev, quantized=True)
+                decode_attn.decode_attention.kernel_launches = 0
+                last, cache = llm_prefill(params, toks.to(dev),
+                                          torch.tensor([40]), cache, cfg)
+                first = last.cpu()
+                buf, _, _, last, cache = llm_generate_chunk(
+                    params, last, cache, 0.0, torch.tensor([-1], device=dev),
+                    cfg, 20)
+                res[dev] = (first, buf.cpu(), last.cpu(),
+                            decode_attn.decode_attention.kernel_launches)
+                del params, cache
+        n_k5 = (sum(t == "attn" for t in cfg.layer_types) * 20
+                if cfg.layer_types else 0)
+        e_first = rel_err(res["cuda"][0], res["cpu"][0])
+        e_last = rel_err(res["cuda"][2], res["cpu"][2])
+        same = bool(torch.equal(res["cuda"][1], res["cpu"][1]))
+        log(f"int8 gpu-vs-cpu[{name}]: f32, int8 cache, prefill + 20 greedy "
+            f"steps: tokens {'identical' if same else 'DIFFER'}, prefill "
+            f"logits rel err {e_first:.2e}, last-step {e_last:.2e} (tol "
+            f"{INT8_KV_REF_TOL}); K5 {res['cuda'][3]} (want {n_k5})")
+        if res["cuda"][3] != n_k5:
+            raise AssertionError(f"int8 gpu-vs-cpu[{name}]: K5 launches "
+                                 f"{res['cuda'][3]} != {n_k5}")
+        if not (same and e_first < INT8_KV_REF_TOL
+                and e_last < INT8_KV_REF_TOL):
+            raise AssertionError(f"int8 gpu-vs-cpu[{name}]: the card "
+                                 f"disagrees with the CPU plain path")
+        out[name] = dict(tokens_identical=same, first_logits_rel_err=e_first,
+                         last_logits_rel_err=e_last, k5_launches=res["cuda"][3])
+    return out
+
+
 # kernel -> (name, source, the TPU kernel it replaces, the route that runs
 # it, what one decode step of its work is)
 VARIANTS = {
@@ -3080,10 +3456,10 @@ def single_stream_steps(res: dict) -> dict:
 
 # every phase (3 runs 3-5), and what a phase needs run before it
 ALL_PHASES = (2, 3, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20,
-              21)
-PHASE_NEEDS = {9: {7}, 12: {11}, 20: {11}, 21: {15}}
-MODEL_PHASES = {3, 7, 8, 9, 11, 12, 13, 15, 16, 19, 20, 21}   # the 0.1B
-                                                              # files, codec
+              21, 22, 23)
+PHASE_NEEDS = {9: {7}, 12: {11}, 20: {11}, 21: {15}, 22: {7}, 23: {3, 11}}
+MODEL_PHASES = {3, 7, 8, 9, 11, 12, 13, 15, 16, 19, 20, 21, 22,
+                23}                          # the 0.1B files, codec
 
 
 def parse_phases(argv) -> set:
@@ -3093,8 +3469,8 @@ def parse_phases(argv) -> set:
     ap = argparse.ArgumentParser(description="Chip smoke test of the port.")
     ap.add_argument("--phases", default="",
                     help="comma-separated phase numbers to run (3 runs 3-5; "
-                         "9 brings 7, 12 and 20 bring 11, 21 brings 15); "
-                         "default: all")
+                         "9 and 22 bring 7, 12 and 20 bring 11, 21 brings "
+                         "15, 23 brings 3 and 11); default: all")
     args = ap.parse_args(argv)
     if not args.phases:
         return set(ALL_PHASES)
@@ -3129,10 +3505,18 @@ def main(argv=None) -> int:
             if "Used" in line or "spill" in line:
                 log(f"build {name}: {line.strip()}")
 
-    def done(label: str) -> None:
-        log(f"phase {label} done at {time.perf_counter() - t_start:.1f} s")
+    # each phase's seconds: since the previous phase ended (the build is in
+    # phase 2's, a model file's write or wait in the phase that reads it)
+    res: dict = {"phase_seconds": {}}
+    mark = [t_start]
 
-    res: dict = {}
+    def done(label: str) -> None:
+        now = time.perf_counter()
+        res["phase_seconds"][label] = round(now - mark[0], 1)
+        mark[0] = now
+        log(f"phase {label} done at {now - t_start:.1f} s "
+            f"({res['phase_seconds'][label]} s)")
+
     rows = []
     if 2 in run:
         rows = res["qdot_per_shape"] = phase_kernels(torch, qmat, card)
@@ -3149,6 +3533,14 @@ def main(argv=None) -> int:
         if 3 in run:
             res["main_path"] = phase_main_path(torch, qmat, paths, d, card)
             done("3/4/5")
+            main_eng = res["main_path"].pop("engine")
+            main_voice = res["main_path"].pop("voice")
+            if 23 in run:
+                res["int8_kv"] = {"0.1b": int8_offline(
+                    torch, main_eng, main_voice, d, card, "int8 0.1b",
+                    QDOT_PER_STEP, 0, res["main_path"])}
+                done("23 (a)")
+            del main_eng, main_voice
         if 19 in run:
             res["stream"] = phase_stream_0p1b(
                 torch, qmat, paths, d, card,
@@ -3167,10 +3559,15 @@ def main(argv=None) -> int:
             done("8")
         if 7 in run:
             eng, voice = res["serving"].pop("engine"), res["serving"].pop("voice")
+            phase7_requests = res["serving"].pop("bf16_requests")
             if 9 in run:
                 res["http"] = phase_http(torch, eng, voice)
                 done("9")
-            del eng, voice
+            if 22 in run:
+                res["fused_serving"] = phase_fused_serving(
+                    torch, eng, voice, card, res["serving"], phase7_requests)
+                done("22")
+            del eng, voice, phase7_requests
         torch.cuda.empty_cache()
         k5_rows = []
         if 10 in run:
@@ -3191,11 +3588,20 @@ def main(argv=None) -> int:
                     torch, lfm2_eng, lfm2_voice, card,
                     res["lfm2_offline"]["tokens"])
                 done("20")
+            if 23 in run:
+                res["int8_kv"]["lfm2"] = int8_offline(
+                    torch, lfm2_eng, lfm2_voice, d, card, "int8 lfm2",
+                    LFM2_QDOT_PER_STEP, len(LFM2_ATTN_IDX),
+                    res["lfm2_offline"])
+                done("23 (b)")
             del lfm2_eng
             torch.cuda.empty_cache()
         if 13 in run:
             res["lfm2_gpu_vs_cpu"] = phase_lfm2_gpu_vs_cpu(torch, paths["lfm2"])
             done("13 (c)")
+        if 23 in run:
+            res["int8_kv"]["gpu_vs_cpu"] = phase_int8_gpu_vs_cpu(torch, paths)
+            done("23 (c)")
         if 14 in run:
             res["variants_per_shape"] = phase_variants(torch, qmat, card)
             done("14")
@@ -3239,6 +3645,7 @@ def main(argv=None) -> int:
     stream_res, lfm2_stream = res["stream"], res["lfm2_stream"]
     spec_res = res["spec"]
     spec_rows = spec_res["kernel_rows"]
+    fused_res, int8_res = res["fused_serving"], res["int8_kv"]
     steps = single_stream_steps(res)
     qdot_entry = dict(
         name="qdot", route="cuda", source="miotts_tpu_torch/ops/csrc/qdot.cu",
@@ -3283,7 +3690,14 @@ def main(argv=None) -> int:
                               "qdot_launches"],
                           **{f"q4km_{name}_offline": r["launches"]["K1"]
                              for name, r in q4km_res.items()},
-                          "q4km_spec_bf16": spec_res["bf16"]["launches"]["K1"]})
+                          "q4km_spec_bf16": spec_res["bf16"]["launches"]["K1"],
+                          "serving_fused": fused_res["bf16"]["fused"][
+                              "qdot_launches"],
+                          "serving_fused_int8": fused_res["int8"]["fused"][
+                              "qdot_launches"],
+                          "int8_offline": int8_res["0.1b"]["qdot_launches"],
+                          "lfm2_int8_offline": int8_res["lfm2"][
+                              "qdot_launches"]})
     step_rows = [r for r in attn_rows if r["mode"] == "bf16"
                  and (r["shape"], r["B"], r["H"], r["H_kv"], r["D"],
                       r["S"]) == ATTN_STEP_SHAPE]
@@ -3315,7 +3729,11 @@ def main(argv=None) -> int:
                  "computes its quantized-p function"),
         launches_by_path={"serving_bf16": serve_res["bf16"]["attn_launches"],
                           "serving_int8": serve_res["int8"]["attn_launches"],
-                          "lfm2_serving": lfm2_serve["attn_launches"]})
+                          "lfm2_serving": lfm2_serve["attn_launches"],
+                          "serving_fused": fused_res["bf16"]["fused"][
+                              "attn_launches"],
+                          "serving_fused_int8": fused_res["int8"]["fused"][
+                              "attn_launches"]})
     def k5_row(shape):
         return next(r for r in k5_rows if r["mode"] == "bf16" and (
             r["shape"], r["B"], r["H"], r["H_kv"], r["D"], r["S"]) == shape)
@@ -3345,7 +3763,10 @@ def main(argv=None) -> int:
                           "lfm2_serving": lfm2_serve["k5_launches"],
                           "lfm2_gpu_vs_cpu": lfm2_ref["k5_launches"],
                           "offline": main_res["k5_launches"],
-                          "serving_bf16": serve_res["bf16"]["k5_launches"]})
+                          "serving_bf16": serve_res["bf16"]["k5_launches"],
+                          "lfm2_int8_offline": int8_res["lfm2"]["k5_launches"],
+                          "lfm2_int8_gpu_vs_cpu": int8_res["gpu_vs_cpu"][
+                              "lfm2"]["k5_launches"]})
     variant_entries = [variant_entry(var_rows, q4km_res, q4km_ref, kernel)
                        for kernel in VARIANTS]
     lfm2_after = lfm2_serve["after"]

@@ -19,14 +19,22 @@ unpadded one and rows never see each other; the batch dimension takes the
 place of the JAX package's `jax.vmap` over streams.  Every matmul and convolution is full f32:
 `codec_decode_spec` runs under `exact_f32`, which turns TF32 off for cuBLAS
 and cuDNN (cuDNN convolutions default to TF32 on the GPU) and keeps cuDNN
-to its deterministic algorithms (the same codes, the same bits).  Per-layer
-weights are lists of dicts, iterated in Python.
+to its deterministic algorithms (the same codes, the same bits).  Fast mode
+(`CodecConfig.fast`, `EngineConfig.codec_fast` or MIOTTS_CODEC_FAST=1, the
+JAX package's switches) allows TF32 instead, the H100's counterpart of the
+TPU's default-precision bf16-input matmul, in every matmul and convolution
+after the prenet.  The prenet and the iSTFT stay exact f32: TF32 in the
+prenet's matmuls alone moved the synthetic full-size codec's audio by
+2.1e-2 relative RMS, everything after it together by 5.7e-3 (a CPU
+emulation of TF32 rounding that gave the H100's 2.4e-2 for the whole
+codec).  Per-layer weights are lists of dicts, iterated in Python.
 """
 
 from __future__ import annotations
 
 import contextlib
 import math
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -68,6 +76,9 @@ class CodecConfig:
 
     up_factors: tuple[int, ...] = (3, 3)
     up_kernels: tuple[int, ...] = (7, 7)
+    # TF32 matmuls and convolutions after the prenet (not in the prenet, not
+    # in the iSTFT); exact f32 by default so that parity paths stay exact
+    fast: bool = False
 
     @property
     def n_freq(self) -> int:
@@ -124,16 +135,19 @@ class CodecConfig:
 
 
 @contextlib.contextmanager
-def exact_f32():
+def exact_f32(tf32: bool = False):
     """Full-f32 matmuls and convolutions (TF32 off for cuBLAS and cuDNN),
     restored on exit — the counterpart of JAX's Precision.HIGHEST — and
     cuDNN's deterministic algorithms: its default transposed convolution
     gave decodes of the same codes that differed by ~6e-6 from call to call
-    on the H100, and a stream's paths must give the same bits."""
+    on the H100, and a stream's paths must give the same bits.  `tf32`
+    (the codec's fast mode) allows TF32 instead, deterministic all the
+    same; either way the flags are restored on exit, so an exact decode
+    after a fast one gives its earlier bits."""
     old = (torch.backends.cuda.matmul.allow_tf32,
            torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.backends.cudnn.allow_tf32 = tf32
     torch.backends.cudnn.deterministic = True
     try:
         yield
@@ -141,6 +155,12 @@ def exact_f32():
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32,
          torch.backends.cudnn.deterministic) = old
+
+
+def codec_fast(cfg: CodecConfig) -> bool:
+    """Fast mode for this decode: cfg.fast, or MIOTTS_CODEC_FAST set (read
+    at every decode, as the JAX package reads it at every trace)."""
+    return cfg.fast or bool(os.environ.get("MIOTTS_CODEC_FAST"))
 
 
 # ---------------------------------------------------------------------------
@@ -300,14 +320,16 @@ def _codec_forward(params: dict, codes, voice_emb, cfg: CodecConfig, n_real):
     x = params["token_embd"][codes.long()]                     # [B, T, 768]
 
     bias_t = _band_mask_bias(T, cfg.prenet_window, mask_t)
-    for p in params["prenet_blocks"]:
-        h = _layer_norm(x, p["attn_norm_w"], p["attn_norm_b"], eps)
-        x = x + _local_attention(h, p, steps, bias_t, cfg.prenet_heads,
-                                 cfg.rope_theta)
-        h = _layer_norm(x, p["ffn_norm_w"], p["ffn_norm_b"], eps)
-        x = x + _swiglu(h, p)
-    x = _layer_norm(x, params["prenet_norm_w"], params["prenet_norm_b"], eps)
-    x = _linear(x, params["prenet_out_w"], params["prenet_out_b"])  # [B, T, 512]
+    with exact_f32():       # in fast mode too: see the module docstring
+        for p in params["prenet_blocks"]:
+            h = _layer_norm(x, p["attn_norm_w"], p["attn_norm_b"], eps)
+            x = x + _local_attention(h, p, steps, bias_t, cfg.prenet_heads,
+                                     cfg.rope_theta)
+            h = _layer_norm(x, p["ffn_norm_w"], p["ffn_norm_b"], eps)
+            x = x + _swiglu(h, p)
+        x = _layer_norm(x, params["prenet_norm_w"], params["prenet_norm_b"],
+                        eps)
+        x = _linear(x, params["prenet_out_w"], params["prenet_out_b"])
 
     x = _conv_transpose1d(x, params["upsample_w"], params["upsample_b"], 2,
                           mask_t)
@@ -359,7 +381,8 @@ def codec_decode_spec(params: dict, codes, voice_emb, cfg: CodecConfig,
                       n_real=None):
     """codes i32[T] and voice_emb f32[adaln_dim] -> (log_mag, phase)
     [S_final, n_freq]; or a batch: codes [B, T], voice_emb [B, adaln_dim],
-    n_real [B] -> [B, S_final, n_freq] each.  Exact f32.  `n_real` (int,
+    n_real [B] -> [B, S_final, n_freq] each.  Exact f32, or TF32 after the
+    prenet in fast mode (`codec_fast`).  `n_real` (int,
     0-d or [B] tensor) marks how many leading codes of each row are real;
     the rest is masked bucket padding."""
     single = codes.dim() == 1
@@ -370,7 +393,7 @@ def codec_decode_spec(params: dict, codes, voice_emb, cfg: CodecConfig,
         n_real = T
     n_real = torch.as_tensor(n_real, device=codes.device).long().reshape(-1)
     n_real = n_real.expand(B)
-    with exact_f32():
+    with exact_f32(tf32=codec_fast(cfg)):
         log_mag, phase = _codec_forward(params, codes, voice_emb, cfg, n_real)
     if single:
         return log_mag[0], phase[0]

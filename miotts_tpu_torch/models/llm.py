@@ -636,6 +636,45 @@ def sample_token(logits, temperature: float,
     return torch.multinomial(probs, 1, generator=generator)[:, 0]
 
 
+def sample_token_filtered(logits, temperature, generator=None,
+                          top_k: int = 0, top_p=None, min_p=None):
+    """The serving sampler of the JAX package (`sample_token_filtered`):
+    temperature, then optional top-k, min-p (keep logits >= max + log
+    min_p) and nucleus top-p (the smallest prefix of the sorted
+    probabilities with mass >= top_p, rank 0 always kept) filters, then a
+    categorical draw per row.  logits [B, V] f32 -> [B] int64; temperature,
+    top_p and min_p are scalars or per-row [B]; rows at temperature <= 0
+    are greedy.  The draws come from `generator` (torch's, not threefry)."""
+    dev = logits.device
+
+    def col(v):
+        v = torch.as_tensor(v, dtype=torch.float32, device=dev)
+        return v[:, None] if v.dim() == 1 else v
+
+    t = col(temperature)
+    scaled = logits / t.clamp(min=1e-6)
+    neg = torch.tensor(-math.inf, device=dev)
+    if top_k and top_k > 0:
+        kth = torch.sort(scaled, dim=-1).values[:, -top_k][:, None]
+        scaled = torch.where(scaled >= kth, scaled, neg)
+    if min_p is not None:
+        mx = scaled.amax(dim=-1, keepdim=True)
+        scaled = torch.where(
+            scaled >= mx + torch.log(col(min_p).clamp(min=1e-9)), scaled, neg)
+    if top_p is not None:
+        probs = torch.softmax(scaled, dim=-1)
+        sorted_p, order = torch.sort(probs, dim=-1, descending=True,
+                                     stable=True)
+        keep_sorted = (torch.cumsum(sorted_p, dim=-1) - sorted_p) < col(top_p)
+        keep = torch.zeros_like(keep_sorted).scatter(-1, order, keep_sorted)
+        scaled = torch.where(keep, scaled, neg)
+    greedy = torch.argmax(logits, dim=-1)
+    sampled = torch.multinomial(torch.softmax(scaled, dim=-1), 1,
+                                generator=generator)[:, 0]
+    return torch.where(t.reshape(-1).expand(logits.shape[0]) > 0, sampled,
+                       greedy)
+
+
 @torch.no_grad()
 def llm_generate_chunk(params: dict, last_logits, cache: dict,
                        temperature: float, stop_ids, cfg: LLMConfig,
@@ -946,7 +985,7 @@ def sample_tokens_slots(logits, temperature, seed, drawn):
 def llm_generate_chunk_batched(params: dict, last_logits, cache: dict,
                                active, seed, drawn, temperature, stop_ids,
                                cfg: LLMConfig, n_steps: int,
-                               attn_len: int = 0):
+                               attn_len: int = 0, codes: dict | None = None):
     """Batched generation of n_steps tokens for every ACTIVE slot, with
     per-slot stop detection and no host sync: the whole chunk is enqueued
     on the device and read by the caller once.
@@ -974,7 +1013,16 @@ def llm_generate_chunk_batched(params: dict, last_logits, cache: dict,
     sampler's per-slot state, see sample_tokens_slots; `drawn` advances
     only while the slot is active); temperature f32 [B]; stop_ids [n_stop].
     Updates `cache` in place.  Returns (buf [B, n_steps] int64 (-1 where
-    the slot was inactive or stopped), active, last_logits, cache, drawn)."""
+    the slot was inactive or stopped), active, last_logits, cache, drawn).
+
+    `codes` (the fused batch step, runtime/engine._fused_batch_step): the
+    per-slot state {"table": token -> code [V'] (-1 for none), "buf":
+    codes [B, bucket] int32, "n_codes", "n_tokens", "max_toks": int32 [B]}.
+    Each step then also ends a slot at its token budget, tested on
+    n_tokens before the step's increment (a slot at its budget draws,
+    goes inactive and keeps nothing), and writes the kept token's code at
+    buf[b, n_codes[b]] while the row has room.  "buf" is written in
+    place; "n_codes" and "n_tokens" are replaced by the new counts."""
     B = last_logits.shape[0]
     dev = last_logits.device
     L, _, H_kv, s_max, D = cache["k"].shape
@@ -992,12 +1040,26 @@ def llm_generate_chunk_batched(params: dict, last_logits, cache: dict,
     adv = torch.zeros((B,), dtype=torch.int32, device=dev)
     fill0 = cache["fill"]
     stop_ids = stop_ids.to(dev)
+    if codes is not None:
+        table, code_buf = codes["table"], codes["buf"]
+        n_codes, n_tokens = codes["n_codes"], codes["n_tokens"]
+        bucket = code_buf.shape[1]
+        rows = torch.arange(B, device=dev)
     last = last_logits
     for i in range(n_steps):
         tok = sample_tokens_slots(last, temperature, seed, drawn)
         drawn = drawn + active.long()
         is_stop = (tok[:, None] == stop_ids[None, :]).any(dim=-1)
         active = active & ~is_stop
+        if codes is not None:
+            active = active & (n_tokens < codes["max_toks"])
+            n_tokens = n_tokens + active.int()
+            code = table[tok.clamp(0, table.shape[0] - 1)].int()
+            col = n_codes.clamp(max=bucket - 1).long()
+            write = active & (code >= 0) & (n_codes < bucket)
+            code_buf[rows, col] = torch.where(write, code,
+                                              code_buf[rows, col])
+            n_codes = n_codes + write.int()
         buf[:, i] = torch.where(active, tok, -1)
         pos = torch.where(active, fill0 + adv, s_max - 1)[:, None]
         step = active.int()
@@ -1028,4 +1090,6 @@ def llm_generate_chunk_batched(params: dict, last_logits, cache: dict,
     if conv is not None:
         cache["conv"].copy_(conv)
     cache["fill"] = fill0 + adv
+    if codes is not None:
+        codes.update(n_codes=n_codes, n_tokens=n_tokens)
     return buf, active, last, cache, drawn

@@ -15,9 +15,19 @@ Reading results back without stalling the pipeline: a chunk's tokens and
 stop flags (and a deferred codec decode's samples) are copied into pinned
 host memory right after they are enqueued, behind a CUDA event, so the
 scheduler can read chunk k while chunk k + 1 already runs on the device.
+With the engine's `codec_device`, the codec decodes run on a CUDA stream of
+their own and are read back from it, so a deferred decode overlaps the next
+chunk.
 
-Not ported: the fused batch step (`fused=True`) and sharded serving
-(`mesh`); both raise NotImplementedError.
+The fused batch step (`fused=True`, `_step_fused`, the JAX package's):
+one chunk at a time (depth 1), generation with each slot's token budget
+and the code append into a device code buffer, and the commit policy, all
+on the device (`engine._fused_batch_step`); one readback of the tokens,
+the active bits, the emit bits and the targets; then one batched decode of
+the emitting rows only, each row's f32 slice [committed, target) read back,
+and the final flushes of the slots that ended, batched into one decode.
+
+Not ported: sharded serving (`mesh`), which raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -35,7 +45,7 @@ from ..models.llm import (init_kv_cache, llm_generate_chunk_batched,
                           llm_prefill_slots)
 from ..text import build_prompt, normalize_tts_text
 from .engine import (Options, TTSEngine, VoiceModel, _bucket_len, _Readback,
-                     _round_up, emit_chunks)
+                     _fused_batch_step, _round_up, _upload, emit_chunks)
 
 
 @dataclass
@@ -84,12 +94,12 @@ class ContinuousBatcher:
 
         `admit_wave`: cap on admissions per scheduler step (0 = admit into
         every free slot at once).  Per-request sampling state makes each
-        request's output independent of the admission schedule."""
+        request's output independent of the admission schedule.
+
+        `fused`: the fused batch step (`_step_fused`); it runs one chunk at
+        a time whatever `pipeline_depth` says, as the JAX package's does."""
         if engine.llm_params is None:
             raise ValueError("batching needs the LLM")
-        if fused:
-            raise NotImplementedError("the fused batch step is not ported "
-                                      "(ROADMAP)")
         if mesh is not None:
             raise NotImplementedError("sharded serving is not ported "
                                       "(ROADMAP)")
@@ -99,6 +109,13 @@ class ContinuousBatcher:
         self.n_slots = n_slots
         self.chunk_steps = chunk_steps
         self.admit_wave = admit_wave
+        self.use_fused = fused
+        # the fused step's device code buffer [n_slots, bucket] and voice
+        # embeddings, rebuilt from the host mirrors (req.codes) when marked
+        # dirty (an admission, a finish) or when the bucket grows
+        self._codes_buf = self._embs = None
+        self._codes_bucket = 0
+        self._dirty_codes = True
         if ctx_len is None:
             # geometric bucket of prompt bucket + token budget: per-step
             # attention traffic scales with this length, not n_ctx
@@ -292,6 +309,7 @@ class ContinuousBatcher:
                 self.slot_req[slot] = req
                 req.slot = slot
                 self._fill_ub[slot] = len(ids)
+            self._dirty_codes = True
             self.stage["admit_sec"] += time.perf_counter() - t0
             self.stage["prefills"] += 1
         finally:
@@ -352,18 +370,27 @@ class ContinuousBatcher:
 
     # ------------------------------------------------------------------
     def step(self) -> None:
-        """One scheduler iteration: admit -> enqueue a batched decode chunk
-        -> emit last step's deferred audio -> consume the oldest finished
-        chunk (distribute tokens, commit, emit, finish)."""
+        """One scheduler iteration: `_step_fused` with `fused`, else admit
+        -> enqueue a batched decode chunk -> emit last step's deferred
+        audio -> consume the oldest finished chunk (distribute tokens,
+        commit, emit, finish)."""
+        if self.use_fused:
+            return self._step_fused()
+        return self._step_unfused()
+
+    def _attn_len(self) -> int:
+        """The attention length of the next chunk: every active slot's fill
+        stays under fill_ub, so reading only the first attn_len cache
+        positions is exact (0 = the whole cache)."""
+        need = int(self._fill_ub[self.active].max()) + self.chunk_steps
+        attn_len = min(_bucket_len(need, 128), self.ctx_len)
+        return 0 if attn_len >= self.ctx_len else attn_len
+
+    def _step_unfused(self) -> None:
         self._admit()
         dispatched = False
         if np.any(self.active):
-            # every active slot's fill stays under fill_ub, so reading only
-            # the first attn_len cache positions is exact
-            need = int(self._fill_ub[self.active].max()) + self.chunk_steps
-            attn_len = min(_bucket_len(need, 128), self.ctx_len)
-            if attn_len >= self.ctx_len:
-                attn_len = 0
+            attn_len = self._attn_len()
             (buf, self._active_dev, self.last_logits, self.cache,
              self._slot_drawn) = llm_generate_chunk_batched(
                 self.engine.llm_params, self.last_logits, self.cache,
@@ -466,7 +493,7 @@ class ContinuousBatcher:
                 for row, (req, target, _, _) in enumerate(deferred):
                     req.committed = target
                     items.append((req, row, offs[row], n_samp[row]))
-                self._pending.append((_Readback(audio), items))
+                self._pending.append((eng.codec_readback(audio), items))
         if not sync_work:
             return
         t0 = time.perf_counter()
@@ -486,6 +513,142 @@ class ContinuousBatcher:
                 ok = self._emit_samples(req, seg, 0, seg.size, is_final)
             if is_final or not ok:
                 self._finish(req, ok)
+
+    # ------------------------------------------------------------------
+    # The fused batch step
+    # ------------------------------------------------------------------
+
+    def _step_fused(self) -> None:
+        """Fused scheduler iteration (engine._fused_batch_step): admit ->
+        one chunk with the budget, the code append and the commit policy on
+        the device -> one readback -> distribute tokens -> one batched
+        decode of the emitting rows (`_emit_segment`) -> the final flushes
+        of the slots that ended, batched (`_emit_policy(req, True)`).  As
+        in the JAX package, the budget is tested when a slot next draws:
+        a request whose budget ends with a chunk ends one chunk later than
+        on the unfused path, with the same tokens, its last commit and its
+        final flush apart where the unfused path flushes once."""
+        eng = self.engine
+        cfgE = eng.config
+        self._admit()
+        if not np.any(self.active):
+            return
+        dev = self.device
+        B = self.n_slots
+        spt = eng.codec_cfg.samples_per_token
+        reqs = self.slot_req
+        # the device code buffer, rebuilt from the host mirrors on
+        # admission churn or when the bucket must grow
+        max_len = max((len(r.codes) for r in reqs if r), default=0)
+        want = _bucket_len(max_len + self.chunk_steps, cfgE.code_bucket)
+        if self._dirty_codes or want != self._codes_bucket:
+            nb = np.zeros((B, want), np.int32)
+            embs = np.zeros((B, eng.codec_cfg.adaln_dim), np.float32)
+            for slot, req in enumerate(reqs):
+                if req is not None:
+                    nb[slot, :len(req.codes)] = req.codes
+                    embs[slot] = req.voice.embedding
+            self._codes_buf = _upload(nb, dev)
+            self._embs = _upload(embs, dev)
+            self._codes_bucket = want
+            self._dirty_codes = False
+        # the host mirrors are authoritative: n_codes, committed, n_tokens
+        # and the budget go up with each chunk
+        state = _upload(np.array(
+            [[len(r.codes), r.committed, r.n_tokens, r.token_budget]
+             if r else [0, 0, 0, 0] for r in reqs], np.int32).T.copy(), dev)
+        (buf, active, self.last_logits, self.cache, self._slot_drawn,
+         self._codes_buf, _, _, emit, target) = _fused_batch_step(
+            eng.llm_params, self.last_logits, self.cache,
+            _upload(self.active, dev), self._slot_seed, self._slot_drawn,
+            self._slot_temp, self._stop_ids, eng._code_table_dev,
+            self._codes_buf, state[0], state[1], state[2], state[3],
+            self.cfg, self.chunk_steps, cfgE.holdback_codes,
+            cfgE.min_commit_step_codes, eng._first_commit, self._attn_len())
+        self.stage["device_steps"] += self.chunk_steps
+        self._fill_ub[self.active] += self.chunk_steps
+        t0 = time.perf_counter()
+        h = _Readback(torch.cat([buf, torch.stack(
+            [active.long(), emit.long(), target.long()], 1)], 1)).get()[0]
+        self.stage["llm_wait_sec"] += time.perf_counter() - t0
+        self.stage["chunks"] += 1
+        n = self.chunk_steps
+        buf_h, active_h, emit_h, target_h = (h[:, :n], h[:, n], h[:, n + 1],
+                                             h[:, n + 2])
+
+        table = self._table
+        emitting, ending = [], []
+        for slot in range(B):
+            req = reqs[slot]
+            if not self.active[slot] or req is None:
+                continue
+            toks = buf_h[slot]
+            for tid in toks[toks >= 0]:
+                req.n_tokens += 1
+                code = table[tid] if 0 <= tid < len(table) else -1
+                if code >= 0:
+                    req.codes.append(int(code))
+            if emit_h[slot]:
+                emitting.append((slot, req, int(target_h[slot])))
+            elif not active_h[slot]:
+                ending.append(req)
+        if emitting:
+            t0 = time.perf_counter()
+            segs = eng.decode_code_rows_sliced(
+                self._codes_buf, self._embs, [s for s, _, _ in emitting],
+                [len(r.codes) for _, r, _ in emitting],
+                [r.committed * spt for _, r, _ in emitting],
+                [t * spt for _, _, t in emitting])
+            self.stage["codec_sync_sec"] += time.perf_counter() - t0
+            self.stage["decodes"] += 1
+            for (_, req, target), seg in zip(emitting, segs):
+                if not self._emit_segment(req, seg, target):
+                    self._finish(req, False)
+                    self._dirty_codes = True
+        if ending:
+            self._final_flush(ending)
+
+    def _emit_segment(self, req: Request, seg: np.ndarray,
+                      target: int) -> bool:
+        """Emit a fused-step decode's slice, the samples [committed * spt,
+        target * spt) of its full-prefix decode (the exact spt mapping; the
+        crossfade of _emit_samples), and commit up to `target`."""
+        if seg.size == 0:
+            return True
+        req.committed = target
+        return self._emit_samples(req, seg, 0, seg.size, False)
+
+    def _final_flush(self, reqs: list) -> None:
+        """The final flush of the fused path's slots that ended (a stop or
+        the budget): `_emit_policy(req, True)` for each, the full-prefix
+        decodes it asks for batched into ONE decode of f32 slices
+        [committed, len(codes)), then each request finished."""
+        eng = self.engine
+        spt = eng.codec_cfg.samples_per_token
+        work, results = [], {}
+        for req in reqs:
+            action, val = self._emit_policy(req, True)
+            if action == "decode":
+                work.append((req, val))
+            else:
+                results[req.req_id] = (
+                    req.callback(None, eng.sample_rate, True)
+                    if action == "final_cb" else val)
+        if work:
+            t0 = time.perf_counter()
+            segs = eng.decode_codes_batch_sliced(
+                [r.codes for r, _ in work], [r.voice for r, _ in work],
+                [r.committed * spt for r, _ in work],
+                [t * spt for _, t in work], i16=False)
+            self.stage["codec_sync_sec"] += time.perf_counter() - t0
+            self.stage["decodes"] += 1
+            for (req, target), seg in zip(work, segs):
+                req.committed = target
+                results[req.req_id] = self._emit_samples(req, seg, 0,
+                                                         seg.size, True)
+        for req in reqs:
+            self._finish(req, results[req.req_id])
+        self._dirty_codes = True
 
     def run_until_done(self, max_iters: int = 10 ** 6) -> None:
         it = 0

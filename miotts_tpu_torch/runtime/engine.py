@@ -10,7 +10,8 @@ check every 20 tokens, 32 codes held back, commits of >= 24 codes, the
 full-prefix re-decode or a trailing window, ~30 ms crossfades, chunked
 callbacks).  For batched serving (`runtime/batching.py`) it adds a batched
 codec decode that returns only each stream's emission slice
-(`decode_codes_batch_sliced[_async]`).
+(`decode_codes_batch_sliced[_async]`, and `decode_code_rows_sliced` over
+the device code buffer of the fused batch step, `_fused_batch_step`).
 
 Streaming takes one of three paths, as in the JAX package:
   * fused (the default): each chunk's generation, code append and commit
@@ -26,6 +27,16 @@ With a speculative draft model (`draft_model_path`) the tokens come from
 draft-propose / target-verify rounds (`_spec_loop`), and a stream takes the
 unfused path.
 
+The codec options of the JAX package: `codec_fast` (TF32 matmuls and
+convolutions after the codec's prenet, models/codec.py) and
+`codec_device`, which puts the codec on a CUDA device of its own index and
+runs its decodes on a dedicated CUDA stream there (with one GPU: beside
+the LLM's stream on the same card), so a pipelined decode overlaps the
+next LLM chunk.  Decode outputs
+are then read through `codec_readback`, which waits on the codec stream.
+`quantized_kv` gives the single-stream caches (the target's and the
+draft's) int8 k / v with per-(token, head) scales.
+
 Everything runs on `EngineConfig.device` ("cuda" by default).  Asking for
 the GPU when none is available raises; the engine never carries on quietly
 on the CPU.  The quantized linears take the kernel route of
@@ -35,6 +46,7 @@ on the CPU.  The quantized linears take the kernel route of
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import os
 import time
@@ -48,8 +60,8 @@ import torch
 from ..gguf import GGUFReader, load_voice_embedding
 from ..models.codec import codec_decode_spec, exact_f32, load_codec_params
 from ..models.llm import (LLMConfig, init_kv_cache, llm_generate_chunk,
-                          llm_generate_chunk_spec, llm_prefill,
-                          load_llm_params, sample_token)
+                          llm_generate_chunk_batched, llm_generate_chunk_spec,
+                          llm_prefill, load_llm_params, sample_token)
 from ..ops.istft import spec_to_audio_bucketed
 from ..ops.qmat import QdotRoute, with_route
 from ..text import build_prompt, normalize_tts_text, parse_speech_tokens
@@ -92,18 +104,23 @@ def _bucket_len(n: int, min_bucket: int) -> int:
 class _Readback:
     """Device tensors copied to the host without waiting: on a GPU into
     pinned memory behind a CUDA event recorded right after the copy, so
-    get() waits only for work enqueued before it."""
+    get() waits only for work enqueued before it.  The copy runs on
+    `stream` (default: the current stream), the one that produced the
+    tensors."""
 
-    def __init__(self, *tensors: torch.Tensor):
+    def __init__(self, *tensors: torch.Tensor,
+                 stream: torch.cuda.Stream | None = None):
         self._event = None
         if tensors[0].is_cuda:
-            self._host = []
-            for t in tensors:
-                h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                h.copy_(t, non_blocking=True)
-                self._host.append(h)
-            self._event = torch.cuda.Event()
-            self._event.record()
+            with (torch.cuda.stream(stream) if stream is not None
+                  else contextlib.nullcontext()):
+                self._host = []
+                for t in tensors:
+                    h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                    h.copy_(t, non_blocking=True)
+                    self._host.append(h)
+                self._event = torch.cuda.Event()
+                self._event.record()
         else:
             self._host = [t.clone() for t in tensors]
 
@@ -111,6 +128,43 @@ class _Readback:
         if self._event is not None:
             self._event.synchronize()
         return [h.numpy() for h in self._host]
+
+
+def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on `device` without a host wait: on a GPU through
+    pinned memory (a copy from pageable memory synchronises the stream)."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def _slice_plan(lens: list, begins: list, ends: list, bucket: int,
+                spt: int):
+    """The batched sliced decode's shapes, the JAX package's: the batch
+    padded to a bucket (powers of two up to 16, then multiples of 16), the
+    slice length E to multiples of 8 codes of audio (at most the bucket's
+    samples), each row's slice start clamped so that it fits.  Returns
+    (padded batch B, E, starts, offsets, n_samples): row i's samples are
+    audio[i, offsets[i] : offsets[i] + n_samples[i]] of the slices that
+    start at starts[i]."""
+    B_real = len(lens)
+    if B_real <= 16:
+        B = 1
+        while B < B_real:
+            B *= 2
+    else:
+        B = _round_up(B_real, 16)
+    total = bucket * spt
+    n_samp = [max(0, min(int(e), lens[i] * spt) - int(b))
+              for i, (b, e) in enumerate(zip(begins, ends))]
+    E = min(_round_up(max(n_samp + [1]), 8 * spt), total)
+    starts, offs = [], []
+    for b in begins:
+        st = max(0, min(int(b), total - E))
+        starts.append(st)
+        offs.append(int(b) - st)
+    return B, E, starts, offs, n_samp
 
 
 def emit_chunks(audio: np.ndarray, begin: int, end: int, is_final: bool,
@@ -137,6 +191,48 @@ def emit_chunks(audio: np.ndarray, begin: int, end: int, is_final: bool,
         i += n
         first = False
     return True, tail
+
+
+@torch.no_grad()
+def _fused_batch_step(llm_params, last_logits, cache, active, seed, drawn,
+                      temperature, stop_ids, code_table, codes_buf, n_codes,
+                      committed, n_tokens, max_toks, llm_cfg, n_steps: int,
+                      holdback: int, min_step: int, first_commit: int = -1,
+                      attn_len: int = 0):
+    """The fused batch step (the JAX package's `_fused_batch_step`), all
+    enqueued on the device with no host sync: `llm_generate_chunk_batched`
+    over the active slots with each slot's token budget and the code
+    append into codes_buf (its `codes` state), then each slot's commit
+    policy: target = max(n_codes - holdback, 0); the smallest commit is
+    first_commit (clamped to min_step; < 0: min_step) while the slot has
+    committed nothing, min_step after; emit = active & n_codes > 0 &
+    target > committed & target - committed >= that.
+
+    The JAX step also decodes every row under `lax.cond(any(emit))`.  Here
+    the caller reads the outputs back (the step's one sync) and then
+    decodes the emitting rows only (TTSEngine.decode_code_rows_sliced): a
+    row's audio does not depend on the other rows.  All n_steps run,
+    masked, where the JAX loop leaves once no slot is active.
+
+    Shapes: last_logits [B, V]; active bool [B]; seed / drawn int64 [B];
+    temperature f32 [B]; code_table [V'] (token -> code, -1 for none);
+    codes_buf int32 [B, bucket] (written in place); n_codes / committed /
+    n_tokens / max_toks int32 [B].  Returns (buf [B, n_steps] int64 (-1
+    where not kept), active, last_logits, cache, drawn, codes_buf, n_codes,
+    n_tokens, emit [B] bool, target [B])."""
+    codes = dict(table=code_table, buf=codes_buf, n_codes=n_codes,
+                 n_tokens=n_tokens, max_toks=max_toks)
+    buf, active, last, cache, drawn = llm_generate_chunk_batched(
+        llm_params, last_logits, cache, active, seed, drawn, temperature,
+        stop_ids, llm_cfg, n_steps, attn_len, codes=codes)
+    n_codes = codes["n_codes"]
+    fc = min_step if first_commit < 0 else min(first_commit, min_step)
+    target = torch.clamp(n_codes - holdback, min=0)
+    min_eff = torch.where(committed == 0, fc, min_step)
+    emit = (active & (n_codes > 0) & (target > committed)
+            & (target - committed >= min_eff))
+    return (buf, active, last, cache, drawn, codes_buf, n_codes,
+            codes["n_tokens"], emit, target)
 
 
 @dataclass
@@ -196,6 +292,19 @@ class EngineConfig:
     # the kernel route of every quantized linear (None: from the
     # environment, MIOTTS_QDOT_GEMV / MIOTTS_PACK4_SPLIT / MIOTTS_GEMV_M8)
     qdot_route: QdotRoute | None = None
+    # int8 single-stream KV caches (the target's and the draft's); batched
+    # serving takes ContinuousBatcher(quantized_kv=), as in the JAX package
+    quantized_kv: bool = False
+    # TF32 matmuls and convolutions after the codec's prenet
+    # (CodecConfig.fast; the env MIOTTS_CODEC_FAST=1 too); the prenet and
+    # the iSTFT stay exact f32
+    codec_fast: bool = False
+    # the codec on CUDA device min(i, count - 1) and its decodes on a CUDA
+    # stream of their own there (-1: the LLM's device and stream).  The
+    # pipelined codec paths (the unfused stream with pipeline_codec, the
+    # batcher's deferred decodes) then overlap the next LLM chunk; on the
+    # CPU it changes nothing
+    codec_device: int = -1
 
     @property
     def serving_pipeline_codec(self) -> bool:
@@ -287,9 +396,17 @@ class TTSEngine:
         if (config.model_path and config.draft_model_path
                 and config.spec_tokens > 0):
             self._load_draft(config.draft_model_path)
+        self.codec_device = self.device
+        self._codec_stream: torch.cuda.Stream | None = None
+        if config.codec_device >= 0 and self.device.type == "cuda":
+            self.codec_device = torch.device(
+                "cuda", min(config.codec_device, torch.cuda.device_count() - 1))
+            self._codec_stream = torch.cuda.Stream(self.codec_device)
         with GGUFReader(config.codec_path) as r:
             self.codec_params, self.codec_cfg = load_codec_params(
-                r, device=self.device)
+                r, device=self.codec_device)
+        if config.codec_fast:
+            self.codec_cfg = replace(self.codec_cfg, fast=True)
         self.sample_rate = self.codec_cfg.sample_rate
         self.samples_per_token = self.codec_cfg.samples_per_token
         # one KV cache reused across requests (prefill overwrites it and
@@ -384,11 +501,12 @@ class TTSEngine:
         audio."""
         cfgE = self.config
         dev = self.device
-        emb = torch.zeros(self.codec_cfg.adaln_dim, device=dev)
+        cdev = self.codec_device
+        emb = torch.zeros(self.codec_cfg.adaln_dim, device=cdev)
         if max_codes is None:
             max_codes = cfgE.max_tokens
         for T in self._code_buckets(max_codes, 1):
-            self._codec_audio(torch.zeros(T, dtype=torch.int64, device=dev),
+            self._codec_audio(torch.zeros(T, dtype=torch.int64, device=cdev),
                               emb, min(T, max_codes))
         if self.llm_params is None:
             _sync(dev)
@@ -397,7 +515,8 @@ class TTSEngine:
         bucket_p = _round_up(prompt_len, cfgE.prompt_bucket)
         # the cache-size bucket rule of generate_tokens
         s_cache = self._cache_len(bucket_p, cfgE.max_tokens)
-        cache = init_kv_cache(cfg, 1, s_cache, dtype=self.dtype, device=dev)
+        cache = init_kv_cache(cfg, 1, s_cache, dtype=self.dtype, device=dev,
+                              quantized=cfgE.quantized_kv)
         toks = torch.zeros((1, bucket_p), dtype=torch.int64, device=dev)
         n_real = torch.tensor([8], dtype=torch.int32)
         last, cache = llm_prefill(self.llm_params, toks, n_real, cache, cfg)
@@ -408,7 +527,8 @@ class TTSEngine:
             # with a draft every generation is speculative: the plain chunk
             # and the fused step never run
             dcache = init_kv_cache(self.draft_cfg, 1, s_cache,
-                                   dtype=self.dtype, device=dev)
+                                   dtype=self.dtype, device=dev,
+                                   quantized=cfgE.quantized_kv)
             _, dcache = llm_prefill(self.draft_params, toks, n_real, dcache,
                                     self.draft_cfg)
             pending = torch.zeros((1,), dtype=torch.int64, device=dev)
@@ -452,7 +572,7 @@ class TTSEngine:
         4x the reps; reading 0 again clears `stages_trusted`."""
         if profile.stages_calibrated or not profile.decode_bucket_codes:
             return profile
-        dev = self.device
+        dev = self.codec_device
         emb = torch.zeros(self.codec_cfg.adaln_dim, device=dev)
 
         def timed(fn, n: int) -> float:
@@ -540,7 +660,8 @@ class TTSEngine:
         s_cache = self._cache_len(bucket, max_tok)
         if self._cache is None or self._cache["k"].shape[3] != s_cache:
             self._cache = init_kv_cache(self.llm_cfg, 1, s_cache,
-                                        dtype=self.dtype, device=dev)
+                                        dtype=self.dtype, device=dev,
+                                        quantized=cfgE.quantized_kv)
         cache = dict(self._cache,
                      fill=torch.zeros((1,), dtype=torch.int32, device=dev))
         if "conv" in cache:
@@ -556,7 +677,8 @@ class TTSEngine:
             return last, cache, max_tok, None
         if self._dcache is None or self._dcache["k"].shape[3] != s_cache:
             self._dcache = init_kv_cache(self.draft_cfg, 1, s_cache,
-                                         dtype=self.dtype, device=dev)
+                                         dtype=self.dtype, device=dev,
+                                         quantized=cfgE.quantized_kv)
         dcache = dict(self._dcache,
                       fill=torch.zeros((1,), dtype=torch.int32, device=dev))
         _, dcache = llm_prefill(self.draft_params, toks, n_real, dcache,
@@ -738,23 +860,57 @@ class TTSEngine:
     # Codec: codes -> audio (bucketed)
     # ------------------------------------------------------------------
 
+    @contextlib.contextmanager
+    def _codec_ctx(self, *produced: torch.Tensor):
+        """The codec's stream for the decodes enqueued inside (a no-op
+        without `codec_device`).  `produced`: tensors that the LLM's
+        (current) stream wrote and the decode reads; the codec stream waits
+        on an event recorded after them, and each is marked as used on the
+        codec stream (record_stream), so that the caching allocator does
+        not hand its memory out while the decode may still read it.  What
+        is allocated inside belongs to the codec stream: read it through
+        `codec_readback`.  The codec's TF32 flags are set and restored on
+        this one host thread, around the enqueue."""
+        s = self._codec_stream
+        if s is None:
+            yield
+            return
+        if produced:
+            ev = torch.cuda.Event()
+            ev.record()
+            s.wait_event(ev)
+            for t in produced:
+                t.record_stream(s)
+        with torch.cuda.stream(s):
+            yield
+
+    def codec_readback(self, *tensors: torch.Tensor) -> _Readback:
+        """A readback of decode outputs that waits for the codec's stream
+        (the current stream without `codec_device`)."""
+        return _Readback(*tensors, stream=self._codec_stream)
+
+    def _codec_emb(self, voice: VoiceModel) -> torch.Tensor:
+        """The voice embedding on the codec's device, marked as used on the
+        codec stream."""
+        emb = voice.device_embedding(self.codec_device)
+        if self._codec_stream is not None:
+            emb.record_stream(self._codec_stream)
+        return emb
+
     def _padded_codes(self, codes) -> tuple[torch.Tensor, int]:
-        """codes -> (the codes zero-padded to their bucket, on the device;
-        T).  On a GPU the upload goes through pinned memory and does not
-        wait: a copy from pageable memory synchronises the stream."""
+        """codes -> (the codes zero-padded to their bucket, on the codec's
+        device; T).  On a GPU the upload goes through pinned memory and does
+        not wait: a copy from pageable memory synchronises the stream."""
         codes = np.asarray(codes, np.int32).reshape(-1)
         T = len(codes)
-        padded = torch.zeros(_bucket_len(T, self.config.code_bucket),
-                             dtype=torch.int32)
-        padded[:T] = torch.from_numpy(codes)
-        if self.device.type == "cuda":
-            padded = padded.pin_memory()
-        return padded.to(self.device, non_blocking=True), T
+        padded = np.zeros(_bucket_len(T, self.config.code_bucket), np.int32)
+        padded[:T] = codes
+        return _upload(padded, self.codec_device), T
 
     def _count(self, n: int) -> torch.Tensor:
         """A code count as a 0-d tensor filled on the device, for a decode
         that must not wait: a Python int would go up by a blocking copy."""
-        return torch.full((), n, dtype=torch.int64, device=self.device)
+        return torch.full((), n, dtype=torch.int64, device=self.codec_device)
 
     def _codec_spec(self, codes: torch.Tensor, emb: torch.Tensor, n_real):
         return codec_decode_spec(self.codec_params, codes, emb, self.codec_cfg,
@@ -762,7 +918,7 @@ class TTSEngine:
 
     def _spec_to_audio(self, log_mag, phase, n_real) -> torch.Tensor:
         """The iSTFT in exact f32 (TF32 off, as codec_decode_spec does for
-        the codec): every caller goes through here."""
+        the codec, fast mode or not): every caller goes through here."""
         cfg = self.codec_cfg
         p = self.codec_params
         with torch.no_grad(), exact_f32():
@@ -786,18 +942,19 @@ class TTSEngine:
         between them), decode_calls and decoded_codes."""
         if not voice.is_ready:
             raise RuntimeError("voice model is not ready")
-        codes_dev, T = self._padded_codes(codes)
-        if T == 0:
+        if len(codes) == 0:
             return np.zeros(0, np.float32)
-        t0 = time.perf_counter()
-        n_real = self._count(T)
-        log_mag, phase = self._codec_spec(
-            codes_dev, voice.device_embedding(self.device), n_real)
-        if profile is not None:
-            _sync(self.device)
-        t1 = time.perf_counter()
-        audio = self._spec_to_audio(log_mag, phase, n_real)
-        audio = audio[: T * self.samples_per_token].cpu().numpy()
+        with self._codec_ctx():
+            codes_dev, T = self._padded_codes(codes)
+            t0 = time.perf_counter()
+            n_real = self._count(T)
+            log_mag, phase = self._codec_spec(codes_dev, self._codec_emb(voice),
+                                              n_real)
+            if profile is not None:
+                _sync(self.codec_device)
+            t1 = time.perf_counter()
+            audio = self._spec_to_audio(log_mag, phase, n_real)
+            audio = audio[: T * self.samples_per_token].cpu().numpy()
         if profile is not None:
             profile.codec_sec += t1 - t0
             profile.istft_sec += time.perf_counter() - t1
@@ -812,81 +969,73 @@ class TTSEngine:
     def decode_codes_async(self, codes, voice: VoiceModel):
         """Enqueue a bucketed codec + iSTFT decode without waiting for it (no
         host sync).  Returns (audio on the device, T): its first T *
-        samples_per_token samples are the decode."""
-        codes_dev, T = self._padded_codes(codes)
-        return self._codec_audio(codes_dev, voice.device_embedding(self.device),
-                                 self._count(T)), T
+        samples_per_token samples are the decode.  With `codec_device` it
+        runs on the codec stream: read it through `codec_readback`."""
+        with self._codec_ctx():
+            codes_dev, T = self._padded_codes(codes)
+            return self._codec_audio(codes_dev, self._codec_emb(voice),
+                                     self._count(T)), T
 
     def _codec_audio_sliced(self, codes_b, embs_b, n_real_b, starts_b,
-                            emit_len: int) -> torch.Tensor:
+                            emit_len: int, to_i16: bool) -> torch.Tensor:
         """Batched codec + iSTFT returning ONLY each row's emission slice
         audio[b, starts[b] : starts[b] + emit_len] (starts pre-clamped to
-        [0, total - emit_len]), as int16 when serving_i16_transfer (scale,
-        clamp, truncate: audio.wav.f32_to_s16's semantics), else f32."""
+        [0, total - emit_len]), as int16 with `to_i16` (scale, clamp,
+        truncate: audio.wav.f32_to_s16's semantics), else f32."""
         audio = self._codec_audio(codes_b, embs_b, n_real_b)
         idx = starts_b[:, None] + torch.arange(emit_len, device=audio.device)
         out = audio.gather(1, idx)
-        if self.config.serving_i16_transfer:
+        if to_i16:
             out = torch.clamp(out * 32767.0, -32768, 32767).to(torch.int16)
         return out
 
     def decode_codes_batch_sliced_async(self, codes_list: list, voices: list,
-                                        begins: list, ends: list):
+                                        begins: list, ends: list,
+                                        i16: bool | None = None):
         """Batched codec decode that enqueues ONLY each stream's emission
         slice [begins[i], ends[i]) (sample offsets relative to the decoded
         window) and does not wait for it.  The batch pads to a bucket
         (powers of two up to 16, then multiples of 16) with zero-length
         rows, and the slice length to multiples of 8 codes of audio, as in
-        the JAX package.  Returns (audio [B, E] on the device, offsets,
-        n_samples): row i's samples are audio[i, offsets[i] : offsets[i] +
-        n_samples[i]]."""
+        the JAX package (`_slice_plan`).  int16 slices where `i16` (None:
+        serving_i16_transfer), else f32.  Returns (audio [B, E] on the
+        device, offsets, n_samples): row i's samples are audio[i, offsets[i]
+        : offsets[i] + n_samples[i]].  With `codec_device` it runs on the
+        codec stream: read it through `codec_readback`."""
         assert len(codes_list) == len(voices) == len(begins) == len(ends)
         cfg = self.codec_cfg
-        spt = cfg.samples_per_token
         lens = [len(c) for c in codes_list]
         bucket = _bucket_len(max(lens), self.config.code_bucket)
-        B_real = len(codes_list)
-        if B_real <= 16:
-            B = 1
-            while B < B_real:
-                B *= 2
-        else:
-            B = _round_up(B_real, 16)
+        B, E, starts, offs, n_samp = _slice_plan(
+            lens, begins, ends, bucket, cfg.samples_per_token)
         padded = np.zeros((B, bucket), np.int32)
         embs = np.zeros((B, cfg.adaln_dim), np.float32)
         for i, (c, v) in enumerate(zip(codes_list, voices)):
             padded[i, :lens[i]] = np.asarray(c, np.int32)
             embs[i] = v.embedding
-        total = bucket * spt
-        n_samp = [max(0, min(int(e), lens[i] * spt) - int(b))
-                  for i, (b, e) in enumerate(zip(begins, ends))]
-        E = min(_round_up(max(n_samp + [1]), 8 * spt), total)
-        starts, offs = [], []
-        for b in begins:
-            s = max(0, min(int(b), total - E))
-            starts.append(s)
-            offs.append(int(b) - s)
         lens_arr = np.ones((B,), np.int64)
-        lens_arr[:B_real] = lens
+        lens_arr[:len(lens)] = lens
         starts_arr = np.zeros((B,), np.int64)
-        starts_arr[:B_real] = starts
-        dev = self.device
-        audio = self._codec_audio_sliced(
-            torch.from_numpy(padded).to(dev), torch.from_numpy(embs).to(dev),
-            torch.from_numpy(lens_arr).to(dev),
-            torch.from_numpy(starts_arr).to(dev), E)
+        starts_arr[:len(starts)] = starts
+        dev = self.codec_device
+        with self._codec_ctx():
+            audio = self._codec_audio_sliced(
+                _upload(padded, dev), _upload(embs, dev),
+                _upload(lens_arr, dev), _upload(starts_arr, dev), E,
+                self.config.serving_i16_transfer if i16 is None else i16)
         return audio, offs, n_samp
 
     def decode_codes_batch_sliced(self, codes_list: list, voices: list,
                                   begins: list, ends: list,
-                                  profile: StreamProfile | None = None) -> list:
+                                  profile: StreamProfile | None = None,
+                                  i16: bool | None = None) -> list:
         """Synchronous form of decode_codes_batch_sliced_async: a list of
         float PCM arrays, exactly ends[i] - begins[i] samples each (clipped
         to the decoded length)."""
         t0 = time.perf_counter()
         audio, offs, n_samp = self.decode_codes_batch_sliced_async(
-            codes_list, voices, begins, ends)
-        a = audio.cpu().numpy()
+            codes_list, voices, begins, ends, i16)
+        a = self.codec_readback(audio).get()[0]
         if a.dtype == np.int16:
             a = a.astype(np.float32) / 32767.0
         if profile:
@@ -894,6 +1043,35 @@ class TTSEngine:
             profile.decode_calls += 1
             profile.decoded_codes += sum(len(c) for c in codes_list)
         return [a[i, offs[i]:offs[i] + n_samp[i]] for i in range(len(offs))]
+
+    def decode_code_rows_sliced(self, codes_buf: torch.Tensor,
+                                embs: torch.Tensor, rows: list,
+                                n_codes: list, begins: list,
+                                ends: list) -> list:
+        """The fused batch step's decode (`_fused_batch_step`): rows `rows`
+        of the device code buffer codes_buf [B, bucket] (each row's first
+        n_codes[i] codes real) with their embeddings embs [B, adaln_dim],
+        decoded over the full prefix, and only each row's f32 slice
+        [begins[i], ends[i]) read back (`_slice_plan`'s shapes).  The rows
+        are gathered on the LLM's stream, which may write the buffer again
+        after the gather.  Returns one float PCM array per row."""
+        spt = self.codec_cfg.samples_per_token
+        B, E, starts, offs, n_samp = _slice_plan(
+            n_codes, begins, ends, codes_buf.shape[1], spt)
+        pad = B - len(rows)
+        idx = _upload(np.asarray(rows + rows[:1] * pad, np.int64),
+                      codes_buf.device)
+        codes_b = codes_buf.index_select(0, idx).to(self.codec_device)
+        embs_b = embs.index_select(0, idx).to(self.codec_device)
+        dev = self.codec_device
+        with self._codec_ctx(codes_b, embs_b):
+            audio = self._codec_audio_sliced(
+                codes_b, embs_b,
+                _upload(np.asarray(n_codes + [1] * pad, np.int64), dev),
+                _upload(np.asarray(starts + [0] * pad, np.int64), dev), E,
+                False)
+        a = self.codec_readback(audio).get()[0]
+        return [a[i, offs[i]:offs[i] + n_samp[i]] for i in range(len(rows))]
 
     # ------------------------------------------------------------------
     # Offline synthesis
@@ -997,18 +1175,19 @@ class TTSEngine:
 
         committed = 0
         codes: list[int] = []
-        # pipelined mode: each non-final commit's audio stays on the device
-        # until the NEXT emit check reads it back, one check interval later
+        # pipelined mode: each non-final commit's audio is read back (on the
+        # codec stream with codec_device) by the NEXT emit check, one check
+        # interval later
         pipeline = bool(self.config.pipeline_codec)
         spt = self.samples_per_token
-        pending: list = []            # [(audio on the device, T, begin, end)]
+        pending: list = []            # [(readback, T, begin, end)]
 
         def flush_pending() -> bool:
             if not pending:
                 return True
-            audio_dev, n_dec, begin, end = pending.pop()
+            rb, n_dec, begin, end = pending.pop()
             t0 = time.perf_counter()
-            audio = audio_dev[: n_dec * spt].cpu().numpy()
+            audio = rb.get()[0][: n_dec * spt]
             profile.codec_sec += time.perf_counter() - t0
             return emit_range(audio, begin, end, False)
 
@@ -1041,7 +1220,8 @@ class TTSEngine:
                 profile.decode_calls += 1
                 profile.decoded_codes += n_dec
                 ok = flush_pending()
-                pending.append((audio_dev, n_dec, (committed - start) * spt,
+                pending.append((self.codec_readback(audio_dev), n_dec,
+                                (committed - start) * spt,
                                 (target - start) * spt))
                 committed = target
                 return ok
@@ -1197,7 +1377,7 @@ class TTSEngine:
 
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
-        emb = voice.device_embedding(dev)
+        emb = voice.device_embedding(self.codec_device)
         table = self.code_table
         spt = self.samples_per_token
         chunk = cfgE.stream_check_interval
@@ -1236,8 +1416,9 @@ class TTSEngine:
             profile.decoded_codes += n_codes
             profile.decode_bucket_codes.append(dec_bucket)
             end_c = n_codes if flush else target
-            audio = self._codec_audio(codes_buf[:dec_bucket], emb,
-                                      self._count(n_codes))
+            audio = self._codec_audio(
+                codes_buf[:dec_bucket].to(self.codec_device), emb,
+                self._count(n_codes))
             audio = audio[begin * spt:end_c * spt].cpu().numpy()
             profile.llm_sec += time.perf_counter() - t1
             if emit:

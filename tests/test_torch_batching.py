@@ -235,10 +235,12 @@ def test_admit_wave_staggers_and_preserves_output(engine):
 
 
 def test_unported_modes_raise(engine):
+    """Sharded serving is not ported and raises; the fused batch step is
+    (tests/test_torch_fused_batching.py)."""
     eng, _ = engine
-    for kw in (dict(fused=True), dict(mesh=object())):
-        with pytest.raises(NotImplementedError):
-            tb.ContinuousBatcher(eng, n_slots=2, **kw)
+    with pytest.raises(NotImplementedError):
+        tb.ContinuousBatcher(eng, n_slots=2, mesh=object())
+    assert tb.ContinuousBatcher(eng, n_slots=2, fused=True).use_fused
 
 
 def test_warmup_then_serves_like_fresh(engine):
