@@ -20,7 +20,7 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      (49 launches per decode step and 49 for the prefill), and holds the
      GPU's prefill logits and codec output against the CPU reference path;
   4. --skip-llm: a fixed `<|s_N|>` string through the same engine;
-  5. profile: torch.profiler over a prefill + one 64-step decode chunk
+  5. profile: torch.profiler over a prefill + one 32-step decode chunk
      (device time by kernel, device-busy share, launches per step);
      phase 7 profiles a 64-request serving run the same way;
   6. attention kernel vs plain: the batched decode-attention CUDA kernel
@@ -61,7 +61,7 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      WAV, K5 = 6 launches per decode step and none in the prefill, qdot =
      65 per decode step and per prefill, one text giving the same tokens
      before and after another request (the conv-state reset), and profiles
-     a prefill + 64 steps;
+     a prefill + 32 steps;
  12. (d) LFM2 serving: ContinuousBatcher(16 slots, 20-step chunks) on the
      same engine serves 24 requests of 96 tokens (bf16 cache): K6 = 6 x
      device steps, qdot = 65 x (device steps + prefill waves), K5 none;
@@ -86,7 +86,7 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      writer, timed): one engine per route (default K1, w8a8, groupdot,
      split, bf16dot, bf16after; the routes share the loaded weights) runs
      synthesize_to_file at temperature 0, bf16 (the default route 128
-     tokens, the others 32: the harness's time limit); checks each
+     tokens, the others 16: the harness's time limit); checks each
      WAV and the launches (w8a8: K4a 64 and K4b 65 per decode step, K1 129
      per prefill; groupdot: K3 129 per step, K1 129 per prefill; split: K2
      65 and K1 64 per step and per prefill; bf16dot / bf16after: K1v 129
@@ -141,15 +141,15 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      again) with the 0.1B-Q8_0 draft of phase 3 at k = 6: (a)
      K1 vs plain at the verify's shapes (the five 2.6B linears at M = 2,
      4, 7) with times, bound and library; (b) f32, temperature 0, k = 1,
-     3, 6 over 32 tokens: the tokens of plain decoding; (c) bf16, k = 6,
-     48 tokens: agreement with plain greedy (where they part, the plain
+     3, 6 over 16 tokens: the tokens of plain decoding; (c) bf16, k = 6,
+     32 tokens: agreement with plain greedy (where they part, the plain
      path's top two logits within 2e-2 of the logit scale), rounds,
      acceptance, tok/s against plain, K1 launches = both prefills + rounds
      x (7 x 49 + 129), and where a round's time goes (a draft step, the
      verify, spec_accept, a plain step; one round profiled); (d) the 0.1B
      drafting for itself at f32, k = 4, 128 tokens, accepts every draft
      (or parts at a near tie); (e) forced acceptance
-     (MIOTTS_SPEC_FORCE_ACCEPT 0, 0.5, 0.8, 1) at bf16, 32 tokens: tok/s,
+     (MIOTTS_SPEC_FORCE_ACCEPT 0, 0.5, 0.8, 1) at bf16, 16 tokens: tok/s,
      round time, tokens a round, p = 1 accepting all and p = 0 none; (f)
      a chunk at
      temperature 0 under sync debug mode "error" (at 0.8 what happens is
@@ -179,6 +179,27 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      int8 cache, a prefill + 20 greedy steps on LFM2 layers 0-5 and on the
      full-depth 0.1B: tokens identical, logits within 1e-2 of their scale
      (one int8 step at a rounding tie).
+ 24. the JAX package's remaining switches and the codec's debug surface,
+     on loaded engines: (a) MIOTTS_NO_PACK4 on phase 15's 2.6B-Q4_K_M
+     engine, its QTensors unpacked on the card (no second load): one Q4_K
+     tensor read under the switch has their bits (values, scales, mins);
+     32 tokens text -> WAV on the default route (K1 129 a step and
+     prefill, K2 / K4b none; the tokens phase 15's or parting at a 2e-2
+     near tie), 16 under w8a8 (K4a 129 a step, K4b none) and split (K2
+     none, K1 129); f32 tokens identical to the packed weights', logits
+     within 1e-4; (b) MIOTTS_FORCE_XLA_QDOT (dequantize + torch.matmul) on
+     phase 3's 0.1B: bf16, 64 tokens, no kernel launch, qdot_xla 49 a step
+     and prefill, tok/s and agreement beside phase 3's; f32 tokens
+     identical to the kernel route's, logits within 1e-4; (c)
+     MIOTTS_ATTN_NOCAT on the same engines: f32 tokens identical to the cat
+     path's, logits within 1e-5, bf16 64 tokens with qdot 49 a step; (d)
+     MIOTTS_WARMUP_VERBOSE: warmup's `warmup: <label>: <s>s` lines with the
+     JAX package's labels, none without it; (e) codec_decode_stages on the
+     card against the CPU (each stage within 1e-4 of its scale),
+     codec_decoder_layer_substeps at the first and last decoder layer (the
+     expansion within 1e-4 of the layer output's scale, layer_in = prior,
+     layer_out = decoder), codec_decode_audio within 1e-6 of the engine's
+     decode, `cli synth --dump-tensors` in process.
 
 Kernel times are device times: the calls are captured in a CUDA graph and
 replayed between CUDA events, cycling over weight (or KV-cache) copies
@@ -234,6 +255,12 @@ SLOTS, CHUNK, SERVE_TOKENS, N_REQ, N_REQ_INT8 = 64, 20, 96, 80, 16
 # records (PR 16 full2: phase 12 took 95.6 s with its two profiles at 40,
 # phase 7 62.5 s); 20 tokens still profile two chunks (40 steps)
 PROFILE_TOKENS = 20
+# the single-stream profiles' decode steps (phases 3 and 11: 1111 and 970
+# launches a step; phase 15: ~2900), cut from 64 and 16 for the smoke's time
+# when phase 24 came (the whole run then took 851.6 s on the H100); a
+# steady step's launches and device time do not depend on the window
+PROFILE_DECODE_STEPS = 32
+Q4KM_PROFILE_STEPS = 8
 # attention kernel shapes (B, H, H_kv, D, S)
 ATTN_SHAPES = [("0.1b", 64, 12, 4, 64, 128), ("0.1b", 64, 12, 4, 64, 256),
                ("0.1b", 64, 12, 4, 64, 512), ("2.6b", 64, 32, 8, 80, 256),
@@ -288,11 +315,14 @@ Q4KM_ROUTES = {"default": {}, "w8a8": {"MIOTTS_QDOT_GEMV": "w8a8"},
                "split": {"MIOTTS_PACK4_SPLIT": "1"},
                "bf16dot": {"MIOTTS_QDOT_BF16": "1"},
                "bf16after": {"MIOTTS_QDOT_BF16": "after"}}
-# phase 15's depth: the routes other than the default synthesize
-# Q4KM_AGREE_TOKENS (the greedy tokens compared with the default route), and
-# only Q4KM_PROFILED are profiled (the profiler's processing grows with
-# every launch it records)
+# phase 15's depth: the default route's greedy tokens are Q4KM_AGREE_TOKENS
+# (phase 24 holds the unpacked weights' against them), the other routes
+# generate and synthesize Q4KM_ROUTE_TOKENS (their greedy tokens compared
+# with the default route's; cut from 32 for the smoke's time when phase 24
+# came), and only Q4KM_PROFILED are profiled (the profiler's processing
+# grows with every launch it records)
 Q4KM_AGREE_TOKENS = 32
+Q4KM_ROUTE_TOKENS = 16
 Q4KM_PROFILED = ("default", "bf16after")
 # the shared headers of the quantized matmul (the split-K GEMV at M = 1, the
 # tile at M > 1) and of the attention kernels, beside each kernel's own
@@ -324,12 +354,16 @@ BF16_REF_TOL = 2e-2            # GPU vs CPU in bf16 (groupdot)
 SPEC_K = 6
 SPEC_MS = (2, 4, 7)            # M = k + 1 at k = 1, 3, 6
 SPEC_PARITY_KS = (1, 3, 6)     # f32 greedy parity with plain decoding
-SPEC_PARITY_TOKENS = 32
 # token counts cut for the phase's time (150 s budgeted): the bf16 run and
 # each forced acceptance at 128 tokens took 202 s on the H100, at 64 and
-# 64 169 s, at 64 and 32 151 s
-SPEC_TOKENS = 48               # the bf16 run
-SPEC_FORCED_TOKENS = 32        # each forced acceptance
+# 64 169 s, at 64 and 32 151 s; when phase 24 came (the whole run took
+# 851.6 s on a host at phase 3's 45.6 tok/s, 995.1 s at 26.8) the parity
+# runs went from 32 to 16 tokens, the bf16 run from 48 to 32 and the
+# forced runs from 32 to 16 (the stream keeps 48: a commit before its
+# final flush)
+SPEC_PARITY_TOKENS = 16
+SPEC_TOKENS = 32               # the bf16 run
+SPEC_FORCED_TOKENS = 16        # each forced acceptance
 SPEC_FORCE_P = (0.0, 0.5, 0.8, 1.0)
 SPEC_SELF_K = 4                # the 0.1B drafting for itself
 SPEC_STREAM_TOKENS = 48        # the f32 stream; the CLI's budget
@@ -345,6 +379,16 @@ FAST_RMS_TOL = 1e-2
 # score or a value column by under 1 % of its scale, and the logits stay
 # within that of theirs (the f32 cache's paths agree to REF_TOL)
 INT8_KV_REF_TOL = 1e-2
+# phase 24: the switches on loaded engines, the codec's debug surface
+SWITCH_TOKENS = 32         # NO_PACK4's default route; each f32 parity
+SWITCH_ROUTE_TOKENS = 16   # NO_PACK4 under w8a8 and under split
+SWITCH_BF16_TOKENS = 64    # the 0.1B's bf16 runs under xla and nocat
+SWITCH_STEPS = 8           # the 2.6B f32 logits: prefill + 8 decode steps
+NOCAT_TOL = 1e-5           # f32 logits, nocat vs cat: the softmax's sums
+WARMUP_CODES = 32          # warmup's max_codes under WARMUP_VERBOSE
+DEBUG_CODES = 16           # the codec's debug surface
+AUDIO_TOL = 1e-6           # codec_decode_audio vs the engine's decode: the
+                           # same operations on the same inputs
 
 
 def lfm2_config():
@@ -1485,15 +1529,16 @@ def device_profile(torch, fn, label: str, card: str) -> dict:
 
 
 def profile_decode(torch, eng, text, Options, card: str,
-                   label: str = "prefill + 64 decode steps") -> dict:
-    """Where one generate_tokens call (prefill + one 64-step chunk) spends
-    its time."""
-    opts = Options(temperature=0.0, max_tokens=64)
+                   label: str = f"prefill + {PROFILE_DECODE_STEPS} decode "
+                                f"steps") -> dict:
+    """Where one generate_tokens call (prefill + one PROFILE_DECODE_STEPS
+    chunk) spends its time."""
+    opts = Options(temperature=0.0, max_tokens=PROFILE_DECODE_STEPS)
     eng.generate_tokens(text, opts)
 
     def run():
         eng.generate_tokens(text, opts)
-        return 65
+        return PROFILE_DECODE_STEPS + 1
     return device_profile(torch, run, label, card)
 
 
@@ -1839,8 +1884,9 @@ def phase_lfm2_offline(torch, paths: dict, out_dir: str, card: str):
         raise AssertionError("lfm2: greedy tokens depend on the previous "
                              "request")
     res["reuse_tokens_identical"] = True
-    res["profile"] = profile_decode(torch, eng, text, Options, card,
-                                    "lfm2 prefill + 64 decode steps")
+    res["profile"] = profile_decode(
+        torch, eng, text, Options, card,
+        f"lfm2 prefill + {PROFILE_DECODE_STEPS} decode steps")
     return res, eng, voice
 
 
@@ -2480,7 +2526,9 @@ def phase_q4km_offline(torch, qmat, paths: dict, out_dir: str,
         eng = base if name == "default" else base.with_qdot_route(route)
         # greedy tokens (the agreement below) and the warm-up
         tokens[name] = eng.generate_tokens(
-            text, Options(temperature=0.0, max_tokens=Q4KM_AGREE_TOKENS))
+            text, Options(temperature=0.0, max_tokens=(
+                Q4KM_AGREE_TOKENS if name == "default"
+                else Q4KM_ROUTE_TOKENS)))
         wav = os.path.join(out_dir, f"q4km_{name}.wav")
         prof = StreamProfile()
         reset_counts(counters)
@@ -2488,7 +2536,7 @@ def phase_q4km_offline(torch, qmat, paths: dict, out_dir: str,
         t0 = time.perf_counter()
         eng.synthesize_to_file(voice, text, wav, Options(
             temperature=0.0, max_tokens=(MAX_TOKENS if name == "default"
-                                         else Q4KM_AGREE_TOKENS)),
+                                         else Q4KM_ROUTE_TOKENS)),
             profile=prof)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -2526,8 +2574,11 @@ def phase_q4km_offline(torch, qmat, paths: dict, out_dir: str,
                        (i for i, (a, b) in enumerate(zip(
                            tokens[name], tokens["default"])) if a != b), None))
         res["profile"] = (profile_steps(
-            torch, eng, card, f"q4km[{name}] prefill + 16 steps")
+            torch, eng, card,
+            f"q4km[{name}] prefill + {Q4KM_PROFILE_STEPS} steps")
             if name in Q4KM_PROFILED else None)
+        if name == "default":      # phase 24's unpacked weights against them
+            res["token_ids"] = tokens[name]
         out[name] = res
         log(f"q4km[{name}]: prefill {res['prefill_ms']:.4f} ms, decode "
             f"{res['decode_tok_s']:.4f} tok/s, x_realtime "
@@ -2545,11 +2596,12 @@ def phase_q4km_offline(torch, qmat, paths: dict, out_dir: str,
     return out
 
 
-def profile_steps(torch, eng, card: str, label: str, n_steps: int = 16):
+def profile_steps(torch, eng, card: str, label: str,
+                  n_steps: int = Q4KM_PROFILE_STEPS):
     """Where a prefill (a 64-token bucket) and an n_steps decode chunk of
     the engine's model spend their time: a shorter window than
-    profile_decode's 64 steps, because the profiler's own processing grows
-    with every launch it records (~2900 per step at 2.6B)."""
+    profile_decode's, because the profiler's own processing grows with
+    every launch it records (~2900 per step at 2.6B)."""
     from miotts_tpu_torch.models.llm import (init_kv_cache,
                                              llm_generate_chunk, llm_prefill)
     cfg = eng.llm_cfg
@@ -2750,11 +2802,11 @@ def top2_gap(torch, eng, text: str, prefix: list) -> dict:
 
 def near_tie(torch, eng, text: str, plain: list, spec: list,
              label: str) -> dict:
-    """Where the speculative tokens first part from plain greedy decoding
+    """Where the tokens `spec` of another path (speculative decoding, an
+    unpacked weight's sums) first part from plain greedy decoding `plain`
     (None when they never do): there the plain path's top two logits must
-    lie within SPEC_TIE_TOL of the logit scale (bf16: the sums of the M = 1
-    GEMV and of the M = k + 1 verify run in another order); a wider gap is
-    a fault."""
+    lie within SPEC_TIE_TOL of the logit scale (bf16: the sums run in
+    another order); a wider gap is a fault.  `label` prefixes the log."""
     i = next((j for j, (a, b) in enumerate(zip(plain, spec)) if a != b),
              None if len(plain) == len(spec) else min(len(plain), len(spec)))
     if i is None:
@@ -2763,12 +2815,12 @@ def near_tie(torch, eng, text: str, plain: list, spec: list,
                plain_token=plain[i] if i < len(plain) else None,
                spec_token=spec[i] if i < len(spec) else None,
                **top2_gap(torch, eng, text, plain[:i]))
-    log(f"spec[{label}]: first divergence from plain greedy at token {i}: "
-        f"plain {out['plain_token']}, spec {out['spec_token']}, top two "
+    log(f"{label}: first divergence from plain greedy at token {i}: "
+        f"plain {out['plain_token']}, other {out['spec_token']}, top two "
         f"{out['top2']} with gap {out['gap']:.3e} of the logit scale (tol "
         f"{SPEC_TIE_TOL})")
     if not out["gap"] <= SPEC_TIE_TOL:
-        raise AssertionError(f"spec[{label}]: tokens part at {i} where the "
+        raise AssertionError(f"{label}: tokens part at {i} where the "
                              f"plain path's top two logits are "
                              f"{out['gap']:.3e} apart (> {SPEC_TIE_TOL})")
     return out
@@ -2940,7 +2992,8 @@ def phase_spec(torch, qmat, paths: dict, d: str, card: str, base) -> dict:
     # (b) f32: the speculative tokens are plain greedy decoding's
     t0 = time.perf_counter()
     eng32 = f32_engine(torch, base, paths["q4km"],
-                       max_tokens=SPEC_TOKENS).with_draft(paths["llm"], SPEC_K)
+                       max_tokens=SPEC_STREAM_TOKENS).with_draft(
+                           paths["llm"], SPEC_K)
     res["f32_load_s"] = time.perf_counter() - t0
     log(f"spec: f32 target over phase 15's quantized weights + f32 draft "
         f"load {res['f32_load_s']:.2f} s")
@@ -3002,7 +3055,7 @@ def phase_spec(torch, qmat, paths: dict, d: str, card: str, base) -> dict:
                        agreeing=agree, compared=min(len(toks),
                                                     len(plain_toks)),
                        near_tie=near_tie(torch, base, text, plain_toks, toks,
-                                         "bf16 k=6"))
+                                         "spec[bf16 k=6]"))
     log(f"spec[bf16 k=6]: {len(toks)} tokens at {num['tok_s']:.4f} tok/s "
         f"(plain {plain_rate:.4f}, x{res['bf16']['speedup']:.4f}); rounds "
         f"{num['rounds']} ({prof.decode_steps} run), accepted "
@@ -3054,7 +3107,7 @@ def phase_spec(torch, qmat, paths: dict, d: str, card: str, base) -> dict:
     num = spec_numbers(eng01, toks, prof)
     res["self_draft"] = dict(num, identical=toks == plain01,
                              near_tie=near_tie(torch, eng01, text, plain01,
-                                               toks, "self f32 k=4"))
+                                               toks, "spec[self f32 k=4]"))
     log(f"spec[self-draft f32 k={SPEC_SELF_K}]: {len(toks)} tokens, "
         f"accepted {num['accepted']} of {num['drafted']}, identical to plain "
         f"{toks == plain01}")
@@ -3335,6 +3388,388 @@ def phase_int8_gpu_vs_cpu(torch, paths: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 24: the JAX package's remaining switches and the codec's debug
+# surface, on engines already loaded (phase 3's 0.1B, phase 15's 2.6B)
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def env_set(**kw):
+    """The environment switches `kw` set inside, their old values back
+    after."""
+    old = {k: os.environ.get(k) for k in kw}
+    os.environ.update(kw)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def switch_counters(qmat):
+    """route_counters and `qdot_xla`'s calls (no kernel)."""
+    return dict(route_counters(qmat), xla=(qmat.qdot_xla, "calls"))
+
+
+def unpacked_tree(torch, tree):
+    """A params tree whose packed QTensors are unpacked on their device
+    (int8 values, the same scales and mins): the storage a file loaded
+    under MIOTTS_NO_PACK4 gets, without reading the file again."""
+    from miotts_tpu_torch.ops.qmat import QTensor
+    if isinstance(tree, QTensor):
+        return tree if not tree.packed else dataclasses.replace(
+            tree, values=tree.unpacked_values().to(torch.int8), packed=False)
+    if isinstance(tree, dict):
+        return {k: unpacked_tree(torch, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [unpacked_tree(torch, v) for v in tree]
+    return tree
+
+
+def step_logits(torch, eng, text: str, toks: list) -> list:
+    """The last prefill logits of `text`'s prompt and those of one decode
+    step for each token of `toks`, teacher-forced, on the card (f32 on the
+    host)."""
+    from miotts_tpu_torch.models.llm import llm_decode_step
+    ids = prompt_ids(eng, text)
+    last, cache = prefilled(torch, eng, ids, len(ids) + len(toks))
+    out = [last.float().cpu()]
+    for t in toks:
+        last, cache = llm_decode_step(eng.llm_params,
+                                      torch.tensor([t], device="cuda"),
+                                      cache, eng.llm_cfg)
+        out.append(last.float().cpu())
+    return out
+
+
+def logits_err(a: list, b: list) -> float:
+    """The largest of each step's max |a - b| over b's logit scale."""
+    return max(rel_err(x, y) for x, y in zip(a, b))
+
+
+def run_counted(torch, eng, counters, text, Options, n: int,
+                voice=None, wav: str | None = None) -> dict:
+    """One greedy run of n tokens with the launch counts at 0 before it:
+    synthesize_to_file when `wav` is given (the WAV checked), else
+    generate_tokens.  Returns tokens, decode steps, tok/s and counts."""
+    import numpy as np
+    from miotts_tpu_torch.audio.wav import wav_read
+    from miotts_tpu_torch.runtime.profile import StreamProfile
+    prof = StreamProfile()
+    opts = Options(temperature=0.0, max_tokens=n)
+    reset_counts(counters)
+    if wav is None:
+        eng.generate_tokens(text, opts, profile=prof)
+    else:
+        eng.synthesize_to_file(voice, text, wav, opts, profile=prof)
+    torch.cuda.synchronize()
+    out = dict(tokens=list(prof.token_ids), steps=prof.decode_steps,
+               tok_s=prof.decode_steps / prof.llm_sec,
+               counts=read_counts(counters))
+    if wav is not None:
+        audio, sr = wav_read(wav)
+        if not (np.isfinite(audio).all() and sr == eng.sample_rate
+                and audio.size == prof.decoded_codes * eng.samples_per_token
+                and abs(float(np.max(np.abs(audio))) - 0.95) < 1e-3):
+            raise AssertionError(f"bad WAV {wav}: {audio.size} samples for "
+                                 f"{prof.decoded_codes} codes")
+        out["n_codes"] = prof.decoded_codes
+    return out
+
+
+def rates_in_turns(torch, runs, text: str, Options, n: int) -> dict:
+    """tok/s of greedy generate_tokens runs of n tokens taken in the order
+    of `runs` ((label, engine, environment switches) each, e.g. a b b a):
+    each label's rates and their mean."""
+    out: dict = {}
+    for label, eng, env in runs:
+        with env_set(**env):
+            prof = timed_tokens(eng, text, Options, n)[1]
+        out.setdefault(label, []).append(prof.decode_steps / prof.llm_sec)
+    return {k: dict(runs=v, mean=sum(v) / len(v)) for k, v in out.items()}
+
+
+def check_counts(label: str, got: dict, want: dict) -> None:
+    want = dict(dict.fromkeys(got, 0), **want)
+    if got != want:
+        raise AssertionError(f"{label}: launches {got} != {want}")
+
+
+def agreement(toks: list, ref: list) -> dict:
+    n = min(len(toks), len(ref))
+    return dict(agreeing=sum(a == b for a, b in zip(toks, ref)), compared=n,
+                first_disagreement=next((i for i in range(n)
+                                         if toks[i] != ref[i]), None))
+
+
+def phase_switches(torch, qmat, paths: dict, d: str, card: str, main_eng,
+                   main_voice, main_res: dict, q4km_eng,
+                   q4km_res: dict) -> dict:
+    """The JAX package's switches on loaded engines, and the codec's debug
+    surface.  (a) MIOTTS_NO_PACK4 on phase 15's 2.6B-Q4_K_M engine (its
+    QTensors unpacked on the card): one Q4_K tensor read under the switch
+    has the unpacked bits; text -> WAV on the default route (K1 129 a step
+    and prefill, K2 / K4b none; tokens against phase 15's, a near tie where
+    they part), w8a8 (K4a 129 a step) and split (K2 none); f32 tokens and
+    logits against the packed weights.  (b) MIOTTS_FORCE_XLA_QDOT on phase
+    3's 0.1B engine: no kernel, qdot_xla 49 a step and prefill; f32 tokens
+    and logits against the kernel route.  (c) MIOTTS_ATTN_NOCAT on the same
+    engines: f32 tokens and logits against the cat path, qdot 49 a step.
+    (d) MIOTTS_WARMUP_VERBOSE: warmup's stage lines.  (e) the debug surface
+    on phase 3's codec: codec_decode_stages on the card against the CPU,
+    codec_decoder_layer_substeps at the first and last layer,
+    codec_decode_audio against the engine's decode, `synth
+    --dump-tensors`."""
+    import io
+    import re
+    import numpy as np
+    from miotts_tpu_torch import cli
+    from miotts_tpu_torch.gguf import GGML_Q4_K, GGUFReader
+    from miotts_tpu_torch.runtime.engine import Options, _bucket_len
+    res: dict = {}
+    text = "The quick brown fox jumps over the lazy dog."
+    counters = switch_counters(qmat)
+    n_q4km = Q4KM_QDOT_PER_STEP
+
+    # (a) MIOTTS_NO_PACK4 at 2.6B
+    t0 = time.perf_counter()
+    un = engine_variant(q4km_eng)
+    un.llm_params = unpacked_tree(torch, q4km_eng.llm_params)
+    name = "blk.0.attn_output.weight"
+    with GGUFReader(paths["q4km"]) as r:
+        info = r.tensors[name]
+        rows, cols = info.shape
+        raw = np.array(r.tensor_raw(name))    # a copy: the file closes
+    with env_set(MIOTTS_NO_PACK4="1"):
+        read = qmat.qtensor_from_raw(raw, info.ggml_type, rows, cols,
+                                     device="cuda")
+    dev = un.llm_params["blocks"][0]["wo"]
+    same_bits = (info.ggml_type == GGML_Q4_K and not read.packed
+                 and torch.equal(read.values, dev.values)
+                 and torch.equal(read.scales, dev.scales)
+                 and torch.equal(read.mins, dev.mins))
+    log(f"no_pack4: {name} read under MIOTTS_NO_PACK4 ({tuple(read.values.shape)}"
+        f" {read.values.dtype}) the same bits as its unpacked copy on the "
+        f"card: {same_bits}; unpacked in {time.perf_counter() - t0:.2f} s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.3f} GB on the card")
+    log(un.route_line())
+    if not same_bits:
+        raise AssertionError("no_pack4: the tensor read under the switch "
+                             "differs from its unpacked copy")
+    packed_ref = q4km_res["default"]
+    run = run_counted(torch, un, counters, text, Options, SWITCH_TOKENS,
+                      main_voice, os.path.join(d, "no_pack4.wav"))
+    check_counts("no_pack4[default]", run["counts"],
+                 expected_counts("default", run["steps"], n_q4km, 0))
+    agree = agreement(run["tokens"], packed_ref["token_ids"])
+    tie = near_tie(torch, q4km_eng, text, packed_ref["token_ids"][
+        :len(run["tokens"])], run["tokens"], "no_pack4[bf16]")
+    routes = {}
+    for route_name in ("w8a8", "split"):
+        eng = un.with_qdot_route(qmat.QdotRoute.from_env(
+            Q4KM_ROUTES[route_name]))
+        r_run = run_counted(torch, eng, counters, text, Options,
+                            SWITCH_ROUTE_TOKENS)
+        check_counts(f"no_pack4[{route_name}]", r_run["counts"],
+                     expected_counts(route_name, r_run["steps"], n_q4km, 0))
+        routes[route_name] = dict(steps=r_run["steps"], tok_s=r_run["tok_s"],
+                                  launches=r_run["counts"])
+        log(f"no_pack4[{route_name}]: {r_run['steps']} steps at "
+            f"{r_run['tok_s']:.4f} tok/s, launches {r_run['counts']}  [{card}]")
+    turns = rates_in_turns(torch, [("packed", q4km_eng, {}), ("unpacked", un, {}),
+                                   ("unpacked", un, {}), ("packed", q4km_eng, {})],
+                           text, Options, SWITCH_ROUTE_TOKENS)
+    p32 = f32_engine(torch, q4km_eng, paths["q4km"])
+    u32 = f32_engine(torch, un, paths["q4km"])
+    want32 = timed_tokens(p32, text, Options, SWITCH_TOKENS)[0]
+    got32 = timed_tokens(u32, text, Options, SWITCH_TOKENS)[0]
+    err32 = logits_err(step_logits(torch, u32, text, want32[:SWITCH_STEPS]),
+                       step_logits(torch, p32, text, want32[:SWITCH_STEPS]))
+    res["no_pack4"] = dict(
+        same_bits=same_bits, tok_s=run["tok_s"],
+        packed_tok_s=packed_ref["decode_tok_s"], turns=turns,
+        steps=run["steps"],
+        n_codes=run["n_codes"], launches=run["counts"],
+        tokens_vs_packed=agree, near_tie=tie, routes=routes,
+        f32_identical=got32 == want32, f32_logits_err=err32,
+        seconds=time.perf_counter() - t0)
+    log(f"no_pack4[default]: {run['steps']} steps at {run['tok_s']:.4f} "
+        f"tok/s (phase 15 packed: {packed_ref['decode_tok_s']:.4f}); in "
+        f"turns of {SWITCH_ROUTE_TOKENS} tokens packed "
+        f"{turns['packed']['runs']}, "
+        f"unpacked {turns['unpacked']['runs']}; "
+        f"launches {run['counts']}; tokens agreeing with the packed route "
+        f"{agree['agreeing']} of {agree['compared']}; f32 tokens identical "
+        f"{got32 == want32}, logits {err32:.3e} of their scale (tol "
+        f"{REF_TOL})  [{card}]")
+    if got32 != want32 or not err32 <= REF_TOL:
+        raise AssertionError("no_pack4: the unpacked f32 engine parts from "
+                             "the packed one")
+    del un, p32, u32, eng
+    torch.cuda.empty_cache()
+
+    # (b) MIOTTS_FORCE_XLA_QDOT at 0.1B
+    t0 = time.perf_counter()
+    xla = main_eng.with_qdot_route(qmat.QdotRoute(xla=True))
+    log(xla.route_line())
+    run = run_counted(torch, xla, counters, text, Options, SWITCH_BF16_TOKENS)
+    check_counts("xla[bf16]", run["counts"],
+                 dict(xla=QDOT_PER_STEP * (1 + run["steps"])))
+    k32 = f32_engine(torch, main_eng, paths["llm"])
+    x32 = k32.with_qdot_route(qmat.QdotRoute(xla=True))
+    cat32 = timed_tokens(k32, text, Options, SWITCH_TOKENS)[0]
+    got32 = timed_tokens(x32, text, Options, SWITCH_TOKENS)[0]
+    cat_logits = step_logits(torch, k32, text, cat32)
+    err32 = logits_err(step_logits(torch, x32, text, cat32), cat_logits)
+    res["force_xla"] = dict(
+        tok_s=run["tok_s"], kernel_tok_s=main_res["decode_tok_s"],
+        steps=run["steps"], launches=run["counts"],
+        tokens_vs_kernels=agreement(run["tokens"], main_res["tokens"]),
+        f32_identical=got32 == cat32, f32_logits_err=err32,
+        seconds=time.perf_counter() - t0)
+    log(f"xla[bf16]: {run['steps']} steps at {run['tok_s']:.4f} tok/s "
+        f"(phase 3's kernels: {main_res['decode_tok_s']:.4f}), launches "
+        f"{run['counts']}; tokens agreeing with phase 3's "
+        f"{res['force_xla']['tokens_vs_kernels']}; f32 tokens identical "
+        f"{got32 == cat32}, logits {err32:.3e} of their scale (tol "
+        f"{REF_TOL})  [{card}]")
+    if got32 != cat32 or not err32 <= REF_TOL:
+        raise AssertionError("xla: the f32 xla route parts from the kernels")
+
+    # (c) MIOTTS_ATTN_NOCAT at 0.1B
+    t0 = time.perf_counter()
+    with env_set(MIOTTS_ATTN_NOCAT="1"):
+        log(main_eng.route_line())
+        nocat32 = timed_tokens(k32, text, Options, SWITCH_TOKENS)[0]
+        err_nc = logits_err(step_logits(torch, k32, text, cat32), cat_logits)
+        run = run_counted(torch, main_eng, counters, text, Options,
+                          SWITCH_BF16_TOKENS)
+    check_counts("nocat[bf16]", run["counts"],
+                 dict(K1=QDOT_PER_STEP * (1 + run["steps"])))
+    res["attn_nocat"] = dict(
+        tok_s=run["tok_s"], cat_tok_s=main_res["decode_tok_s"],
+        steps=run["steps"], launches=run["counts"],
+        tokens_vs_cat=agreement(run["tokens"], main_res["tokens"]),
+        f32_identical=nocat32 == cat32, f32_logits_err=err_nc,
+        seconds=time.perf_counter() - t0)
+    log(f"nocat[bf16]: {run['steps']} steps at {run['tok_s']:.4f} tok/s "
+        f"(phase 3, cat: {main_res['decode_tok_s']:.4f}), launches "
+        f"{run['counts']}; tokens agreeing with phase 3's "
+        f"{res['attn_nocat']['tokens_vs_cat']}; f32 tokens identical "
+        f"{nocat32 == cat32}, logits {err_nc:.3e} of their scale (tol "
+        f"{NOCAT_TOL})  [{card}]")
+    if nocat32 != cat32 or not err_nc <= NOCAT_TOL:
+        raise AssertionError("nocat: the f32 merge parts from the cat path")
+    nocat = {"MIOTTS_ATTN_NOCAT": "1"}
+    turns = rates_in_turns(torch, [
+        ("kernels", main_eng, {}), ("xla", xla, {}), ("nocat", main_eng, nocat),
+        ("nocat", main_eng, nocat), ("xla", xla, {}), ("kernels", main_eng, {})],
+        text, Options, SWITCH_TOKENS)
+    res["force_xla"]["turns"] = res["attn_nocat"]["turns"] = turns
+    log(f"0.1B bf16 in turns of {SWITCH_TOKENS} tokens, tok/s: kernels "
+        f"{turns['kernels']['runs']}, xla {turns['xla']['runs']}, nocat "
+        f"{turns['nocat']['runs']}  [{card}]")
+    del xla, k32, x32
+
+    # (d) MIOTTS_WARMUP_VERBOSE
+    t0 = time.perf_counter()
+    cfgE = main_eng.config
+    chunk = cfgE.stream_check_interval
+    want_labels = (
+        [f"codec bucket T={T}" for T in main_eng._code_buckets(
+            WARMUP_CODES, 1)]
+        + [f"llm prefill bucket={cfgE.prompt_bucket}"]
+        + [f"llm chunk={n} + codec interleave" for n in sorted({chunk, 64})]
+        + [f"fused stream step bucket={b}" for b in main_eng._code_buckets(
+            WARMUP_CODES, chunk)])
+    errs = {}
+    for verbose in (False, True):
+        buf = io.StringIO()
+        with env_set(**({"MIOTTS_WARMUP_VERBOSE": "1"} if verbose else {})), \
+                contextlib.redirect_stderr(buf):
+            main_eng.warmup(max_codes=WARMUP_CODES,
+                            prompt_len=cfgE.prompt_bucket)
+        errs[verbose] = buf.getvalue()
+    line = re.compile(r"^warmup: (.+): (\d+\.\d)s$")
+    lines = [s for s in errs[True].splitlines() if s.startswith("warmup:")]
+    got_labels = [line.match(s).group(1) if line.match(s) else s
+                  for s in lines]
+    res["warmup_verbose"] = dict(lines=lines, quiet="warmup:" not in errs[False],
+                                 seconds=time.perf_counter() - t0)
+    for s in lines:
+        log(f"warmup_verbose: {s}  [{card}]")
+    if got_labels != want_labels or "warmup:" in errs[False]:
+        raise AssertionError(f"warmup_verbose: labels {got_labels} != "
+                             f"{want_labels}, or lines without the switch")
+
+    # (e) the codec's debug surface
+    t0 = time.perf_counter()
+    from miotts_tpu_torch.models.codec import (codec_decode_audio,
+                                               codec_decode_stages,
+                                               codec_decoder_layer_substeps)
+    cfgc, cparams = main_eng.codec_cfg, main_eng.codec_params
+    codes = (np.arange(DEBUG_CODES) * 397 + 5) % N_SPEECH
+    emb = main_voice.embedding
+    gpu, _ = codec_decode_stages(cparams, codes, emb, cfgc)
+    cpu, _ = codec_decode_stages(_to_cpu(cparams), codes, emb, cfgc)
+    stage_err = {k: rel_err(torch.from_numpy(gpu[k]), torch.from_numpy(cpu[k]))
+                 for k in gpu}
+    subs = {}
+    n_layers = len(cparams["decoder_blocks"])
+    for li in (0, n_layers - 1):
+        sub, diff = codec_decoder_layer_substeps(cparams, codes, emb, cfgc, li)
+        scale = float(np.max(np.abs(sub["layer_out"])))
+        subs[str(li)] = dict(max_abs_diff=diff, layer_out_scale=scale,
+                             ok=diff <= REF_TOL * scale)
+        if li == 0:
+            subs["0"]["layer_in_is_prior"] = bool(np.array_equal(
+                sub["layer_in"], gpu["prior"]))
+        else:
+            subs[str(li)]["layer_out_vs_decoder"] = rel_err(
+                torch.from_numpy(sub["layer_out"]),
+                torch.from_numpy(gpu["decoder"]))
+    bucket = _bucket_len(DEBUG_CODES, main_eng.config.code_bucket)
+    padded = np.zeros(bucket, np.int64)
+    padded[:DEBUG_CODES] = codes
+    audio = codec_decode_audio(
+        cparams, torch.from_numpy(padded).cuda(),
+        main_voice.device_embedding("cuda"), cfgc, DEBUG_CODES)
+    spt = main_eng.samples_per_token
+    audio = audio[: DEBUG_CODES * spt].cpu()
+    engine_audio = torch.from_numpy(main_eng.decode_codes(
+        list(codes), main_voice, apply_peak_normalization=False))
+    audio_err = rel_err(audio, engine_audio)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["synth", "-c", paths["codec"], "--dump-tensors"])
+    dump = out.getvalue().splitlines()
+    with GGUFReader(paths["codec"]) as r:
+        n_tensors = len(r.tensors)
+    dump_ok = (rc == 0 and dump[0] == f"Tensors in {paths['codec']}: "
+               f"{n_tensors}" and len(dump) == n_tensors + 1)
+    res["debug"] = dict(stage_err=stage_err, substeps=subs,
+                        audio_err=audio_err, dump_tensors=dict(
+                            rc=rc, tensors=n_tensors, lines=len(dump) - 1),
+                        seconds=time.perf_counter() - t0)
+    log(f"debug: codec_decode_stages card vs CPU, worst "
+        f"{max(stage_err.values()):.3e} of a stage's scale (tol {REF_TOL}; "
+        f"{len(stage_err)} stages); layer substeps {subs}; "
+        f"codec_decode_audio vs the engine's decode {audio_err:.3e} (tol "
+        f"{AUDIO_TOL}); --dump-tensors rc {rc}, {len(dump) - 1} of "
+        f"{n_tensors} tensors  [{card}]")
+    last = subs[str(n_layers - 1)]
+    if not (max(stage_err.values()) <= REF_TOL
+            and all(v["ok"] for v in subs.values())
+            and subs["0"]["layer_in_is_prior"]
+            and last["layer_out_vs_decoder"] <= AUDIO_TOL
+            and audio_err <= AUDIO_TOL and dump_ok):
+        raise AssertionError("debug: the codec's debug surface is off")
+    return res
+
+
 # kernel -> (name, source, the TPU kernel it replaces, the route that runs
 # it, what one decode step of its work is)
 VARIANTS = {
@@ -3456,10 +3891,11 @@ def single_stream_steps(res: dict) -> dict:
 
 # every phase (3 runs 3-5), and what a phase needs run before it
 ALL_PHASES = (2, 3, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20,
-              21, 22, 23)
-PHASE_NEEDS = {9: {7}, 12: {11}, 20: {11}, 21: {15}, 22: {7}, 23: {3, 11}}
+              21, 22, 23, 24)
+PHASE_NEEDS = {9: {7}, 12: {11}, 20: {11}, 21: {15}, 22: {7}, 23: {3, 11},
+               24: {3, 15}}
 MODEL_PHASES = {3, 7, 8, 9, 11, 12, 13, 15, 16, 19, 20, 21, 22,
-                23}                          # the 0.1B files, codec
+                23, 24}                      # the 0.1B files, codec
 
 
 def parse_phases(argv) -> set:
@@ -3470,7 +3906,8 @@ def parse_phases(argv) -> set:
     ap.add_argument("--phases", default="",
                     help="comma-separated phase numbers to run (3 runs 3-5; "
                          "9 and 22 bring 7, 12 and 20 bring 11, 21 brings "
-                         "15, 23 brings 3 and 11); default: all")
+                         "15, 23 brings 3 and 11, 24 brings 3 and 15); "
+                         "default: all")
     args = ap.parse_args(argv)
     if not args.phases:
         return set(ALL_PHASES)
@@ -3522,7 +3959,7 @@ def main(argv=None) -> int:
         rows = res["qdot_per_shape"] = phase_kernels(torch, qmat, card)
         done("2")
 
-    writers_for = {"lfm2": {11, 12, 13}, "q4km": {15, 16, 21}}
+    writers_for = {"lfm2": {11, 12, 13}, "q4km": {15, 16, 21, 24}}
     keys = {k for k, phases in writers_for.items() if run & phases}
     with tempfile.TemporaryDirectory() as d, background_writes(d, keys) as writers:
         paths = {}
@@ -3540,7 +3977,8 @@ def main(argv=None) -> int:
                     torch, main_eng, main_voice, d, card, "int8 0.1b",
                     QDOT_PER_STEP, 0, res["main_path"])}
                 done("23 (a)")
-            del main_eng, main_voice
+            if 24 not in run:
+                del main_eng, main_voice
         if 19 in run:
             res["stream"] = phase_stream_0p1b(
                 torch, qmat, paths, d, card,
@@ -3616,8 +4054,8 @@ def main(argv=None) -> int:
         if "q4km" in keys:
             paths["q4km"] = written(writers, "q4km", d)
         if 15 in run:
-            res["q4km_offline"] = phase_q4km_offline(torch, qmat, paths, d,
-                                                     card, 21 in run)
+            res["q4km_offline"] = phase_q4km_offline(
+                torch, qmat, paths, d, card, bool(run & {21, 24}))
             done("15")
         if 16 in run:
             res["q4km_gpu_vs_cpu"] = phase_q4km_gpu_vs_cpu(torch, qmat,
@@ -3625,9 +4063,19 @@ def main(argv=None) -> int:
             done("16")
         if 21 in run:
             res["spec"] = phase_spec(torch, qmat, paths, d, card,
-                                     res["q4km_offline"].pop("engine"))
+                                     res["q4km_offline"]["engine"])
             done("21")
             torch.cuda.empty_cache()
+        if 24 in run:
+            res["switches"] = phase_switches(
+                torch, qmat, paths, d, card, main_eng, main_voice,
+                res["main_path"], res["q4km_offline"]["engine"],
+                res["q4km_offline"])
+            done("24")
+            del main_eng, main_voice
+        if 15 in run:
+            res["q4km_offline"].pop("engine", None)
+        torch.cuda.empty_cache()
 
     if run != set(ALL_PHASES):
         log("details " + json.dumps(res))
@@ -3697,7 +4145,11 @@ def main(argv=None) -> int:
                               "qdot_launches"],
                           "int8_offline": int8_res["0.1b"]["qdot_launches"],
                           "lfm2_int8_offline": int8_res["lfm2"][
-                              "qdot_launches"]})
+                              "qdot_launches"],
+                          "q4km_no_pack4_offline": res["switches"][
+                              "no_pack4"]["launches"]["K1"],
+                          "offline_attn_nocat": res["switches"][
+                              "attn_nocat"]["launches"]["K1"]})
     step_rows = [r for r in attn_rows if r["mode"] == "bf16"
                  and (r["shape"], r["B"], r["H"], r["H_kv"], r["D"],
                       r["S"]) == ATTN_STEP_SHAPE]
@@ -3769,6 +4221,10 @@ def main(argv=None) -> int:
                               "lfm2"]["k5_launches"]})
     variant_entries = [variant_entry(var_rows, q4km_res, q4km_ref, kernel)
                        for kernel in VARIANTS]
+    # K4a on every 2.6B linear when the 4-bit weights are unpacked
+    variant_entries[list(VARIANTS).index("K4a")]["launches_by_path"][
+        "q4km_no_pack4_w8a8"] = res["switches"]["no_pack4"]["routes"][
+            "w8a8"]["launches"]["K4a"]
     lfm2_after = lfm2_serve["after"]
     step16 = {k: lfm2_step_summary(bf16_rows, k, LFM2_SLOTS) for k in
               ("ms", "plain_ms", "bound_ms", "library_ms", "bytes", "flops",

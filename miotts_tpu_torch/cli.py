@@ -12,7 +12,7 @@
       --voices-dir VOICES/ [--port 8080] [--slots 8] [--device cuda]
 
 Subcommands and flags follow the JAX package's CLI:
-  synth      text -> WAV
+  synth      text -> WAV (`--dump-tensors`: list the codec GGUF's tensors)
   stream     streaming synthesis through the bounded playback queue into a
              PCM sink (s16le, stdout or a file) or the host's audio device
   bench      streaming benchmark, prints stream_bench.* metrics
@@ -109,7 +109,23 @@ def _engine_and_voice(args):
         return None
 
 
+def dump_tensors(path: str) -> None:
+    """The JAX CLI's `synth --dump-tensors`: every tensor of the GGUF at
+    `path` in file order, its four dims and its type, in the same format."""
+    from .gguf import GGUFReader
+    with GGUFReader(path) as r:
+        print(f"Tensors in {path}: {len(r.tensors)}")
+        for name in r.tensor_order:
+            info = r.tensors[name]
+            ne = list(info.ne) + [1] * (4 - len(info.ne))
+            print(f"  {name:<60s} [{ne[0]:5d}, {ne[1]:5d}, {ne[2]:5d}, "
+                  f"{ne[3]:5d}] type={info.type_name}")
+
+
 def cmd_synth(args) -> int:
+    if args.dump_tensors:
+        dump_tensors(args.codec)
+        return 0
     got = _engine_and_voice(args)
     if got is None:
         return 1
@@ -299,6 +315,9 @@ def main(argv=None) -> int:
     p = sub.add_parser("synth", help="offline text -> WAV")
     _add_model_args(p)
     p.add_argument("-o", "--output", default="output.wav")
+    p.add_argument("--dump-tensors", action="store_true",
+                   help="list the codec GGUF's tensors (name, dims, type) "
+                        "and exit")
     p.set_defaults(fn=cmd_synth)
 
     p = sub.add_parser("stream", help="stream PCM to a sink (stdout / file) "

@@ -28,6 +28,11 @@ prenet's matmuls alone moved the synthetic full-size codec's audio by
 2.1e-2 relative RMS, everything after it together by 5.7e-3 (a CPU
 emulation of TF32 rounding that gave the H100's 2.4e-2 for the whole
 codec).  Per-layer weights are lists of dicts, iterated in Python.
+
+The JAX package's debug surface: `codec_decode_stages` (every stage's
+activations, through the forward's `tap`), `codec_decoder_layer_substeps`
+(one decoder layer op by op against the production layer) and
+`codec_decode_audio` (codes -> PCM in one call).
 """
 
 from __future__ import annotations
@@ -35,13 +40,15 @@ from __future__ import annotations
 import contextlib
 import math
 import os
+from collections import OrderedDict
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..ops.istft import make_synthesis_basis
+from ..ops.istft import (make_synthesis_basis, spec_to_audio,
+                         spec_to_audio_bucketed)
 
 
 @dataclass(frozen=True)
@@ -302,8 +309,13 @@ def _band_mask_bias(T: int, window: int, mask) -> torch.Tensor:
 # Forward pass
 # ---------------------------------------------------------------------------
 
-def _codec_forward(params: dict, codes, voice_emb, cfg: CodecConfig, n_real):
-    """codes [B, T]; voice_emb [B, adaln]; n_real [B] int64."""
+def _codec_forward(params: dict, codes, voice_emb, cfg: CodecConfig, n_real,
+                   tap=None):
+    """codes [B, T]; voice_emb [B, adaln]; n_real [B] int64.  `tap(name,
+    x)`, when given, records each stage's activations [B, ...] under the
+    JAX package's stage names (`codec_decode_stages`)."""
+    if tap is None:
+        tap = lambda name, x: None    # noqa: E731
     dev = codes.device
     B, T = codes.shape
     steps = torch.arange(T, device=dev)
@@ -318,6 +330,7 @@ def _codec_forward(params: dict, codes, voice_emb, cfg: CodecConfig, n_real):
     cond = voice_emb[:, None, :]                               # [B, 1, adaln]
 
     x = params["token_embd"][codes.long()]                     # [B, T, 768]
+    tap("token_embd", x)
 
     bias_t = _band_mask_bias(T, cfg.prenet_window, mask_t)
     with exact_f32():       # in fast mode too: see the module docstring
@@ -327,31 +340,38 @@ def _codec_forward(params: dict, codes, voice_emb, cfg: CodecConfig, n_real):
                                      cfg.rope_theta)
             h = _layer_norm(x, p["ffn_norm_w"], p["ffn_norm_b"], eps)
             x = x + _swiglu(h, p)
+        tap("prenet", x)
         x = _layer_norm(x, params["prenet_norm_w"], params["prenet_norm_b"],
                         eps)
         x = _linear(x, params["prenet_out_w"], params["prenet_out_b"])
+    tap("prenet_out", x)
 
     x = _conv_transpose1d(x, params["upsample_w"], params["upsample_b"], 2,
                           mask_t)
+    tap("upsample", x)
     S = 2 * T
     s_real = 2 * n_real
     mask_s = valid(S, s_real)
 
     for p in params["prior_blocks"]:
         x = _resnet_block(x, p, cfg.resnet_groups, gn_eps, mask_s)
+    tap("prior", x)
 
     pos_s = torch.arange(S, device=dev)
     bias_s = _band_mask_bias(S, cfg.decoder_window, mask_s)
     for p in params["decoder_blocks"]:
         x = _decoder_layer(x, p, cond, pos_s, bias_s, cfg.decoder_heads,
                            cfg.rope_theta, eps)
+    tap("decoder", x)
 
     nc = _linear(F.silu(cond), params["norm_cond_w"], params["norm_cond_b"])
     dd = cfg.decoder_dim
     x = _adaln_norm(x, nc[..., :dd], nc[..., dd:2 * dd], eps)
+    tap("final_adaln", x)
 
     for p in params["post_blocks"]:
         x = _resnet_block(x, p, cfg.resnet_groups, gn_eps, mask_s)
+    tap("post", x)
 
     cur_real = s_real
     for stage in range(cfg.upsampler_stages):
@@ -366,14 +386,19 @@ def _codec_forward(params: dict, codes, voice_emb, cfg: CodecConfig, n_real):
         x = _snake(x, p["snake_a"], p["snake_b"])
         x = _resnet_block(x, p["resnet"], cfg.resnet_groups, gn_eps,
                           valid(x.shape[1], cur_real))
+        tap(f"upsampler_{stage}", x)
 
     x = _linear(x, params["upsampler_out_w"], params["upsampler_out_b"])
     x = _snake(x, params["upsampler_out_snake_a"],
                params["upsampler_out_snake_b"])
+    tap("upsampler_out", x)
 
     x = _linear(x, params["istft_head_w"], params["istft_head_b"])
     nf = cfg.n_freq
-    return x[..., :nf], x[..., nf:2 * nf]
+    log_mag, phase = x[..., :nf], x[..., nf:2 * nf]
+    tap("log_mag", log_mag)
+    tap("phase", phase)
+    return log_mag, phase
 
 
 @torch.inference_mode()
@@ -398,6 +423,187 @@ def codec_decode_spec(params: dict, codes, voice_emb, cfg: CodecConfig,
     if single:
         return log_mag[0], phase[0]
     return log_mag, phase
+
+
+def _one_row(params: dict, codes, voice_emb):
+    """codes [T] and a voice embedding (numpy or tensors) -> [1, T] int64
+    codes and a [1, adaln] f32 embedding on the codec's device."""
+    dev = params["token_embd"].device
+    codes = torch.as_tensor(np.asarray(codes, np.int64), device=dev)
+    emb = torch.as_tensor(np.asarray(voice_emb, np.float32), device=dev)
+    return codes.reshape(1, -1), emb.reshape(1, -1)
+
+
+def _numpy(x: torch.Tensor) -> np.ndarray:
+    return x.cpu().numpy()
+
+
+@torch.inference_mode()
+def codec_decode_stages(params: dict, codes, voice_emb, cfg: CodecConfig):
+    """Decode one row of codes (all real, unmasked) recording every stage's
+    activations, for debugging and parity bisection (the JAX package's
+    `codec_decode_stages`).  Returns (stages OrderedDict[name ->
+    np.ndarray] with the JAX package's names and shapes, no batch axis;
+    (log_mag, phase) [S_final, n_freq] tensors)."""
+    stages: OrderedDict = OrderedDict()
+
+    def tap(name, x):
+        stages[name] = _numpy(x[0])
+
+    codes, emb = _one_row(params, codes, voice_emb)
+    n_real = torch.full((1,), codes.shape[1], dtype=torch.int64,
+                        device=codes.device)
+    with exact_f32(tf32=codec_fast(cfg)):
+        log_mag, phase = _codec_forward(params, codes, emb, cfg, n_real, tap)
+    return stages, (log_mag[0], phase[0])
+
+
+@torch.inference_mode()
+def codec_decoder_layer_substeps(params: dict, codes, voice_emb,
+                                 cfg: CodecConfig, layer: int = 0):
+    """Sub-op bisection inside one wave_decoder AdaLN layer (the JAX
+    package's `codec_decoder_layer_substeps`): the decoder runs eagerly up
+    to layer `layer` from `codec_decode_stages`' "prior", then that layer
+    is expanded op by op (conditioning, modulated norm, QKV / RoPE /
+    attention, gated residual, FFN conditioning and norm, SwiGLU, gated
+    residual), each intermediate recorded under the JAX package's names.
+    Returns (substeps OrderedDict[name -> np.ndarray], max_abs_diff), the
+    latter the expansion's output against the production `_decoder_layer`
+    on the same input.  Raises ValueError for a layer out of range."""
+    n_layers = len(params["decoder_blocks"])
+    if not 0 <= layer < n_layers:
+        raise ValueError(f"layer {layer} out of range [0, {n_layers})")
+    subs: OrderedDict = OrderedDict()
+
+    def tap(name, x):
+        subs[name] = _numpy(x)
+
+    stages, _ = codec_decode_stages(params, codes, voice_emb, cfg)
+    _, emb = _one_row(params, codes, voice_emb)
+    cond = emb[0]                                          # [adaln]
+    eps = cfg.norm_eps
+    with exact_f32(tf32=codec_fast(cfg)):
+        x = torch.from_numpy(stages["prior"]).to(emb.device)    # [S, dim]
+        S = x.shape[0]
+        pos_s = torch.arange(S, device=x.device)
+        bias_s = _band_mask_bias(S, cfg.decoder_window,
+                                 torch.ones((1, S), device=x.device))
+
+        def layer_step(x, p):
+            return _decoder_layer(x[None], p, cond[None, None], pos_s, bias_s,
+                                  cfg.decoder_heads, cfg.rope_theta, eps)[0]
+
+        for i in range(layer):
+            x = layer_step(x, params["decoder_blocks"][i])
+        p = params["decoder_blocks"][layer]
+        tap("layer_in", x)
+
+        # A: the attention's AdaLN conditioning
+        silu_cond = F.silu(cond)
+        tap("silu_cond", silu_cond)
+        cond_out = _linear(silu_cond, p["attn_cond_w"], p["attn_cond_b"])
+        tap("attn_cond_out", cond_out)
+        dim = cond_out.shape[-1] // 3
+        sh, sc, g = (cond_out[:dim], cond_out[dim:2 * dim],
+                     cond_out[2 * dim:])
+        tap("attn_shift", sh)
+        tap("attn_scale", sc)
+        tap("attn_gate", g)
+
+        # B: affine-free layer norm, then the modulation
+        mu = x.mean(dim=-1, keepdim=True)
+        var = (x - mu).square().mean(dim=-1, keepdim=True)
+        x_norm = (x - mu) * torch.rsqrt(var + eps)
+        tap("x_norm", x_norm)
+        x_mod = x_norm * (1.0 + sc) + sh
+        tap("x_modulated", x_mod)
+
+        # C: self-attention, expanded
+        n_head = cfg.decoder_heads
+        hd = x.shape[-1] // n_head
+        q = _linear(x_mod, p["wq"]).reshape(S, n_head, hd)
+        k = _linear(x_mod, p["wk"]).reshape(S, n_head, hd)
+        v = _linear(x_mod, p["wv"]).reshape(S, n_head, hd)
+        tap("q_proj", q)
+        tap("k_proj", k)
+        tap("v_proj", v)
+        q_r = _rope_interleaved(q, pos_s, cfg.rope_theta)
+        k_r = _rope_interleaved(k, pos_s, cfg.rope_theta)
+        tap("q_rope", q_r)
+        tap("k_rope", k_r)
+        scores = torch.einsum("qhd,khd->hqk", q_r, k_r) / math.sqrt(hd)
+        scores = scores + bias_s
+        tap("attn_scores", scores)
+        probs = torch.softmax(scores, dim=-1)
+        tap("attn_probs", probs)
+        ctx = torch.einsum("hqk,khd->qhd", probs, v).reshape(S, -1)
+        tap("attn_ctx", ctx)
+        attn_out = _linear(ctx, p["wo"])
+        tap("attn_out", attn_out)
+
+        # D: the gated attention residual
+        gated_attn = attn_out * g
+        tap("gated_attn", gated_attn)
+        h = x + gated_attn
+        tap("attn_residual", h)
+
+        # E / F: the FFN's AdaLN conditioning and norm
+        cond_out = _linear(silu_cond, p["ffn_cond_w"], p["ffn_cond_b"])
+        tap("ffn_cond_out", cond_out)
+        sh, sc, g = (cond_out[:dim], cond_out[dim:2 * dim],
+                     cond_out[2 * dim:])
+        tap("ffn_shift", sh)
+        tap("ffn_scale", sc)
+        tap("ffn_gate", g)
+        mu = h.mean(dim=-1, keepdim=True)
+        var = (h - mu).square().mean(dim=-1, keepdim=True)
+        h_norm = (h - mu) * torch.rsqrt(var + eps)
+        tap("h_norm", h_norm)
+        h_mod = h_norm * (1.0 + sc) + sh
+        tap("h_modulated", h_mod)
+
+        # G: SwiGLU
+        gate_proj = _linear(h_mod, p["w_gate"])
+        tap("ffn_gate_proj", gate_proj)
+        up_proj = _linear(h_mod, p["w_up"])
+        tap("ffn_up_proj", up_proj)
+        silu_gate = F.silu(gate_proj)
+        tap("ffn_silu_gate", silu_gate)
+        gated = silu_gate * up_proj
+        tap("ffn_gated", gated)
+        ffn_out = _linear(gated, p["w_down"])
+        tap("ffn_out", ffn_out)
+
+        # H: the gated FFN residual
+        gated_ffn = ffn_out * g
+        tap("gated_ffn", gated_ffn)
+        out = h + gated_ffn
+        tap("layer_out", out)
+
+        # the expansion against the production layer on the same input
+        full = layer_step(torch.from_numpy(subs["layer_in"]).to(x.device), p)
+        max_diff = float((out - full).abs().max())
+    return subs, max_diff
+
+
+@torch.inference_mode()
+def codec_decode_audio(params: dict, codes, voice_emb, cfg: CodecConfig,
+                       n_real=None) -> torch.Tensor:
+    """codes -> PCM [T * samples_per_token] in one call (the JAX package's
+    `codec_decode_audio`): `codec_decode_spec`, then mag = clip(exp(log_mag),
+    0, 100), cos / sin of the phase and the iSTFT in exact f32, every frame
+    at or past n_real * total_upsample masked.  With bucket padding
+    (`n_real` < T) only the first n_real * samples_per_token samples are
+    meaningful.  A batch (codes [B, T], voice_emb [B, adaln], n_real [B])
+    gives [B, T * samples_per_token]."""
+    log_mag, phase = codec_decode_spec(params, codes, voice_emb, cfg, n_real)
+    basis = (params["istft_cos_basis"], params["istft_sin_basis"],
+             params["istft_hann"], cfg.hop_length)
+    with exact_f32():
+        if n_real is None:
+            return spec_to_audio(log_mag, phase, *basis)
+        return spec_to_audio_bucketed(log_mag, phase, *basis,
+                                      cfg.total_upsample, n_real)
 
 
 # ---------------------------------------------------------------------------

@@ -37,6 +37,7 @@ scales, and reads it through `ops/decode_attn.decode_attention_batched`
 from __future__ import annotations
 
 import math
+import os
 from dataclasses import dataclass
 from typing import Any
 
@@ -314,9 +315,12 @@ def _attend(q, k_cache, v_cache, fill, q_pos, k_scale=None, v_scale=None,
     instead.
 
     With k_cur / v_cur [B, 1, H_kv, D] (deferred-write decode) the current
-    token is NOT in the cache and rides as one extra, always-valid column.
-    Dots take their inputs in the compute dtype and sum in f32 (the exact
-    products of bf16 values, as JAX's preferred_element_type=f32).
+    token is NOT in the cache and rides as one extra, always-valid column:
+    concatenated to the scores, or merged without a concatenation under
+    MIOTTS_ATTN_NOCAT (`_attend_nocat`, read at every call as the JAX
+    package reads it at every trace).  Dots take their inputs in the
+    compute dtype and sum in f32 (the exact products of bf16 values, as
+    JAX's preferred_element_type=f32).
 
     A single query with the current token already in the cache (the
     hybrid decode, which writes first) goes through `decode_attention`
@@ -344,6 +348,8 @@ def _attend(q, k_cache, v_cache, fill, q_pos, k_scale=None, v_scale=None,
     if k_cur is not None:
         s_cur = torch.einsum("bqgrd,bqgd->bgrq", qg,
                              k_cur.to(cdt).float()) / scale
+        if os.environ.get("MIOTTS_ATTN_NOCAT"):
+            return _attend_nocat(scores, s_cur, vf, v_cur, v_scale, cdt)
         scores = torch.cat([scores, s_cur[..., None]], dim=-1)
     probs = torch.softmax(scores, dim=-1)
     if k_cur is not None:
@@ -356,6 +362,26 @@ def _attend(q, k_cache, v_cache, fill, q_pos, k_scale=None, v_scale=None,
         out = out + torch.einsum("bgrq,bqgd->bqgrd", p_cur.to(cdt).float(),
                                  v_cur.to(cdt).float())
     return out.reshape(B, S_q, H * D).to(cdt)
+
+
+def _attend_nocat(scores, s_cur, vf, v_cur, v_scale, cdt):
+    """`_attend`'s softmax over the cache's scores [B, g, r, q, S] and the
+    current token's s_cur [B, g, r, q] without concatenating them
+    (MIOTTS_ATTN_NOCAT, the JAX package's no-concat merge): one shared
+    max, each piece's exp, one normalizer l applied after the PV dots, so
+    the unnormalized p is what rounds to the compute dtype."""
+    B, g, r, S_q = s_cur.shape
+    m = torch.maximum(scores.amax(dim=-1), s_cur)
+    p_main = torch.exp(scores - m[..., None])
+    p_cur = torch.exp(s_cur - m)
+    l = p_main.sum(dim=-1) + p_cur
+    if v_scale is not None:
+        p_main = p_main * v_scale[:, :, None, None, :]
+    out = torch.einsum("bgrqk,bgkd->bqgrd", p_main.to(cdt).float(), vf)
+    out = out + torch.einsum("bgrq,bqgd->bqgrd", p_cur.to(cdt).float(),
+                             v_cur.to(cdt).float())
+    out = out / l.permute(0, 3, 1, 2)[..., None]
+    return out.reshape(B, S_q, -1).to(cdt)
 
 
 def _attend_bkernel(q, k_cache, v_cache, fill, q_pos, k_scale=None,

@@ -28,6 +28,9 @@ kernel as the JAX package's `qdot` does, by the weight's `QdotRoute`:
   K4  `qdot_w8a8`     M = 1, int8-quantized x (MIOTTS_QDOT_GEMV=w8a8)
   K1v `qdot_bf16`     bf16 x at any M, bf16 weights and dot
                       (MIOTTS_QDOT_BF16=1 / after)
+  --  `qdot_xla`      no kernel: dequantize, then one `torch.matmul`
+                      (MIOTTS_FORCE_XLA_QDOT=1, the JAX package's XLA path;
+                      it overrides every other switch)
 
 A CUDA tensor goes through the hand-written kernel (`ops/csrc/qdot.cu`,
 `ops/csrc/qdot_gemv.cu`, `ops/csrc/qdot_bf16.cu`; at M > 1 K1, K1v and K2
@@ -35,7 +38,9 @@ share the tile of `ops/csrc/qdot_tile.cuh`, planned by `_tile_plan`; at
 M = 1 K1, K1v, K2, K3 and K4 share the split-K GEMV of
 `ops/csrc/qdot_gemv.cuh`, planned by `_gemv_plan`) and raises
 if it cannot build or launch; a CPU tensor goes through the kernel's plain
-torch version (`*_plain`).  `qdot_dma_floor` (K8, `ops/csrc/dma_floor.cu`) is a probe
+torch version (`*_plain`).  4-bit formats load nibble-packed unless
+MIOTTS_NO_PACK4 is set (`qtensor_from_raw`); every kernel takes both
+storages.  `qdot_dma_floor` (K8, `ops/csrc/dma_floor.cu`) is a probe
 that streams K1's value and scale rows in the GEMV's split (`_gemv_plan`),
 staged by `cp.async`; no linear calls it.
 """
@@ -68,11 +73,14 @@ class QdotRoute:
       split  packed weights through K2 at every M
       m8     pad M = 1 to 8 rows first, which bypasses the M = 1 kernels
       bf16   K1v for bf16 x at any M: "1" (bf16 scale, bf16 dequant) or
-             "after" (f32 dequant, one bf16 cast); "" keeps K1"""
+             "after" (f32 dequant, one bf16 cast); "" keeps K1
+      xla    no kernel at all: `qdot_xla` (the JAX package's
+             `_use_pallas()` false), whatever the other fields say"""
     gemv: str = "plain"
     split: bool = False
     m8: bool = False
     bf16: str = ""
+    xla: bool = False
 
     def __post_init__(self):
         if self.gemv not in GEMV_MODES:
@@ -85,9 +93,10 @@ class QdotRoute:
     @classmethod
     def from_env(cls, env=None) -> "QdotRoute":
         """MIOTTS_QDOT_GEMV (w8a8 / groupdot / plain), its alias
-        MIOTTS_QDOT_GROUPDOT=1, MIOTTS_PACK4_SPLIT=1, MIOTTS_GEMV_M8=1 and
-        MIOTTS_QDOT_BF16 (1 / after; anything else is off), read as the
-        JAX package reads them."""
+        MIOTTS_QDOT_GROUPDOT=1, MIOTTS_PACK4_SPLIT=1, MIOTTS_GEMV_M8=1,
+        MIOTTS_QDOT_BF16 (1 / after; anything else is off) and
+        MIOTTS_FORCE_XLA_QDOT (any non-empty value), read as the JAX package
+        reads them."""
         env = os.environ if env is None else env
         gemv = env.get("MIOTTS_QDOT_GEMV", "")
         if gemv not in GEMV_MODES:
@@ -96,7 +105,8 @@ class QdotRoute:
         bf16 = env.get("MIOTTS_QDOT_BF16", "")
         return cls(gemv=gemv, split=env.get("MIOTTS_PACK4_SPLIT", "") == "1",
                    m8=env.get("MIOTTS_GEMV_M8", "") == "1",
-                   bf16=bf16 if bf16 in BF16_MODES else "")
+                   bf16=bf16 if bf16 in BF16_MODES else "",
+                   xla=bool(env.get("MIOTTS_FORCE_XLA_QDOT")))
 
 
 @dataclass
@@ -192,10 +202,13 @@ class QTensor:
 def qtensor_from_raw(raw: np.ndarray, ggml_type: int, rows: int, cols: int,
                      device="cpu", pack4: bool | None = None) -> QTensor:
     """Raw GGUF blocks -> QTensor through the numpy repack.  4-bit formats
-    (Q4_K / Q4_0) default to packed-nibble storage, as in the JAX package;
-    the repack is lossless, so the dequantized weight is unchanged."""
+    (Q4_K / Q4_0) default to packed-nibble storage, as in the JAX package,
+    unless MIOTTS_NO_PACK4 is set (or pack4=False): then their values stay
+    int8 [K, N] (Q4_K's 0..15 with its mins, Q4_0's centred -8..7).  The
+    repack is lossless, so the dequantized weight is the same either way."""
     if pack4 is None:
-        pack4 = ggml_type in (GGML_Q4_K, GGML_Q4_0) and cols % 2 == 0
+        pack4 = (ggml_type in (GGML_Q4_K, GGML_Q4_0) and cols % 2 == 0
+                 and not os.environ.get("MIOTTS_NO_PACK4"))
     qt = QTensor.from_group_quant(to_group_quant(raw, ggml_type, rows, cols))
     if pack4:
         qt = qt.pack4()
@@ -278,6 +291,17 @@ def _bf16_mode_checked(mode: str) -> None:
     if mode not in BF16_MODES[1:]:
         raise ValueError(f"qdot_bf16 mode must be '1' or 'after', got "
                          f"{mode!r}")
+
+
+def qdot_xla(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
+    """The JAX package's `_qdot_xla` (MIOTTS_FORCE_XLA_QDOT): the weight
+    dequantized in f32 for f32 x, else in bf16, then one `torch.matmul`
+    with x in the same dtype (every bf16 product exact, summed in f32),
+    the result in x.dtype.  No hand-written kernel: on a GPU the product is
+    cuBLAS's; counted in `qdot_xla.calls` on every device."""
+    dt = torch.float32 if x.dtype == torch.float32 else torch.bfloat16
+    qdot_xla.calls += 1
+    return torch.matmul(x.to(dt), qt.dequant_t(dt)).to(x.dtype)
 
 
 def qdot_bf16_plain(x: torch.Tensor, qt: QTensor, mode: str) -> torch.Tensor:
@@ -770,11 +794,13 @@ def qdot_dma_floor(qt: QTensor, plan: GemvPlan | None = None) -> torch.Tensor:
 
 def _qdot_routed(x: torch.Tensor, w: QTensor) -> torch.Tensor:
     """x [M, K] through the kernel of w.route, in the JAX package's order
-    (`miotts_tpu/ops/qmat.py:qdot`): w8a8 at M = 1, then groupdot at M = 1
-    for bf16 x, then split for packed weights, then K1v for bf16 x, then
-    K1.  (The TPU's M -> 8 and N -> 128 padding and its tiling gate have no
-    counterpart here.)"""
+    (`miotts_tpu/ops/qmat.py:qdot`): the XLA path first (no kernel), then
+    w8a8 at M = 1, then groupdot at M = 1 for bf16 x, then split for packed
+    weights, then K1v for bf16 x, then K1.  (The TPU's M -> 8 and N -> 128
+    padding and its tiling gate have no counterpart here.)"""
     route, m = w.route, x.shape[0]
+    if route.xla:
+        return qdot_xla(x, w)
     if m == 1 and route.gemv == "w8a8":
         return qdot_w8a8(x, w)
     if m == 1 and route.gemv == "groupdot" and x.dtype == torch.bfloat16:
@@ -811,3 +837,4 @@ qdot_w8a8.kernel_launches = 0            # K4a (int8 values)
 qdot_w8a8.packed_launches = 0            # K4b (packed nibbles)
 qdot_bf16.kernel_launches = 0            # K1v
 qdot_dma_floor.kernel_launches = 0       # K8 (the probe)
+qdot_xla.calls = 0                       # no kernel: dequant + torch.matmul

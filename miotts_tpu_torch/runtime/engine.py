@@ -49,6 +49,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import os
+import sys
 import time
 from collections import Counter
 from dataclasses import dataclass, replace
@@ -58,12 +59,13 @@ import numpy as np
 import torch
 
 from ..gguf import GGUFReader, load_voice_embedding
-from ..models.codec import codec_decode_spec, exact_f32, load_codec_params
+from ..models.codec import (codec_decode_spec, codec_fast, exact_f32,
+                            load_codec_params)
 from ..models.llm import (LLMConfig, init_kv_cache, llm_generate_chunk,
                           llm_generate_chunk_batched, llm_generate_chunk_spec,
                           llm_prefill, load_llm_params, sample_token)
 from ..ops.istft import spec_to_audio_bucketed
-from ..ops.qmat import QdotRoute, with_route
+from ..ops.qmat import QdotRoute, QTensor, with_route
 from ..text import build_prompt, normalize_tts_text, parse_speech_tokens
 from ..text.tokenizer import Tokenizer
 from .profile import StreamProfile
@@ -87,6 +89,18 @@ def resolve_device(device) -> torch.device:
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _leaves(tree):
+    """The leaves of a params tree (dicts / lists), depth first."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    elif tree is not None:
+        yield tree
 
 
 def _round_up(x: int, m: int) -> int:
@@ -446,6 +460,21 @@ class TTSEngine:
         eng._cache = eng._dcache = eng._spec_stats = None
         return eng
 
+    def route_line(self) -> str:
+        """One line naming the switches this engine runs under: the qdot
+        route (`xla=True` under MIOTTS_FORCE_XLA_QDOT), how many quantized
+        linears hold packed 4-bit values (none under MIOTTS_NO_PACK4), the
+        attention merge (MIOTTS_ATTN_NOCAT, read now as `_attend` reads it
+        at every call), the LLM's dtype, the KV cache and the codec mode."""
+        qts = [t for t in _leaves(self.llm_params) if isinstance(t, QTensor)]
+        kv = "int8" if self.config.quantized_kv else str(self.dtype)[6:]
+        return (f"engine: route {self.config.qdot_route}; packed 4-bit "
+                f"linears {sum(t.packed for t in qts)} of {len(qts)}; "
+                f"attention "
+                f"{'nocat' if os.environ.get('MIOTTS_ATTN_NOCAT') else 'cat'}"
+                f"; llm {str(self.dtype)[6:]}; kv cache {kv}; codec "
+                f"{'fast' if codec_fast(self.codec_cfg) else 'exact'}")
+
     def with_draft(self, path: str, spec_tokens: int | None = None
                    ) -> "TTSEngine":
         """Another engine over this one's loaded weights, codec and
@@ -498,16 +527,33 @@ class TTSEngine:
         fused step, which a speculative engine never runs.  On a GPU this
         builds the CUDA kernels, sets up cuDNN's plans and primes the
         caching allocator, so none of it lands in a stream's time to first
-        audio."""
+        audio.  After each chunk size a codec decode at the smallest bucket
+        runs too, as a stream interleaves them.  With MIOTTS_WARMUP_VERBOSE
+        set, each stage's seconds go to stderr as `warmup: <label>: <s>s`
+        with the JAX package's labels, timed after the engine's devices
+        are synchronised."""
         cfgE = self.config
         dev = self.device
         cdev = self.codec_device
+        verbose = bool(os.environ.get("MIOTTS_WARMUP_VERBOSE"))
+        t_prev = [time.perf_counter()]
+
+        def mark(label: str) -> None:
+            if verbose:
+                _sync(dev)
+                _sync(cdev)
+                now = time.perf_counter()
+                print(f"warmup: {label}: {now - t_prev[0]:.1f}s",
+                      file=sys.stderr, flush=True)
+                t_prev[0] = now
+
         emb = torch.zeros(self.codec_cfg.adaln_dim, device=cdev)
         if max_codes is None:
             max_codes = cfgE.max_tokens
         for T in self._code_buckets(max_codes, 1):
             self._codec_audio(torch.zeros(T, dtype=torch.int64, device=cdev),
                               emb, min(T, max_codes))
+            mark(f"codec bucket T={T}")
         if self.llm_params is None:
             _sync(dev)
             return
@@ -520,6 +566,7 @@ class TTSEngine:
         toks = torch.zeros((1, bucket_p), dtype=torch.int64, device=dev)
         n_real = torch.tensor([8], dtype=torch.int32)
         last, cache = llm_prefill(self.llm_params, toks, n_real, cache, cfg)
+        mark(f"llm prefill bucket={bucket_p}")
         gen = torch.Generator(device=dev)
         gen.manual_seed(0)
         chunk = cfgE.stream_check_interval
@@ -539,12 +586,17 @@ class TTSEngine:
                     dcache, 1.0, self._stop_ids, cfg, self.draft_cfg,
                     -(-n // (K + 1)), K, generator=gen,
                     force_p=self._spec_force_p())
+                mark(f"spec chunk={n} (k={K})")
             self._dcache = dcache
         else:
+            codes_w = torch.zeros(cfgE.code_bucket, dtype=torch.int64,
+                                  device=cdev)
             for n in sorted({chunk, OFFLINE_CHUNK}):
                 _, _, _, last, cache = llm_generate_chunk(
                     self.llm_params, last, cache, 1.0, self._stop_ids, cfg,
                     n, gen)
+                self._codec_spec(codes_w, emb, 1)
+                mark(f"llm chunk={n} + codec interleave")
             if cfgE.fused_streaming:
                 win = cfgE.stream_window_codes > 0
                 buckets = ([self._window_bucket()] if win
@@ -553,6 +605,7 @@ class TTSEngine:
                     st = self._fused_state(last, cache, b)
                     self._fused_chunk(st, chunk, 1.0, gen, b, win, 1 << 30)
                     last, cache = st["last"], st["cache"]
+                    mark(f"fused stream step bucket={b}")
         _sync(dev)
         self._cache = cache
 
