@@ -200,6 +200,23 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      expansion within 1e-4 of the layer output's scale, layer_in = prior,
      layer_out = decoder), codec_decode_audio within 1e-6 of the engine's
      decode, `cli synth --dump-tensors` in process.
+ 25. MIOTTS_SCALE_BF16 (bf16 group scales and mins) on the engines of
+     phases 3 and 15, their QTensors recast on the card (bit for bit a load
+     under the switch; no new load): (a) K1 (M = 1, 64), K1v (both modes),
+     K2, K3, K4a, K4b and K8 at bf16 scales at the shapes of phases 2, 14,
+     17 and 18: against their plain versions (1e-5 f32, 1e-2 bf16, K8
+     1e-6), a second call and the f32-scale instantiation on the upcast
+     scales bit for bit, each timed beside its f32-scale twin with the
+     library call and the bound from the bf16-scale bytes; K8 once per
+     shape with the counts at 0; (b) the 2.6B-Q4_K_M, 32 bf16 greedy
+     tokens text -> WAV on the default route (K1 129 a step and prefill;
+     tokens phase 15's or parting at a 2e-2 near tie), the device-busy
+     share, tok/s in turns against f32 scales (a b b a), 8 tokens on each
+     other route (K1v, K2, K3, K4a / K4b launches); (c) f32 at bf16 scales
+     on layers 0-1 of the 2.6B, a prefill + 8 greedy steps: the card's
+     tokens = the CPU plain path's, logits within 1e-4; (d) 4 greedy
+     requests of 20 tokens on phase 7's 64-slot batcher (K1's tile at
+     M = 64) at bf16 against f32 scales: the same codes or a near tie.
 
 Kernel times are device times: the calls are captured in a CUDA graph and
 replayed between CUDA events, cycling over weight (or KV-cache) copies
@@ -389,6 +406,14 @@ WARMUP_CODES = 32          # warmup's max_codes under WARMUP_VERBOSE
 DEBUG_CODES = 16           # the codec's debug surface
 AUDIO_TOL = 1e-6           # codec_decode_audio vs the engine's decode: the
                            # same operations on the same inputs
+# phase 25: MIOTTS_SCALE_BF16 on phase 15's and phase 3's engines, their
+# QTensors recast to bf16 scales on the card
+SCALE_BF16_TOKENS = 32        # the 2.6B's bf16 run (phase 15's 32 tokens)
+SCALE_BF16_TURN_TOKENS = 16   # tok/s in turns, bf16 against f32 scales
+SCALE_BF16_ROUTE_TOKENS = 8   # each other route: its kernels' launches
+SCALE_BF16_STEPS = 8          # f32 card vs CPU: prefill + 8 greedy steps
+SCALE_BF16_REQ = 4            # the 0.1B's greedy serving batch (64 slots)
+SCALE_BF16_REQ_TOKENS = 20
 
 
 def lfm2_config():
@@ -487,10 +512,11 @@ def shape_cases(torch, qmat, gen):
 
 
 def qt_bytes(qt) -> int:
+    """Bytes of values, scales and mins (f32 or bf16) of a QTensor."""
     n = qt.values.numel() * qt.values.element_size()
-    n += qt.scales.numel() * 4
+    n += qt.scales.numel() * qt.scales.element_size()
     if qt.mins is not None:
-        n += qt.mins.numel() * 4
+        n += qt.mins.numel() * qt.mins.element_size()
     return n
 
 
@@ -3770,6 +3796,427 @@ def phase_switches(torch, qmat, paths: dict, d: str, card: str, main_eng,
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 25: MIOTTS_SCALE_BF16, bf16 group scales and mins
+# ---------------------------------------------------------------------------
+
+def bf16_scales(torch, qmat, tree):
+    """A params tree (or QTensor) whose scales and mins are recast to bf16
+    on their device (values shared): the storage of a load under
+    MIOTTS_SCALE_BF16, bit for bit (tests/test_torch_scale_bf16.py),
+    without reading the file again."""
+    if isinstance(tree, qmat.QTensor):
+        return tree.with_scale_dtype(torch.bfloat16)
+    if isinstance(tree, dict):
+        return {k: bf16_scales(torch, qmat, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [bf16_scales(torch, qmat, v) for v in tree]
+    return tree
+
+
+def scale_pair_ms(torch, qmat, qb, call, x, lib: bool = True) -> dict:
+    """Device times of call(x, qt) over copies larger than the L2 (graph
+    replay, as phase 2): on the bf16-scale copies, on their f32-scale twins
+    (the same scales upcast: an f32 load's bytes), and torch.matmul on the
+    dequantized bf16 weight (x in bf16)."""
+    K, N = qb.k, qb.shape[0]
+    n_copies = max(2, min(256, -(-L2_FLUSH_BYTES // qt_bytes(qb))))
+    qbs = copies_of(torch, qmat, qb, n_copies)
+    qfs = [c.with_scale_dtype(torch.float32) for c in qbs]
+    n_graph = max(20, min(256, n_copies))
+    out = dict(ms=graph_ms(torch, lambda i: call(x, qbs[i % n_copies]),
+                           n_graph),
+               f32_ms=graph_ms(torch, lambda i: call(x, qfs[i % n_copies]),
+                               n_graph), library_ms=None)
+    if lib:
+        w_lib = [c.dequant_t(torch.float32).to(torch.bfloat16)
+                 for c in qbs[: max(2, min(256, -(-L2_FLUSH_BYTES
+                                                 // (2 * K * N))))]]
+        xl = x.to(torch.bfloat16)
+        out["library_ms"] = graph_ms(torch, lambda i: torch.matmul(
+            xl, w_lib[i % len(w_lib)]), max(20, min(256, len(w_lib))))
+        del w_lib
+    del qbs, qfs
+    return out
+
+
+def scale_checked(torch, kernel: str, label: str, call, plain, qb, m: int,
+                  dtypes, gen) -> dict:
+    """call(x, qb) against plain(x, qb) for each x dtype (f32 within 1e-5,
+    bf16 within 1e-2 of the output scale), a second call bit for bit, and
+    bit for bit the f32-scale instantiation on the upcast scales (the same
+    f32 arithmetic in the same order).  Returns the errors and the last x."""
+    K, N = qb.k, qb.shape[0]
+    qf = qb.with_scale_dtype(torch.float32)
+    err, abs_err = {}, 0.0
+    for dtype in dtypes:
+        x = torch.randn((m, K), generator=gen, device="cuda")
+        x[:, 32:64] = 0.0                       # K4's sx = 1 rule
+        x = x.to(dtype)
+        got = call(x, qb)
+        want = plain(x, qb)
+        torch.cuda.synchronize()
+        tol = KERNEL_TOL_F32 if dtype == torch.float32 else KERNEL_TOL_BF16
+        if got.shape != (m, N) or got.dtype != dtype:
+            raise AssertionError(f"scale_bf16 {kernel} {label} M={m}: bad "
+                                 f"output {tuple(got.shape)} {got.dtype}")
+        e = rel_err(got.float(), want.float())
+        if not e < tol:
+            raise AssertionError(f"scale_bf16 {kernel} {label} M={m} "
+                                 f"{dtype}: kernel vs plain rel err {e} >= "
+                                 f"{tol}")
+        if not torch.equal(call(x, qb), got):
+            raise AssertionError(f"scale_bf16 {kernel} {label} M={m} "
+                                 f"{dtype}: two calls differ")
+        if not torch.equal(call(x, qf), got):
+            raise AssertionError(f"scale_bf16 {kernel} {label} M={m} "
+                                 f"{dtype}: not bit for bit the f32-scale "
+                                 f"instantiation on the upcast scales")
+        err["f32" if dtype == torch.float32 else "bf16"] = e
+        abs_err = max(abs_err, float((got.float() - want.float()).abs().max()))
+    return dict(err=err, max_abs_err=abs_err, x=x)
+
+
+def scale_row(qmat, kernel: str, label: str, qb, m: int, chk: dict,
+              times: dict, ops: float, peak: float, card: str) -> dict:
+    """A phase-25 row: the bound from the bf16-scale bytes beside the
+    f32-scale bound, the times of both scale types and the library's."""
+    K, N = qb.k, qb.shape[0]
+    el = chk["x"].element_size()
+    io = m * K * el + m * N * el
+    nbytes = qt_bytes(qb) + io
+    # f32 scales and mins: two more bytes each
+    nbytes_f32 = nbytes + 2 * (qb.scales.numel() + (
+        0 if qb.mins is None else qb.mins.numel()))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / peak * 1e3
+    row = dict(kernel=kernel, shape=label, M=m, K=K, N=N, group=qb.group,
+               packed=qb.packed, mins=qb.mins is not None, bytes=nbytes,
+               f32_bytes=nbytes_f32, ops=ops, bound_ms=max(t_bytes, t_ops),
+               bytes_ms=t_bytes, ops_ms=t_ops,
+               f32_bound_ms=max(nbytes_f32 / HBM_BYTES_PER_S * 1e3, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               rel_err=max(chk["err"].values()), rel_err_by_x=chk["err"],
+               max_abs_err=chk["max_abs_err"], bit_identical=True,
+               same_bits_as_f32_scales=True, **times)
+    lib = ("" if times.get("library_ms") is None
+           else f"  library {times['library_ms']:.4f}")
+    mode1 = ("" if "mode1_ms" not in times
+             else f" (mode 1 {times['mode1_ms']:.4f})")
+    log(f"scale_bf16 {kernel:3s} {label:28s} M={m:<3d} K={K:<5d} N={N:<6d} "
+        f"bf16 scales {times['ms']:.4f}{mode1} / f32 {times['f32_ms']:.4f} "
+        f"ms{lib}  bound {row['bound_ms']:.4f} / f32 "
+        f"{row['f32_bound_ms']:.4f} ms ({row['bound_by']})  rel_err "
+        f"{row['rel_err']:.2e}  [{card}]")
+    return row
+
+
+def scale_bf16_kernel_rows(torch, qmat, card: str) -> dict:
+    """Phase 25 (a): every kernel that reads group scales, at bf16 scales
+    (each case's random f32 scales recast), against its plain version and
+    its f32-scale twin, at the shapes of phases 2 / 17 (K1 at M = 1 and 64,
+    K1v in both modes at M = 1 and the LFM2's 16), 14 (K2 at M = 1 and 64
+    on the packed weights, K3, K4a / K4b at M = 1) and 18 (K8, each shape
+    once with the counts at 0: the probe path, then on its plan against
+    plain within 1e-6); times of both scale types at bf16 x."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(25)
+    f32, bf16 = torch.float32, torch.bfloat16
+    rows = []
+    for label, qt, ms_list in shape_cases(torch, qmat, gen):
+        qb = bf16_scales(torch, qmat, qt)
+        del qt
+        K, N = qb.k, qb.shape[0]
+        for m in [m for m in ms_list if m in (1, 64)]:
+            chk = scale_checked(torch, "K1", label, qmat.qdot,
+                                qmat.qdot_plain, qb, m, (f32, bf16), gen)
+            times = scale_pair_ms(torch, qmat, qb, qmat.qdot, chk["x"])
+            rows.append(scale_row(qmat, "K1", label, qb, m, chk, times,
+                                  2.0 * m * K * N, PEAK_FLOPS, card))
+        for m in [m for m in ms_list if m in (1, LFM2_SLOTS)]:
+            chks = [scale_checked(
+                torch, "K1v", label,
+                lambda x, q, mode=mode: qmat.qdot_bf16(x, q, mode),
+                lambda x, q, mode=mode: qmat.qdot_bf16_plain(x, q, mode),
+                qb, m, (f32, bf16), gen) for mode in ("1", "after")]
+            chk = dict(chks[1], err={k: max(c["err"][k] for c in chks)
+                                     for k in chks[1]["err"]},
+                       max_abs_err=max(c["max_abs_err"] for c in chks))
+            t1 = scale_pair_ms(torch, qmat, qb, lambda x, q: qmat.qdot_bf16(
+                x, q, "1"), chk["x"], lib=False)
+            times = scale_pair_ms(torch, qmat, qb, lambda x, q: qmat.qdot_bf16(
+                x, q, "after"), chk["x"])
+            times.update(mode1_ms=t1["ms"], mode1_f32_ms=t1["f32_ms"])
+            rows.append(scale_row(qmat, "K1v", label, qb, m, chk, times,
+                                  2.0 * m * K * N, PEAK_FLOPS, card))
+        del qb
+        torch.cuda.empty_cache()
+    for label, qt in q4km_cases(torch, qmat, gen):
+        qb = bf16_scales(torch, qmat, qt)
+        del qt
+        k4 = "K4b" if qb.packed else "K4a"
+        runs = [("K3", qmat.qdot_group, qmat.qdot_group_plain, 1, (bf16,)),
+                (k4, qmat.qdot_w8a8, qmat.qdot_w8a8_plain, 1, (f32, bf16))]
+        if qb.packed:
+            runs += [("K2", qmat.qdot_split, qmat.qdot_split_plain, m,
+                      (f32, bf16)) for m in (1, 64)]
+        for kernel, fn, plain_fn, m, dtypes in runs:
+            chk = scale_checked(torch, kernel, label, fn, plain_fn, qb, m,
+                                dtypes, gen)
+            if m != 1:       # K2 at M > 1 is K1's tile (timed above)
+                continue
+            times = scale_pair_ms(torch, qmat, qb, fn, chk["x"])
+            nbytes, ops, peak = variant_work(kernel, qb, m, 2)
+            rows.append(scale_row(qmat, kernel, label, qb, m, chk, times, ops,
+                                  peak, card))
+        del qb
+        torch.cuda.empty_cache()
+    probes = [(label, bf16_scales(torch, qmat, qt))
+              for label, qt in probe_qtensors(torch, qmat, gen)]
+    counters = {"K8": (qmat.qdot_dma_floor, "kernel_launches")}
+    reset_counts(counters)
+    for _, qb in probes:
+        qmat.qdot_dma_floor(qb)
+    torch.cuda.synchronize()
+    k8_launches = read_counts(counters)["K8"]
+    if k8_launches != len(probes):
+        raise AssertionError(f"scale_bf16 K8: {k8_launches} launches for "
+                             f"{len(probes)} shapes")
+    for label, qb in probes:
+        K, N = qb.k, qb.shape[0]
+        got = qmat.qdot_dma_floor(qb)
+        want = qmat.qdot_dma_floor_plain(qb)
+        e = rel_err(got, want)
+        if not (e < PROBE_TOL and torch.equal(qmat.qdot_dma_floor(qb), got)
+                and torch.equal(qmat.qdot_dma_floor(
+                    qb.with_scale_dtype(torch.float32)), got)):
+            raise AssertionError(f"scale_bf16 K8 {label}: rel err {e}, or "
+                                 f"not bit for bit its repeat / f32 twin")
+        times = scale_pair_ms(torch, qmat, qb, lambda x, q: qmat.qdot_dma_floor(
+            q), None, lib=False)
+        streamed = qb.values.numel() + qb.scales.numel() * 2
+        nbytes = streamed + 4 * N
+        f32_bytes = nbytes + qb.scales.numel() * 2
+        row = dict(kernel="K8", shape=label, M=1, K=K, N=N, bytes=nbytes,
+                   f32_bytes=f32_bytes,
+                   bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                   f32_bound_ms=f32_bytes / HBM_BYTES_PER_S * 1e3,
+                   bound_by="bytes", gb_s=nbytes / (times["ms"] * 1e-3) / 1e9,
+                   rel_err=e, max_abs_err=float((got - want).abs().max()),
+                   **times)
+        rows.append(row)
+        log(f"scale_bf16 K8  {label:28s} K={K:<5d} N={N:<6d} bf16 scales "
+            f"{times['ms']:.4f} ({row['gb_s']:.1f} GB/s) / f32 "
+            f"{times['f32_ms']:.4f} ms  bound {row['bound_ms']:.4f} / f32 "
+            f"{row['f32_bound_ms']:.4f} ms  rel_err {e:.2e}  [{card}]")
+    return dict(rows=rows, k8_launches=k8_launches)
+
+
+def scale_step(rows: list[dict], kernel: str, key: str, m: int = 1):
+    """One 2.6B-Q4_K_M decode step's `key` of `kernel`'s bf16-scale rows at
+    M = m: q4km_k1_step's linears for K1 and K1v, q4km_step's for K2-K4,
+    bench_qmat's 32 x 4 shapes for K8."""
+    mine = [r for r in rows if r["kernel"] == kernel]
+    if kernel in ("K1", "K1v"):
+        return q4km_k1_step(mine, key, m)
+    if kernel == "K8":
+        return Q4KM_LAYERS * sum(r[key] for r in mine
+                                 if "bench_qmat" in r["shape"])
+    return q4km_step([dict(r, dtype="bf16") for r in mine], kernel, key, m)
+
+
+def scale_serving(torch, qmat, eng, voice, Options) -> dict:
+    """SCALE_BF16_REQ greedy requests of SCALE_BF16_REQ_TOKENS on a
+    ContinuousBatcher of phase 7's shape (64 slots, 20-step chunks: K1's
+    tile at M = 64): each request's codes, and K1 = 49 x (device steps +
+    prefills), K6 = 12 x device steps."""
+    from miotts_tpu_torch.ops import decode_attn
+    from miotts_tpu_torch.runtime.batching import ContinuousBatcher
+    batcher = ContinuousBatcher(eng, n_slots=SLOTS, chunk_steps=CHUNK)
+    done = {}
+    qmat.qdot.kernel_launches = 0
+    decode_attn.decode_attention_batched.kernel_launches = 0
+    texts = [f"scale request number {i} for serving"
+             for i in range(SCALE_BF16_REQ)]
+    for i, text in enumerate(texts):
+        batcher.submit(text, voice, lambda *a: True,
+                       Options(max_tokens=SCALE_BF16_REQ_TOKENS,
+                               temperature=0.0),
+                       on_finish=lambda r, i=i: done.__setitem__(i, r))
+    batcher.run_until_done(max_iters=1000)
+    torch.cuda.synchronize()
+    st = dict(batcher.stage)
+    k1 = qmat.qdot.kernel_launches
+    k6 = decode_attn.decode_attention_batched.kernel_launches
+    steps, prefills = st["device_steps"], st["prefills"]
+    if (len(done) != len(texts) or any(r.failed for r in done.values())
+            or k1 != QDOT_PER_STEP * (steps + prefills)
+            or k6 != LAYERS * steps):
+        raise AssertionError(f"scale_bf16 serving: {len(done)} of "
+                             f"{len(texts)} done, K1 {k1}, K6 {k6} for "
+                             f"{steps} steps + {prefills} prefills")
+    return dict(texts=texts, codes=[list(done[i].codes) for i in range(
+        len(texts))], steps=steps, prefills=prefills, k1=k1, k6=k6,
+        table=batcher._table)
+
+
+def phase_scale_bf16(torch, qmat, card: str, main_eng, main_voice, q4km_eng,
+                     q4km_res: dict, d: str) -> dict:
+    """MIOTTS_SCALE_BF16 on the loaded engines of phases 3 and 15 (no new
+    load: their QTensors recast to bf16 scales on the card).  (a) the
+    kernels at bf16 scales (scale_bf16_kernel_rows); (b) the 2.6B-Q4_K_M
+    text -> WAV, SCALE_BF16_TOKENS bf16 greedy tokens on the default route
+    (K1 129 a step and prefill; where the tokens part from phase 15's, a
+    near tie), the device-busy share of a prefill + 8 steps, tok/s in turns
+    against f32 scales (a b b a), then SCALE_BF16_ROUTE_TOKENS on each other
+    route (K1v both modes, K2, K3, K4a / K4b: their launches); (c) f32 at
+    bf16 scales on layers 0-1 of the 2.6B (a depth cut), a prefill + 8
+    greedy steps on the card, then the CPU plain path fed the card's
+    tokens: tokens identical, logits within 1e-4 of their scale; (d) the
+    0.1B's greedy serving batch at bf16 scales against f32 scales: the same
+    codes, or parting at a near tie."""
+    from miotts_tpu_torch.models.llm import (init_kv_cache, llm_decode_step,
+                                             llm_prefill)
+    from miotts_tpu_torch.runtime.engine import Options
+    res: dict = {}
+    text = "The quick brown fox jumps over the lazy dog."
+
+    # (a)
+    t0 = time.perf_counter()
+    res["kernels"] = scale_bf16_kernel_rows(torch, qmat, card)
+    res["kernels"]["seconds"] = time.perf_counter() - t0
+
+    # (b) the 2.6B on every route
+    t0 = time.perf_counter()
+    counters = route_counters(qmat)
+    eng = engine_variant(q4km_eng)
+    eng.llm_params = bf16_scales(torch, qmat, q4km_eng.llm_params)
+    log(eng.route_line())
+    n_q4km = 2 * Q4KM_LAYERS, 2 * Q4KM_LAYERS + 1
+    run = run_counted(torch, eng, counters, text, Options, SCALE_BF16_TOKENS,
+                      main_voice, os.path.join(d, "scale_bf16.wav"))
+    check_counts("scale_bf16[default]", run["counts"],
+                 expected_counts("default", run["steps"], *n_q4km))
+    ref = q4km_res["default"]["token_ids"]
+    agree = agreement(run["tokens"], ref)
+    tie = near_tie(torch, q4km_eng, text, ref[:len(run["tokens"])],
+                   run["tokens"], "scale_bf16[2.6b bf16]")
+    prof = profile_steps(torch, eng, card,
+                         f"scale_bf16 2.6b prefill + {Q4KM_PROFILE_STEPS} "
+                         f"steps")
+    turns = rates_in_turns(torch, [("f32", q4km_eng, {}), ("bf16", eng, {}),
+                                   ("bf16", eng, {}), ("f32", q4km_eng, {})],
+                           text, Options, SCALE_BF16_TURN_TOKENS)
+    routes = {}
+    for name in ("w8a8", "groupdot", "split", "bf16dot", "bf16after"):
+        r_eng = eng.with_qdot_route(qmat.QdotRoute.from_env(Q4KM_ROUTES[name]))
+        r_run = run_counted(torch, r_eng, counters, text, Options,
+                            SCALE_BF16_ROUTE_TOKENS)
+        check_counts(f"scale_bf16[{name}]", r_run["counts"],
+                     expected_counts(name, r_run["steps"], *n_q4km))
+        routes[name] = dict(steps=r_run["steps"], tok_s=r_run["tok_s"],
+                            launches=r_run["counts"])
+        del r_eng
+    launches = {k: run["counts"][k] + sum(r["launches"][k]
+                                          for r in routes.values())
+                for k in run["counts"]}
+    res["offline"] = dict(
+        tok_s=run["tok_s"], steps=run["steps"], n_codes=run["n_codes"],
+        launches=run["counts"], k1_per_step=run["counts"]["K1"] / (
+            1 + run["steps"]),
+        tokens_vs_f32_scales=agree, near_tie=tie, turns=turns,
+        busy_share=prof["busy_share"], profile=prof, routes=routes,
+        launches_all_routes=launches, seconds=time.perf_counter() - t0)
+    log(f"scale_bf16[2.6b]: {run['steps']} steps at {run['tok_s']:.4f} "
+        f"tok/s, K1 {run['counts']['K1']} = 129 x {1 + run['steps']}; "
+        f"device busy {prof['busy_share']}; in turns of "
+        f"{SCALE_BF16_TURN_TOKENS} tokens f32 scales {turns['f32']['runs']}, "
+        f"bf16 {turns['bf16']['runs']}; tokens agreeing with phase 15's "
+        f"{agree['agreeing']} of {agree['compared']}; routes " + json.dumps(
+            {k: v["launches"] for k, v in routes.items()}) + f"  [{card}]")
+
+    # (c) f32 at bf16 scales, the card against the CPU plain path
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(q4km_eng.llm_cfg, n_layers=Q4KM_REF_LAYERS)
+    base = dict(q4km_eng.llm_params,
+                blocks=q4km_eng.llm_params["blocks"][:Q4KM_REF_LAYERS],
+                token_embd=q4km_eng.llm_params["token_embd"].float())
+    params = {"cuda": bf16_scales(torch, qmat, base)}
+    params["cpu"] = _to_cpu(params["cuda"])
+    ids = prompt_ids(q4km_eng, text)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        cache = init_kv_cache(cfg, 1, len(ids) + SCALE_BF16_STEPS, device=dev,
+                              dtype=torch.float32)
+        reset_counts(counters)
+        last, cache = llm_prefill(params[dev], torch.tensor([ids], device=dev),
+                                  torch.tensor([len(ids)]), cache, cfg)
+        logits, fed = [last.float().cpu()], []
+        for i in range(SCALE_BF16_STEPS):
+            tok = (int(logits[-1].argmax()) if dev == "cuda"
+                   else out["cuda"]["tokens"][i])
+            fed.append(tok)
+            last, cache = llm_decode_step(params[dev], torch.tensor(
+                [tok], device=dev), cache, cfg)
+            logits.append(last.float().cpu())
+        out[dev] = dict(logits=logits, tokens=fed,
+                        argmax=[int(x.argmax()) for x in logits],
+                        counts=read_counts(counters))
+    g, c = out["cuda"], out["cpu"]
+    errs = [rel_err(a, b) for a, b in zip(g["logits"], c["logits"])]
+    want = expected_counts("default", SCALE_BF16_STEPS, 2 * Q4KM_REF_LAYERS,
+                           2 * Q4KM_REF_LAYERS + 1)
+    res["f32_parity"] = dict(layers=Q4KM_REF_LAYERS,
+                             tokens_identical=g["argmax"] == c["argmax"],
+                             tokens=g["tokens"], logits_rel_err=errs,
+                             launches=g["counts"],
+                             seconds=time.perf_counter() - t0)
+    log(f"scale_bf16 f32 card vs cpu: layers 0-{Q4KM_REF_LAYERS - 1}, "
+        f"prefill + {SCALE_BF16_STEPS} greedy steps: tokens "
+        f"{'identical' if g['argmax'] == c['argmax'] else 'DIFFER'}, logits "
+        f"rel err max {max(errs):.3e} (tol {REF_TOL}); launches {g['counts']}")
+    if g["argmax"] != c["argmax"] or not max(errs) <= REF_TOL or \
+            g["counts"] != want:
+        raise AssertionError("scale_bf16: f32 at bf16 scales, the card parts "
+                             "from the CPU plain path")
+    del params, base
+
+    # (d) the 0.1B's greedy serving batch
+    t0 = time.perf_counter()
+    main_b = engine_variant(main_eng)
+    main_b.llm_params = bf16_scales(torch, qmat, main_eng.llm_params)
+    serve = {tag: scale_serving(torch, qmat, e, main_voice, Options)
+             for tag, e in (("f32", main_eng), ("bf16", main_b))}
+    inv = {code: tid for tid, code in enumerate(serve["f32"]["table"])
+           if code >= 0}
+    parts = []
+    for i, (a, b) in enumerate(zip(serve["f32"]["codes"],
+                                   serve["bf16"]["codes"])):
+        if a != b:
+            j = next((j for j, (p, q) in enumerate(zip(a, b)) if p != q),
+                     min(len(a), len(b)))
+            parts.append(dict(request=i, at=j, **near_tie(
+                torch, main_eng, serve["f32"]["texts"][i],
+                [inv[t] for t in a], [inv[t] for t in b],
+                f"scale_bf16[0.1b serving request {i}]")))
+    res["serving"] = dict(
+        requests=SCALE_BF16_REQ, tokens=SCALE_BF16_REQ_TOKENS,
+        same_codes=sum(a == b for a, b in zip(serve["f32"]["codes"],
+                                              serve["bf16"]["codes"])),
+        parts=parts, **{f"{tag}_{k}": s[k] for tag, s in serve.items()
+                        for k in ("steps", "prefills", "k1", "k6")},
+        seconds=time.perf_counter() - t0)
+    log(f"scale_bf16[0.1b serving]: {SCALE_BF16_REQ} greedy requests of "
+        f"{SCALE_BF16_REQ_TOKENS} tokens on {SLOTS} slots; codes equal to "
+        f"f32 scales' for {res['serving']['same_codes']}; K1 "
+        f"{serve['bf16']['k1']} = 49 x ({serve['bf16']['steps']} steps + "
+        f"{serve['bf16']['prefills']} prefills), K6 {serve['bf16']['k6']}; "
+        f"parts {parts}  [{card}]")
+    del main_b, eng
+    torch.cuda.empty_cache()
+    return res
+
+
 # kernel -> (name, source, the TPU kernel it replaces, the route that runs
 # it, what one decode step of its work is)
 VARIANTS = {
@@ -3827,6 +4274,9 @@ def attn_step_summary(rows: list[dict], key: str, mode: str = "bf16"):
 
 def _to_cpu(tree):
     import torch
+    from miotts_tpu_torch.ops.qmat import QTensor
+    if isinstance(tree, QTensor):
+        return tree.to("cpu")
     if isinstance(tree, dict):
         return {k: _to_cpu(v) for k, v in tree.items()}
     if isinstance(tree, list):
@@ -3891,11 +4341,11 @@ def single_stream_steps(res: dict) -> dict:
 
 # every phase (3 runs 3-5), and what a phase needs run before it
 ALL_PHASES = (2, 3, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20,
-              21, 22, 23, 24)
+              21, 22, 23, 24, 25)
 PHASE_NEEDS = {9: {7}, 12: {11}, 20: {11}, 21: {15}, 22: {7}, 23: {3, 11},
-               24: {3, 15}}
+               24: {3, 15}, 25: {3, 15}}
 MODEL_PHASES = {3, 7, 8, 9, 11, 12, 13, 15, 16, 19, 20, 21, 22,
-                23, 24}                      # the 0.1B files, codec
+                23, 24, 25}                  # the 0.1B files, codec
 
 
 def parse_phases(argv) -> set:
@@ -3906,7 +4356,8 @@ def parse_phases(argv) -> set:
     ap.add_argument("--phases", default="",
                     help="comma-separated phase numbers to run (3 runs 3-5; "
                          "9 and 22 bring 7, 12 and 20 bring 11, 21 brings "
-                         "15, 23 brings 3 and 11, 24 brings 3 and 15); "
+                         "15, 23 brings 3 and 11, 24 and 25 bring 3 and "
+                         "15); "
                          "default: all")
     args = ap.parse_args(argv)
     if not args.phases:
@@ -3959,7 +4410,7 @@ def main(argv=None) -> int:
         rows = res["qdot_per_shape"] = phase_kernels(torch, qmat, card)
         done("2")
 
-    writers_for = {"lfm2": {11, 12, 13}, "q4km": {15, 16, 21, 24}}
+    writers_for = {"lfm2": {11, 12, 13}, "q4km": {15, 16, 21, 24, 25}}
     keys = {k for k, phases in writers_for.items() if run & phases}
     with tempfile.TemporaryDirectory() as d, background_writes(d, keys) as writers:
         paths = {}
@@ -3977,7 +4428,7 @@ def main(argv=None) -> int:
                     torch, main_eng, main_voice, d, card, "int8 0.1b",
                     QDOT_PER_STEP, 0, res["main_path"])}
                 done("23 (a)")
-            if 24 not in run:
+            if not run & {24, 25}:
                 del main_eng, main_voice
         if 19 in run:
             res["stream"] = phase_stream_0p1b(
@@ -4055,7 +4506,7 @@ def main(argv=None) -> int:
             paths["q4km"] = written(writers, "q4km", d)
         if 15 in run:
             res["q4km_offline"] = phase_q4km_offline(
-                torch, qmat, paths, d, card, bool(run & {21, 24}))
+                torch, qmat, paths, d, card, bool(run & {21, 24, 25}))
             done("15")
         if 16 in run:
             res["q4km_gpu_vs_cpu"] = phase_q4km_gpu_vs_cpu(torch, qmat,
@@ -4072,6 +4523,12 @@ def main(argv=None) -> int:
                 res["main_path"], res["q4km_offline"]["engine"],
                 res["q4km_offline"])
             done("24")
+        if 25 in run:
+            res["scale_bf16"] = phase_scale_bf16(
+                torch, qmat, card, main_eng, main_voice,
+                res["q4km_offline"]["engine"], res["q4km_offline"], d)
+            done("25")
+        if run & {24, 25}:
             del main_eng, main_voice
         if 15 in run:
             res["q4km_offline"].pop("engine", None)
@@ -4295,6 +4752,33 @@ def main(argv=None) -> int:
         unit="one 2.6B decode step of K1's value/scale blocks in "
              "bench_qmat.py's configuration (32 layers x its 4 shapes, int8 "
              "g32); no single PyTorch call computes it")
+    # phase 25: every kernel that reads group scales, launched at bf16
+    # scales on the 2.6B's routes, the f32 parity run and the 0.1B serving
+    # batch (K1), and on the probe path (K8); one 2.6B step of each at both
+    # scale types
+    sb = res["scale_bf16"]
+    sb_rows = sb["kernels"]["rows"]
+    sb_launches = sb["offline"]["launches_all_routes"]
+
+    def sb_step(kernel: str, m: int = 1) -> dict:
+        return {k: scale_step(sb_rows, kernel, k, m) for k in (
+            "ms", "f32_ms", "bound_ms", "f32_bound_ms", "library_ms")
+            if kernel != "K8" or k != "library_ms"}
+    qdot_entry["launches_by_path"]["scale_bf16"] = (
+        sb_launches["K1"] + sb["f32_parity"]["launches"]["K1"]
+        + sb["serving"]["bf16_k1"])
+    qdot_entry["scale_bf16"] = dict(q4km_single_stream_step=sb_step("K1"),
+                                    q4km_64_slot_step=sb_step("K1", 64))
+    for kernel, entry in zip(VARIANTS, variant_entries):
+        entry["launches_by_path"]["scale_bf16"] = sb_launches[kernel]
+        entry["scale_bf16"] = dict(q4km_single_stream_step=sb_step(kernel))
+    bf16_entry["launches_by_path"]["scale_bf16"] = sb_launches["K1v"]
+    bf16_entry["scale_bf16"] = dict(q4km_single_stream_step=sb_step("K1v"))
+    k8_entry["launches_by_path"]["scale_bf16"] = sb["kernels"]["k8_launches"]
+    k8_entry["scale_bf16"] = dict(bench_qmat_step=sb_step("K8"))
+    for entry in [qdot_entry, bf16_entry, k8_entry] + variant_entries:
+        if not entry["launches_by_path"]["scale_bf16"] > 0:
+            raise AssertionError(f"{entry['name']}: no launch at bf16 scales")
     # the per-shape rows and every phase's numbers, on a line of their own
     # (the kernels line stays short)
     log("details " + json.dumps(res))

@@ -6,7 +6,8 @@ weight arrives as a dict {values, scales, mins, group, n_out, packed} in the
 JAX layout (values / scales / mins transposed to [K(/2), N] and padded to
 128 output lanes).  The padding is cut here, so every QTensor of the port
 has n_out == N.  bf16 arrays (numpy's ml_dtypes bfloat16) convert exactly
-through f32.
+through f32; a QTensor keeps its scales' dtype (f32, or bf16 under the JAX
+package's MIOTTS_SCALE_BF16).
 """
 
 from __future__ import annotations
@@ -32,8 +33,8 @@ def _qtensor(d: dict, device) -> QTensor:
 
     def cut(a):
         return None if a is None else _tensor(np.asarray(a)[:, :n], device)
-    return QTensor(values=cut(d["values"]), scales=cut(d["scales"]).float(),
-                   mins=None if d["mins"] is None else cut(d["mins"]).float(),
+    return QTensor(values=cut(d["values"]), scales=cut(d["scales"]),
+                   mins=cut(d["mins"]),
                    group=int(d["group"]), n_out=n, packed=bool(d["packed"]))
 
 

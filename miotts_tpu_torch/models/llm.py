@@ -141,12 +141,17 @@ class LLMConfig:
 
 def _load_matrix(reader, name: str, dtype, device) -> Any:
     """Quantized formats stay packed as a QTensor; float formats become
-    dense [out, in] tensors in `dtype`."""
+    dense [out, in] tensors in `dtype`.  MIOTTS_SCALE_BF16 (any non-empty
+    value, read at each call as the JAX package reads it) stores a
+    QTensor's group scales and mins in bf16."""
     info = reader.tensors[name]
     if is_quantized(info.ggml_type):
         rows, cols = info.shape
+        scale_dtype = (torch.bfloat16 if os.environ.get("MIOTTS_SCALE_BF16")
+                       else torch.float32)
         return qtensor_from_raw(reader.tensor_raw(name), info.ggml_type,
-                                rows, cols, device=device)
+                                rows, cols, device=device,
+                                scale_dtype=scale_dtype)
     return torch.from_numpy(reader.tensor_f32(name)).to(device=device,
                                                         dtype=dtype)
 

@@ -19,8 +19,11 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+# --split-compile=0: nvcc optimizes and assembles a source's kernels on
+# every core (the qdot libraries hold 56-72 kernels each)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "--split-compile=0"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -29,31 +32,34 @@ _L = ctypes.c_longlong
 # cudaError_t of its launch as an int
 KERNELS = {
     "qdot": ("qdot.cu", {
-        # x, x_is_bf16, v, packed, s, mins, y, ws, tickets, M, K, N, group,
-        # bm, splits, k_split, stream
-        "qdot_launch": [_P, _I, _P, _I, _P, _P, _P, _P, _P] + [_I] * 7 + [_P],
+        # x, x_is_bf16, v, packed, s, mins, s_is_bf16, y, ws, tickets, M, K,
+        # N, group, bm, splits, k_split, stream
+        "qdot_launch": [_P, _I, _P, _I, _P, _P, _I, _P, _P, _P] + [_I] * 7
+                       + [_P],
     }),
     "qdot_gemv": ("qdot_gemv.cu", {
-        # x, v, s, mins, y, ws, tickets, x_is_bf16, M, K, N, group, bm,
-        # splits, k_split, stream
-        "qdot_split_launch": [_P] * 7 + [_I] * 8 + [_P],
-        # x, v, s, mins, y, packed, K, N, group, splits, k_split, stream
-        "qdot_group_launch": [_P] * 5 + [_I] * 6 + [_P],
-        # x, v, s, mins, y, x_is_bf16, K, N, group, splits, k_split, stream
-        "qdot_w8a8_launch": [_P] * 5 + [_I] * 6 + [_P],
-        "qdot_w8a8_packed_launch": [_P] * 5 + [_I] * 6 + [_P],
+        # x, v, s, mins, s_is_bf16, y, ws, tickets, x_is_bf16, M, K, N,
+        # group, bm, splits, k_split, stream
+        "qdot_split_launch": [_P] * 4 + [_I] + [_P] * 3 + [_I] * 8 + [_P],
+        # x, v, s, mins, s_is_bf16, y, packed, K, N, group, splits,
+        # k_split, stream
+        "qdot_group_launch": [_P] * 4 + [_I, _P] + [_I] * 6 + [_P],
+        # x, v, s, mins, s_is_bf16, y, x_is_bf16, K, N, group, splits,
+        # k_split, stream
+        "qdot_w8a8_launch": [_P] * 4 + [_I, _P] + [_I] * 6 + [_P],
+        "qdot_w8a8_packed_launch": [_P] * 4 + [_I, _P] + [_I] * 6 + [_P],
     }),
     "qdot_bf16": ("qdot_bf16.cu", {
-        # x, x_is_bf16, v, packed, s, mins, y, ws, tickets, M, K, N, group,
-        # bm, splits, k_split, after, stream
-        "qdot_bf16_launch": [_P, _I, _P, _I, _P, _P, _P, _P, _P] + [_I] * 8
-                            + [_P],
+        # x, x_is_bf16, v, packed, s, mins, s_is_bf16, y, ws, tickets, M,
+        # K, N, group, bm, splits, k_split, after, stream
+        "qdot_bf16_launch": [_P, _I, _P, _I, _P, _P, _I, _P, _P, _P]
+                            + [_I] * 8 + [_P],
     }),
     "dma_floor": ("dma_floor.cu", {
         # k, v, out, B, H_kv, S, D, dtype, ranks, stream
         "attn_dma_floor_launch": [_P] * 3 + [_I] * 6 + [_P],
-        # v, s, out, K, N, tile_k, splits, k_split, stream
-        "qdot_dma_floor_launch": [_P] * 3 + [_I] * 5 + [_P],
+        # v, s, s_is_bf16, out, K, N, tile_k, splits, k_split, stream
+        "qdot_dma_floor_launch": [_P, _P, _I, _P] + [_I] * 5 + [_P],
     }),
     "decode_attn": ("decode_attn.cu", {
         # q, q_f32, k, v, k_scale, v_scale, fill, q_pos, out, out_m, out_l,

@@ -41,12 +41,14 @@
 // ~0.16 us.  The batched shapes (one rank, 256-1024 blocks) stream at
 // 2.2-2.9 TB/s.
 //
-// K8.  values int8 [K, N], scales f32 [K/32, N] (Q8_0's planar layout);
+// K8.  values int8 [K, N], scales f32 or bf16 [K/32, N] (Q8_0's planar
+// layout; s_is_bf16 picks the bf16-scale instantiation, the floor of K1 at
+// MIOTTS_SCALE_BF16's bytes, whose scale rows are half as wide);
 // TILE_N = 512 if N % 512 == 0 else 256, TILE_K = K halved while TILE_N *
 // TILE_K > 512 KiB and TILE_K / 2 is a multiple of 256 (bench_qmat.py's
 // rule);
 //   out[0, n] = sum_{t < K / TILE_K} (v[t * TILE_K, n] + s[t * TILE_K / 32, n])
-// as f32 [1, N], for every column n (the JAX grid covers N / TILE_N whole
+// as f32 [1, N] (a bf16 s upcast exactly), for every column n (the JAX grid covers N / TILE_N whole
 // tiles; where N is their multiple the two agree up to the f32 order of the
 // sums).  Layout: K1's M = 1 GEMV (qdot_gemv.cuh): blocks of 128 threads
 // over 32 columns (128 where rows are not 16-byte aligned, N % 16 != 0),
@@ -210,12 +212,12 @@ constexpr int K8_CHUNK_GROUPS = 8;        // quant groups of a chunk, aligned ro
 constexpr int K8_CHUNK_GROUPS_UNALIGNED = 2;
 
 // A block's columns and a ring slot: a chunk's value rows, then its scale
-// rows, each row as the 16-byte pieces that cover its columns (one more
-// where rows are not 16-byte aligned).
-template <bool ALIGNED> struct K8Layout {
+// rows (of S: f32 or bf16), each row as the 16-byte pieces that cover its
+// columns (one more where rows are not 16-byte aligned).
+template <bool ALIGNED, typename S> struct K8Layout {
   static constexpr int COLS = ALIGNED ? 32 : 128;   // ops/qmat.py:_gemv_cols
   static constexpr int VP = COLS / 16 + (ALIGNED ? 0 : 1);
-  static constexpr int SP = COLS * 4 / 16 + (ALIGNED ? 0 : 1);
+  static constexpr int SP = COLS * (int)sizeof(S) / 16 + (ALIGNED ? 0 : 1);
   static constexpr int ROWS = G * (ALIGNED ? K8_CHUNK_GROUPS : K8_CHUNK_GROUPS_UNALIGNED);
   static constexpr int S_OFF = 16 * ROWS * VP;      // the scale rows in a slot
   static constexpr int SLOT = S_OFF + 16 * (ROWS / G) * SP;
@@ -230,11 +232,12 @@ __device__ __forceinline__ void copy_piece(void* dst, const unsigned char* src,
   if (at < b) cp_async16(dst, src + at, end - at < 16 ? (int)(end - at) : 16);
 }
 
-template <bool ALIGNED>
+template <bool ALIGNED, typename S>
 __global__ void __launch_bounds__(K8_THREADS)
-qdot_dma_floor_kernel(const int8_t* __restrict__ v, const float* __restrict__ s,
+qdot_dma_floor_kernel(const int8_t* __restrict__ v, const S* __restrict__ s,
                       float* __restrict__ out, int K, int N, int k_split, int tile_k) {
-  using L = K8Layout<ALIGNED>;
+  using L = K8Layout<ALIGNED, S>;
+  constexpr size_t SB = sizeof(S);
   extern __shared__ __align__(16) unsigned char ring[];
   __shared__ float part[L::COLS];
   cg::cluster_group cluster = cg::this_cluster();
@@ -244,7 +247,7 @@ qdot_dma_floor_kernel(const int8_t* __restrict__ v, const float* __restrict__ s,
   const int n_chunks = (k1 - k0 + L::ROWS - 1) / L::ROWS;
   const unsigned char* vb = reinterpret_cast<const unsigned char*>(v);
   const unsigned char* sb = reinterpret_cast<const unsigned char*>(s);
-  const size_t v_end = (size_t)K * N, s_end = (size_t)(K / G) * N * 4;
+  const size_t v_end = (size_t)K * N, s_end = (size_t)(K / G) * N * SB;
 
   // chunk j of the slice into slot j % K8_STAGES: its value rows' pieces,
   // then its scale rows' (one commit group; empty past the last chunk)
@@ -259,8 +262,9 @@ qdot_dma_floor_kernel(const int8_t* __restrict__ v, const float* __restrict__ s,
     }
     for (int i = tid; i < rows / G * L::SP; i += K8_THREADS) {
       const int r = i / L::SP;
-      const size_t a = ((size_t)(r0 / G + r) * N + n0) * 4;
-      copy_piece(slot + L::S_OFF + 16 * i, sb, a, a + 4 * (n1 - n0), i - r * L::SP, s_end);
+      const size_t a = ((size_t)(r0 / G + r) * N + n0) * SB;
+      copy_piece(slot + L::S_OFF + 16 * i, sb, a, a + SB * (n1 - n0), i - r * L::SP,
+                 s_end);
     }
     cp_commit();
   };
@@ -273,7 +277,8 @@ qdot_dma_floor_kernel(const int8_t* __restrict__ v, const float* __restrict__ s,
   float acc = 0.f;
   if (tid < L::COLS && n < N) {
     for (int t = (k0 + tile_k - 1) / tile_k; t * tile_k < k1; ++t)
-      acc += (float)v[(size_t)t * tile_k * N + n] + s[(size_t)(t * tile_k / G) * N + n];
+      acc += (float)v[(size_t)t * tile_k * N + n]
+             + to_f32(s[(size_t)(t * tile_k / G) * N + n]);
   }
 
   // the ring: chunk j has landed (this thread's copies), its slot takes
@@ -296,11 +301,11 @@ qdot_dma_floor_kernel(const int8_t* __restrict__ v, const float* __restrict__ s,
   cluster.sync();   // the other blocks' shared memory lives until it is read
 }
 
-template <bool ALIGNED>
-cudaError_t qdot_launch(const int8_t* v, const float* s, float* out, int K, int N,
+template <bool ALIGNED, typename S>
+cudaError_t qdot_launch(const int8_t* v, const void* s, float* out, int K, int N,
                         int splits, int k_split, int tile_k, cudaStream_t stream) {
-  using L = K8Layout<ALIGNED>;
-  auto kernel = qdot_dma_floor_kernel<ALIGNED>;
+  using L = K8Layout<ALIGNED, S>;
+  auto kernel = qdot_dma_floor_kernel<ALIGNED, S>;
   const size_t smem = (size_t)K8_STAGES * L::SLOT;
   if (smem > 48 * 1024 - sizeof(float) * L::COLS) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -319,8 +324,8 @@ cudaError_t qdot_launch(const int8_t* v, const float* s, float* out, int K, int 
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, v, s, out, K, N, k_split,
-                                             tile_k);
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, v, static_cast<const S*>(s),
+                                             out, K, N, k_split, tile_k);
   const cudaError_t last = cudaGetLastError();
   return err != cudaSuccess ? err : last;
 }
@@ -350,11 +355,12 @@ extern "C" int attn_dma_floor_launch(const void* k, const void* v, void* out,
   return (int)attn_launch<int8_t>(k, v, o, heads, S, D, s_tile, n_s, ranks, st);
 }
 
-// v, s 16-byte aligned; splits (1..8) blocks of k_split rows (whole quant
-// groups, covering K exactly: the GEMV plan's rule) along K
-extern "C" int qdot_dma_floor_launch(const void* v, const void* s, void* out,
-                                     int K, int N, int tile_k, int splits,
-                                     int k_split, void* stream) {
+// v, s 16-byte aligned; s f32, or bf16 if s_is_bf16; splits (1..8) blocks
+// of k_split rows (whole quant groups, covering K exactly: the GEMV plan's
+// rule) along K
+extern "C" int qdot_dma_floor_launch(const void* v, const void* s, int s_is_bf16,
+                                     void* out, int K, int N, int tile_k,
+                                     int splits, int k_split, void* stream) {
   if (K < 1 || N < 1 || K % G || tile_k < 8 * G || tile_k % G || K % tile_k ||
       splits < 1 || splits > K8_MAX_SPLITS || k_split < G || k_split % G ||
       (long long)splits * k_split < K || (long long)(splits - 1) * k_split >= K ||
@@ -362,10 +368,15 @@ extern "C" int qdot_dma_floor_launch(const void* v, const void* s, void* out,
     return (int)cudaErrorInvalidValue;
   }
   const int8_t* vp = static_cast<const int8_t*>(v);
-  const float* sp = static_cast<const float*>(s);
   float* o = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (s_is_bf16) {
+    return N % 16 == 0
+        ? (int)qdot_launch<true, __nv_bfloat16>(vp, s, o, K, N, splits, k_split, tile_k, st)
+        : (int)qdot_launch<false, __nv_bfloat16>(vp, s, o, K, N, splits, k_split, tile_k,
+                                                 st);
+  }
   return N % 16 == 0
-      ? (int)qdot_launch<true>(vp, sp, o, K, N, splits, k_split, tile_k, st)
-      : (int)qdot_launch<false>(vp, sp, o, K, N, splits, k_split, tile_k, st);
+      ? (int)qdot_launch<true, float>(vp, s, o, K, N, splits, k_split, tile_k, st)
+      : (int)qdot_launch<false, float>(vp, s, o, K, N, splits, k_split, tile_k, st);
 }

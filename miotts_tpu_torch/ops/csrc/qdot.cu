@@ -12,12 +12,15 @@
 //   v     int8 [K, N]  (Q8_0, Q6_K, unpacked Q4_0 / Q4_K / Q5_K), or
 //         uint8 [K/2, N] nibble-packed PER GROUP: byte row r of group b holds
 //         w[b*g + r] in its low nibble and w[b*g + g/2 + r] in its high one
-//   s     f32 [K/g, N], g in {16, 32}
-//   mins  f32 [K/g, N] or null
+//   s     f32 or bf16 [K/g, N], g in {16, 32} (s_is_bf16; MIOTTS_SCALE_BF16)
+//   mins  [K/g, N] of s's type, or null
 //   y     [M, N] in x's type
 // Dequantization and accumulation are f32 (the TPU kernel's default
 // bf16_dot=False path): the same function as ops/qmat.py:qdot_plain in
-// another order of f32 sums.  The output is rounded once to x's type.
+// another order of f32 sums.  The output is rounded once to x's type.  bf16
+// scales and mins have instantiations of their own (S), which read half the
+// scale bytes and upcast each value exactly where it is loaded, as the
+// Pallas kernel's s_ref[:].astype(f32) does.
 //
 // At M = 1 (decode) the split-K GEMV of qdot_gemv.cuh in its
 // group-partial form: per chunk of a quant group the f32 partial sum of x *
@@ -34,7 +37,7 @@
 // deterministic split-K in the same launch.  Its note says what bounds it.
 //
 // Plain C interface for ctypes: qdot_launch returns the launch's
-// cudaError_t.  At M = 1 it takes the GEMV plan of ops/qmat.py:_gemv_plan
+// cudaError_t; s_is_bf16 picks the scales' instantiation.  At M = 1 it takes the GEMV plan of ops/qmat.py:_gemv_plan
 // (splits, k_split; bm, ws and tickets unused); at M > 1 the tile plan of
 // ops/qmat.py:_tile_plan (bm, splits, k_split), the f32 workspace
 // [splits][tiles][bm][128] (tiles = the output tiles, row-major) and the
@@ -49,43 +52,57 @@
 
 namespace {
 
-template <typename T, bool PACKED>
-cudaError_t by_m(const void* x, const void* v, const float* s, const float* mins,
+template <typename T, typename S, bool PACKED>
+cudaError_t by_m(const void* x, const void* v, const void* s, const void* mins,
                  void* y, float* ws, int* tickets, int M, int K, int N, int group,
                  int bm, int splits, int k_split, cudaStream_t stream) {
   if (M == 1) {
-    return qgemv::gemv<T, PACKED>(x, v, s, mins, y, K, N, group, splits, k_split,
-                                  stream);
+    return qgemv::gemv<T, S, PACKED>(x, v, s, mins, y, K, N, group, splits, k_split,
+                                     stream);
   }
   if (group == 16) {
-    return qtile::tile_by_bm<T, PACKED, 16, false>(x, v, s, mins, y, ws, tickets, M,
-                                                   K, N, bm, splits, k_split, false,
-                                                   stream);
+    return qtile::tile_by_bm<T, S, PACKED, 16, false>(x, v, s, mins, y, ws, tickets,
+                                                      M, K, N, bm, splits, k_split,
+                                                      false, stream);
   }
-  return qtile::tile_by_bm<T, PACKED, 32, false>(x, v, s, mins, y, ws, tickets, M, K,
-                                                 N, bm, splits, k_split, false, stream);
+  return qtile::tile_by_bm<T, S, PACKED, 32, false>(x, v, s, mins, y, ws, tickets, M,
+                                                    K, N, bm, splits, k_split, false,
+                                                    stream);
 }
 
-template <typename T>
-cudaError_t dispatch(const void* x, const void* v, int packed, const float* s,
-                     const float* mins, void* y, float* ws, int* tickets, int M,
+template <typename T, typename S>
+cudaError_t dispatch(const void* x, const void* v, int packed, const void* s,
+                     const void* mins, void* y, float* ws, int* tickets, int M,
                      int K, int N, int group, int bm, int splits, int k_split,
                      cudaStream_t stream) {
   if (packed) {
-    return by_m<T, true>(x, v, s, mins, y, ws, tickets, M, K, N, group, bm, splits,
-                         k_split, stream);
+    return by_m<T, S, true>(x, v, s, mins, y, ws, tickets, M, K, N, group, bm, splits,
+                            k_split, stream);
   }
-  return by_m<T, false>(x, v, s, mins, y, ws, tickets, M, K, N, group, bm, splits,
-                        k_split, stream);
+  return by_m<T, S, false>(x, v, s, mins, y, ws, tickets, M, K, N, group, bm, splits,
+                           k_split, stream);
+}
+
+template <typename T>
+cudaError_t by_scales(const void* x, const void* v, int packed, const void* s,
+                      const void* mins, int s_is_bf16, void* y, float* ws,
+                      int* tickets, int M, int K, int N, int group, int bm,
+                      int splits, int k_split, cudaStream_t stream) {
+  if (s_is_bf16) {
+    return dispatch<T, __nv_bfloat16>(x, v, packed, s, mins, y, ws, tickets, M, K, N,
+                                      group, bm, splits, k_split, stream);
+  }
+  return dispatch<T, float>(x, v, packed, s, mins, y, ws, tickets, M, K, N, group, bm,
+                            splits, k_split, stream);
 }
 
 }  // namespace
 
 extern "C" int qdot_launch(const void* x, int x_is_bf16, const void* v,
                            int packed, const void* s, const void* mins,
-                           void* y, void* ws, void* tickets, int M, int K,
-                           int N, int group, int bm, int splits, int k_split,
-                           void* stream) {
+                           int s_is_bf16, void* y, void* ws, void* tickets,
+                           int M, int K, int N, int group, int bm, int splits,
+                           int k_split, void* stream) {
   if (M < 1 || K < 1 || N < 1 || (group != 16 && group != 32) || K % group) {
     return (int)cudaErrorInvalidValue;
   }
@@ -94,14 +111,12 @@ extern "C" int qdot_launch(const void* x, int x_is_bf16, const void* v,
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* sf = static_cast<const float*>(s);
-  const float* mf = static_cast<const float*>(mins);
   float* wsf = static_cast<float*>(ws);
   int* tk = static_cast<int*>(tickets);
   if (x_is_bf16) {
-    return (int)dispatch<__nv_bfloat16>(x, v, packed, sf, mf, y, wsf, tk, M, K, N,
-                                        group, bm, splits, k_split, st);
+    return (int)by_scales<__nv_bfloat16>(x, v, packed, s, mins, s_is_bf16, y, wsf, tk,
+                                         M, K, N, group, bm, splits, k_split, st);
   }
-  return (int)dispatch<float>(x, v, packed, sf, mf, y, wsf, tk, M, K, N, group, bm,
-                              splits, k_split, st);
+  return (int)by_scales<float>(x, v, packed, s, mins, s_is_bf16, y, wsf, tk, M, K, N,
+                               group, bm, splits, k_split, st);
 }

@@ -20,13 +20,16 @@
 //   v     int8 [K, N], or uint8 [K/2, N] nibble-packed PER GROUP: byte row r
 //         of group b holds w[b*g + r] in its low nibble and w[b*g + g/2 + r]
 //         in its high one
-//   s     f32 [K/g, N], g in {16, 32};  mins f32 [K/g, N] or null
+//   s     f32 or bf16 [K/g, N], g in {16, 32} (s_is_bf16);  mins [K/g, N]
+//         of s's type, or null
 //   y     [M, N] in x's type
 // The rounding of w is one __float2bfloat16_rn of the f32 product q * s':
 // s' = bf16(s) in mode 1 (q * s' is then exact, so w = bf16(v * bf16(s))),
 // s' = s in mode after (the f32 product rounded, then rounded to bf16, as
 // the JAX function's f32 multiply and one cast).  So the mode is a property
-// of the scale alone and costs nothing per weight.
+// of the scale alone and costs nothing per weight.  A bf16 scale (its own
+// instantiation, MIOTTS_SCALE_BF16) is upcast exactly where it is loaded;
+// mode 1's bf16(s) is then s itself, as in the Pallas kernel.
 //
 // M = 1 (decode): the split-K GEMV of qdot_gemv.cuh in its bf16-weight
 // form: each chunk of a quant group loads s' for its 16 columns before its
@@ -49,7 +52,7 @@
 // bytes and a deterministic split-K in the same launch, as K1's.
 //
 // Plain C interface for ctypes: qdot_bf16_launch returns the launch's
-// cudaError_t; it takes the GEMV plan at M = 1 and the tile plan, workspace
+// cudaError_t; s_is_bf16 picks the scales' instantiation; it takes the GEMV plan at M = 1 and the tile plan, workspace
 // and tickets at M > 1, as qdot_launch.
 
 #include <cuda_bf16.h>
@@ -61,42 +64,57 @@
 
 namespace {
 
-template <typename T, bool PACKED>
-cudaError_t by_m(const void* x, const void* v, const float* s, const float* mins,
+template <typename T, typename S, bool PACKED>
+cudaError_t by_m(const void* x, const void* v, const void* s, const void* mins,
                  void* y, float* ws, int* tickets, int M, int K, int N, int group,
                  int bm, int splits, int k_split, bool after, cudaStream_t stream) {
   if (M == 1) {
-    return qgemv::gemv<T, PACKED, qgemv::BF16_WEIGHT>(x, v, s, mins, y, K, N, group,
-                                                      splits, k_split, stream, after);
+    return qgemv::gemv<T, S, PACKED, qgemv::BF16_WEIGHT>(x, v, s, mins, y, K, N, group,
+                                                         splits, k_split, stream, after);
   }
   if (group == 16) {
-    return qtile::tile_by_bm<T, PACKED, 16, true>(x, v, s, mins, y, ws, tickets, M, K,
-                                                  N, bm, splits, k_split, after, stream);
+    return qtile::tile_by_bm<T, S, PACKED, 16, true>(x, v, s, mins, y, ws, tickets, M,
+                                                     K, N, bm, splits, k_split, after,
+                                                     stream);
   }
-  return qtile::tile_by_bm<T, PACKED, 32, true>(x, v, s, mins, y, ws, tickets, M, K, N,
-                                                bm, splits, k_split, after, stream);
+  return qtile::tile_by_bm<T, S, PACKED, 32, true>(x, v, s, mins, y, ws, tickets, M, K,
+                                                   N, bm, splits, k_split, after, stream);
 }
 
-template <typename T>
-cudaError_t dispatch(const void* x, const void* v, int packed, const float* s,
-                     const float* mins, void* y, float* ws, int* tickets, int M,
+template <typename T, typename S>
+cudaError_t dispatch(const void* x, const void* v, int packed, const void* s,
+                     const void* mins, void* y, float* ws, int* tickets, int M,
                      int K, int N, int group, int bm, int splits, int k_split,
                      bool after, cudaStream_t stream) {
   if (packed) {
-    return by_m<T, true>(x, v, s, mins, y, ws, tickets, M, K, N, group, bm, splits,
-                         k_split, after, stream);
+    return by_m<T, S, true>(x, v, s, mins, y, ws, tickets, M, K, N, group, bm, splits,
+                            k_split, after, stream);
   }
-  return by_m<T, false>(x, v, s, mins, y, ws, tickets, M, K, N, group, bm, splits,
-                        k_split, after, stream);
+  return by_m<T, S, false>(x, v, s, mins, y, ws, tickets, M, K, N, group, bm, splits,
+                           k_split, after, stream);
+}
+
+template <typename T>
+cudaError_t by_scales(const void* x, const void* v, int packed, const void* s,
+                      const void* mins, int s_is_bf16, void* y, float* ws,
+                      int* tickets, int M, int K, int N, int group, int bm,
+                      int splits, int k_split, bool after, cudaStream_t stream) {
+  if (s_is_bf16) {
+    return dispatch<T, __nv_bfloat16>(x, v, packed, s, mins, y, ws, tickets, M, K, N,
+                                      group, bm, splits, k_split, after, stream);
+  }
+  return dispatch<T, float>(x, v, packed, s, mins, y, ws, tickets, M, K, N, group, bm,
+                            splits, k_split, after, stream);
 }
 
 }  // namespace
 
 extern "C" int qdot_bf16_launch(const void* x, int x_is_bf16, const void* v,
                                 int packed, const void* s, const void* mins,
-                                void* y, void* ws, void* tickets, int M, int K,
-                                int N, int group, int bm, int splits,
-                                int k_split, int after, void* stream) {
+                                int s_is_bf16, void* y, void* ws, void* tickets,
+                                int M, int K, int N, int group, int bm,
+                                int splits, int k_split, int after,
+                                void* stream) {
   if (M < 1 || K < 1 || N < 1 || (group != 16 && group != 32) || K % group) {
     return (int)cudaErrorInvalidValue;
   }
@@ -105,14 +123,13 @@ extern "C" int qdot_bf16_launch(const void* x, int x_is_bf16, const void* v,
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* sf = static_cast<const float*>(s);
-  const float* mf = static_cast<const float*>(mins);
   float* wsf = static_cast<float*>(ws);
   int* tk = static_cast<int*>(tickets);
   if (x_is_bf16) {
-    return (int)dispatch<__nv_bfloat16>(x, v, packed, sf, mf, y, wsf, tk, M, K, N,
-                                        group, bm, splits, k_split, after != 0, st);
+    return (int)by_scales<__nv_bfloat16>(x, v, packed, s, mins, s_is_bf16, y, wsf, tk,
+                                         M, K, N, group, bm, splits, k_split,
+                                         after != 0, st);
   }
-  return (int)dispatch<float>(x, v, packed, sf, mf, y, wsf, tk, M, K, N, group, bm,
-                              splits, k_split, after != 0, st);
+  return (int)by_scales<float>(x, v, packed, s, mins, s_is_bf16, y, wsf, tk, M, K, N,
+                               group, bm, splits, k_split, after != 0, st);
 }

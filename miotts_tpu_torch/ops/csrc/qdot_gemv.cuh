@@ -47,8 +47,12 @@
 //   v     int8 [K, N], or uint8 [K/2, N] nibble-packed PER GROUP: byte row r
 //         of group b holds w[b*g + r] in its low nibble and w[b*g + g/2 + r]
 //         in its high one
-//   s     f32 [K/g, N], g in {16, 32};  mins f32 [K/g, N] or null
+//   s     f32 or bf16 [K/g, N] (S), g in {16, 32};  mins [K/g, N] of the
+//         same type, or null
 //   y     [1, N] in x's type, rounded once from the f32 sum
+// A bf16 scale or min is upcast to f32 exactly where it is loaded (its bits
+// shifted), so the f32 arithmetic and the order of the sums are those of
+// the f32 instantiation: S changes the bytes read and nothing else.
 //
 // What bounds it on the H100: every weight byte is read once for two
 // operations per value, so the bytes of v + s + mins over the 3.35 TB/s of
@@ -66,7 +70,8 @@
 //
 // * Wide loads: a lane owns 16 neighbouring columns and reads 16 bytes of a
 //   row of v per load (16 int8 columns, or 16 packed bytes = 16 columns x
-//   2 k), s and mins as float4, x as 16-byte vectors; a team of two lanes
+//   2 k), s and mins as float4 (bf16: two 16-byte loads for the 16), x as
+//   16-byte vectors; a team of two lanes
 //   reads one whole 32-byte sector of a row.  A chunk is 8 byte rows of one
 //   quant group, all issued before any is used.
 // * Rows that are not 16-byte aligned (N % 16 != 0: the output heads'
@@ -107,7 +112,10 @@
 // rows, 163-168 for unaligned rows; bf16-weight form 128, with a 64-68 byte
 // spill for unaligned packed rows (K1v's 2.6B head); integer-partial form
 // 96-124 for aligned rows (x quantized in the chunk), 154-157 for
-// unaligned rows (the slice in shared memory), no spill.
+// unaligned rows (the slice in shared memory), no spill.  bf16 scales
+// (CUDA 12.9): the same within 1 register for aligned rows and 165-168 for
+// unaligned ones; the bf16-weight form's unaligned packed rows 128 with no
+// spill; the integer-partial form's unaligned rows 168.
 //
 // Everything here has internal linkage (an anonymous namespace): each
 // shared library that includes the header has its own kernels and
@@ -213,6 +221,30 @@ __device__ __forceinline__ void load_cols16(const float* __restrict__ row,
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[4 * i + e] = __ldg(row + min(c0 + 4 * i + e, N - 1));
     }
+  }
+}
+
+// the same of a bf16 row, each value upcast exactly to f32 (its bits
+// shifted): two 16-byte loads (ALIGNED), else scalar 2-byte loads, clamped
+// as above
+template <bool ALIGNED>
+__device__ __forceinline__ void load_cols16(const __nv_bfloat16* __restrict__ row,
+                                            int c0, int N, float (&o)[16]) {
+  if constexpr (ALIGNED) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const uint4 u = __ldg(reinterpret_cast<const uint4*>(row + c0) + i);
+      const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        o[8 * i + 2 * j] = __uint_as_float(w[j] << 16);
+        o[8 * i + 2 * j + 1] = __uint_as_float(w[j] & 0xFFFF0000u);
+      }
+    }
+  } else {
+    const unsigned short* r = reinterpret_cast<const unsigned short*>(row);
+#pragma unroll
+    for (int e = 0; e < 16; ++e) o[e] = __uint_as_float((uint32_t)__ldg(r + min(c0 + e, N - 1)) << 16);
   }
 }
 
@@ -345,16 +377,17 @@ __device__ __forceinline__ void int_products(int (&d)[16], const uint4 (&w)[R],
 
 // y[1, N] = x[1, K] . (v * s - mins), K split over the cluster's blocks
 // (gridDim.y = cluster size; block y takes K [y * k_split, (y+1) * k_split)).
-// ALIGNED: N % 16 == 0 and x, v, s, mins 16-byte aligned.  FORM: the
+// S: the type of s and mins (float or bf16).  ALIGNED: N % 16 == 0 and x,
+// v, s, mins 16-byte aligned.  FORM: the
 // chunk's products (BF16_WEIGHT: K1v's, mode after if `after`, else mode
 // 1; INT_PARTIAL where xq_slice: int_smem(k_split, G) bytes of dynamic
 // shared memory).
-template <typename T, bool PACKED, int G, bool ALIGNED, Form FORM>
+template <typename T, typename S, bool PACKED, int G, bool ALIGNED, Form FORM>
 __global__ void __launch_bounds__(
     GEMV_THREADS,
     ALIGNED || FORM == BF16_WEIGHT ? GEMV_MIN_BLOCKS : GEMV_MIN_BLOCKS_UNALIGNED)
 qdot_gemv_kernel(const T* __restrict__ x, const uint8_t* __restrict__ v,
-                 const float* __restrict__ s, const float* __restrict__ mins,
+                 const S* __restrict__ s, const S* __restrict__ mins,
                  T* __restrict__ y, int K, int N, int k_split, bool after) {
   constexpr bool SCALED = FORM == BF16_WEIGHT;
   constexpr bool INT = FORM == INT_PARTIAL;
@@ -442,8 +475,8 @@ qdot_gemv_kernel(const T* __restrict__ x, const uint8_t* __restrict__ v,
     // the fold waits on no load (unaligned rows: a few chunks a team, each
     // a memory latency)
     constexpr bool EARLY = !ALIGNED && !SCALED;
-    const float* s_row = s + (size_t)b * N;
-    const float* m_row = mins + (size_t)b * N;
+    const S* s_row = s + (size_t)b * N;
+    const S* m_row = mins + (size_t)b * N;
     float sv[16], mv[16];
     if constexpr (SCALED || EARLY) load_cols16<ALIGNED>(s_row, c0, N, sv);
     if (EARLY && has_mins) load_cols16<ALIGNED>(m_row, c0, N, mv);
@@ -542,11 +575,11 @@ qdot_gemv_kernel(const T* __restrict__ x, const uint8_t* __restrict__ v,
 }
 
 // One GEMV launch: a cluster of `splits` blocks along K per block of columns.
-template <typename T, bool PACKED, int G, bool ALIGNED, Form FORM>
-cudaError_t launch_gemv(const void* x, const uint8_t* v, const float* s,
-                        const float* mins, void* y, int K, int N, int splits,
+template <typename T, typename S, bool PACKED, int G, bool ALIGNED, Form FORM>
+cudaError_t launch_gemv(const void* x, const uint8_t* v, const S* s,
+                        const S* mins, void* y, int K, int N, int splits,
                         int k_split, bool after, cudaStream_t stream) {
-  auto kernel = qdot_gemv_kernel<T, PACKED, G, ALIGNED, FORM>;
+  auto kernel = qdot_gemv_kernel<T, S, PACKED, G, ALIGNED, FORM>;
   cudaLaunchConfig_t cfg = {};
   constexpr int cols = 16 * gemv_team(ALIGNED);
   cfg.gridDim = dim3((N + cols - 1) / cols, splits, 1);
@@ -571,35 +604,41 @@ cudaError_t launch_gemv(const void* x, const uint8_t* v, const float* s,
   return err != cudaSuccess ? err : last;
 }
 
-template <typename T, bool PACKED, int G, Form FORM>
-cudaError_t gemv_by_alignment(const void* x, const uint8_t* v, const float* s,
-                              const float* mins, void* y, int K, int N,
+// ALIGNED where every row of v, s and mins starts 16 bytes from the last:
+// N % 16 == 0 (16 bytes of int8 or packed values, 32 of bf16 scales, 64 of
+// f32) and the four base addresses 16-byte aligned
+template <typename T, typename S, bool PACKED, int G, Form FORM>
+cudaError_t gemv_by_alignment(const void* x, const uint8_t* v, const S* s,
+                              const S* mins, void* y, int K, int N,
                               int splits, int k_split, bool after,
                               cudaStream_t stream) {
   const uintptr_t addr = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(v)
                          | reinterpret_cast<uintptr_t>(s) | reinterpret_cast<uintptr_t>(mins);
   if (N % 16 == 0 && addr % 16 == 0) {
-    return launch_gemv<T, PACKED, G, true, FORM>(x, v, s, mins, y, K, N, splits,
-                                                 k_split, after, stream);
+    return launch_gemv<T, S, PACKED, G, true, FORM>(x, v, s, mins, y, K, N, splits,
+                                                    k_split, after, stream);
   }
-  return launch_gemv<T, PACKED, G, false, FORM>(x, v, s, mins, y, K, N, splits,
-                                                k_split, after, stream);
+  return launch_gemv<T, S, PACKED, G, false, FORM>(x, v, s, mins, y, K, N, splits,
+                                                   k_split, after, stream);
 }
 
 // The GEMV of x [1, K] (T: bf16 or f32) against the values v (PACKED:
-// nibbles) under a plan that gemv_plan_ok accepts, in the products' form
-// FORM (BF16_WEIGHT: `after` is its mode).
-template <typename T, bool PACKED, Form FORM = GROUP_PARTIAL>
-cudaError_t gemv(const void* x, const void* v, const float* s,
-                 const float* mins, void* y, int K, int N, int group, int splits,
-                 int k_split, cudaStream_t stream, bool after = false) {
+// nibbles) and scales and mins of type S (f32 or bf16) under a plan that
+// gemv_plan_ok accepts, in the products' form FORM (BF16_WEIGHT: `after`
+// is its mode).
+template <typename T, typename S, bool PACKED, Form FORM = GROUP_PARTIAL>
+cudaError_t gemv(const void* x, const void* v, const void* s, const void* mins,
+                 void* y, int K, int N, int group, int splits, int k_split,
+                 cudaStream_t stream, bool after = false) {
   const uint8_t* vb = static_cast<const uint8_t*>(v);
+  const S* st = static_cast<const S*>(s);
+  const S* mt = static_cast<const S*>(mins);
   if (group == 16) {
-    return gemv_by_alignment<T, PACKED, 16, FORM>(x, vb, s, mins, y, K, N, splits,
-                                                  k_split, after, stream);
+    return gemv_by_alignment<T, S, PACKED, 16, FORM>(x, vb, st, mt, y, K, N, splits,
+                                                     k_split, after, stream);
   }
-  return gemv_by_alignment<T, PACKED, 32, FORM>(x, vb, s, mins, y, K, N, splits,
-                                                k_split, after, stream);
+  return gemv_by_alignment<T, S, PACKED, 32, FORM>(x, vb, st, mt, y, K, N, splits,
+                                                   k_split, after, stream);
 }
 
 // the checks of a GEMV plan that the kernel relies on: whole quant groups

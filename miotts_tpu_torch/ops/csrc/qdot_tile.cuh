@@ -33,8 +33,16 @@
 //   quantized bytes, not bf16 or f32 copies, stream from HBM.  v's rows are
 //   N bytes apart and N may be odd (the output head's 13059): each row is
 //   copied as the 16-byte chunks that cover it and read back with a funnel
-//   shift by its own offset; scales and mins (f32, 4-byte aligned) go by
-//   4-byte copies straight to their column.
+//   shift by its own offset; f32 scales and mins (4-byte aligned) go by
+//   4-byte copies straight to their column.  bf16 scales and mins (the
+//   S = __nv_bfloat16 instantiation, MIOTTS_SCALE_BF16) halve those bytes:
+//   cp.async moves 4, 8 or 16 bytes and a row of an odd N starts anywhere in
+//   a 16-byte piece, so, as v's rows, each row is copied as the 16 or 17
+//   aligned 16-byte pieces that cover its 128 columns (8 a copy; s and mins
+//   16-byte aligned), read back at its own offset (0..7 elements) and upcast
+//   exactly in registers; the bytes past the row's last column are
+//   zero-filled, as the f32 copies are.  The staged row is 136 elements, in
+//   shared memory only.
 // * A tile of BM x 128 outputs: BM = 16 (4 warps) or 64 (8 warps; the plan
 //   takes it for M > 16 on the larger weights).  A warp owns 32 columns; in
 //   its four n8 mma tiles, lane group g stands for columns 4g..4g+3, so one
@@ -50,6 +58,10 @@
 //
 // Ragged M, N and K load zeros (cp.async with a source size of 0) and are
 // not stored.  The kernel allocates nothing.
+//
+// The f32 fold and the order of its sums do not depend on S: a bf16 scale
+// is the f32 value it stands for, so both instantiations give the plain
+// version's function of the same (upcast) scales.
 
 #pragma once
 
@@ -89,13 +101,19 @@ template <int BM> struct Shape {
   static constexpr int WROW = BN + 16;   // bytes of a staged weight row
 };
 
-template <typename T, bool PACKED, int G, int BM> struct Stage {
+// elements of a staged row of scales (or mins): f32 one a column; bf16 the
+// 17 pieces of 8 that cover 128 columns at an offset of 0..7
+template <typename S> struct ScaleRow { static constexpr int N = BN; };
+template <> struct ScaleRow<__nv_bfloat16> { static constexpr int N = BN + 8; };
+
+template <typename T, bool PACKED, int G, int BM, typename S> struct Stage {
   static constexpr int XSTRIDE = BK + 16 / (int)sizeof(T);   // elements
   static constexpr int X_BYTES = BM * XSTRIDE * (int)sizeof(T);
   static constexpr int WROWS = PACKED ? BK / 2 : BK;
   static constexpr int W_BYTES = WROWS * Shape<BM>::WROW;
   static constexpr int GS = BK / G;
-  static constexpr int S_BYTES = GS * BN * 4;
+  static constexpr int SROW = ScaleRow<S>::N;
+  static constexpr int S_BYTES = GS * SROW * (int)sizeof(S);
   static constexpr int BYTES = X_BYTES + W_BYTES + 2 * S_BYTES;
   static constexpr int SMEM = STAGES * BYTES;
 };
@@ -110,6 +128,18 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes)
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
                :: "r"(d), "l"(src), "r"(bytes) : "memory");
+}
+
+// piece p of the aligned 16-byte pieces that cover the bf16 elements
+// [e0, e0 + cols) of `a` (16-byte aligned) into dst: the bytes of elements
+// from e0 + cols on are zero-filled (cp.async's source size), so are whole
+// pieces past them
+__device__ __forceinline__ void cp_async_piece(void* dst, const __nv_bfloat16* a,
+                                               size_t e0, int cols, int p) {
+  const uintptr_t at = (reinterpret_cast<uintptr_t>(a + e0) & ~(uintptr_t)15) + 16 * p;
+  const uintptr_t end = reinterpret_cast<uintptr_t>(a + e0 + cols);
+  const int bytes = at < end ? (end - at < 16 ? (int)(end - at) : 16) : 0;
+  cp_async16(dst, bytes ? reinterpret_cast<const void*>(at) : a, bytes);
 }
 
 __device__ __forceinline__ void cp_commit() {
@@ -216,6 +246,34 @@ template <int P> struct AFrag<float, P> {
   static constexpr int PARTS = P;
 };
 
+// NV (4 or 8) staged scales or mins of a row from column c (even), as f32:
+// an f32 row by float4 loads; a bf16 row from the words that hold its
+// elements o + c .. o + c + NV - 1 (o: the row's first column in its first
+// piece, 0..7), funnel-shifted by an odd o's half word and upcast exactly
+template <int NV>
+__device__ __forceinline__ void staged(const float* row, int, int c, float (&out)[NV]) {
+#pragma unroll
+  for (int i = 0; i < NV / 4; ++i) {
+    const float4 f = *reinterpret_cast<const float4*>(row + c + 4 * i);
+    out[4 * i] = f.x; out[4 * i + 1] = f.y; out[4 * i + 2] = f.z; out[4 * i + 3] = f.w;
+  }
+}
+
+template <int NV>
+__device__ __forceinline__ void staged(const __nv_bfloat16* row, int o, int c,
+                                       float (&out)[NV]) {
+  const uint32_t* w = reinterpret_cast<const uint32_t*>(row + (o & ~1) + c);
+  uint32_t u[NV / 2 + 1];
+#pragma unroll
+  for (int i = 0; i <= NV / 2; ++i) u[i] = w[i];
+#pragma unroll
+  for (int i = 0; i < NV / 2; ++i) {
+    const uint32_t p = __funnelshift_r(u[i], u[i + 1], 16 * (o & 1));
+    out[2 * i] = __uint_as_float(p << 16);
+    out[2 * i + 1] = __uint_as_float(p & 0xFFFF0000u);
+  }
+}
+
 // One staged weight word: columns c..c+3 of byte row lr of the stage, read
 // from the row's 16-byte chunks at its own offset o
 template <int WROW>
@@ -231,15 +289,17 @@ __device__ __forceinline__ uint32_t weight_word(const unsigned char* wt, int lr,
 // SCALED = false: K1 (raw integers, f32 fold of s and mins per group)
 // SCALED = true:  K1v (w = bf16(v * s'), s' = s in mode after, bf16(s) in
 //                 mode 1; x rounded to bf16; mins folded per group)
-template <typename T, bool PACKED, int G, int BM, bool SCALED>
+// S: the type of s and mins, float (4-byte aligned) or bf16 (16-byte)
+template <typename T, bool PACKED, int G, int BM, bool SCALED, typename S>
 __global__ void __launch_bounds__(Shape<BM>::THREADS)
 qdot_tile_kernel(const T* __restrict__ x, const uint8_t* __restrict__ v,
-                 const float* __restrict__ s, const float* __restrict__ mins,
+                 const S* __restrict__ s, const S* __restrict__ mins,
                  T* __restrict__ y, float* __restrict__ ws, int* __restrict__ tickets,
                  int M, int K, int N, int k_split, bool after) {
   using SH = Shape<BM>;
-  using ST = Stage<T, PACKED, G, BM>;
+  using ST = Stage<T, PACKED, G, BM, S>;
   constexpr int THREADS = SH::THREADS, MT = SH::MT, GS = ST::GS;
+  constexpr int SROW = ST::SROW;
   constexpr int WROW = SH::WROW;
   constexpr int XS = ST::XSTRIDE;
   constexpr int PARTS = (!SCALED && sizeof(T) == 4) ? 3 : 1;
@@ -264,9 +324,9 @@ qdot_tile_kernel(const T* __restrict__ x, const uint8_t* __restrict__ v,
   };
   auto w_tile = [&](int slot) { return smem + slot * ST::BYTES + ST::X_BYTES; };
   auto s_tile = [&](int slot) {
-    return reinterpret_cast<float*>(smem + slot * ST::BYTES + ST::X_BYTES + ST::W_BYTES);
+    return reinterpret_cast<S*>(smem + slot * ST::BYTES + ST::X_BYTES + ST::W_BYTES);
   };
-  auto m_tile = [&](int slot) { return s_tile(slot) + GS * BN; };
+  auto m_tile = [&](int slot) { return s_tile(slot) + GS * SROW; };
 
   // one stage's copies: x [BM][BK], the weight rows' chunks, s and mins
   auto load = [&](int step, int slot) {
@@ -293,16 +353,30 @@ qdot_tile_kernel(const T* __restrict__ x, const uint8_t* __restrict__ v,
       cp_async16(wt + r * WROW + 16 * c,
                  bytes ? reinterpret_cast<const void*>(src) : v, bytes);
     }
-    float* st = s_tile(slot);
-    float* mt = m_tile(slot);
+    S* st = s_tile(slot);
+    S* mt = m_tile(slot);
     const int b0 = k0 / G;
+    if constexpr (sizeof(S) == 4) {
 #pragma unroll
-    for (int i = tid; i < GS * BN; i += THREADS) {
-      const int gi = i / BN, c = i % BN, b = b0 + gi, n = n0 + c;
-      const bool ok = b < n_groups && n < N;
-      const size_t off = ok ? (size_t)b * N + n : 0;
-      cp_async4(st + i, s + off, ok ? 4 : 0);
-      if (has_mins) cp_async4(mt + i, mins + off, ok ? 4 : 0);
+      for (int i = tid; i < GS * BN; i += THREADS) {
+        const int gi = i / BN, c = i % BN, b = b0 + gi, n = n0 + c;
+        const bool ok = b < n_groups && n < N;
+        const size_t off = ok ? (size_t)b * N + n : 0;
+        cp_async4(st + i, s + off, ok ? 4 : 0);
+        if (has_mins) cp_async4(mt + i, mins + off, ok ? 4 : 0);
+      }
+    } else {
+      // a group's row: its BN columns as the 16-byte pieces that cover them
+      constexpr int PIECES = SROW / 8;
+      const int cols = min(BN, N - n0);
+#pragma unroll
+      for (int i = tid; i < GS * PIECES; i += THREADS) {
+        const int gi = i / PIECES, p = i % PIECES, b = b0 + gi;
+        const size_t e0 = (size_t)(b < n_groups ? b : 0) * N + n0;
+        const int live = b < n_groups ? cols : 0;
+        cp_async_piece(st + gi * SROW + 8 * p, s, e0, live, p);
+        if (has_mins) cp_async_piece(mt + gi * SROW + 8 * p, mins, e0, live, p);
+      }
     }
   };
 
@@ -328,8 +402,8 @@ qdot_tile_kernel(const T* __restrict__ x, const uint8_t* __restrict__ v,
     const int slot = step % STAGES;
     const T* xt = x_tile(slot);
     const unsigned char* wt = w_tile(slot);
-    const float* st = s_tile(slot);
-    const float* mt = m_tile(slot);
+    const S* st = s_tile(slot);
+    const S* mt = m_tile(slot);
     if (has_mins) {
       // X[m, b]: f32 sums of the unrounded x over the stage's groups
       for (int i = tid; i < BM * GS; i += THREADS) {
@@ -345,6 +419,12 @@ qdot_tile_kernel(const T* __restrict__ x, const uint8_t* __restrict__ v,
 
 #pragma unroll
     for (int gi = 0; gi < GS; ++gi) {
+      // the staged rows of group gi, and (bf16) the offset of their first
+      // column in its first piece
+      const S* srow = st + gi * SROW;
+      const S* mrow = mt + gi * SROW;
+      const int so = (int)(((unsigned)((kb + step * BK) / G + gi) * (unsigned)N
+                            + (unsigned)n0) & 7u);
       float part[MT][4][4];
 #pragma unroll
       for (int i = 0; i < MT; ++i)
@@ -354,8 +434,8 @@ qdot_tile_kernel(const T* __restrict__ x, const uint8_t* __restrict__ v,
           for (int e = 0; e < 4; ++e) part[i][j][e] = 0.f;
       float sp[4];
       if (SCALED) {
-        const float4 s4 = *reinterpret_cast<const float4*>(st + gi * BN + col);
-        const float sv[4] = {s4.x, s4.y, s4.z, s4.w};
+        float sv[4];
+        staged<4>(srow, so, col, sv);
 #pragma unroll
         for (int j = 0; j < 4; ++j) sp[j] = after ? sv[j] : bf16_round(sv[j]);
       }
@@ -426,18 +506,8 @@ qdot_tile_kernel(const T* __restrict__ x, const uint8_t* __restrict__ v,
       // 0..7 (c0 / c2 of tile j at + j, c1 / c3 at + 4 + j)
       const int oc = 32 * wn + 8 * tig;
       float sv[8], mv[8];
-      if (!SCALED) {
-        const float4 a = *reinterpret_cast<const float4*>(st + gi * BN + oc);
-        const float4 b = *reinterpret_cast<const float4*>(st + gi * BN + oc + 4);
-        sv[0] = a.x; sv[1] = a.y; sv[2] = a.z; sv[3] = a.w;
-        sv[4] = b.x; sv[5] = b.y; sv[6] = b.z; sv[7] = b.w;
-      }
-      if (has_mins) {
-        const float4 a = *reinterpret_cast<const float4*>(mt + gi * BN + oc);
-        const float4 b = *reinterpret_cast<const float4*>(mt + gi * BN + oc + 4);
-        mv[0] = a.x; mv[1] = a.y; mv[2] = a.z; mv[3] = a.w;
-        mv[4] = b.x; mv[5] = b.y; mv[6] = b.z; mv[7] = b.w;
-      }
+      if (!SCALED) staged<8>(srow, so, oc, sv);
+      if (has_mins) staged<8>(mrow, so, oc, mv);
 #pragma unroll
       for (int i = 0; i < MT; ++i) {
         const int r = (wm * MT + i) * 16 + gid;
@@ -540,13 +610,13 @@ qdot_tile_kernel(const T* __restrict__ x, const uint8_t* __restrict__ v,
 // that includes this header configures its own kernels (the local static of
 // a function template with external linkage is one object in the whole
 // process, STB_GNU_UNIQUE, so a second library would skip the attribute).
-template <typename T, bool PACKED, int G, int BM, bool SCALED>
-static cudaError_t launch_tile(const T* x, const uint8_t* v, const float* s,
-                        const float* mins, T* y, float* ws, int* tickets, int M,
+template <typename T, bool PACKED, int G, int BM, bool SCALED, typename S>
+static cudaError_t launch_tile(const T* x, const uint8_t* v, const S* s,
+                        const S* mins, T* y, float* ws, int* tickets, int M,
                         int K, int N, int splits, int k_split, bool after,
                         cudaStream_t stream) {
-  auto kern = qdot_tile_kernel<T, PACKED, G, BM, SCALED>;
-  constexpr int smem = Stage<T, PACKED, G, BM>::SMEM;
+  auto kern = qdot_tile_kernel<T, PACKED, G, BM, SCALED, S>;
+  constexpr int smem = Stage<T, PACKED, G, BM, S>::SMEM;
   static bool configured = false;
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -572,20 +642,29 @@ inline bool plan_ok(int M, int K, int N, int bm, int splits, int k_split,
   return splits == 1 || (ws != nullptr && tickets != nullptr);
 }
 
-template <typename T, bool PACKED, int G, bool SCALED>
-cudaError_t tile_by_bm(const void* x, const void* v, const float* s,
-                       const float* mins, void* y, float* ws, int* tickets, int M,
+// The tile of x (T) against scales and mins of type S (float, 4-byte
+// aligned, or bf16, 16-byte aligned: a staged bf16 row starts at the piece
+// that holds its first column, never before the tensor)
+template <typename T, typename S, bool PACKED, int G, bool SCALED>
+cudaError_t tile_by_bm(const void* x, const void* v, const void* s,
+                       const void* mins, void* y, float* ws, int* tickets, int M,
                        int K, int N, int bm, int splits, int k_split, bool after,
                        cudaStream_t stream) {
+  if ((reinterpret_cast<uintptr_t>(s) | reinterpret_cast<uintptr_t>(mins))
+      % (sizeof(S) == 2 ? 16 : 4)) {
+    return cudaErrorInvalidValue;
+  }
   const T* xt = static_cast<const T*>(x);
   const uint8_t* vt = static_cast<const uint8_t*>(v);
+  const S* st = static_cast<const S*>(s);
+  const S* mt = static_cast<const S*>(mins);
   T* yt = static_cast<T*>(y);
   if (bm == 16) {
-    return launch_tile<T, PACKED, G, 16, SCALED>(xt, vt, s, mins, yt, ws, tickets, M,
-                                                 K, N, splits, k_split, after, stream);
+    return launch_tile<T, PACKED, G, 16, SCALED, S>(xt, vt, st, mt, yt, ws, tickets, M,
+                                                    K, N, splits, k_split, after, stream);
   }
-  return launch_tile<T, PACKED, G, 64, SCALED>(xt, vt, s, mins, yt, ws, tickets, M, K,
-                                               N, splits, k_split, after, stream);
+  return launch_tile<T, PACKED, G, 64, SCALED, S>(xt, vt, st, mt, yt, ws, tickets, M, K,
+                                                  N, splits, k_split, after, stream);
 }
 
 }  // namespace qtile

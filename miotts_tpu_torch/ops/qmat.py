@@ -8,9 +8,9 @@ once at load into the same planar, transposed layout the JAX package uses:
                                   byte row r of group b holds w[b*g + r] in
                                   its low nibble and w[b*g + g/2 + r] in its
                                   high nibble)
-  scales  f32 [K/g, N]
-  mins    f32 [K/g, N] or None   (affine formats; Q4_0's centring folds in
-                                  here when packed)
+  scales  f32 [K/g, N], or bf16 under MIOTTS_SCALE_BF16
+  mins    [K/g, N] in the scales' dtype, or None   (affine formats; Q4_0's
+                                  centring folds in here when packed)
 
   dequant: w[k, n] = values[k, n] * scales[k // g, n] - mins[k // g, n]
   y = x[M, K] @ w[K, N]
@@ -40,9 +40,12 @@ M = 1 K1, K1v, K2, K3 and K4 share the split-K GEMV of
 if it cannot build or launch; a CPU tensor goes through the kernel's plain
 torch version (`*_plain`).  4-bit formats load nibble-packed unless
 MIOTTS_NO_PACK4 is set (`qtensor_from_raw`); every kernel takes both
-storages.  `qdot_dma_floor` (K8, `ops/csrc/dma_floor.cu`) is a probe
-that streams K1's value and scale rows in the GEMV's split (`_gemv_plan`),
-staged by `cp.async`; no linear calls it.
+storages, and f32 or bf16 scales and mins (`scale_dtype`; the loader's
+MIOTTS_SCALE_BF16): a bf16-scale tensor reaches the kernels' bf16-scale
+instantiations, which upcast each scale exactly in registers.
+`qdot_dma_floor` (K8, `ops/csrc/dma_floor.cu`) is a probe that streams K1's
+value and scale rows in the GEMV's split (`_gemv_plan`), staged by
+`cp.async`; no linear calls it.
 """
 
 from __future__ import annotations
@@ -59,6 +62,7 @@ from ..gguf.reader import GGML_Q4_0, GGML_Q4_K
 
 GEMV_MODES = ("plain", "w8a8", "groupdot")
 BF16_MODES = ("", "1", "after")
+SCALE_DTYPES = (torch.float32, torch.bfloat16)
 
 
 @dataclass(frozen=True)
@@ -114,8 +118,8 @@ class QTensor:
     """Group-affine quantized matrix, logical shape [out=N, in=K], stored
     transposed ([K, N], contraction dim first)."""
     values: torch.Tensor          # int8 [K, N] or uint8 [K/2, N] (packed)
-    scales: torch.Tensor          # f32 [K/g, N]
-    mins: torch.Tensor | None     # f32 [K/g, N] or None
+    scales: torch.Tensor          # f32 or bf16 [K/g, N]
+    mins: torch.Tensor | None     # [K/g, N] in the scales' dtype, or None
     group: int
     n_out: int = -1               # logical output dim (un-padded N)
     packed: bool = False
@@ -136,16 +140,28 @@ class QTensor:
             self, values=self.values.to(device), scales=self.scales.to(device),
             mins=None if self.mins is None else self.mins.to(device))
 
+    def with_scale_dtype(self, dtype) -> "QTensor":
+        """The same tensor with scales and mins in `dtype` (f32 -> bf16
+        rounds to nearest even, as numpy's ml_dtypes and JAX do; bf16 ->
+        f32 is exact).  Values are shared, not copied."""
+        if dtype not in SCALE_DTYPES:
+            raise ValueError(f"scales are f32 or bf16, got {dtype}")
+        return replace(self, scales=self.scales.to(dtype),
+                       mins=None if self.mins is None
+                       else self.mins.to(dtype))
+
     @classmethod
-    def from_group_quant(cls, gq) -> "QTensor":
-        """Host GroupQuant ([rows=N, cols=K]) -> transposed CPU tensors."""
+    def from_group_quant(cls, gq, scale_dtype=torch.float32) -> "QTensor":
+        """Host GroupQuant ([rows=N, cols=K]) -> transposed CPU tensors,
+        scales and mins in `scale_dtype` (f32 or bf16)."""
         def t(a):
             return torch.from_numpy(np.ascontiguousarray(a.T))
         return cls(values=t(gq.values),
                    scales=t(gq.scales.astype(np.float32)),
                    mins=None if gq.mins is None
                    else t(gq.mins.astype(np.float32)),
-                   group=gq.group, n_out=gq.values.shape[0])
+                   group=gq.group,
+                   n_out=gq.values.shape[0]).with_scale_dtype(scale_dtype)
 
     def unpacked_values(self) -> torch.Tensor:
         """Integer values [K, N] (unpacks the per-group nibble split)."""
@@ -200,19 +216,23 @@ class QTensor:
 
 
 def qtensor_from_raw(raw: np.ndarray, ggml_type: int, rows: int, cols: int,
-                     device="cpu", pack4: bool | None = None) -> QTensor:
+                     device="cpu", pack4: bool | None = None,
+                     scale_dtype=torch.float32) -> QTensor:
     """Raw GGUF blocks -> QTensor through the numpy repack.  4-bit formats
     (Q4_K / Q4_0) default to packed-nibble storage, as in the JAX package,
     unless MIOTTS_NO_PACK4 is set (or pack4=False): then their values stay
     int8 [K, N] (Q4_K's 0..15 with its mins, Q4_0's centred -8..7).  The
-    repack is lossless, so the dequantized weight is the same either way."""
+    repack is lossless, so the dequantized weight is the same either way.
+    Scales and mins are stored in `scale_dtype` (f32 or bf16), rounded once
+    after the pack and Q4_0's x8 min fold, as the JAX package's native
+    repack does (the fold is exact in either order)."""
     if pack4 is None:
         pack4 = (ggml_type in (GGML_Q4_K, GGML_Q4_0) and cols % 2 == 0
                  and not os.environ.get("MIOTTS_NO_PACK4"))
     qt = QTensor.from_group_quant(to_group_quant(raw, ggml_type, rows, cols))
     if pack4:
         qt = qt.pack4()
-    return qt.to(device)
+    return qt.with_scale_dtype(scale_dtype).to(device)
 
 
 def concat_qtensors(tensors: list):
@@ -314,7 +334,8 @@ def qdot_bf16_plain(x: torch.Tensor, qt: QTensor, mode: str) -> torch.Tensor:
     _bf16_mode_checked(mode)
     M, K = x.shape
     g = qt.group
-    s = qt.scales if mode == "after" else qt.scales.to(torch.bfloat16).float()
+    s = (qt.scales.float() if mode == "after"
+         else qt.scales.to(torch.bfloat16).float())
     v = qt.unpacked_values().float().reshape(K // g, g, -1)
     w = (v * s[:, None, :]).reshape(K, -1).to(torch.bfloat16).float()
     out = x.to(torch.bfloat16).float() @ w
@@ -335,15 +356,15 @@ def _k8_tile_k(K: int, N: int) -> int:
 
 
 def _k8_checked(qt: QTensor) -> int:
-    """Raise on what K8 does not take (int8 values, f32 scales, group 32,
-    at least one 256-row K tile); returns its K tile."""
+    """Raise on what K8 does not take (int8 values, f32 or bf16 scales,
+    group 32, at least one 256-row K tile); returns its K tile."""
     K, N = qt.values.shape
     if qt.packed or qt.values.dtype != torch.int8 or qt.group != 32:
         raise ValueError("qdot_dma_floor streams int8 values with group 32 "
                          "(Q8_0's layout)")
-    if qt.scales.dtype != torch.float32 or tuple(qt.scales.shape) != (
+    if qt.scales.dtype not in SCALE_DTYPES or tuple(qt.scales.shape) != (
             K // 32, N):
-        raise ValueError(f"scales must be f32 [{K // 32}, {N}]")
+        raise ValueError(f"scales must be f32 or bf16 [{K // 32}, {N}]")
     tile_k = _k8_tile_k(K, N)
     if K % 32 or tile_k < 256:
         raise ValueError(f"qdot_dma_floor needs K tiles of >= 256 rows, "
@@ -368,8 +389,9 @@ def _gemv_only(x: torch.Tensor, name: str) -> None:
 
 
 def _mins_term(xg: torch.Tensor, qt: QTensor) -> torch.Tensor:
-    """xg [M, K/g] (group sums of x) @ mins, or 0 without mins."""
-    return 0.0 if qt.mins is None else xg @ qt.mins
+    """xg [M, K/g] (f32 group sums of x) @ mins upcast to f32, or 0
+    without mins."""
+    return 0.0 if qt.mins is None else xg @ qt.mins.float()
 
 
 def qdot_split_plain(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
@@ -385,7 +407,7 @@ def qdot_split_plain(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     x_lo = x3[:, :, : g // 2].reshape(M, K // 2)
     x_hi = x3[:, :, g // 2:].reshape(M, K // 2)
     v3 = qt.values.to(torch.int32).reshape(K // g, g // 2, N)
-    s = qt.scales[:, None, :]
+    s = qt.scales.float()[:, None, :]
     w_lo = ((v3 & 0xF).float() * s).reshape(K // 2, N)
     w_hi = ((v3 >> 4).float() * s).reshape(K // 2, N)
     out = x_lo @ w_lo + x_hi @ w_hi
@@ -402,7 +424,7 @@ def qdot_group_plain(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     xb = x.to(torch.bfloat16).float().reshape(K // g, 1, g)
     v = qt.unpacked_values().float().reshape(K // g, g, -1)
     d = torch.bmm(xb, v)[:, 0]                       # [K/g, N]
-    out = (d * qt.scales).sum(dim=0, keepdim=True)
+    out = (d * qt.scales.float()).sum(dim=0, keepdim=True)
     xg = x.float().reshape(1, K // g, g).sum(dim=2)
     return (out - _mins_term(xg, qt)).to(x.dtype)
 
@@ -430,7 +452,7 @@ def qdot_w8a8_plain(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     xq, sx = quantize_groups(x, g)
     v = qt.unpacked_values().float().reshape(xq.shape[0], g, -1)
     d = torch.bmm(xq[:, None, :], v)[:, 0]          # [K/g, N] integers
-    out = (d * (qt.scales * sx[:, None])).sum(dim=0, keepdim=True)
+    out = (d * (qt.scales.float() * sx[:, None])).sum(dim=0, keepdim=True)
     xg = (sx * xq.sum(dim=1))[None]
     return (out - _mins_term(xg, qt)).to(x.dtype)
 
@@ -442,7 +464,10 @@ def qdot_w8a8_plain(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
 def _checked(name: str, x: torch.Tensor, qt: QTensor,
              xtypes=(torch.bfloat16, torch.float32),
              packed: bool | None = None, gemv: bool = False) -> int:
-    """Raise on what kernel `name` does not take; returns N."""
+    """Raise on what kernel `name` does not take; returns N.  Scales are
+    f32 or bf16 and mins, where present, of the scales' dtype: each dtype
+    has its own instantiation of the kernel, and nothing is converted
+    here."""
     M, K = x.shape
     vals = qt.values
     N = vals.shape[1]
@@ -462,16 +487,25 @@ def _checked(name: str, x: torch.Tensor, qt: QTensor,
         raise ValueError(f"K mismatch: x has {K}, weight {qt.k}, "
                          f"group {qt.group}")
     tensors = [x, vals, qt.scales] + ([] if qt.mins is None else [qt.mins])
+    if qt.scales.dtype not in SCALE_DTYPES:
+        raise TypeError(f"{name} kernel takes f32 or bf16 scales, got "
+                        f"{qt.scales.dtype}")
+    for t in tensors[2:]:
+        if t.dtype != qt.scales.dtype or tuple(t.shape) != (K // qt.group, N):
+            raise ValueError(f"scales/mins must be {qt.scales.dtype} "
+                             f"[{K // qt.group}, {N}], got {t.dtype} "
+                             f"{tuple(t.shape)}")
     for t in tensors:
         if not t.is_cuda or t.device != x.device:
             raise ValueError(f"{name} kernel: every tensor must be on x's GPU")
         if not t.is_contiguous():
             raise ValueError(f"{name} kernel: tensors must be contiguous")
-    for t in tensors[2:]:
-        if t.dtype != torch.float32 or tuple(t.shape) != (K // qt.group, N):
-            raise ValueError(f"scales/mins must be f32 [{K // qt.group}, "
-                             f"{N}], got {t.dtype} {tuple(t.shape)}")
     return N
+
+
+def _s_bf16(qt: QTensor) -> int:
+    """The launchers' scale-type argument: 1 for bf16 scales and mins."""
+    return int(qt.scales.dtype == torch.bfloat16)
 
 
 def _raise_on(err: int, fn: str) -> None:
@@ -480,11 +514,12 @@ def _raise_on(err: int, fn: str) -> None:
 
 
 def _launch(fn: str, x, qt: QTensor, y, *args) -> None:
-    """fn(x, v, s, mins, y, *args, stream) of ops/csrc/qdot_gemv.cu."""
+    """fn(x, v, s, mins, s_bf16, y, *args, stream) of
+    ops/csrc/qdot_gemv.cu."""
     from ._build import load_kernels
     _raise_on(getattr(load_kernels()["qdot_gemv"], fn)(
         x.data_ptr(), qt.values.data_ptr(), qt.scales.data_ptr(),
-        None if qt.mins is None else qt.mins.data_ptr(), y.data_ptr(), *args,
+        _ptr(qt.mins), _s_bf16(qt), y.data_ptr(), *args,
         torch.cuda.current_stream(x.device).cuda_stream), fn)
 
 
@@ -575,6 +610,10 @@ def _tile_args(name: str, x: torch.Tensor, qt: QTensor, N: int,
     if x.data_ptr() % 16 or qt.values.data_ptr() % 16:
         raise ValueError(f"{name} kernel: x and values must be 16-byte "
                          f"aligned at M > 1")
+    if _s_bf16(qt) and (qt.scales.data_ptr() % 16
+                        or (qt.mins is not None and qt.mins.data_ptr() % 16)):
+        raise ValueError(f"{name} kernel: bf16 scales and mins must be "
+                         f"16-byte aligned at M > 1")
     if plan is None:
         plan = _tile_plan(M, K, N, qt.group, _sm_count(x.device))
     if plan.splits == 1:
@@ -653,7 +692,8 @@ def _qdot_cuda(x: torch.Tensor, qt: QTensor,
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     _raise_on(load_kernels()["qdot"].qdot_launch(
         x.data_ptr(), int(x.dtype == torch.bfloat16), qt.values.data_ptr(),
-        int(qt.packed), qt.scales.data_ptr(), _ptr(qt.mins), y.data_ptr(),
+        int(qt.packed), qt.scales.data_ptr(), _ptr(qt.mins), _s_bf16(qt),
+        y.data_ptr(),
         _ptr(ws), _ptr(tickets), M, K, N, qt.group, bm, splits, k_split,
         torch.cuda.current_stream(x.device).cuda_stream), "qdot_launch")
     qdot.kernel_launches += 1
@@ -674,7 +714,8 @@ def _qdot_bf16_cuda(x: torch.Tensor, qt: QTensor, mode: str,
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     _raise_on(load_kernels()["qdot_bf16"].qdot_bf16_launch(
         x.data_ptr(), int(x.dtype == torch.bfloat16), qt.values.data_ptr(),
-        int(qt.packed), qt.scales.data_ptr(), _ptr(qt.mins), y.data_ptr(),
+        int(qt.packed), qt.scales.data_ptr(), _ptr(qt.mins), _s_bf16(qt),
+        y.data_ptr(),
         _ptr(ws), _ptr(tickets), M, K, N, qt.group, bm, splits, k_split,
         int(mode == "after"), torch.cuda.current_stream(x.device).cuda_stream),
         "qdot_bf16_launch")
@@ -704,7 +745,8 @@ def _qdot_dma_floor_cuda(qt: QTensor,
         plan = _gemv_plan(K, N, qt.group, _sm_count(dev))
     out = torch.empty((1, N), dtype=torch.float32, device=dev)
     _raise_on(load_kernels()["dma_floor"].qdot_dma_floor_launch(
-        qt.values.data_ptr(), qt.scales.data_ptr(), out.data_ptr(), K, N,
+        qt.values.data_ptr(), qt.scales.data_ptr(), _s_bf16(qt),
+        out.data_ptr(), K, N,
         tile_k, plan.splits, plan.k_split,
         torch.cuda.current_stream(dev).cuda_stream), "qdot_dma_floor_launch")
     qdot_dma_floor.kernel_launches += 1

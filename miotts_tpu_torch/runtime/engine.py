@@ -465,11 +465,15 @@ class TTSEngine:
         route (`xla=True` under MIOTTS_FORCE_XLA_QDOT), how many quantized
         linears hold packed 4-bit values (none under MIOTTS_NO_PACK4), the
         attention merge (MIOTTS_ATTN_NOCAT, read now as `_attend` reads it
-        at every call), the LLM's dtype, the KV cache and the codec mode."""
+        at every call), the LLM's dtype, the KV cache and the codec mode.
+        The group scales' dtypes follow the linears' count (bf16 under
+        MIOTTS_SCALE_BF16)."""
         qts = [t for t in _leaves(self.llm_params) if isinstance(t, QTensor)]
         kv = "int8" if self.config.quantized_kv else str(self.dtype)[6:]
+        scales = "/".join(sorted({str(t.scales.dtype)[6:] for t in qts}))
         return (f"engine: route {self.config.qdot_route}; packed 4-bit "
-                f"linears {sum(t.packed for t in qts)} of {len(qts)}; "
+                f"linears {sum(t.packed for t in qts)} of {len(qts)}"
+                f"{f' (scales {scales})' if qts else ''}; "
                 f"attention "
                 f"{'nocat' if os.environ.get('MIOTTS_ATTN_NOCAT') else 'cat'}"
                 f"; llm {str(self.dtype)[6:]}; kv cache {kv}; codec "

@@ -55,7 +55,7 @@ _RING_LOOP = """  for (int j = 0; j < n_chunks; ++j) {
   cp_wait<0>();
 
   // the cluster's partial sums"""
-_KERNEL = "template <bool ALIGNED>\n__global__"
+_KERNEL = "template <bool ALIGNED, typename S>\n__global__"
 
 # K1's loads on aligned rows (qdot_gemv.cuh: a team of two lanes, 16
 # columns a lane, a chunk of 8 rows of one quant group, chunk ci to team
@@ -80,16 +80,15 @@ _REGLOAD = [
 #pragma unroll
         for (int r = 0; r < 8; ++r)
           w[r] = __ldg(reinterpret_cast<const uint4*>(v + (size_t)(row0 + r) * N + c0));
-        const float4* sp = reinterpret_cast<const float4*>(s + (size_t)(row0 / G) * N + c0);
-        float4 sv[4];
+        // 16 columns of scales: four 16-byte loads of f32, two of bf16
+        const uint4* sp = reinterpret_cast<const uint4*>(s + (size_t)(row0 / G) * N + c0);
+        uint4 sv[sizeof(S)];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) sv[i] = __ldg(sp + i);
+        for (int i = 0; i < (int)sizeof(S); ++i) sv[i] = __ldg(sp + i);
 #pragma unroll
         for (int r = 0; r < 8; ++r) chk ^= w[r].x ^ w[r].y ^ w[r].z ^ w[r].w;
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-          chk ^= __float_as_uint(sv[i].x) ^ __float_as_uint(sv[i].y)
-                 ^ __float_as_uint(sv[i].z) ^ __float_as_uint(sv[i].w);
+        for (int i = 0; i < (int)sizeof(S); ++i) chk ^= sv[i].x ^ sv[i].y ^ sv[i].z ^ sv[i].w;
       }
     }
     if (chk == 0x7FBADCAFu) k8_sink = chk;
@@ -111,7 +110,7 @@ _REGLOAD = [
 _FLAT_START = "  const int n_chunks = (k1 - k0 + L::ROWS - 1) / L::ROWS;\n"
 _FLAT = """  const unsigned char* vb = reinterpret_cast<const unsigned char*>(v);
   const unsigned char* sb = reinterpret_cast<const unsigned char*>(s);
-  const size_t v_end = (size_t)K * N, s_end = (size_t)(K / G) * N * 4;
+  const size_t v_end = (size_t)K * N, s_end = (size_t)(K / G) * N * SB;
   const long long nb = (long long)gridDim.x * gridDim.y;
   const long long bid = (long long)blockIdx.y * gridDim.x + blockIdx.x;
   const long long pv = (long long)((v_end + 15) / 16), ps = (long long)((s_end + 15) / 16);
