@@ -246,6 +246,7 @@ import sys
 import tempfile
 import threading
 import time
+from functools import partial
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (data sheet)
 PEAK_FLOPS = 989e12            # H100 SXM dense bf16 tensor core (data sheet)
@@ -414,6 +415,30 @@ SCALE_BF16_ROUTE_TOKENS = 8   # each other route: its kernels' launches
 SCALE_BF16_STEPS = 8          # f32 card vs CPU: prefill + 8 greedy steps
 SCALE_BF16_REQ = 4            # the 0.1B's greedy serving batch (64 slots)
 SCALE_BF16_REQ_TOKENS = 20
+# phase 26: multi-GPU.  Two ranks, mesh (data 1, model 2), each in a spawned
+# process: NCCL when the host has a card for each, else gloo with both on
+# cuda:0 (parallel/mesh.py's rule; NCCL refuses two ranks on one GPU)
+TP_RANKS = 2
+TP_TOKENS = 32                 # the f32 0.1B's greedy tokens on each rank
+TP_REQ, TP_REQ_TOKENS, TP_SLOTS = 4, 20, 4   # ContinuousBatcher(mesh=)
+TP_SP_CODES, TP_SP_REAL = 128, 100           # the SP codec: 64 codes a rank
+TP_LFM2_STEPS = 8              # K5 on the local heads (LFM2, depth cut)
+TP_NCCL_STEPS = 8              # NCCL at world size 1 in the parent
+# the bf16 0.1B on each route of a bf16 engine's row-parallel linears:
+# kernel -> QdotRoute fields (K1v at every M; K3 at M = 1, K1's tile in the
+# prefill)
+TP_BF16_ROUTES = {"K1v": dict(bf16="1"), "K3": dict(gemv="groupdot")}
+TP_BF16_TOKENS = 8
+TP_TIMEOUT = 300               # s: the two ranks' launch, end to end
+TP_TEXT = "The quick brown fox jumps over the lazy dog."
+# the shard shapes of (a): K6 at the 0.1B's and the 2.6B's local heads (bf16
+# cache; f32, the f32 engine's serving run), K5 at the LFM2-1.2B's (B, H,
+# H_kv, D, S)
+TP_ATTN_SHAPES = [("0.1b/2", 64, 6, 2, 64, 256), ("2.6b/2", 64, 16, 4, 80, 256)]
+TP_K5_SHAPES = [("lfm2-1.2b/2", 1, 16, 4, 64, 256)]
+# LFM2-1.2B at full width, depth cut to one conv and one attention layer:
+# K5's tensor-parallel decode on the local heads
+TP_LFM2_TYPES = ("conv", "attn")
 
 
 def lfm2_config():
@@ -1084,7 +1109,9 @@ def phase_probes(torch, qmat, card: str, k5_rows: list[dict],
 
 def attn_inputs(torch, B, H, H_kv, D, S, mode, gen):
     """q, k, v, fill, q_pos, k_scale, v_scale on the card: staggered fills
-    in [1, S], every 7th row idle (fill 0), some q_pos below fill."""
+    in [1, S], every 7th row idle (fill 0), some q_pos below fill.  q is
+    bf16 (the bf16 model's) except in f32 mode (the f32 engine's q and
+    cache)."""
     from miotts_tpu_torch.models.llm import _kv_quantize
     dev = "cuda"
     q = torch.randn((B, H, D), generator=gen, device=dev)
@@ -1095,6 +1122,8 @@ def attn_inputs(torch, B, H, H_kv, D, S, mode, gen):
     fill[::7] = 0
     q_pos = fill.clone()
     q_pos[3::5] = fill[3::5] // 2
+    if mode == "f32":
+        return q, k, v, fill, q_pos, None, None
     if mode == "int8":
         (k, ks), (v, vs) = _kv_quantize(k), _kv_quantize(v)
         return q.bfloat16(), k, v, fill, q_pos, ks, vs
@@ -1107,8 +1136,9 @@ def attn_work(torch, B, H, H_kv, D, mode, fill, q_pos, S):
     limit = torch.minimum(torch.minimum(fill, q_pos + 1),
                           torch.full_like(fill, S)).clamp(min=0)
     keys = int(limit.sum()) * H_kv
-    el = 1 if mode == "int8" else 2
-    nbytes = 2 * keys * D * el + B * H * D * 2 + B * H * D * 4
+    el = {"int8": 1, "bf16": 2, "f32": 4}[mode]
+    q_el = 4 if mode == "f32" else 2
+    nbytes = 2 * keys * D * el + B * H * D * q_el + B * H * D * 4
     if mode == "int8":
         nbytes += 2 * keys * 4
     ops = 4 * keys * (H // H_kv) * D
@@ -1144,7 +1174,8 @@ def check_one_rank(torch, da, inp, plan, label: str) -> float:
     return e
 
 
-def phase_attn_kernels(torch, card: str) -> list[dict]:
+def phase_attn_kernels(torch, card: str, shapes=ATTN_SHAPES,
+                       modes=("bf16", "int8")) -> list[dict]:
     from miotts_tpu_torch.ops import decode_attn, qmat
     da = decode_attn
     F = torch.nn.functional
@@ -1152,8 +1183,8 @@ def phase_attn_kernels(torch, card: str) -> list[dict]:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
     rows = []
-    for label, B, H, H_kv, D, S in ATTN_SHAPES:
-        for mode in ("bf16", "int8"):
+    for label, B, H, H_kv, D, S in shapes:
+        for mode in modes:
             plan = da._attn_plan(B, H_kv, S, sms, mode == "int8")
             inp = attn_inputs(torch, B, H, H_kv, D, S, mode, gen)
             q, k, v, fill, q_pos, ks, vs = inp
@@ -1178,7 +1209,7 @@ def phase_attn_kernels(torch, card: str) -> list[dict]:
                     e = float(((g0 - w0).abs() / scale).max())
                 else:
                     e = rel_err(g0, w0)
-                if not e < ATTN_TOL:
+                if not e < (KERNEL_TOL_F32 if mode == "f32" else ATTN_TOL):
                     raise AssertionError(f"attn {label} S={S} {mode} stats="
                                          f"{stats}: kernel vs plain err {e}")
                 errs[stats] = e
@@ -1213,7 +1244,7 @@ def phase_attn_kernels(torch, card: str) -> list[dict]:
             p_ms = graph_ms(torch, plain, 4)
             e_ms = time_ms(torch, kern, 50)
             l_ms = None
-            if mode == "bf16":
+            if mode != "int8":
                 # scaled_dot_product_attention over each row's valid keys,
                 # heads expanded beforehand (a yardstick, never the port's)
                 rep_ = H // H_kv
@@ -1229,7 +1260,8 @@ def phase_attn_kernels(torch, card: str) -> list[dict]:
                 del kx, vx
             nbytes, ops = attn_work(torch, B, H, H_kv, D, mode, fill, q_pos, S)
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = ops / (PEAK_INT8_OPS if mode == "int8" else PEAK_FLOPS) * 1e3
+            t_ops = ops / {"int8": PEAK_INT8_OPS, "bf16": PEAK_FLOPS,
+                           "f32": PEAK_F32_FLOPS}[mode] * 1e3
             row = dict(shape=label, B=B, H=H, H_kv=H_kv, D=D, S=S, mode=mode,
                        bytes=nbytes, ops=ops, ms=k_ms, eager_ms=e_ms,
                        plain_ms=p_ms, library_ms=l_ms,
@@ -1283,7 +1315,8 @@ def k5_inputs(torch, B, H, H_kv, D, S, mode, gen):
     return q.bfloat16(), k.bfloat16(), v.bfloat16(), fill, q_pos, None, None
 
 
-def phase_k5(torch, card: str) -> list[dict]:
+def phase_k5(torch, card: str, shapes=K5_SHAPES,
+             modes=("bf16", "f32", "int8")) -> list[dict]:
     from miotts_tpu_torch.ops import decode_attn as da, qmat
     F = torch.nn.functional
     sms = qmat._sm_count(torch.device("cuda"))
@@ -1291,9 +1324,9 @@ def phase_k5(torch, card: str) -> list[dict]:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2)
     rows = []
-    for label, B, H, H_kv, D, S in K5_SHAPES:
+    for label, B, H, H_kv, D, S in shapes:
         plan = da._single_plan(B, H_kv, S, sms)
-        for mode in ("bf16", "f32", "int8"):
+        for mode in modes:
             inp = k5_inputs(torch, B, H, H_kv, D, S, mode, gen)
             q, k, v, fill, q_pos, ks, vs = inp
             got = da.decode_attention(*inp)
@@ -1573,7 +1606,8 @@ def profile_decode(torch, eng, text, Options, card: str,
 # ---------------------------------------------------------------------------
 
 def serve_requests(torch, batcher, voice, n_req: int, Options,
-                   keep: bool = False) -> dict:
+                   keep: bool = False, max_tokens: int = SERVE_TOKENS,
+                   temperature: float = 0.8) -> dict:
     """Submit n_req requests (bench_batch.py's mix) and run to completion;
     checks every request's audio and the launches: K6 once per attention
     layer and the quantized linears 4 per layer plus the head per batched
@@ -1617,8 +1651,9 @@ def serve_requests(torch, batcher, voice, n_req: int, Options,
     t0 = time.perf_counter()
     for i in range(n_req):
         batcher.submit(f"concurrent utterance number {i} for serving", voice,
-                       make_cb(i), Options(max_tokens=SERVE_TOKENS,
-                                           temperature=0.8, seed=100 + i),
+                       make_cb(i), Options(max_tokens=max_tokens,
+                                           temperature=temperature,
+                                           seed=100 + i),
                        on_finish=lambda r, i=i: got[i].__setitem__("req", r))
     batcher.run_until_done(max_iters=5000)
     torch.cuda.synchronize()
@@ -2437,11 +2472,23 @@ def write_q4km(d: str) -> str:
     return path
 
 
+def write_lfm2_tp(d: str) -> str:
+    from miotts_tpu_torch.gguf import GGML_Q8_0
+    from miotts_tpu_torch.models.synthetic import write_synthetic_llm
+    path = os.path.join(d, "lfm2_tp.gguf")
+    cfg = dataclasses.replace(lfm2_config(), n_layers=len(TP_LFM2_TYPES),
+                              layer_types=TP_LFM2_TYPES)
+    write_synthetic_llm(path, cfg=cfg, quant_type=GGML_Q8_0, seed=0)
+    return path
+
+
 # the large model files: numpy on one host core each (LFM2-1.2B ~45 s,
 # 2.6B-Q4_K_M 130-160 s), so they are written by processes of their own
 # while the earlier phases run on the card
 WRITERS = {"lfm2": (write_lfm2, "lfm2: LFM2-1.2B-Q8_0"),
-           "q4km": (write_q4km, "q4km: 2.6B-Q4_K_M")}
+           "q4km": (write_q4km, "q4km: 2.6B-Q4_K_M"),
+           "lfm2_tp": (write_lfm2_tp, "lfm2_tp: LFM2-1.2B-Q8_0, one conv "
+                       "and one attention layer")}
 
 
 def timed_write(fn, d: str, label: str) -> None:
@@ -4339,13 +4386,543 @@ def single_stream_steps(res: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 26: multi-GPU (tensor parallelism over two ranks on the card)
+# ---------------------------------------------------------------------------
+
+def tp_shard_cases(torch, qmat, gen):
+    """(label, QTensor, Ms): each row-parallel linear's shard at P = 2 (its
+    K halved), 0.1B-Q8_0 and 2.6B-Q4_K_M, at M = 1 and 64."""
+    q = lambda k, n, f: rand_qtensor(torch, qmat, k, n, f, gen)
+    P, kvd, ms = TP_RANKS, KV_HEADS * HEAD_DIM, (1, 64)
+    return [
+        ("0.1b/2 wqkv q8_0", q(DIM // P, HEADS * HEAD_DIM + 2 * kvd, "q8_0"),
+         ms),
+        ("0.1b/2 wo q8_0", q(HEADS * HEAD_DIM // P, DIM, "q8_0"), ms),
+        ("0.1b/2 w_gateup q8_0", q(DIM // P, 2 * FF, "q8_0"), ms),
+        ("0.1b/2 w_down q8_0", q(FF // P, DIM, "q8_0"), ms),
+        ("2.6b/2 wqkv q4_k+q6_k", qmat.concat_qtensors([
+            q(1280, 2560, "q4_k"), q(1280, 640, "q4_k"),
+            q(1280, 640, "q6_k")]), ms),
+        ("2.6b/2 wo q4_k packed", q(1280, 2560, "q4_k"), ms),
+        ("2.6b/2 w_gateup q4_k packed", qmat.concat_qtensors([
+            q(1280, 8192, "q4_k"), q(1280, 8192, "q4_k")]), ms),
+        ("2.6b/2 w_down q6_k", q(4096, 2560, "q6_k"), ms),
+    ]
+
+
+def tp_route_rows(torch, qmat, cases, gen, card: str) -> list[dict]:
+    """K1v (mode "1", M = 1 and 64) and K3 (M = 1) at bf16 x on the 0.1B's
+    row-parallel shards, the kernels the bf16 runs' routes send them to:
+    each against its plain version within 1e-2, a second call bit for bit,
+    with kernel / plain / library times and the bound (K1v: bytes or 2MKN
+    on the bf16 tensor cores; K3: variant_work's).  Each of K1, K1v and K3
+    also writes its f32 sum there (`out_f32`, what a row-parallel partial
+    takes): within 1e-5 of the plain version's, and rounded, its bf16
+    output bit for bit (K1 checked only; phase 26's kernel_rows time it)."""
+    rows = []
+    for label, qt, ms_list in cases:
+        if not label.startswith("0.1b/2"):
+            continue
+        K, N = qt.k, qt.shape[0]
+        n_copies = max(2, min(256, -(-L2_FLUSH_BYTES // qt_bytes(qt))))
+        qts = copies_of(torch, qmat, qt, n_copies)
+        w_lib = [c.dequant_t(torch.float32).to(torch.bfloat16)
+                 for c in qts[: max(2, min(256, -(-L2_FLUSH_BYTES
+                                                 // (2 * K * N))))]]
+        runs = [("K1", qmat.qdot, qmat.qdot_plain, m) for m in ms_list]
+        runs += [("K1v", partial(qmat.qdot_bf16, mode="1"),
+                  partial(qmat.qdot_bf16_plain, mode="1"), m)
+                 for m in ms_list]
+        runs.append(("K3", qmat.qdot_group, qmat.qdot_group_plain, 1))
+        for kernel, fn, plain_fn, m in runs:
+            x = torch.randn((m, K), generator=gen, device="cuda").bfloat16()
+            got, want = fn(x, qt), plain_fn(x, qt)
+            got32 = fn(x, qt, out_f32=True)
+            want32 = plain_fn(x, qt, out_f32=True)
+            torch.cuda.synchronize()
+            e = rel_err(got.float(), want.float())
+            e32 = rel_err(got32, want32)
+            if got.shape != (m, N) or not e < KERNEL_TOL_BF16:
+                raise AssertionError(f"{kernel} {label} M={m}: shape "
+                                     f"{tuple(got.shape)}, kernel vs plain "
+                                     f"rel err {e}")
+            if (got32.dtype != torch.float32 or not e32 < KERNEL_TOL_F32
+                    or not torch.equal(got32.to(torch.bfloat16), got)):
+                raise AssertionError(f"{kernel} {label} M={m} out_f32: "
+                                     f"{got32.dtype}, vs plain {e32}, rounded "
+                                     f"= bf16 output "
+                                     f"{torch.equal(got32.to(got.dtype), got)}")
+            if not torch.equal(fn(x, qt), got):
+                raise AssertionError(f"{kernel} {label} M={m}: two calls "
+                                     f"differ")
+            if kernel == "K1":
+                continue
+            k_ms = graph_ms(torch, lambda i: fn(x, qts[i % n_copies]),
+                            max(20, min(256, n_copies)))
+            p_ms = graph_ms(torch, lambda i: plain_fn(x, qts[i % n_copies]), 10)
+            l_ms = graph_ms(torch, lambda i: torch.matmul(
+                x, w_lib[i % len(w_lib)]), max(20, min(256, len(w_lib))))
+            if kernel == "K3":
+                nbytes, ops, peak = variant_work(kernel, qt, m, 2)
+            else:
+                nbytes, ops, peak = (qt_bytes(qt) + 2 * m * K + 2 * m * N,
+                                     2.0 * m * K * N, PEAK_FLOPS)
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = ops / peak * 1e3
+            rows.append(dict(kernel=kernel, shape=label, M=m, K=K, N=N,
+                             ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                             bound_ms=max(t_bytes, t_ops),
+                             bound_by="bytes" if t_bytes >= t_ops
+                             else "operations",
+                             max_abs_err=float((got.float() - want.float())
+                                               .abs().max()), rel_err=e,
+                             rel_err_out_f32=e32))
+            log(f"{kernel:3s} {label:22s} M={m:<3d} bf16 K={K:<5d} N={N:<6d} "
+                f"kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  library "
+                f"{l_ms:.4f} ms  bound {rows[-1]['bound_ms']:.4f} ms "
+                f"({rows[-1]['bound_by']})  rel_err {e:.2e} (f32 out "
+                f"{e32:.2e})  [{card}]")
+        del qts, w_lib
+        torch.cuda.empty_cache()
+    return rows
+
+
+def forced_logits(torch, eng, text: str, toks: list):
+    """The engine's f32 logits [1 + len(toks), V] of the prompt of `text`
+    and then each of `toks` fed back (a prefill, one decode step a token),
+    on the engine's own cache layout (its dtype; its rank's KV heads when
+    sharded)."""
+    from miotts_tpu_torch.models.llm import (init_kv_cache, kv_heads,
+                                             llm_decode_step, llm_prefill)
+    ids = prompt_ids(eng, text)
+    cfg = eng.llm_cfg
+    cache = init_kv_cache(cfg, 1, len(ids) + len(toks) + 8,
+                          dtype=eng.dtype, device="cuda",
+                          n_kv_heads=kv_heads(eng.llm_params, cfg))
+    last, cache = llm_prefill(eng.llm_params, torch.tensor([ids],
+                                                           device="cuda"),
+                              torch.tensor([len(ids)]), cache, cfg)
+    out = [last[0]]
+    for t in toks:
+        last, cache = llm_decode_step(eng.llm_params,
+                                      torch.tensor([t], device="cuda"),
+                                      cache, cfg)
+        out.append(last[0])
+    return torch.stack(out).cpu().numpy()
+
+
+def tp_offline(torch, eng) -> dict:
+    """TP_TOKENS greedy tokens of the f32 engine (K1 = 49 x (1 + steps), K5
+    never), the seconds in collectives, and the teacher-forced logits."""
+    from miotts_tpu_torch.ops import collective, decode_attn, qmat
+    from miotts_tpu_torch.runtime.engine import Options
+    from miotts_tpu_torch.runtime.profile import StreamProfile
+    eng.generate_tokens(TP_TEXT, Options(temperature=0.0, max_tokens=4))
+    torch.cuda.synchronize()
+    qmat.qdot.kernel_launches = 0
+    decode_attn.decode_attention.kernel_launches = 0
+    collective.transport.update(host_staged=0, native=0, seconds=0.0)
+    prof = StreamProfile()
+    t0 = time.perf_counter()
+    toks = eng.generate_tokens(TP_TEXT, Options(temperature=0.0,
+                                                max_tokens=TP_TOKENS),
+                               profile=prof)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1 = qmat.qdot.kernel_launches
+    want = QDOT_PER_STEP * (1 + prof.decode_steps)
+    if k1 != want or decode_attn.decode_attention.kernel_launches:
+        raise AssertionError(f"tp offline: K1 {k1} != {want} (49 per step + "
+                             f"49 for the prefill) or K5 launched")
+    coll = dict(collective.transport)
+    return dict(tokens=[int(t) for t in toks],
+                logits=forced_logits(torch, eng, TP_TEXT, toks),
+                qdot_launches=k1, decode_steps=prof.decode_steps,
+                tok_s=prof.decode_steps / prof.llm_sec, wall_s=wall,
+                collective_s=coll["seconds"],
+                collective_share=coll["seconds"] / wall, collectives=coll)
+
+
+def tp_bf16(torch, eng, ref_tokens: dict | None = None) -> dict:
+    """The bf16 0.1B on each route of TP_BF16_ROUTES: TP_BF16_TOKENS greedy
+    tokens, the launches of K1 / K1v / K3 (K1v route: K1v = 49 x (1 +
+    steps); K3 route: K1 = 49 in the prefill, K3 = 49 x steps; no other),
+    and the logits forced along `ref_tokens[kernel]` (the one-rank run's
+    tokens; its own when None)."""
+    from miotts_tpu_torch.ops import qmat
+    from miotts_tpu_torch.runtime.engine import Options
+    from miotts_tpu_torch.runtime.profile import StreamProfile
+    out = {}
+    for kernel, route in TP_BF16_ROUTES.items():
+        e = eng.with_qdot_route(qmat.QdotRoute(**route))
+        for fn in (qmat.qdot, qmat.qdot_bf16, qmat.qdot_group):
+            fn.kernel_launches = 0
+        prof = StreamProfile()
+        toks = e.generate_tokens(TP_TEXT, Options(
+            temperature=0.0, max_tokens=TP_BF16_TOKENS), profile=prof)
+        torch.cuda.synchronize()
+        got = dict(K1=qmat.qdot.kernel_launches,
+                   K1v=qmat.qdot_bf16.kernel_launches,
+                   K3=qmat.qdot_group.kernel_launches)
+        n = prof.decode_steps
+        want = (dict(K1=0, K1v=QDOT_PER_STEP * (1 + n), K3=0)
+                if kernel == "K1v" else
+                dict(K1=QDOT_PER_STEP, K1v=0, K3=QDOT_PER_STEP * n))
+        if got != want:
+            raise AssertionError(f"tp bf16 {kernel} route: launches {got} != "
+                                 f"{want}")
+        forced = toks if ref_tokens is None else ref_tokens[kernel]
+        out[kernel] = dict(tokens=[int(t) for t in toks], launches=got,
+                           decode_steps=n,
+                           logits=forced_logits(torch, e, TP_TEXT, forced))
+    return out
+
+
+def tp_serving(torch, eng, voice, mesh) -> dict:
+    """TP_REQ greedy requests of TP_REQ_TOKENS through ContinuousBatcher
+    (mesh=...) (serve_requests' checks: K6 = 12 x steps, K1 = 49 x (steps +
+    prefills), K5 never)."""
+    from miotts_tpu_torch.ops import collective
+    from miotts_tpu_torch.runtime.batching import ContinuousBatcher
+    from miotts_tpu_torch.runtime.engine import Options
+    collective.transport.update(host_staged=0, native=0, seconds=0.0)
+    b = ContinuousBatcher(eng, n_slots=TP_SLOTS, chunk_steps=CHUNK, mesh=mesh)
+    res = serve_requests(torch, b, voice, TP_REQ, Options, keep=True,
+                         max_tokens=TP_REQ_TOKENS, temperature=0.0)
+    res["collective_s"] = collective.transport["seconds"]
+    return res
+
+
+def tp_sp_codes(torch):
+    return (torch.arange(TP_SP_CODES) * 397 % N_SPEECH).cuda()
+
+
+def tp_lfm2(torch, path: str, mesh) -> dict:
+    """The depth-cut LFM2-1.2B, f32: a prefill and TP_LFM2_STEPS greedy
+    decode steps (each attention layer's through K5 on the rank's heads)."""
+    from miotts_tpu_torch.gguf import GGUFReader
+    from miotts_tpu_torch.models.llm import (LLMConfig, init_kv_cache,
+                                             kv_heads, llm_decode_step,
+                                             llm_prefill, load_llm_params)
+    from miotts_tpu_torch.ops import decode_attn
+    from miotts_tpu_torch.parallel.sharding import shard_llm_params
+    with GGUFReader(path) as r:
+        cfg = LLMConfig.from_gguf(r)
+        params, _ = load_llm_params(r, cfg, dtype=torch.float32,
+                                    device="cuda")
+    if mesh is not None:
+        params = shard_llm_params(params, mesh, cfg)
+    ids = (torch.arange(3, 43) * 37 % cfg.n_vocab)[None].cuda()
+    cache = init_kv_cache(cfg, 1, 64, dtype=torch.float32, device="cuda",
+                          n_kv_heads=kv_heads(params, cfg))
+    decode_attn.decode_attention.kernel_launches = 0
+    last, cache = llm_prefill(params, ids, torch.tensor([ids.shape[1]]),
+                              cache, cfg)
+    logits, toks = [last[0]], []
+    for _ in range(TP_LFM2_STEPS):
+        toks.append(int(torch.argmax(last[0])))
+        last, cache = llm_decode_step(params, torch.tensor([toks[-1]],
+                                                           device="cuda"),
+                                      cache, cfg)
+        logits.append(last[0])
+    k5 = decode_attn.decode_attention.kernel_launches
+    want = len(cfg.attn_layer_idx) * TP_LFM2_STEPS
+    if k5 != want:
+        raise AssertionError(f"tp lfm2: K5 launches {k5} != {want}")
+    return dict(tokens=toks, logits=torch.stack(logits).cpu().numpy(),
+                k5_launches=k5, kv_heads=int(cache["k"].shape[2]))
+
+
+def tp_rank(rank: int, world: int, paths: dict, lfm2_path: str,
+            bf16_tokens: dict) -> dict:
+    """One rank of phase 26 (b)-(d): the f32 0.1B engine with its weights
+    sharded over mesh (1, world), its greedy tokens and logits,
+    ContinuousBatcher(mesh=), the bf16 engine on the K1v and K3 routes
+    (tp_bf16, its logits forced along the one-rank run's `bf16_tokens`),
+    the SP codec, the ring dots, then K5 on the depth-cut LFM2's local
+    heads."""
+    import torch
+    import torch.distributed as dist
+    from miotts_tpu_torch.models.codec_sp import codec_decode_audio_sp
+    from miotts_tpu_torch.ops.collective import (ring_allreduce_dot,
+                                                 ring_reduce_scatter_dot)
+    from miotts_tpu_torch.parallel.mesh import make_mesh
+    from miotts_tpu_torch.parallel.sharding import shard_llm_params
+    from miotts_tpu_torch.runtime.engine import (EngineConfig, TTSEngine,
+                                                 VoiceModel)
+    secs: dict = {}
+    t0 = time.perf_counter()
+    mesh = make_mesh(1, world)
+    bf16 = TTSEngine(EngineConfig(model_path=paths["llm"],
+                                  codec_path=paths["codec"], device="cuda",
+                                  max_tokens=MAX_TOKENS, temperature=0.0))
+    eng = f32_engine(torch, bf16, paths["llm"])
+    for e in (bf16, eng):
+        e.llm_params = shard_llm_params(e.llm_params, mesh, e.llm_cfg)
+    voice = VoiceModel(paths["voice"])
+    out = dict(backend=dist.get_backend(),
+               device=f"cuda:{torch.cuda.current_device()}",
+               card=torch.cuda.get_device_name())
+    secs["load"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["offline"] = tp_offline(torch, eng)
+    secs["offline"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["serving"] = tp_serving(torch, eng, voice, mesh)
+    secs["serving"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["bf16"] = tp_bf16(torch, bf16, bf16_tokens)
+    secs["bf16"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    codes, emb = tp_sp_codes(torch), voice.device_embedding("cuda")
+    out["sp"] = {
+        "audio": codec_decode_audio_sp(eng.codec_params, codes, emb,
+                                       eng.codec_cfg, mesh).cpu().numpy(),
+        "padded": codec_decode_audio_sp(eng.codec_params, codes, emb,
+                                        eng.codec_cfg, mesh,
+                                        n_real=TP_SP_REAL).cpu().numpy()}
+    torch.cuda.synchronize()
+    secs["sp_codec"] = time.perf_counter() - t0
+    # (d) the ring dots against one dense product (f32, no TF32)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(5)
+    x = torch.randn((8, FF), generator=g, device="cuda")
+    w = torch.randn((FF, DIM), generator=g, device="cuda")
+    group, r = mesh.get_group("model"), mesh.get_local_rank("model")
+    kl, nc = FF // world, DIM // world
+    want = torch.matmul(x, w)
+    got = ring_allreduce_dot(x[:, r * kl:(r + 1) * kl], w[r * kl:(r + 1) * kl],
+                             group)
+    chunk = ring_reduce_scatter_dot(x[:, r * kl:(r + 1) * kl],
+                                    w[r * kl:(r + 1) * kl], group)
+    out["ring"] = dict(allreduce=rel_err(got, want),
+                       reduce_scatter=rel_err(chunk,
+                                              want[:, r * nc:(r + 1) * nc]))
+    t0 = time.perf_counter()
+    out["lfm2"] = tp_lfm2(torch, lfm2_path, mesh)
+    secs["lfm2"] = time.perf_counter() - t0
+    out["seconds"] = secs
+    return out
+
+
+def logits_rel(got, want) -> float:
+    """max |got - want| over max |want| (numpy)."""
+    import numpy as np
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def phase_multi_gpu(torch, qmat, paths: dict, lfm2_path: str, card: str,
+                    main_eng, main_voice, done) -> dict:
+    """(a) K1 / K6 / K5 at the shard shapes against their plain versions,
+    timed; (b)-(d) two ranks on the card (tp_rank), each held against the
+    one-rank run in this process; (e) NCCL at world size 1 in this
+    process: the sharded 0.1B's greedy steps bit for bit the unsharded.
+    `done(label)` closes each sub-part's seconds."""
+    from miotts_tpu_torch.models.codec import codec_decode_audio
+    from miotts_tpu_torch.parallel.launch import launch
+    from miotts_tpu_torch.parallel.mesh import pick_backend, pick_device
+    res: dict = {}
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(26)
+    cases = tp_shard_cases(torch, qmat, gen)
+    res["k1_rows"] = kernel_rows(torch, qmat, cases, gen, card)
+    res["route_rows"] = tp_route_rows(torch, qmat, cases, gen, card)
+    del cases
+    res["k6_rows"] = phase_attn_kernels(torch, card, TP_ATTN_SHAPES,
+                                        ("bf16", "f32"))
+    res["k5_rows"] = phase_k5(torch, card, TP_K5_SHAPES, ("bf16", "f32"))
+    done("26 (a)")
+
+    # the one-rank references, here
+    f32 = f32_engine(torch, main_eng, paths["llm"])
+    ref = dict(offline=tp_offline(torch, f32),
+               serving=tp_serving(torch, f32, main_voice, None),
+               bf16=tp_bf16(torch, main_eng),
+               lfm2=tp_lfm2(torch, lfm2_path, None))
+    bf16_tokens = {k: v["tokens"] for k, v in ref["bf16"].items()}
+    # bf16's own distance from f32 on this model: the one-rank bf16 run's
+    # forced logits against the f32 engine's along the same tokens
+    bf16_floor = {k: logits_rel(v["logits"], forced_logits(
+        torch, f32, TP_TEXT, v["tokens"])) for k, v in ref["bf16"].items()}
+    codes, emb = tp_sp_codes(torch), main_voice.device_embedding("cuda")
+    ref["sp"] = {"audio": codec_decode_audio(main_eng.codec_params, codes, emb,
+                                             main_eng.codec_cfg).cpu().numpy(),
+                 "padded": codec_decode_audio(
+                     main_eng.codec_params, codes, emb, main_eng.codec_cfg,
+                     n_real=TP_SP_REAL).cpu().numpy()}
+    done("26 (one-rank references)")
+
+    # (b)-(d): the kernels are built (phase 2); the ranks only load them
+    backend = pick_backend(TP_RANKS, "cuda")
+    devices = [str(pick_device(r, "cuda")) for r in range(TP_RANKS)]
+    transport = ("NCCL" if backend == "nccl" else
+                 "gloo: all-reduce and all-gather on CUDA tensors, send/recv "
+                 "through pinned host memory")
+    log(f"multi-gpu: {TP_RANKS} ranks, mesh (1, {TP_RANKS}), backend "
+        f"{backend}, devices {devices}, transport {transport}")
+    ranks = launch(tp_rank, TP_RANKS, (paths, lfm2_path, bf16_tokens),
+                   device="cuda", timeout=TP_TIMEOUT)
+    spt = main_eng.samples_per_token
+    for r, got in enumerate(ranks):
+        lab = f"multi-gpu rank {r}"
+        if got["backend"] != backend:
+            raise AssertionError(f"{lab}: backend {got['backend']} != {backend}")
+        off, want = got["offline"], ref["offline"]
+        if off["tokens"] != want["tokens"]:
+            raise AssertionError(f"{lab}: greedy tokens differ from one rank's")
+        e_log = logits_rel(off["logits"], want["logits"])
+        if not e_log < REF_TOL:
+            raise AssertionError(f"{lab}: logits rel err {e_log} >= {REF_TOL}")
+        e_pcm = same_requests(f"{lab} serving",
+                              got["serving"].pop("per_request"),
+                              ref["serving"]["per_request"], REF_TOL)
+        if not got["serving"]["attn_launches"] > 0:
+            raise AssertionError(f"{lab}: no K6 launch in sharded serving")
+        # bf16: the one-rank run's tokens up to a near tie; the logits
+        # forced along them nearer to one rank's than bf16's own distance
+        # from f32 (a rounding flip a row-parallel sum's order can cause
+        # grows through the random layers as any bf16 rounding does)
+        e_bf16 = {}
+        for kernel, run in got["bf16"].items():
+            want_b = ref["bf16"][kernel]
+            e_bf16[kernel] = logits_rel(run.pop("logits"), want_b["logits"])
+            log(f"{lab} bf16 {kernel} route: tokens "
+                f"{'=' if run['tokens'] == want_b['tokens'] else '!='} one "
+                f"rank's, forced logits {e_bf16[kernel]:.3e} of their scale "
+                f"from one rank's (one rank's bf16 from f32: "
+                f"{bf16_floor[kernel]:.3e}), launches {run['launches']}")
+            run["near_tie"] = near_tie(
+                torch, main_eng.with_qdot_route(
+                    qmat.QdotRoute(**TP_BF16_ROUTES[kernel])), TP_TEXT,
+                want_b["tokens"], run["tokens"], f"{lab} bf16 {kernel} route")
+        for kernel, e in e_bf16.items():
+            if not e < bf16_floor[kernel]:
+                raise AssertionError(f"{lab}: bf16 {kernel} route logits rel "
+                                     f"err {e} >= one rank's bf16 distance "
+                                     f"from f32 {bf16_floor[kernel]}")
+        e_sp = logits_rel(got["sp"]["audio"], ref["sp"]["audio"])
+        n = TP_SP_REAL * spt
+        e_sp_pad = logits_rel(got["sp"]["padded"][:n], ref["sp"]["padded"][:n])
+        if not (e_sp < REF_TOL and e_sp_pad < REF_TOL
+                and got["sp"]["audio"].shape == ref["sp"]["audio"].shape):
+            raise AssertionError(f"{lab}: SP codec rel err {e_sp} / padded "
+                                 f"{e_sp_pad} >= {REF_TOL}")
+        if not max(got["ring"].values()) < KERNEL_TOL_F32:
+            raise AssertionError(f"{lab}: ring dots {got['ring']}")
+        lf, lw = got["lfm2"], ref["lfm2"]
+        e_lfm2 = logits_rel(lf["logits"], lw["logits"])
+        if lf["tokens"] != lw["tokens"] or not e_lfm2 < REF_TOL:
+            raise AssertionError(f"{lab}: LFM2 tokens / logits ({e_lfm2})")
+        got["errors"] = dict(logits=e_log, serving_pcm=e_pcm, sp_audio=e_sp,
+                             sp_padded=e_sp_pad, lfm2_logits=e_lfm2,
+                             bf16_logits=e_bf16, **got["ring"])
+        del got["sp"], got["offline"]["logits"], got["lfm2"]["logits"]
+        o = got["offline"]
+        log(f"{lab} on {got['device']} ({got['backend']}): tokens = one "
+            f"rank's, logits {e_log:.2e}, serving PCM {e_pcm:.2e} (K6 "
+            f"{got['serving']['attn_launches']}, K1 "
+            f"{got['serving']['qdot_launches']}), bf16 K1v route "
+            f"{got['bf16']['K1v']['launches']} ({e_bf16['K1v']:.2e}), K3 "
+            f"route {got['bf16']['K3']['launches']} ({e_bf16['K3']:.2e}), "
+            f"SP codec {e_sp:.2e} / "
+            f"padded {e_sp_pad:.2e}, ring {got['ring']['allreduce']:.2e}, "
+            f"LFM2 K5 {lf['k5_launches']} on {lf['kv_heads']} KV heads "
+            f"({e_lfm2:.2e}); K1 {o['qdot_launches']} over "
+            f"{o['decode_steps']} steps at {o['tok_s']:.2f} tok/s "
+            f"(a transport figure of {TP_RANKS} ranks on one card, not a "
+            f"multi-GPU rate), {100 * o['collective_share']:.1f} % of the "
+            f"wall in collectives; seconds {got['seconds']}  [{card}]")
+    del (ref["serving"]["per_request"], ref["offline"]["logits"],
+         ref["lfm2"]["logits"], ref["sp"])
+    for run in ref["bf16"].values():
+        del run["logits"]
+    res.update(backend=backend, devices=devices, transport=transport,
+               ranks=ranks, reference=ref, bf16_floor=bf16_floor)
+    done("26 (b-d)")
+
+    # (e) NCCL at world size 1: the only NCCL collective one card runs alone
+    res["nccl1"] = nccl_world1(torch, f32, ref["offline"]["tokens"])
+    done("26 (e)")
+    log(f"multi-gpu (e): NCCL world size 1: {TP_NCCL_STEPS} greedy steps of "
+        f"the sharded 0.1B bit for bit the unsharded engine's "
+        f"({res['nccl1']['collectives']} collectives)  [{card}]")
+    return res
+
+
+def unit_shards(params: dict, mesh) -> dict:
+    """The tensor-parallel layout at one rank, built here for (e): every
+    weight that parallel/sharding's tables cut over 'model' wrapped whole
+    in a Shard of its kind over the mesh's one-rank model group, so each
+    linear's all-reduce or all-gather runs through that group.
+    (shard_llm_params leaves an axis of one rank unsharded, as GSPMD emits
+    no collective over it.)"""
+    from miotts_tpu_torch.ops.collective import ModelAxis, Shard
+    from miotts_tpu_torch.parallel import sharding
+    axis = ModelAxis(mesh.get_group("model"), 0, 1)
+
+    def wrap(w, spec):
+        if "model" not in spec:
+            return w
+        return Shard(w, "col" if spec[0] == "model" else "row", axis,
+                     w.shape[0])
+    out = {k: wrap(v, sharding._TOP_SPECS.get(k, ()))
+           for k, v in params.items() if k not in ("blocks", "layers")}
+    for key, table in (("blocks", sharding._BLOCK_SPECS),
+                       ("layers", sharding._HYBRID_SPECS)):
+        if key in params:
+            out[key] = [{k: wrap(v, table.get(k, ())) for k, v in blk.items()}
+                        for blk in params[key]]
+    out["tp"] = axis
+    return out
+
+
+def nccl_world1(torch, f32, ref_tokens: list) -> dict:
+    """A FileStore process group of one rank over NCCL, mesh (1, 1): the
+    f32 0.1B's weights in the tensor-parallel layout over it (unit_shards,
+    so each linear's all-reduce or all-gather goes through NCCL); its
+    TP_NCCL_STEPS greedy tokens through the engine, and the logits of the
+    prefill and each step, bit for bit the unsharded engine's."""
+    import numpy as np
+    import torch.distributed as dist
+    from miotts_tpu_torch.ops import collective
+    from miotts_tpu_torch.parallel.mesh import make_mesh
+    from miotts_tpu_torch.runtime.engine import Options
+    with tempfile.TemporaryDirectory() as d:
+        store = dist.FileStore(os.path.join(d, "store"), 1)
+        dist.init_process_group("nccl", store=store, rank=0, world_size=1)
+        try:
+            mesh = make_mesh(1, 1)
+            sharded = engine_variant(f32)
+            sharded.llm_params = unit_shards(f32.llm_params, mesh)
+            collective.transport.update(host_staged=0, native=0, seconds=0.0)
+            toks = sharded.generate_tokens(TP_TEXT, Options(
+                temperature=0.0, max_tokens=TP_NCCL_STEPS))
+            got = forced_logits(torch, sharded, TP_TEXT, toks)
+            calls = dict(collective.transport)
+            backend = dist.get_backend()
+        finally:
+            dist.destroy_process_group()
+    want = forced_logits(torch, f32, TP_TEXT, toks)
+    if toks != ref_tokens[:TP_NCCL_STEPS]:
+        raise AssertionError(f"NCCL world 1: greedy tokens {toks} differ "
+                             f"from the unsharded engine's")
+    if not np.array_equal(got, want):
+        raise AssertionError(f"NCCL world 1: logits differ from the "
+                             f"unsharded engine's (max "
+                             f"{float(np.abs(got - want).max())})")
+    if backend != "nccl" or not calls["native"] > 0 or calls["host_staged"]:
+        raise AssertionError(f"NCCL world 1: collectives {calls} on {backend}")
+    return dict(tokens=toks, collectives=calls["native"])
+
+
 # every phase (3 runs 3-5), and what a phase needs run before it
 ALL_PHASES = (2, 3, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20,
-              21, 22, 23, 24, 25)
+              21, 22, 23, 24, 25, 26)
 PHASE_NEEDS = {9: {7}, 12: {11}, 20: {11}, 21: {15}, 22: {7}, 23: {3, 11},
-               24: {3, 15}, 25: {3, 15}}
+               24: {3, 15}, 25: {3, 15}, 26: {3}}
 MODEL_PHASES = {3, 7, 8, 9, 11, 12, 13, 15, 16, 19, 20, 21, 22,
-                23, 24, 25}                  # the 0.1B files, codec
+                23, 24, 25, 26}              # the 0.1B files, codec
 
 
 def parse_phases(argv) -> set:
@@ -4357,7 +4934,7 @@ def parse_phases(argv) -> set:
                     help="comma-separated phase numbers to run (3 runs 3-5; "
                          "9 and 22 bring 7, 12 and 20 bring 11, 21 brings "
                          "15, 23 brings 3 and 11, 24 and 25 bring 3 and "
-                         "15); "
+                         "15, 26 brings 3); "
                          "default: all")
     args = ap.parse_args(argv)
     if not args.phases:
@@ -4410,7 +4987,8 @@ def main(argv=None) -> int:
         rows = res["qdot_per_shape"] = phase_kernels(torch, qmat, card)
         done("2")
 
-    writers_for = {"lfm2": {11, 12, 13}, "q4km": {15, 16, 21, 24, 25}}
+    writers_for = {"lfm2": {11, 12, 13}, "q4km": {15, 16, 21, 24, 25},
+                   "lfm2_tp": {26}}
     keys = {k for k, phases in writers_for.items() if run & phases}
     with tempfile.TemporaryDirectory() as d, background_writes(d, keys) as writers:
         paths = {}
@@ -4428,7 +5006,7 @@ def main(argv=None) -> int:
                     torch, main_eng, main_voice, d, card, "int8 0.1b",
                     QDOT_PER_STEP, 0, res["main_path"])}
                 done("23 (a)")
-            if not run & {24, 25}:
+            if not run & {24, 25, 26}:
                 del main_eng, main_voice
         if 19 in run:
             res["stream"] = phase_stream_0p1b(
@@ -4528,7 +5106,11 @@ def main(argv=None) -> int:
                 torch, qmat, card, main_eng, main_voice,
                 res["q4km_offline"]["engine"], res["q4km_offline"], d)
             done("25")
-        if run & {24, 25}:
+        if 26 in run:
+            res["multi_gpu"] = phase_multi_gpu(
+                torch, qmat, paths, written(writers, "lfm2_tp", d), card,
+                main_eng, main_voice, done)
+        if run & {24, 25, 26}:
             del main_eng, main_voice
         if 15 in run:
             res["q4km_offline"].pop("engine", None)
@@ -4779,6 +5361,53 @@ def main(argv=None) -> int:
     for entry in [qdot_entry, bf16_entry, k8_entry] + variant_entries:
         if not entry["launches_by_path"]["scale_bf16"] > 0:
             raise AssertionError(f"{entry['name']}: no launch at bf16 scales")
+    # phase 26: the two ranks' launches at the shard shapes (K1 in the
+    # offline run, the sharded batcher and the bf16 K3 route's prefill; K1v
+    # and K3 in the bf16 runs; K6 in the batcher, K5 in the depth-cut
+    # LFM2's decode) and one step of each kernel at those shapes
+    mg = res["multi_gpu"]
+    mg_ranks = mg["ranks"]
+    qdot_entry["launches_by_path"]["tp2"] = sum(
+        r["offline"]["qdot_launches"] + r["serving"]["qdot_launches"]
+        + r["bf16"]["K3"]["launches"]["K1"] for r in mg_ranks)
+    k3_entry = next(e for k, e in zip(VARIANTS, variant_entries) if k == "K3")
+    for entry, kernel in ((bf16_entry, "K1v"), (k3_entry, "K3")):
+        entry["launches_by_path"]["tp2"] = sum(
+            r["bf16"][kernel]["launches"][kernel] for r in mg_ranks)
+        tp_rows = [r for r in mg["route_rows"]
+                   if r["kernel"] == kernel and r["M"] == 1]
+        entry["tp2_single_stream_step"] = dict(
+            {k: LAYERS * sum(r[k] for r in tp_rows) for k in (
+                "ms", "plain_ms", "bound_ms", "library_ms")},
+            unit=f"one rank's 48 row-parallel 0.1B-Q8_0 linears at P = 2 "
+                 f"(K halved) through {kernel}, M = 1, bf16 x")
+    attn_entry["launches_by_path"]["tp2"] = sum(
+        r["serving"]["attn_launches"] for r in mg_ranks)
+    k5_entry["launches_by_path"]["tp2"] = sum(
+        r["lfm2"]["k5_launches"] for r in mg_ranks)
+    step_keys = ("ms", "plain_ms", "bound_ms", "library_ms")
+    qdot_entry["tp2_single_stream_step"] = dict(
+        {k: LAYERS * sum(r[k] for r in mg["k1_rows"] if r["M"] == 1
+                         and r["shape"].startswith("0.1b/2"))
+         for k in step_keys},
+        unit="one rank's 48 row-parallel 0.1B-Q8_0 linears at P = 2 (K "
+             "halved), M = 1, bf16 x")
+    k6_tp = next(r for r in mg["k6_rows"]
+                 if r["shape"] == "0.1b/2" and r["mode"] == "f32")
+    attn_entry["tp2_step"] = dict(
+        {k: LAYERS * k6_tp[k] for k in step_keys},
+        unit="one rank's 0.1B serving step of attention at P = 2 (12 "
+             "layers, B=64, H=6/2, D=64, S=256, f32 cache: the f32 "
+             "engine's sharded batcher)")
+    k5_tp = next(r for r in mg["k5_rows"] if r["mode"] == "bf16")
+    k5_entry["tp2_step"] = dict(
+        {k: n_attn * k5_tp[k] for k in step_keys},
+        unit="one rank's LFM2-1.2B decode step of attention at P = 2 (6 "
+             "layers, B=1, H=16/4, D=64, S=256), bf16 cache")
+    for entry in (qdot_entry, attn_entry, k5_entry, bf16_entry, k3_entry):
+        if not entry["launches_by_path"]["tp2"] > 0:
+            raise AssertionError(f"{entry['name']}: no launch on the "
+                                 f"tensor-parallel path")
     # the per-shape rows and every phase's numbers, on a line of their own
     # (the kernels line stays short)
     log("details " + json.dumps(res))

@@ -32,6 +32,20 @@ Batched serving (`llm_prefill_slots`, `llm_generate_chunk_batched`) keeps a
 [L, n_slots, H_kv, S, D] cache, bf16 / f32 or int8 with per-(token, head)
 scales, and reads it through `ops/decode_attn.decode_attention_batched`
 (the hand-written CUDA kernel on a GPU).
+
+Tensor parallelism (params from parallel/sharding.shard_llm_params): every
+linear goes through `_linear`, which reads the weight's `Shard` record.  A
+row-parallel weight multiplies this rank's K range of the activation,
+through the kernel its route picks for the activation's dtype, and sums
+the unrounded f32 partials over the model axis (`psum`) before one
+rounding; a column-parallel one
+gathers its output columns.  Activations stay whole on every rank except
+attention, which runs on this rank's query and KV heads when the KV heads
+divide the model axis (the cache holds those heads, `kv_heads`); the
+output projection then takes the local heads as its K range.  So a layer
+costs four all-reduces (fused QKV, wo, fused gate/up, down), the layout
+GSPMD gives the JAX package's tables.  Data parallelism is the caller's:
+each data rank runs these functions on its own batch rows and cache rows.
 """
 
 from __future__ import annotations
@@ -45,6 +59,7 @@ import torch
 import torch.nn.functional as F
 
 from ..gguf.quants import is_quantized
+from ..ops.collective import ModelAxis, Shard, all_gather, psum
 from ..ops.decode_attn import decode_attention, decode_attention_batched
 from ..ops.qmat import QTensor, concat_qtensors, qdot, qtensor_from_raw
 
@@ -271,16 +286,26 @@ def _rope(x, pos, theta, style):
                        dim=-1).reshape(x.shape)
 
 
+def kv_heads(params: dict | None, cfg: LLMConfig) -> int:
+    """The KV heads a cache for `params` holds: cfg.n_kv_heads, or this
+    rank's share of them when params are sharded (params["tp"]) and the
+    heads divide the model axis (parallel/sharding's cache layout)."""
+    return _local_heads(params.get("tp") if params else None, cfg)[1]
+
+
 def init_kv_cache(cfg: LLMConfig, batch: int, max_len: int | None = None,
                   dtype=torch.bfloat16, device="cpu",
-                  quantized: bool = False) -> dict:
+                  quantized: bool = False,
+                  n_kv_heads: int | None = None) -> dict:
     """Dense KV cache: k/v [L, B, H_kv, S, D] + fill counts [B] (int32).
     With `quantized`, k/v are int8 with per-(token, head) f32 scales
     k_scale / v_scale [L, B, H_kv, S].  A hybrid model's k/v cover its
     attention layers only (L = n_attn), and `conv` [n_conv, B, L_cache - 1,
-    dim] in `dtype` holds each conv layer's last inputs."""
+    dim] in `dtype` holds each conv layer's last inputs.  `n_kv_heads`
+    (default cfg.n_kv_heads): a tensor-parallel rank's share (`kv_heads`)."""
     S = max_len or cfg.n_ctx
-    shape = (len(cfg.attn_layer_idx), batch, cfg.n_kv_heads, S, cfg.head_dim)
+    shape = (len(cfg.attn_layer_idx), batch, n_kv_heads or cfg.n_kv_heads, S,
+             cfg.head_dim)
     kv_dtype = torch.int8 if quantized else dtype
     cache = {"k": torch.zeros(shape, dtype=kv_dtype, device=device),
              "v": torch.zeros(shape, dtype=kv_dtype, device=device),
@@ -443,8 +468,50 @@ def _attend_bkernel(q, k_cache, v_cache, fill, q_pos, k_scale=None,
     return out.reshape(B, S_q, H * D).to(cdt)
 
 
+def _in_dim(w) -> int:
+    return w.k if isinstance(w, QTensor) else w.shape[1]
+
+
+def _linear(x, w, b=None, x_axis: ModelAxis | None = None):
+    """x @ w^T (+ b) for a weight of any layout.  An unsharded weight:
+    `qdot`.  A row-parallel Shard: this rank's K range of x (x itself when
+    `x_axis` says x already is this rank's slice of its last dim) enters
+    `qdot` in its own dtype, so the weight's route picks the kernel as it
+    does unsharded (K1v / K3 for bf16 x), which writes its f32 sum
+    unrounded (`out_f32`); the partials are summed in f32 over the model
+    axis, then rounded once to x's dtype.  A
+    column-parallel Shard: this rank's columns (+ its bias slice),
+    gathered over the axis.  An unsharded or column-parallel weight under
+    `x_axis` gathers x first."""
+    if x_axis is not None and not (isinstance(w, Shard) and w.kind == "row"):
+        x = all_gather(x, -1, x_axis.group)
+    if not isinstance(w, Shard):
+        y = qdot(x, w)
+    elif w.kind == "row":
+        if x_axis is None:
+            k = _in_dim(w.local)
+            x = x[..., w.axis.rank * k:(w.axis.rank + 1) * k]
+        y = psum(qdot(x, w.local, out_f32=True), w.axis.group).to(x.dtype)
+    else:
+        y = qdot(x, w.local)
+        if isinstance(b, Shard):
+            y, b = y + b.local.to(y.dtype), None
+        y = all_gather(y, -1, w.axis.group)[..., :w.n_out]
+    return y if b is None else y + b.to(y.dtype)
+
+
+def _local_heads(tp: ModelAxis | None, cfg: LLMConfig) -> tuple[int, int, int]:
+    """(query heads, KV heads, first KV head) of this rank's attention:
+    its share when the KV heads divide the model axis, else all of them."""
+    H, H_kv = cfg.n_heads, cfg.n_kv_heads
+    if tp is None or tp.size == 1 or H_kv % tp.size:
+        return H, H_kv, 0
+    return H // tp.size, H_kv // tp.size, tp.rank * (H_kv // tp.size)
+
+
 def _block_forward(x, blk, lcache: dict, fill, pos, cfg: LLMConfig,
-                   defer_write: bool = False, chunk_buf=None):
+                   defer_write: bool = False, chunk_buf=None,
+                   tp: ModelAxis | None = None):
     """One transformer block.  x [B, S, dim]; lcache this layer's cache
     views {k, v[, k_scale, v_scale]} with k/v [B, H_kv, S_max, D]; pos
     [B, S] absolute positions.
@@ -456,24 +523,32 @@ def _block_forward(x, blk, lcache: dict, fill, pos, cfg: LLMConfig,
     `_attend_bkernel` and kv holds the raw k / v for the chunk buffer.
     Otherwise (prefill) k/v are written into lcache in place at their
     positions first (quantized for an int8 cache), and the block returns
-    (x, None)."""
+    (x, None).
+
+    `tp` (sharded params): attention runs on this rank's heads
+    (`_local_heads`), which `lcache` holds."""
     B, S, _ = x.shape
-    H, H_kv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    D = cfg.head_dim
+    H, H_kv, kv0 = _local_heads(tp, cfg)
     quantized = "k_scale" in lcache
+    if lcache["k"].shape[1] != H_kv:
+        raise ValueError(f"the cache holds {lcache['k'].shape[1]} KV heads, "
+                         f"this rank attends over {H_kv} (kv_heads)")
 
     h = _rms_norm(x, blk["attn_norm"], cfg.rms_eps)
-    qd, kvd = H * D, H_kv * D
+    qd, kvd = cfg.n_heads * D, cfg.n_kv_heads * D
     if "wqkv" in blk:
-        qkv = qdot(h, blk["wqkv"])
-        if cfg.qkv_bias:
-            qkv = qkv + blk["bqkv"].to(qkv.dtype)
+        qkv = _linear(h, blk["wqkv"], blk["bqkv"] if cfg.qkv_bias else None)
         q, k, v = qkv[..., :qd], qkv[..., qd:qd + kvd], qkv[..., qd + kvd:]
     else:
-        q, k, v = (qdot(h, blk["wq"]), qdot(h, blk["wk"]), qdot(h, blk["wv"]))
-        if cfg.qkv_bias:
-            q = q + blk["bq"].to(q.dtype)
-            k = k + blk["bk"].to(k.dtype)
-            v = v + blk["bv"].to(v.dtype)
+        bias = cfg.qkv_bias
+        q = _linear(h, blk["wq"], blk["bq"] if bias else None)
+        k = _linear(h, blk["wk"], blk["bk"] if bias else None)
+        v = _linear(h, blk["wv"], blk["bv"] if bias else None)
+    if H_kv != cfg.n_kv_heads:
+        q = q[..., kv0 * (H // H_kv) * D:(kv0 * (H // H_kv) + H) * D]
+        k = k[..., kv0 * D:(kv0 + H_kv) * D]
+        v = v[..., kv0 * D:(kv0 + H_kv) * D]
     q = q.reshape(B, S, H, D)
     k = k.reshape(B, S, H_kv, D)
     v = v.reshape(B, S, H_kv, D)
@@ -517,7 +592,8 @@ def _block_forward(x, blk, lcache: dict, fill, pos, cfg: LLMConfig,
             lcache["v"][b_idx, :, p] = v.to(lcache["v"].dtype)
         new_fill = torch.maximum(fill, pos[:, -1] + 1)
         attn = _attend(q, lcache["k"], lcache["v"], new_fill, pos, ks, vs)
-    x = x + qdot(attn.to(x.dtype), blk["wo"])
+    x = x + _linear(attn.to(x.dtype), blk["wo"],
+                    x_axis=tp if H_kv != cfg.n_kv_heads else None)
     return _ffn(x, blk, cfg), kv_out
 
 
@@ -525,12 +601,12 @@ def _ffn(x, blk, cfg: LLMConfig):
     """x + the SwiGLU feed-forward of ffn_norm(x)."""
     h = _rms_norm(x, blk["ffn_norm"], cfg.rms_eps)
     if "w_gateup" in blk:
-        gu = qdot(h, blk["w_gateup"])
+        gu = _linear(h, blk["w_gateup"])
         ff = gu.shape[-1] // 2
         gate, up = F.silu(gu[..., :ff]), gu[..., ff:]
     else:
-        gate, up = F.silu(qdot(h, blk["w_gate"])), qdot(h, blk["w_up"])
-    return x + qdot((gate * up).to(x.dtype), blk["w_down"])
+        gate, up = F.silu(_linear(h, blk["w_gate"])), _linear(h, blk["w_up"])
+    return x + _linear((gate * up).to(x.dtype), blk["w_down"])
 
 
 def _conv_block_forward(x, blk, state, advance, cfg: LLMConfig):
@@ -547,9 +623,9 @@ def _conv_block_forward(x, blk, state, advance, cfg: LLMConfig):
     S = x.shape[1]
     L = cfg.conv_l_cache
     h = _rms_norm(x, blk["attn_norm"], cfg.rms_eps)
-    bcx = qdot(h, blk["in_proj"])
-    if "in_proj_b" in blk:
-        bcx = bcx + blk["in_proj_b"].to(bcx.dtype)
+    # a column-parallel in_proj's shard is not (b, c, v): _linear gathers
+    # the whole output before the split
+    bcx = _linear(h, blk["in_proj"], blk.get("in_proj_b"))
     b_, c_, v_ = bcx.chunk(3, dim=-1)
     bv = b_ * v_
     ext = torch.cat([state.to(bv.dtype), bv], dim=1)       # [B, L-1+S, dim]
@@ -559,10 +635,7 @@ def _conv_block_forward(x, blk, state, advance, cfg: LLMConfig):
         out = out + ext[:, i:i + S] * w[:, i]
     if "conv_b" in blk:
         out = out + blk["conv_b"].to(out.dtype)
-    y = qdot(c_ * out, blk["out_proj"])
-    if "out_proj_b" in blk:
-        y = y + blk["out_proj_b"].to(y.dtype)
-    x = x + y
+    x = x + _linear(c_ * out, blk["out_proj"], blk.get("out_proj_b"))
     # like JAX's dynamic slice, the start clamps to the last full window
     idx = (advance.long().clamp(0, S)[:, None]
            + torch.arange(L - 1, device=x.device))          # [B, L-1]
@@ -577,7 +650,7 @@ def _logits(params, x, cfg: LLMConfig):
     if out_w is None:
         # tied embeddings: a plain product outside any kernel, f32 sums
         return x.float() @ params["token_embd"].float().T
-    return qdot(x, out_w).float()
+    return _linear(x, out_w).float()
 
 
 @torch.no_grad()
@@ -593,11 +666,12 @@ def llm_forward(params: dict, tokens, pos, cache: dict, cfg: LLMConfig,
     x = params["token_embd"][tokens.long()]
     B, S, _ = x.shape
     fill = cache["fill"]
+    tp = params.get("tp")
     if S == 1 and "layers" not in params:
         kvs = []
         for li, blk in enumerate(params["blocks"]):
             x, kv = _block_forward(x, blk, _layer(cache, li), fill, pos, cfg,
-                                   defer_write=True)
+                                   defer_write=True, tp=tp)
             kvs.append(kv)
         # ONE write per cache field for every layer's new k/v: dims 1 (batch)
         # and 3 (position) are indexed, so the update is [B, L, H_kv(, D)];
@@ -614,7 +688,7 @@ def llm_forward(params: dict, tokens, pos, cache: dict, cfg: LLMConfig,
         for kind, blk in _layer_plan(params, cfg):
             if kind == "attn":
                 x, _ = _block_forward(x, blk, _layer(cache, attn_i), fill,
-                                      pos, cfg)
+                                      pos, cfg, tp=tp)
                 attn_i += 1
             else:
                 x, state = _conv_block_forward(x, blk, cache["conv"][conv_i],
@@ -961,7 +1035,8 @@ def _decode_core(params, tok, pos, cache, cfg: LLMConfig, chunk_buf,
             li = len(kv_list)
             x, kv = _block_forward(x, blk, _layer(cache, li), cache["fill"],
                                    pos, cfg, defer_write=True,
-                                   chunk_buf=(k_buf[li], v_buf[li], valid))
+                                   chunk_buf=(k_buf[li], v_buf[li], valid),
+                                   tp=params.get("tp"))
             kv_list.append(kv)
         else:
             x, st = _conv_block_forward(x, blk, conv_state[len(conv_list)],

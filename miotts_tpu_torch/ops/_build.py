@@ -32,27 +32,28 @@ _L = ctypes.c_longlong
 # cudaError_t of its launch as an int
 KERNELS = {
     "qdot": ("qdot.cu", {
-        # x, x_is_bf16, v, packed, s, mins, s_is_bf16, y, ws, tickets, M, K,
-        # N, group, bm, splits, k_split, stream
-        "qdot_launch": [_P, _I, _P, _I, _P, _P, _I, _P, _P, _P] + [_I] * 7
-                       + [_P],
+        # x, x_is_bf16, v, packed, s, mins, s_is_bf16, y, y_is_f32, ws,
+        # tickets, M, K, N, group, bm, splits, k_split, stream
+        "qdot_launch": [_P, _I, _P, _I, _P, _P, _I, _P, _I, _P, _P]
+                       + [_I] * 7 + [_P],
     }),
     "qdot_gemv": ("qdot_gemv.cu", {
-        # x, v, s, mins, s_is_bf16, y, ws, tickets, x_is_bf16, M, K, N,
-        # group, bm, splits, k_split, stream
-        "qdot_split_launch": [_P] * 4 + [_I] + [_P] * 3 + [_I] * 8 + [_P],
-        # x, v, s, mins, s_is_bf16, y, packed, K, N, group, splits,
-        # k_split, stream
-        "qdot_group_launch": [_P] * 4 + [_I, _P] + [_I] * 6 + [_P],
-        # x, v, s, mins, s_is_bf16, y, x_is_bf16, K, N, group, splits,
-        # k_split, stream
-        "qdot_w8a8_launch": [_P] * 4 + [_I, _P] + [_I] * 6 + [_P],
-        "qdot_w8a8_packed_launch": [_P] * 4 + [_I, _P] + [_I] * 6 + [_P],
+        # x, v, s, mins, s_is_bf16, y, y_is_f32, ws, tickets, x_is_bf16, M,
+        # K, N, group, bm, splits, k_split, stream
+        "qdot_split_launch": [_P] * 4 + [_I, _P, _I, _P, _P] + [_I] * 8
+                             + [_P],
+        # x, v, s, mins, s_is_bf16, y, y_is_f32, packed, K, N, group,
+        # splits, k_split, stream
+        "qdot_group_launch": [_P] * 4 + [_I, _P] + [_I] * 7 + [_P],
+        # x, v, s, mins, s_is_bf16, y, y_is_f32, x_is_bf16, K, N, group,
+        # splits, k_split, stream
+        "qdot_w8a8_launch": [_P] * 4 + [_I, _P] + [_I] * 7 + [_P],
+        "qdot_w8a8_packed_launch": [_P] * 4 + [_I, _P] + [_I] * 7 + [_P],
     }),
     "qdot_bf16": ("qdot_bf16.cu", {
-        # x, x_is_bf16, v, packed, s, mins, s_is_bf16, y, ws, tickets, M,
-        # K, N, group, bm, splits, k_split, after, stream
-        "qdot_bf16_launch": [_P, _I, _P, _I, _P, _P, _I, _P, _P, _P]
+        # x, x_is_bf16, v, packed, s, mins, s_is_bf16, y, y_is_f32, ws,
+        # tickets, M, K, N, group, bm, splits, k_split, after, stream
+        "qdot_bf16_launch": [_P, _I, _P, _I, _P, _P, _I, _P, _I, _P, _P]
                             + [_I] * 8 + [_P],
     }),
     "dma_floor": ("dma_floor.cu", {

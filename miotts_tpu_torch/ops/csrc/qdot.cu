@@ -14,7 +14,8 @@
 //         w[b*g + r] in its low nibble and w[b*g + g/2 + r] in its high one
 //   s     f32 or bf16 [K/g, N], g in {16, 32} (s_is_bf16; MIOTTS_SCALE_BF16)
 //   mins  [K/g, N] of s's type, or null
-//   y     [M, N] in x's type
+//   y     [M, N] in x's type, or f32 (y_is_f32: the unrounded sum, a
+//         row-parallel shard's partial)
 // Dequantization and accumulation are f32 (the TPU kernel's default
 // bf16_dot=False path): the same function as ops/qmat.py:qdot_plain in
 // another order of f32 sums.  The output is rounded once to x's type.  bf16
@@ -54,55 +55,55 @@ namespace {
 
 template <typename T, typename S, bool PACKED>
 cudaError_t by_m(const void* x, const void* v, const void* s, const void* mins,
-                 void* y, float* ws, int* tickets, int M, int K, int N, int group,
-                 int bm, int splits, int k_split, cudaStream_t stream) {
+                 void* y, bool y_f32, float* ws, int* tickets, int M, int K, int N,
+                 int group, int bm, int splits, int k_split, cudaStream_t stream) {
   if (M == 1) {
-    return qgemv::gemv<T, S, PACKED>(x, v, s, mins, y, K, N, group, splits, k_split,
-                                     stream);
+    return qgemv::gemv<T, S, PACKED>(x, v, s, mins, y, y_f32, K, N, group, splits,
+                                     k_split, stream);
   }
   if (group == 16) {
-    return qtile::tile_by_bm<T, S, PACKED, 16, false>(x, v, s, mins, y, ws, tickets,
-                                                      M, K, N, bm, splits, k_split,
-                                                      false, stream);
+    return qtile::tile_by_bm<T, S, PACKED, 16, false>(x, v, s, mins, y, y_f32, ws,
+                                                      tickets, M, K, N, bm, splits,
+                                                      k_split, false, stream);
   }
-  return qtile::tile_by_bm<T, S, PACKED, 32, false>(x, v, s, mins, y, ws, tickets, M,
-                                                    K, N, bm, splits, k_split, false,
-                                                    stream);
+  return qtile::tile_by_bm<T, S, PACKED, 32, false>(x, v, s, mins, y, y_f32, ws,
+                                                    tickets, M, K, N, bm, splits,
+                                                    k_split, false, stream);
 }
 
 template <typename T, typename S>
 cudaError_t dispatch(const void* x, const void* v, int packed, const void* s,
-                     const void* mins, void* y, float* ws, int* tickets, int M,
-                     int K, int N, int group, int bm, int splits, int k_split,
-                     cudaStream_t stream) {
+                     const void* mins, void* y, bool y_f32, float* ws, int* tickets,
+                     int M, int K, int N, int group, int bm, int splits,
+                     int k_split, cudaStream_t stream) {
   if (packed) {
-    return by_m<T, S, true>(x, v, s, mins, y, ws, tickets, M, K, N, group, bm, splits,
-                            k_split, stream);
+    return by_m<T, S, true>(x, v, s, mins, y, y_f32, ws, tickets, M, K, N, group, bm,
+                            splits, k_split, stream);
   }
-  return by_m<T, S, false>(x, v, s, mins, y, ws, tickets, M, K, N, group, bm, splits,
-                           k_split, stream);
+  return by_m<T, S, false>(x, v, s, mins, y, y_f32, ws, tickets, M, K, N, group, bm,
+                           splits, k_split, stream);
 }
 
 template <typename T>
 cudaError_t by_scales(const void* x, const void* v, int packed, const void* s,
-                      const void* mins, int s_is_bf16, void* y, float* ws,
-                      int* tickets, int M, int K, int N, int group, int bm,
-                      int splits, int k_split, cudaStream_t stream) {
+                      const void* mins, int s_is_bf16, void* y, bool y_f32,
+                      float* ws, int* tickets, int M, int K, int N, int group,
+                      int bm, int splits, int k_split, cudaStream_t stream) {
   if (s_is_bf16) {
-    return dispatch<T, __nv_bfloat16>(x, v, packed, s, mins, y, ws, tickets, M, K, N,
-                                      group, bm, splits, k_split, stream);
+    return dispatch<T, __nv_bfloat16>(x, v, packed, s, mins, y, y_f32, ws, tickets, M,
+                                      K, N, group, bm, splits, k_split, stream);
   }
-  return dispatch<T, float>(x, v, packed, s, mins, y, ws, tickets, M, K, N, group, bm,
-                            splits, k_split, stream);
+  return dispatch<T, float>(x, v, packed, s, mins, y, y_f32, ws, tickets, M, K, N,
+                            group, bm, splits, k_split, stream);
 }
 
 }  // namespace
 
 extern "C" int qdot_launch(const void* x, int x_is_bf16, const void* v,
                            int packed, const void* s, const void* mins,
-                           int s_is_bf16, void* y, void* ws, void* tickets,
-                           int M, int K, int N, int group, int bm, int splits,
-                           int k_split, void* stream) {
+                           int s_is_bf16, void* y, int y_is_f32, void* ws,
+                           void* tickets, int M, int K, int N, int group, int bm,
+                           int splits, int k_split, void* stream) {
   if (M < 1 || K < 1 || N < 1 || (group != 16 && group != 32) || K % group) {
     return (int)cudaErrorInvalidValue;
   }
@@ -114,9 +115,10 @@ extern "C" int qdot_launch(const void* x, int x_is_bf16, const void* v,
   float* wsf = static_cast<float*>(ws);
   int* tk = static_cast<int*>(tickets);
   if (x_is_bf16) {
-    return (int)by_scales<__nv_bfloat16>(x, v, packed, s, mins, s_is_bf16, y, wsf, tk,
-                                         M, K, N, group, bm, splits, k_split, st);
+    return (int)by_scales<__nv_bfloat16>(x, v, packed, s, mins, s_is_bf16, y,
+                                         y_is_f32 != 0, wsf, tk, M, K, N, group, bm,
+                                         splits, k_split, st);
   }
-  return (int)by_scales<float>(x, v, packed, s, mins, s_is_bf16, y, wsf, tk, M, K, N,
-                               group, bm, splits, k_split, st);
+  return (int)by_scales<float>(x, v, packed, s, mins, s_is_bf16, y, y_is_f32 != 0, wsf,
+                               tk, M, K, N, group, bm, splits, k_split, st);
 }

@@ -22,7 +22,8 @@
 //         in its high one
 //   s     f32 or bf16 [K/g, N], g in {16, 32} (s_is_bf16);  mins [K/g, N]
 //         of s's type, or null
-//   y     [M, N] in x's type
+//   y     [M, N] in x's type, or f32 (y_is_f32: the unrounded sum, a
+//         row-parallel shard's partial)
 // The rounding of w is one __float2bfloat16_rn of the f32 product q * s':
 // s' = bf16(s) in mode 1 (q * s' is then exact, so w = bf16(v * bf16(s))),
 // s' = s in mode after (the f32 product rounded, then rounded to bf16, as
@@ -66,54 +67,58 @@ namespace {
 
 template <typename T, typename S, bool PACKED>
 cudaError_t by_m(const void* x, const void* v, const void* s, const void* mins,
-                 void* y, float* ws, int* tickets, int M, int K, int N, int group,
-                 int bm, int splits, int k_split, bool after, cudaStream_t stream) {
+                 void* y, bool y_f32, float* ws, int* tickets, int M, int K, int N,
+                 int group, int bm, int splits, int k_split, bool after,
+                 cudaStream_t stream) {
   if (M == 1) {
-    return qgemv::gemv<T, S, PACKED, qgemv::BF16_WEIGHT>(x, v, s, mins, y, K, N, group,
-                                                         splits, k_split, stream, after);
+    return qgemv::gemv<T, S, PACKED, qgemv::BF16_WEIGHT>(x, v, s, mins, y, y_f32, K, N,
+                                                         group, splits, k_split, stream,
+                                                         after);
   }
   if (group == 16) {
-    return qtile::tile_by_bm<T, S, PACKED, 16, true>(x, v, s, mins, y, ws, tickets, M,
-                                                     K, N, bm, splits, k_split, after,
-                                                     stream);
+    return qtile::tile_by_bm<T, S, PACKED, 16, true>(x, v, s, mins, y, y_f32, ws,
+                                                     tickets, M, K, N, bm, splits,
+                                                     k_split, after, stream);
   }
-  return qtile::tile_by_bm<T, S, PACKED, 32, true>(x, v, s, mins, y, ws, tickets, M, K,
-                                                   N, bm, splits, k_split, after, stream);
+  return qtile::tile_by_bm<T, S, PACKED, 32, true>(x, v, s, mins, y, y_f32, ws, tickets,
+                                                   M, K, N, bm, splits, k_split, after,
+                                                   stream);
 }
 
 template <typename T, typename S>
 cudaError_t dispatch(const void* x, const void* v, int packed, const void* s,
-                     const void* mins, void* y, float* ws, int* tickets, int M,
-                     int K, int N, int group, int bm, int splits, int k_split,
-                     bool after, cudaStream_t stream) {
+                     const void* mins, void* y, bool y_f32, float* ws, int* tickets,
+                     int M, int K, int N, int group, int bm, int splits,
+                     int k_split, bool after, cudaStream_t stream) {
   if (packed) {
-    return by_m<T, S, true>(x, v, s, mins, y, ws, tickets, M, K, N, group, bm, splits,
-                            k_split, after, stream);
+    return by_m<T, S, true>(x, v, s, mins, y, y_f32, ws, tickets, M, K, N, group, bm,
+                            splits, k_split, after, stream);
   }
-  return by_m<T, S, false>(x, v, s, mins, y, ws, tickets, M, K, N, group, bm, splits,
-                           k_split, after, stream);
+  return by_m<T, S, false>(x, v, s, mins, y, y_f32, ws, tickets, M, K, N, group, bm,
+                           splits, k_split, after, stream);
 }
 
 template <typename T>
 cudaError_t by_scales(const void* x, const void* v, int packed, const void* s,
-                      const void* mins, int s_is_bf16, void* y, float* ws,
-                      int* tickets, int M, int K, int N, int group, int bm,
-                      int splits, int k_split, bool after, cudaStream_t stream) {
+                      const void* mins, int s_is_bf16, void* y, bool y_f32,
+                      float* ws, int* tickets, int M, int K, int N, int group,
+                      int bm, int splits, int k_split, bool after,
+                      cudaStream_t stream) {
   if (s_is_bf16) {
-    return dispatch<T, __nv_bfloat16>(x, v, packed, s, mins, y, ws, tickets, M, K, N,
-                                      group, bm, splits, k_split, after, stream);
+    return dispatch<T, __nv_bfloat16>(x, v, packed, s, mins, y, y_f32, ws, tickets, M,
+                                      K, N, group, bm, splits, k_split, after, stream);
   }
-  return dispatch<T, float>(x, v, packed, s, mins, y, ws, tickets, M, K, N, group, bm,
-                            splits, k_split, after, stream);
+  return dispatch<T, float>(x, v, packed, s, mins, y, y_f32, ws, tickets, M, K, N,
+                            group, bm, splits, k_split, after, stream);
 }
 
 }  // namespace
 
 extern "C" int qdot_bf16_launch(const void* x, int x_is_bf16, const void* v,
                                 int packed, const void* s, const void* mins,
-                                int s_is_bf16, void* y, void* ws, void* tickets,
-                                int M, int K, int N, int group, int bm,
-                                int splits, int k_split, int after,
+                                int s_is_bf16, void* y, int y_is_f32, void* ws,
+                                void* tickets, int M, int K, int N, int group,
+                                int bm, int splits, int k_split, int after,
                                 void* stream) {
   if (M < 1 || K < 1 || N < 1 || (group != 16 && group != 32) || K % group) {
     return (int)cudaErrorInvalidValue;
@@ -126,10 +131,10 @@ extern "C" int qdot_bf16_launch(const void* x, int x_is_bf16, const void* v,
   float* wsf = static_cast<float*>(ws);
   int* tk = static_cast<int*>(tickets);
   if (x_is_bf16) {
-    return (int)by_scales<__nv_bfloat16>(x, v, packed, s, mins, s_is_bf16, y, wsf, tk,
-                                         M, K, N, group, bm, splits, k_split,
-                                         after != 0, st);
+    return (int)by_scales<__nv_bfloat16>(x, v, packed, s, mins, s_is_bf16, y,
+                                         y_is_f32 != 0, wsf, tk, M, K, N, group, bm,
+                                         splits, k_split, after != 0, st);
   }
-  return (int)by_scales<float>(x, v, packed, s, mins, s_is_bf16, y, wsf, tk, M, K, N,
-                               group, bm, splits, k_split, after != 0, st);
+  return (int)by_scales<float>(x, v, packed, s, mins, s_is_bf16, y, y_is_f32 != 0, wsf,
+                               tk, M, K, N, group, bm, splits, k_split, after != 0, st);
 }

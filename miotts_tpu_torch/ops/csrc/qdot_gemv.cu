@@ -18,7 +18,8 @@
 //   s     f32 or bf16 [K/g, N], g in {16, 32} (s_is_bf16: the bf16-scale
 //         instantiations, MIOTTS_SCALE_BF16);  mins [K/g, N] of s's type,
 //         or null
-//   y     [M, N] in x's type, rounded once from the f32 sum
+//   y     [M, N] in x's type, rounded once from the f32 sum, or that f32
+//         sum (y_is_f32: a row-parallel shard's partial)
 // A bf16 scale or min is upcast exactly where it is loaded, as the Pallas
 // kernels' s_ref[:].astype(f32) and the mins term's astype(f32) do.
 //
@@ -74,71 +75,70 @@ bool bad_shape(int M, int K, int N, int group) {
 // K4a (PACKED false) / K4b: the GEMV's integer-partial form
 template <typename S, bool PACKED>
 int w8a8(const void* x, const void* v, const void* s, const void* mins, void* y,
-         int x_is_bf16, int K, int N, int group, int splits, int k_split,
-         cudaStream_t st) {
+         bool y_f32, int x_is_bf16, int K, int N, int group, int splits,
+         int k_split, cudaStream_t st) {
   if (x_is_bf16) {
     return (int)qgemv::gemv<__nv_bfloat16, S, PACKED, qgemv::INT_PARTIAL>(
-        x, v, s, mins, y, K, N, group, splits, k_split, st);
+        x, v, s, mins, y, y_f32, K, N, group, splits, k_split, st);
   }
-  return (int)qgemv::gemv<float, S, PACKED, qgemv::INT_PARTIAL>(x, v, s, mins, y, K, N,
-                                                                group, splits, k_split,
-                                                                st);
+  return (int)qgemv::gemv<float, S, PACKED, qgemv::INT_PARTIAL>(
+      x, v, s, mins, y, y_f32, K, N, group, splits, k_split, st);
 }
 
 template <bool PACKED>
 int w8a8_launch(const void* x, const void* v, const void* s, const void* mins,
-                int s_is_bf16, void* y, int x_is_bf16, int K, int N, int group,
-                int splits, int k_split, void* stream) {
+                int s_is_bf16, void* y, int y_is_f32, int x_is_bf16, int K, int N,
+                int group, int splits, int k_split, void* stream) {
   if (bad_shape(1, K, N, group) || !qgemv::gemv_plan_ok(K, group, splits, k_split)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (s_is_bf16) {
-    return w8a8<__nv_bfloat16, PACKED>(x, v, s, mins, y, x_is_bf16, K, N, group, splits,
-                                       k_split, st);
+    return w8a8<__nv_bfloat16, PACKED>(x, v, s, mins, y, y_is_f32 != 0, x_is_bf16, K, N,
+                                       group, splits, k_split, st);
   }
-  return w8a8<float, PACKED>(x, v, s, mins, y, x_is_bf16, K, N, group, splits, k_split,
-                             st);
+  return w8a8<float, PACKED>(x, v, s, mins, y, y_is_f32 != 0, x_is_bf16, K, N, group,
+                             splits, k_split, st);
 }
 
 // K2: the tile at M > 1 (K1's, packed values), the GEMV at M = 1
 template <typename S>
 int split(const void* x, const uint8_t* v, const void* s, const void* mins, void* y,
-          float* ws, int* tk, int x_is_bf16, int M, int K, int N, int group, int bm,
-          int splits, int k_split, cudaStream_t st) {
+          bool y_f32, float* ws, int* tk, int x_is_bf16, int M, int K, int N,
+          int group, int bm, int splits, int k_split, cudaStream_t st) {
   if (M > 1) {
     if (x_is_bf16) {
       if (group == 16)
         return (int)qtile::tile_by_bm<__nv_bfloat16, S, true, 16, false>(
-            x, v, s, mins, y, ws, tk, M, K, N, bm, splits, k_split, false, st);
+            x, v, s, mins, y, y_f32, ws, tk, M, K, N, bm, splits, k_split, false, st);
       return (int)qtile::tile_by_bm<__nv_bfloat16, S, true, 32, false>(
-          x, v, s, mins, y, ws, tk, M, K, N, bm, splits, k_split, false, st);
+          x, v, s, mins, y, y_f32, ws, tk, M, K, N, bm, splits, k_split, false, st);
     }
     if (group == 16)
       return (int)qtile::tile_by_bm<float, S, true, 16, false>(
-          x, v, s, mins, y, ws, tk, M, K, N, bm, splits, k_split, false, st);
+          x, v, s, mins, y, y_f32, ws, tk, M, K, N, bm, splits, k_split, false, st);
     return (int)qtile::tile_by_bm<float, S, true, 32, false>(
-        x, v, s, mins, y, ws, tk, M, K, N, bm, splits, k_split, false, st);
+        x, v, s, mins, y, y_f32, ws, tk, M, K, N, bm, splits, k_split, false, st);
   }
   if (x_is_bf16) {
-    return (int)qgemv::gemv<__nv_bfloat16, S, true>(x, v, s, mins, y, K, N, group,
-                                                    splits, k_split, st);
+    return (int)qgemv::gemv<__nv_bfloat16, S, true>(x, v, s, mins, y, y_f32, K, N,
+                                                    group, splits, k_split, st);
   }
-  return (int)qgemv::gemv<float, S, true>(x, v, s, mins, y, K, N, group, splits,
+  return (int)qgemv::gemv<float, S, true>(x, v, s, mins, y, y_f32, K, N, group, splits,
                                           k_split, st);
 }
 
 // K3: bf16 x, int8 or packed values
 template <typename S>
 int group_dot(const void* x, const uint8_t* v, const void* s, const void* mins,
-              void* y, int packed, int K, int N, int group, int splits, int k_split,
-              cudaStream_t st) {
+              void* y, bool y_f32, int packed, int K, int N, int group, int splits,
+              int k_split, cudaStream_t st) {
   if (packed) {
-    return (int)qgemv::gemv<__nv_bfloat16, S, true>(x, v, s, mins, y, K, N, group,
-                                                    splits, k_split, st);
+    return (int)qgemv::gemv<__nv_bfloat16, S, true>(x, v, s, mins, y, y_f32, K, N,
+                                                    group, splits, k_split, st);
   }
-  return (int)qgemv::gemv<__nv_bfloat16, S, false>(x, v, s, mins, y, K, N, group,
-                                                   splits, k_split, st);
+  return (int)qgemv::gemv<__nv_bfloat16, S, false>(x, v, s, mins, y, y_f32, K, N,
+                                                   group, splits, k_split, st);
 }
 
 }  // namespace
@@ -150,9 +150,9 @@ int group_dot(const void* x, const uint8_t* v, const void* s, const void* mins,
 // per-tile tickets), as qdot_launch takes it.
 extern "C" int qdot_split_launch(const void* x, const void* v, const void* s,
                                  const void* mins, int s_is_bf16, void* y,
-                                 void* ws, void* tickets, int x_is_bf16, int M,
-                                 int K, int N, int group, int bm, int splits,
-                                 int k_split, void* stream) {
+                                 int y_is_f32, void* ws, void* tickets,
+                                 int x_is_bf16, int M, int K, int N, int group,
+                                 int bm, int splits, int k_split, void* stream) {
   if (bad_shape(M, K, N, group)) return (int)cudaErrorInvalidValue;
   if (M > 1 ? !qtile::plan_ok(M, K, N, bm, splits, k_split, ws, tickets)
             : !qgemv::gemv_plan_ok(K, group, splits, k_split)) {
@@ -163,47 +163,48 @@ extern "C" int qdot_split_launch(const void* x, const void* v, const void* s,
   float* wsf = static_cast<float*>(ws);
   int* tk = static_cast<int*>(tickets);
   if (s_is_bf16) {
-    return split<__nv_bfloat16>(x, vb, s, mins, y, wsf, tk, x_is_bf16, M, K, N, group,
-                                bm, splits, k_split, st);
+    return split<__nv_bfloat16>(x, vb, s, mins, y, y_is_f32 != 0, wsf, tk, x_is_bf16, M,
+                                K, N, group, bm, splits, k_split, st);
   }
-  return split<float>(x, vb, s, mins, y, wsf, tk, x_is_bf16, M, K, N, group, bm, splits,
-                      k_split, st);
+  return split<float>(x, vb, s, mins, y, y_is_f32 != 0, wsf, tk, x_is_bf16, M, K, N,
+                      group, bm, splits, k_split, st);
 }
 
 // K3: x [1, K] bf16, int8 or packed values; the GEMV under the plan of
 // ops/qmat.py:_gemv_plan.
 extern "C" int qdot_group_launch(const void* x, const void* v, const void* s,
                                  const void* mins, int s_is_bf16, void* y,
-                                 int packed, int K, int N, int group, int splits,
-                                 int k_split, void* stream) {
+                                 int y_is_f32, int packed, int K, int N, int group,
+                                 int splits, int k_split, void* stream) {
   if (bad_shape(1, K, N, group) || !qgemv::gemv_plan_ok(K, group, splits, k_split)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint8_t* vb = static_cast<const uint8_t*>(v);
   if (s_is_bf16) {
-    return group_dot<__nv_bfloat16>(x, vb, s, mins, y, packed, K, N, group, splits,
-                                    k_split, st);
+    return group_dot<__nv_bfloat16>(x, vb, s, mins, y, y_is_f32 != 0, packed, K, N,
+                                    group, splits, k_split, st);
   }
-  return group_dot<float>(x, vb, s, mins, y, packed, K, N, group, splits, k_split, st);
+  return group_dot<float>(x, vb, s, mins, y, y_is_f32 != 0, packed, K, N, group,
+                          splits, k_split, st);
 }
 
 // K4a: x [1, K] (bf16 or f32), int8 values; the GEMV under the plan of
 // ops/qmat.py:_gemv_plan.
 extern "C" int qdot_w8a8_launch(const void* x, const void* v, const void* s,
                                 const void* mins, int s_is_bf16, void* y,
-                                int x_is_bf16, int K, int N, int group,
-                                int splits, int k_split, void* stream) {
-  return w8a8_launch<false>(x, v, s, mins, s_is_bf16, y, x_is_bf16, K, N, group,
-                            splits, k_split, stream);
+                                int y_is_f32, int x_is_bf16, int K, int N,
+                                int group, int splits, int k_split, void* stream) {
+  return w8a8_launch<false>(x, v, s, mins, s_is_bf16, y, y_is_f32, x_is_bf16, K, N,
+                            group, splits, k_split, stream);
 }
 
 // K4b: x [1, K] (bf16 or f32), packed values; the same.
 extern "C" int qdot_w8a8_packed_launch(const void* x, const void* v,
                                        const void* s, const void* mins,
-                                       int s_is_bf16, void* y, int x_is_bf16,
-                                       int K, int N, int group, int splits,
-                                       int k_split, void* stream) {
-  return w8a8_launch<true>(x, v, s, mins, s_is_bf16, y, x_is_bf16, K, N, group,
-                           splits, k_split, stream);
+                                       int s_is_bf16, void* y, int y_is_f32,
+                                       int x_is_bf16, int K, int N, int group,
+                                       int splits, int k_split, void* stream) {
+  return w8a8_launch<true>(x, v, s, mins, s_is_bf16, y, y_is_f32, x_is_bf16, K, N,
+                           group, splits, k_split, stream);
 }

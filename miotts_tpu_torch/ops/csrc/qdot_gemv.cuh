@@ -137,6 +137,7 @@ namespace cg = cooperative_groups;
 
 using qtile::bf16_round;
 using qtile::from_f32;
+using qtile::store_y;
 using qtile::to_f32;
 
 constexpr int GEMV_TEAM = 2;                   // lanes of a team, 16 columns each
@@ -388,7 +389,8 @@ __global__ void __launch_bounds__(
     ALIGNED || FORM == BF16_WEIGHT ? GEMV_MIN_BLOCKS : GEMV_MIN_BLOCKS_UNALIGNED)
 qdot_gemv_kernel(const T* __restrict__ x, const uint8_t* __restrict__ v,
                  const S* __restrict__ s, const S* __restrict__ mins,
-                 T* __restrict__ y, int K, int N, int k_split, bool after) {
+                 void* __restrict__ y, bool y_f32, int K, int N, int k_split,
+                 bool after) {
   constexpr bool SCALED = FORM == BF16_WEIGHT;
   constexpr bool INT = FORM == INT_PARTIAL;
   constexpr bool XQ_SLICE = xq_slice(FORM, ALIGNED);
@@ -569,7 +571,7 @@ qdot_gemv_kernel(const T* __restrict__ x, const uint8_t* __restrict__ v,
     const int n_ranks = (int)cluster.num_blocks();
     for (int r = 0; r < n_ranks; ++r) t += cluster.map_shared_rank(&part[0], r)[c];
     const int n = blockIdx.x * COLS + c;
-    if (n < N) y[n] = from_f32<T>(t);
+    if (n < N) store_y<T>(y, n, t, y_f32);
   }
   cluster.sync();   // the other blocks' shared memory lives until it is read
 }
@@ -577,8 +579,8 @@ qdot_gemv_kernel(const T* __restrict__ x, const uint8_t* __restrict__ v,
 // One GEMV launch: a cluster of `splits` blocks along K per block of columns.
 template <typename T, typename S, bool PACKED, int G, bool ALIGNED, Form FORM>
 cudaError_t launch_gemv(const void* x, const uint8_t* v, const S* s,
-                        const S* mins, void* y, int K, int N, int splits,
-                        int k_split, bool after, cudaStream_t stream) {
+                        const S* mins, void* y, bool y_f32, int K, int N,
+                        int splits, int k_split, bool after, cudaStream_t stream) {
   auto kernel = qdot_gemv_kernel<T, S, PACKED, G, ALIGNED, FORM>;
   cudaLaunchConfig_t cfg = {};
   constexpr int cols = 16 * gemv_team(ALIGNED);
@@ -598,8 +600,8 @@ cudaError_t launch_gemv(const void* x, const uint8_t* v, const S* s,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, kernel, static_cast<const T*>(x), v, s, mins, static_cast<T*>(y), K,
-      N, k_split, after);
+      &cfg, kernel, static_cast<const T*>(x), v, s, mins, y, y_f32, K, N, k_split,
+      after);
   const cudaError_t last = cudaGetLastError();
   return err != cudaSuccess ? err : last;
 }
@@ -609,36 +611,36 @@ cudaError_t launch_gemv(const void* x, const uint8_t* v, const S* s,
 // f32) and the four base addresses 16-byte aligned
 template <typename T, typename S, bool PACKED, int G, Form FORM>
 cudaError_t gemv_by_alignment(const void* x, const uint8_t* v, const S* s,
-                              const S* mins, void* y, int K, int N,
+                              const S* mins, void* y, bool y_f32, int K, int N,
                               int splits, int k_split, bool after,
                               cudaStream_t stream) {
   const uintptr_t addr = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(v)
                          | reinterpret_cast<uintptr_t>(s) | reinterpret_cast<uintptr_t>(mins);
   if (N % 16 == 0 && addr % 16 == 0) {
-    return launch_gemv<T, S, PACKED, G, true, FORM>(x, v, s, mins, y, K, N, splits,
-                                                    k_split, after, stream);
+    return launch_gemv<T, S, PACKED, G, true, FORM>(x, v, s, mins, y, y_f32, K, N,
+                                                    splits, k_split, after, stream);
   }
-  return launch_gemv<T, S, PACKED, G, false, FORM>(x, v, s, mins, y, K, N, splits,
-                                                   k_split, after, stream);
+  return launch_gemv<T, S, PACKED, G, false, FORM>(x, v, s, mins, y, y_f32, K, N,
+                                                   splits, k_split, after, stream);
 }
 
 // The GEMV of x [1, K] (T: bf16 or f32) against the values v (PACKED:
 // nibbles) and scales and mins of type S (f32 or bf16) under a plan that
 // gemv_plan_ok accepts, in the products' form FORM (BF16_WEIGHT: `after`
-// is its mode).
+// is its mode); y in T, or f32 where y_f32.
 template <typename T, typename S, bool PACKED, Form FORM = GROUP_PARTIAL>
 cudaError_t gemv(const void* x, const void* v, const void* s, const void* mins,
-                 void* y, int K, int N, int group, int splits, int k_split,
-                 cudaStream_t stream, bool after = false) {
+                 void* y, bool y_f32, int K, int N, int group, int splits,
+                 int k_split, cudaStream_t stream, bool after = false) {
   const uint8_t* vb = static_cast<const uint8_t*>(v);
   const S* st = static_cast<const S*>(s);
   const S* mt = static_cast<const S*>(mins);
   if (group == 16) {
-    return gemv_by_alignment<T, S, PACKED, 16, FORM>(x, vb, st, mt, y, K, N, splits,
-                                                     k_split, after, stream);
+    return gemv_by_alignment<T, S, PACKED, 16, FORM>(x, vb, st, mt, y, y_f32, K, N,
+                                                     splits, k_split, after, stream);
   }
-  return gemv_by_alignment<T, S, PACKED, 32, FORM>(x, vb, st, mt, y, K, N, splits,
-                                                   k_split, after, stream);
+  return gemv_by_alignment<T, S, PACKED, 32, FORM>(x, vb, st, mt, y, y_f32, K, N,
+                                                   splits, k_split, after, stream);
 }
 
 // the checks of a GEMV plan that the kernel relies on: whole quant groups

@@ -88,6 +88,18 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16(v);
 }
 
+// y[i] = v: in T, rounded once from the f32 sum, or the f32 sum itself
+// where y_f32 (a row-parallel shard's partial: the ranks' partials are
+// summed before the one rounding)
+template <typename T>
+__device__ __forceinline__ void store_y(void* y, size_t i, float v, bool y_f32) {
+  if (y_f32) {
+    static_cast<float*>(y)[i] = v;
+  } else {
+    static_cast<T*>(y)[i] = from_f32<T>(v);
+  }
+}
+
 __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
@@ -294,8 +306,9 @@ template <typename T, bool PACKED, int G, int BM, bool SCALED, typename S>
 __global__ void __launch_bounds__(Shape<BM>::THREADS)
 qdot_tile_kernel(const T* __restrict__ x, const uint8_t* __restrict__ v,
                  const S* __restrict__ s, const S* __restrict__ mins,
-                 T* __restrict__ y, float* __restrict__ ws, int* __restrict__ tickets,
-                 int M, int K, int N, int k_split, bool after) {
+                 void* __restrict__ y, bool y_f32, float* __restrict__ ws,
+                 int* __restrict__ tickets, int M, int K, int N, int k_split,
+                 bool after) {
   using SH = Shape<BM>;
   using ST = Stage<T, PACKED, G, BM, S>;
   constexpr int THREADS = SH::THREADS, MT = SH::MT, GS = ST::GS;
@@ -540,7 +553,7 @@ qdot_tile_kernel(const T* __restrict__ x, const uint8_t* __restrict__ v,
         for (int e = 0; e < 4; ++e) {
           const int m = m0 + (wm * MT + i) * 16 + gid + (e >> 1) * 8;
           const int n = nb + (e & 1) * 4 + j;
-          if (m < M && n < N) y[(size_t)m * N + n] = from_f32<T>(acc[i][j][e]);
+          if (m < M && n < N) store_y<T>(y, (size_t)m * N + n, acc[i][j][e], y_f32);
         }
     return;
   }
@@ -599,7 +612,7 @@ qdot_tile_kernel(const T* __restrict__ x, const uint8_t* __restrict__ v,
     const float v4[4] = {t[q].x, t[q].y, t[q].z, t[q].w};
 #pragma unroll
     for (int u = 0; u < 4; ++u)
-      if (n + u < N) y[(size_t)m * N + n + u] = from_f32<T>(v4[u]);
+      if (n + u < N) store_y<T>(y, (size_t)m * N + n + u, v4[u], y_f32);
   }
 }
 
@@ -612,9 +625,9 @@ qdot_tile_kernel(const T* __restrict__ x, const uint8_t* __restrict__ v,
 // process, STB_GNU_UNIQUE, so a second library would skip the attribute).
 template <typename T, bool PACKED, int G, int BM, bool SCALED, typename S>
 static cudaError_t launch_tile(const T* x, const uint8_t* v, const S* s,
-                        const S* mins, T* y, float* ws, int* tickets, int M,
-                        int K, int N, int splits, int k_split, bool after,
-                        cudaStream_t stream) {
+                        const S* mins, void* y, bool y_f32, float* ws,
+                        int* tickets, int M, int K, int N, int splits,
+                        int k_split, bool after, cudaStream_t stream) {
   auto kern = qdot_tile_kernel<T, PACKED, G, BM, SCALED, S>;
   constexpr int smem = Stage<T, PACKED, G, BM, S>::SMEM;
   static bool configured = false;
@@ -625,8 +638,8 @@ static cudaError_t launch_tile(const T* x, const uint8_t* v, const S* s,
     configured = true;
   }
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, splits);
-  kern<<<grid, Shape<BM>::THREADS, smem, stream>>>(x, v, s, mins, y, ws, tickets,
-                                                   M, K, N, k_split, after);
+  kern<<<grid, Shape<BM>::THREADS, smem, stream>>>(x, v, s, mins, y, y_f32, ws,
+                                                   tickets, M, K, N, k_split, after);
   return cudaGetLastError();
 }
 
@@ -644,12 +657,13 @@ inline bool plan_ok(int M, int K, int N, int bm, int splits, int k_split,
 
 // The tile of x (T) against scales and mins of type S (float, 4-byte
 // aligned, or bf16, 16-byte aligned: a staged bf16 row starts at the piece
-// that holds its first column, never before the tensor)
+// that holds its first column, never before the tensor); y in T, or f32
+// where y_f32
 template <typename T, typename S, bool PACKED, int G, bool SCALED>
 cudaError_t tile_by_bm(const void* x, const void* v, const void* s,
-                       const void* mins, void* y, float* ws, int* tickets, int M,
-                       int K, int N, int bm, int splits, int k_split, bool after,
-                       cudaStream_t stream) {
+                       const void* mins, void* y, bool y_f32, float* ws,
+                       int* tickets, int M, int K, int N, int bm, int splits,
+                       int k_split, bool after, cudaStream_t stream) {
   if ((reinterpret_cast<uintptr_t>(s) | reinterpret_cast<uintptr_t>(mins))
       % (sizeof(S) == 2 ? 16 : 4)) {
     return cudaErrorInvalidValue;
@@ -658,13 +672,14 @@ cudaError_t tile_by_bm(const void* x, const void* v, const void* s,
   const uint8_t* vt = static_cast<const uint8_t*>(v);
   const S* st = static_cast<const S*>(s);
   const S* mt = static_cast<const S*>(mins);
-  T* yt = static_cast<T*>(y);
   if (bm == 16) {
-    return launch_tile<T, PACKED, G, 16, SCALED, S>(xt, vt, st, mt, yt, ws, tickets, M,
-                                                    K, N, splits, k_split, after, stream);
+    return launch_tile<T, PACKED, G, 16, SCALED, S>(xt, vt, st, mt, y, y_f32, ws,
+                                                    tickets, M, K, N, splits, k_split,
+                                                    after, stream);
   }
-  return launch_tile<T, PACKED, G, 64, SCALED, S>(xt, vt, st, mt, yt, ws, tickets, M, K,
-                                                  N, splits, k_split, after, stream);
+  return launch_tile<T, PACKED, G, 64, SCALED, S>(xt, vt, st, mt, y, y_f32, ws, tickets,
+                                                  M, K, N, splits, k_split, after,
+                                                  stream);
 }
 
 }  // namespace qtile

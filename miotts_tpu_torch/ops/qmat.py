@@ -59,6 +59,7 @@ import torch
 
 from ..gguf.quants import to_group_quant
 from ..gguf.reader import GGML_Q4_0, GGML_Q4_K
+from .collective import Shard
 
 GEMV_MODES = ("plain", "w8a8", "groupdot")
 BF16_MODES = ("", "1", "after")
@@ -288,6 +289,8 @@ def with_route(tree, route: QdotRoute):
     tensors are shared, not copied."""
     if isinstance(tree, QTensor):
         return replace(tree, route=route)
+    if isinstance(tree, Shard):
+        return replace(tree, local=with_route(tree.local, route))
     if isinstance(tree, dict):
         return {k: with_route(v, route) for k, v in tree.items()}
     if isinstance(tree, list):
@@ -300,11 +303,20 @@ def with_route(tree, route: QdotRoute):
 # CPU path, and what the CUDA kernels are held against)
 # ---------------------------------------------------------------------------
 
-def qdot_plain(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
+def _out_dtype(x: torch.Tensor, out_f32: bool) -> torch.dtype:
+    """A product's output dtype: x's, or f32 where `out_f32` asks for the
+    unrounded f32 sum (a row-parallel shard's partial, rounded only after
+    the ranks' partials are summed).  Every kernel and plain version below
+    takes `out_f32`."""
+    return torch.float32 if out_f32 else x.dtype
+
+
+def qdot_plain(x: torch.Tensor, qt: QTensor,
+               out_f32: bool = False) -> torch.Tensor:
     """K1.  x [M, K] @ w [K, N] in plain torch: dequantize to f32, multiply
     in f32, cast to x.dtype — the arithmetic of the TPU kernel's default
     (f32-dequant) path and of the CUDA kernel."""
-    return (x.float() @ qt.dequant_t(torch.float32)).to(x.dtype)
+    return (x.float() @ qt.dequant_t(torch.float32)).to(_out_dtype(x, out_f32))
 
 
 def _bf16_mode_checked(mode: str) -> None:
@@ -313,18 +325,23 @@ def _bf16_mode_checked(mode: str) -> None:
                          f"{mode!r}")
 
 
-def qdot_xla(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
+def qdot_xla(x: torch.Tensor, qt: QTensor,
+             out_f32: bool = False) -> torch.Tensor:
     """The JAX package's `_qdot_xla` (MIOTTS_FORCE_XLA_QDOT): the weight
     dequantized in f32 for f32 x, else in bf16, then one `torch.matmul`
     with x in the same dtype (every bf16 product exact, summed in f32),
-    the result in x.dtype.  No hand-written kernel: on a GPU the product is
+    the result in x.dtype (`out_f32`: the same bf16 values multiplied in
+    f32, unrounded).  No hand-written kernel: on a GPU the product is
     cuBLAS's; counted in `qdot_xla.calls` on every device."""
     dt = torch.float32 if x.dtype == torch.float32 else torch.bfloat16
     qdot_xla.calls += 1
+    if out_f32:
+        return torch.matmul(x.to(dt).float(), qt.dequant_t(dt).float())
     return torch.matmul(x.to(dt), qt.dequant_t(dt)).to(x.dtype)
 
 
-def qdot_bf16_plain(x: torch.Tensor, qt: QTensor, mode: str) -> torch.Tensor:
+def qdot_bf16_plain(x: torch.Tensor, qt: QTensor, mode: str,
+                    out_f32: bool = False) -> torch.Tensor:
     """K1v (`_qdot_pallas(bf16_dot=True | "after")`): x rounded to bf16; the
     weight dequantized without mins and rounded to bf16 as the mode says
     ("1": bf16(v * bf16(s)), exact before its one rounding; "after":
@@ -340,7 +357,7 @@ def qdot_bf16_plain(x: torch.Tensor, qt: QTensor, mode: str) -> torch.Tensor:
     w = (v * s[:, None, :]).reshape(K, -1).to(torch.bfloat16).float()
     out = x.to(torch.bfloat16).float() @ w
     xg = x.float().reshape(M, K // g, g).sum(dim=2)
-    return (out - _mins_term(xg, qt)).to(x.dtype)
+    return (out - _mins_term(xg, qt)).to(_out_dtype(x, out_f32))
 
 
 def _k8_tile_k(K: int, N: int) -> int:
@@ -394,7 +411,8 @@ def _mins_term(xg: torch.Tensor, qt: QTensor) -> torch.Tensor:
     return 0.0 if qt.mins is None else xg @ qt.mins.float()
 
 
-def qdot_split_plain(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
+def qdot_split_plain(x: torch.Tensor, qt: QTensor,
+                     out_f32: bool = False) -> torch.Tensor:
     """K2 (`_qdot_pallas_split`): x cast to f32 and split into each quant
     group's lo / hi halves, each nibble plane dequantized in place and
     contracted by its own half-K product; the mins term from the f32 group
@@ -411,10 +429,11 @@ def qdot_split_plain(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     w_lo = ((v3 & 0xF).float() * s).reshape(K // 2, N)
     w_hi = ((v3 >> 4).float() * s).reshape(K // 2, N)
     out = x_lo @ w_lo + x_hi @ w_hi
-    return (out - _mins_term(x3.sum(dim=2), qt)).to(x.dtype)
+    return (out - _mins_term(x3.sum(dim=2), qt)).to(_out_dtype(x, out_f32))
 
 
-def qdot_group_plain(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
+def qdot_group_plain(x: torch.Tensor, qt: QTensor,
+                     out_f32: bool = False) -> torch.Tensor:
     """K3 (`_qdot_group_pallas`), M = 1: per-group partial sums d[b, n] of
     bf16(x) times the integer values, in f32; then sum_b d[b, n] * s[b, n];
     the mins term from the exact f32 group sums of x; cast to x.dtype."""
@@ -426,7 +445,7 @@ def qdot_group_plain(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     d = torch.bmm(xb, v)[:, 0]                       # [K/g, N]
     out = (d * qt.scales.float()).sum(dim=0, keepdim=True)
     xg = x.float().reshape(1, K // g, g).sum(dim=2)
-    return (out - _mins_term(xg, qt)).to(x.dtype)
+    return (out - _mins_term(xg, qt)).to(_out_dtype(x, out_f32))
 
 
 def quantize_groups(x: torch.Tensor, group: int):
@@ -436,12 +455,16 @@ def quantize_groups(x: torch.Tensor, group: int):
     integers, sx [K/g])."""
     xf = x.float().reshape(-1, group)
     amax = xf.abs().amax(dim=1)
-    sx = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    # 127 as a tensor on x's device: CUDA torch multiplies by the
+    # reciprocal of a host scalar divisor, which is not IEEE division
+    sx = torch.where(amax > 0, amax / amax.new_full((), 127.0),
+                     torch.ones_like(amax))
     xq = torch.clamp(torch.round(xf / sx[:, None]), -127, 127)
     return xq, sx
 
 
-def qdot_w8a8_plain(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
+def qdot_w8a8_plain(x: torch.Tensor, qt: QTensor,
+                    out_f32: bool = False) -> torch.Tensor:
     """K4 (`_qdot_w8a8_pallas`, packed and unpacked), M = 1: x quantized per
     group to int8, integer per-group partials d[b, n] = sum xq * v (exact:
     |d| < 2^24, so the f32 product below is exact), the scale s * sx riding
@@ -454,7 +477,7 @@ def qdot_w8a8_plain(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     d = torch.bmm(xq[:, None, :], v)[:, 0]          # [K/g, N] integers
     out = (d * (qt.scales.float() * sx[:, None])).sum(dim=0, keepdim=True)
     xg = (sx * xq.sum(dim=1))[None]
-    return (out - _mins_term(xg, qt)).to(x.dtype)
+    return (out - _mins_term(xg, qt)).to(_out_dtype(x, out_f32))
 
 
 # ---------------------------------------------------------------------------
@@ -681,7 +704,8 @@ def _gemv_args(x: torch.Tensor, qt: QTensor, N: int,
 
 
 def _qdot_cuda(x: torch.Tensor, qt: QTensor,
-               plan: TilePlan | GemvPlan | None = None) -> torch.Tensor:
+               plan: TilePlan | GemvPlan | None = None,
+               out_f32: bool = False) -> torch.Tensor:
     """K1: `qdot_launch` (ops/csrc/qdot.cu): at M = 1 the GEMV under `plan`
     (None: `_gemv_plan`'s), at M > 1 the tile under `plan` (None:
     `_tile_plan`'s)."""
@@ -689,11 +713,11 @@ def _qdot_cuda(x: torch.Tensor, qt: QTensor,
     N = _checked("qdot", x, qt)
     M, K = x.shape
     ws, tickets, bm, splits, k_split = _tile_args("qdot", x, qt, N, plan)
-    y = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    y = torch.empty((M, N), dtype=_out_dtype(x, out_f32), device=x.device)
     _raise_on(load_kernels()["qdot"].qdot_launch(
         x.data_ptr(), int(x.dtype == torch.bfloat16), qt.values.data_ptr(),
         int(qt.packed), qt.scales.data_ptr(), _ptr(qt.mins), _s_bf16(qt),
-        y.data_ptr(),
+        y.data_ptr(), int(out_f32),
         _ptr(ws), _ptr(tickets), M, K, N, qt.group, bm, splits, k_split,
         torch.cuda.current_stream(x.device).cuda_stream), "qdot_launch")
     qdot.kernel_launches += 1
@@ -701,7 +725,8 @@ def _qdot_cuda(x: torch.Tensor, qt: QTensor,
 
 
 def _qdot_bf16_cuda(x: torch.Tensor, qt: QTensor, mode: str,
-                    plan: TilePlan | GemvPlan | None = None) -> torch.Tensor:
+                    plan: TilePlan | GemvPlan | None = None,
+                    out_f32: bool = False) -> torch.Tensor:
     """K1v: `qdot_bf16_launch` (ops/csrc/qdot_bf16.cu): at M = 1 the GEMV
     under `plan` (None: `_gemv_plan`'s), at M > 1 the tile under `plan`
     (None: `_tile_plan`'s)."""
@@ -711,11 +736,11 @@ def _qdot_bf16_cuda(x: torch.Tensor, qt: QTensor, mode: str,
     M, K = x.shape
     ws, tickets, bm, splits, k_split = _tile_args("qdot_bf16", x, qt, N,
                                                   plan)
-    y = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    y = torch.empty((M, N), dtype=_out_dtype(x, out_f32), device=x.device)
     _raise_on(load_kernels()["qdot_bf16"].qdot_bf16_launch(
         x.data_ptr(), int(x.dtype == torch.bfloat16), qt.values.data_ptr(),
         int(qt.packed), qt.scales.data_ptr(), _ptr(qt.mins), _s_bf16(qt),
-        y.data_ptr(),
+        y.data_ptr(), int(out_f32),
         _ptr(ws), _ptr(tickets), M, K, N, qt.group, bm, splits, k_split,
         int(mode == "after"), torch.cuda.current_stream(x.device).cuda_stream),
         "qdot_bf16_launch")
@@ -754,15 +779,16 @@ def _qdot_dma_floor_cuda(qt: QTensor,
 
 
 def _qdot_split_cuda(x: torch.Tensor, qt: QTensor,
-                     plan: TilePlan | GemvPlan | None = None) -> torch.Tensor:
+                     plan: TilePlan | GemvPlan | None = None,
+                     out_f32: bool = False) -> torch.Tensor:
     """K2: `qdot_split_launch` (ops/csrc/qdot_gemv.cu): at M = 1 the GEMV
     under `plan` (None: `_gemv_plan`'s), at M > 1 K1's tile under `plan`
     (None: `_tile_plan`'s)."""
     N = _checked("qdot_split", x, qt, packed=True)
     M, K = x.shape
     ws, tickets, bm, splits, k_split = _tile_args("qdot_split", x, qt, N, plan)
-    y = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    _launch("qdot_split_launch", x, qt, y, _ptr(ws), _ptr(tickets),
+    y = torch.empty((M, N), dtype=_out_dtype(x, out_f32), device=x.device)
+    _launch("qdot_split_launch", x, qt, y, int(out_f32), _ptr(ws), _ptr(tickets),
             int(x.dtype == torch.bfloat16), M, K, N, qt.group, bm, splits,
             k_split)
     qdot_split.kernel_launches += 1
@@ -770,30 +796,34 @@ def _qdot_split_cuda(x: torch.Tensor, qt: QTensor,
 
 
 def _qdot_group_cuda(x: torch.Tensor, qt: QTensor,
-                     plan: GemvPlan | None = None) -> torch.Tensor:
+                     plan: GemvPlan | None = None,
+                     out_f32: bool = False) -> torch.Tensor:
     """K3: `qdot_group_launch` (ops/csrc/qdot_gemv.cu), bf16 x only, the
     GEMV under `plan` (None: `_gemv_plan`'s)."""
     N = _checked("qdot_group", x, qt, xtypes=(torch.bfloat16,), gemv=True)
     K = x.shape[1]
     splits, k_split = _gemv_args(x, qt, N, plan)
-    y = torch.empty((1, N), dtype=x.dtype, device=x.device)
-    _launch("qdot_group_launch", x, qt, y, int(qt.packed), K, N, qt.group,
+    y = torch.empty((1, N), dtype=_out_dtype(x, out_f32), device=x.device)
+    _launch("qdot_group_launch", x, qt, y, int(out_f32), int(qt.packed), K, N,
+            qt.group,
             splits, k_split)
     qdot_group.kernel_launches += 1
     return y
 
 
 def _qdot_w8a8_cuda(x: torch.Tensor, qt: QTensor,
-                    plan: GemvPlan | None = None) -> torch.Tensor:
+                    plan: GemvPlan | None = None,
+                    out_f32: bool = False) -> torch.Tensor:
     """K4a (unpacked) / K4b (packed): `qdot_w8a8_launch` /
     `qdot_w8a8_packed_launch` (ops/csrc/qdot_gemv.cu), the GEMV's
     integer-partial form under `plan` (None: `_gemv_plan`'s)."""
     N = _checked("qdot_w8a8", x, qt, gemv=True)
     K = x.shape[1]
     splits, k_split = _gemv_args(x, qt, N, plan)
-    y = torch.empty((1, N), dtype=x.dtype, device=x.device)
+    y = torch.empty((1, N), dtype=_out_dtype(x, out_f32), device=x.device)
     fn = "qdot_w8a8_packed_launch" if qt.packed else "qdot_w8a8_launch"
-    _launch(fn, x, qt, y, int(x.dtype == torch.bfloat16), K, N, qt.group,
+    _launch(fn, x, qt, y, int(out_f32), int(x.dtype == torch.bfloat16), K, N,
+            qt.group,
             splits, k_split)
     if qt.packed:
         qdot_w8a8.packed_launches += 1
@@ -806,25 +836,32 @@ def _qdot_w8a8_cuda(x: torch.Tensor, qt: QTensor,
 # Entry points: the kernel for a CUDA tensor, its plain version for a CPU one
 # ---------------------------------------------------------------------------
 
-def qdot_split(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
+def qdot_split(x: torch.Tensor, qt: QTensor,
+               out_f32: bool = False) -> torch.Tensor:
     """K2 on x [M, K] and a packed QTensor -> [M, N]."""
-    return _qdot_split_cuda(x, qt) if x.is_cuda else qdot_split_plain(x, qt)
+    return (_qdot_split_cuda(x, qt, out_f32=out_f32) if x.is_cuda
+            else qdot_split_plain(x, qt, out_f32))
 
 
-def qdot_group(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
+def qdot_group(x: torch.Tensor, qt: QTensor,
+               out_f32: bool = False) -> torch.Tensor:
     """K3 on x [1, K] -> [1, N]."""
-    return _qdot_group_cuda(x, qt) if x.is_cuda else qdot_group_plain(x, qt)
+    return (_qdot_group_cuda(x, qt, out_f32=out_f32) if x.is_cuda
+            else qdot_group_plain(x, qt, out_f32))
 
 
-def qdot_w8a8(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
+def qdot_w8a8(x: torch.Tensor, qt: QTensor,
+              out_f32: bool = False) -> torch.Tensor:
     """K4 on x [1, K] -> [1, N] (K4a for int8 values, K4b for packed)."""
-    return _qdot_w8a8_cuda(x, qt) if x.is_cuda else qdot_w8a8_plain(x, qt)
+    return (_qdot_w8a8_cuda(x, qt, out_f32=out_f32) if x.is_cuda
+            else qdot_w8a8_plain(x, qt, out_f32))
 
 
-def qdot_bf16(x: torch.Tensor, qt: QTensor, mode: str) -> torch.Tensor:
+def qdot_bf16(x: torch.Tensor, qt: QTensor, mode: str,
+              out_f32: bool = False) -> torch.Tensor:
     """K1v on x [M, K] -> [M, N], mode "1" or "after"."""
-    return (_qdot_bf16_cuda(x, qt, mode) if x.is_cuda
-            else qdot_bf16_plain(x, qt, mode))
+    return (_qdot_bf16_cuda(x, qt, mode, out_f32=out_f32) if x.is_cuda
+            else qdot_bf16_plain(x, qt, mode, out_f32))
 
 
 def qdot_dma_floor(qt: QTensor, plan: GemvPlan | None = None) -> torch.Tensor:
@@ -834,40 +871,50 @@ def qdot_dma_floor(qt: QTensor, plan: GemvPlan | None = None) -> torch.Tensor:
             else qdot_dma_floor_plain(qt))
 
 
-def _qdot_routed(x: torch.Tensor, w: QTensor) -> torch.Tensor:
+def _qdot_routed(x: torch.Tensor, w: QTensor,
+                 out_f32: bool = False) -> torch.Tensor:
     """x [M, K] through the kernel of w.route, in the JAX package's order
     (`miotts_tpu/ops/qmat.py:qdot`): the XLA path first (no kernel), then
     w8a8 at M = 1, then groupdot at M = 1 for bf16 x, then split for packed
     weights, then K1v for bf16 x, then K1.  (The TPU's M -> 8 and N -> 128
-    padding and its tiling gate have no counterpart here.)"""
+    padding and its tiling gate have no counterpart here.)  The route is
+    x's dtype's whatever `out_f32` says (passed on only when set, so each
+    entry's call is otherwise what it always was)."""
     route, m = w.route, x.shape[0]
+    kw = {"out_f32": True} if out_f32 else {}
     if route.xla:
-        return qdot_xla(x, w)
+        return qdot_xla(x, w, **kw)
     if m == 1 and route.gemv == "w8a8":
-        return qdot_w8a8(x, w)
+        return qdot_w8a8(x, w, **kw)
     if m == 1 and route.gemv == "groupdot" and x.dtype == torch.bfloat16:
-        return qdot_group(x, w)
+        return qdot_group(x, w, **kw)
     if w.packed and route.split:
-        return qdot_split(x, w)
+        return qdot_split(x, w, **kw)
     if route.bf16 and x.dtype == torch.bfloat16:
-        return qdot_bf16(x, w, route.bf16)
-    return _qdot_cuda(x, w) if x.is_cuda else qdot_plain(x, w)
+        return qdot_bf16(x, w, route.bf16, **kw)
+    return _qdot_cuda(x, w, **kw) if x.is_cuda else qdot_plain(x, w, **kw)
 
 
-def qdot(x: torch.Tensor, w) -> torch.Tensor:
+def qdot(x: torch.Tensor, w, out_f32: bool = False) -> torch.Tensor:
     """x [..., K] @ W^T -> [..., N] for W a dense [N, K] tensor (GGUF Linear
-    layout) or a QTensor.  The single matmul entry point of the LLM."""
+    layout) or a QTensor.  The single matmul entry point of the LLM.
+    `out_f32`: the f32 sum, not rounded to x.dtype (a row-parallel shard's
+    partial, `models/llm._linear`), through the same kernel."""
     if isinstance(w, QTensor):
         lead = x.shape[:-1]
         x2 = x.reshape(-1, x.shape[-1]).contiguous()
         m = x2.shape[0]
         if m == 1 and w.route.m8:
             x2 = torch.cat([x2, x2.new_zeros((7, x2.shape[1]))])
-        y = _qdot_routed(x2, w)[:m]
+        y = _qdot_routed(x2, w, out_f32)[:m]
         n = w.shape[0]
         if n != y.shape[1]:
             y = y[:, :n]
         return y.reshape(*lead, n)
+    if out_f32:
+        # the JAX package's dot_general(preferred_element_type=f32): the
+        # products of x and w in x's dtype, summed in f32
+        return torch.matmul(x.float(), w.T.to(x.dtype).float())
     return torch.matmul(x, w.T.to(x.dtype))
 
 

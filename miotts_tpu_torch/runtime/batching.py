@@ -27,7 +27,17 @@ the active bits, the emit bits and the targets; then one batched decode of
 the emitting rows only, each row's f32 slice [committed, target) read back,
 and the final flushes of the slots that ended, batched into one decode.
 
-Not ported: sharded serving (`mesh`), which raises NotImplementedError.
+Sharded serving (`mesh`, a parallel/mesh.make_mesh DeviceMesh; every rank
+runs this scheduler over the same submissions, as the JAX package's
+multi-host worker does): the engine's weights are this rank's tensor-
+parallel slice (`eng.llm_params = shard_llm_params(...)`), the KV cache is
+this rank's block (`shard_kv_cache`: slots over 'data', heads over
+'model'), and the per-slot device state (logits, sampling state, the fused
+step's code buffer) is whole on every rank.  Each 'data' rank prefills the
+admissions into its own slots (the wave's last logits summed over 'data',
+zeros elsewhere) and runs each chunk on its own rows; the chunk's outputs
+are gathered over 'data', so every rank reads every slot and decodes
+every request's audio.  Both the unfused and the fused step take a mesh.
 """
 
 from __future__ import annotations
@@ -43,6 +53,7 @@ import torch
 
 from ..models.llm import (init_kv_cache, llm_generate_chunk_batched,
                           llm_prefill_slots)
+from ..ops.collective import all_gather, psum
 from ..text import build_prompt, normalize_tts_text
 from .engine import (Options, TTSEngine, VoiceModel, _bucket_len, _Readback,
                      _fused_batch_step, _round_up, _upload, emit_chunks)
@@ -97,12 +108,27 @@ class ContinuousBatcher:
         request's output independent of the admission schedule.
 
         `fused`: the fused batch step (`_step_fused`); it runs one chunk at
-        a time whatever `pipeline_depth` says, as the JAX package's does."""
+        a time whatever `pipeline_depth` says, as the JAX package's does.
+
+        `mesh`: sharded serving over a ('data', 'model') DeviceMesh (see
+        the module docstring); the engine's params must be sharded over
+        the same mesh.  Slots split over 'data' when n_slots divides it,
+        else every data rank holds them all, as the cache's layout."""
         if engine.llm_params is None:
             raise ValueError("batching needs the LLM")
+        self.mesh = mesh
+        self._rows = self._data_group = None
         if mesh is not None:
-            raise NotImplementedError("sharded serving is not ported "
-                                      "(ROADMAP)")
+            from ..parallel.mesh import axis_size
+            from ..parallel.sharding import data_rows
+            if axis_size(mesh, "model") > 1 and "tp" not in engine.llm_params:
+                raise ValueError("sharded serving needs the engine's weights "
+                                 "sharded over the mesh: eng.llm_params = "
+                                 "shard_llm_params(eng.llm_params, mesh, cfg)")
+            if axis_size(mesh, "data") > 1 and n_slots % axis_size(mesh,
+                                                                   "data") == 0:
+                self._rows = data_rows(mesh, n_slots)
+                self._data_group = mesh.get_group("data")
         self.engine = engine
         self.cfg = engine.llm_cfg
         self.device = engine.device
@@ -157,6 +183,9 @@ class ContinuousBatcher:
                  else torch.float32)
         self.cache = init_kv_cache(self.cfg, B, self.ctx_len, dtype=dtype,
                                    device=dev, quantized=self.quantized_kv)
+        if self.mesh is not None:
+            from ..parallel.sharding import shard_kv_cache
+            self.cache = shard_kv_cache(self.cache, self.mesh)
         self.last_logits = torch.zeros((B, self.cfg.n_vocab),
                                        dtype=torch.float32, device=dev)
         self._slot_temp = torch.full((B,), cfgE.temperature,
@@ -165,6 +194,53 @@ class ContinuousBatcher:
                                      device=dev)
         self._slot_drawn = torch.zeros((B,), dtype=torch.int64, device=dev)
         self._active_dev = torch.tensor(self.active, device=dev)   # a copy
+
+    def _local(self, t: torch.Tensor) -> torch.Tensor:
+        """This data rank's slots of a per-slot tensor (a view)."""
+        return t if self._rows is None else t[self._rows]
+
+    def _gathered(self, t: torch.Tensor) -> torch.Tensor:
+        """Every data rank's slots of a per-slot tensor, in slot order."""
+        return (t if self._rows is None
+                else all_gather(t, 0, self._data_group))
+
+    def _chunk(self, active, attn_len: int):
+        """One unfused chunk on this rank's slots; returns the tokens
+        [n_slots, chunk_steps] and updates the per-slot state, all slots."""
+        L = self._local
+        buf, active, last, self.cache, drawn = llm_generate_chunk_batched(
+            self.engine.llm_params, L(self.last_logits), self.cache,
+            L(active), L(self._slot_seed), L(self._slot_drawn),
+            L(self._slot_temp), self._stop_ids, self.cfg, self.chunk_steps,
+            attn_len)
+        G = self._gathered
+        self._active_dev, self.last_logits = G(active), G(last)
+        self._slot_drawn = G(drawn)
+        return G(buf)
+
+    def _prefill(self, toks: torch.Tensor, n_real: torch.Tensor,
+                 slots: list[int]) -> torch.Tensor:
+        """The wave's slot prefill into this rank's slots; returns the last
+        logits [A, V] of every admission (a 'data' rank sums its rows with
+        zeros from the others)."""
+        eng, dev = self.engine, self.device
+        if self._rows is None:
+            last, self.cache = llm_prefill_slots(
+                eng.llm_params, toks, n_real, self.cache,
+                torch.tensor(slots, dtype=torch.int64, device=dev), self.cfg)
+            return last
+        r0, r1 = self._rows.start, self._rows.stop
+        mine = [i for i, s in enumerate(slots) if r0 <= s < r1]
+        last = torch.zeros((len(slots), self.cfg.n_vocab),
+                           dtype=torch.float32, device=dev)
+        if mine:
+            idx = torch.tensor(mine, dtype=torch.int64)
+            part, self.cache = llm_prefill_slots(
+                eng.llm_params, toks[idx.to(dev)], n_real[idx], self.cache,
+                torch.tensor([slots[i] - r0 for i in mine],
+                             dtype=torch.int64, device=dev), self.cfg)
+            last[idx.to(dev)] = part
+        return psum(last, self._data_group)
 
     # ------------------------------------------------------------------
     def warmup(self, prompt_len: int = 64) -> None:
@@ -178,21 +254,14 @@ class ContinuousBatcher:
         dev = self.device
         bucket = _round_up(max(1, prompt_len), cfgE.prompt_bucket)
         for A in (1, self.n_slots):
-            llm_prefill_slots(
-                eng.llm_params, torch.zeros((A, bucket), dtype=torch.int64,
-                                            device=dev),
-                torch.ones((A,), dtype=torch.int32), self.cache,
-                torch.arange(A), self.cfg)
+            self._prefill(torch.zeros((A, bucket), dtype=torch.int64,
+                                      device=dev),
+                          torch.ones((A,), dtype=torch.int32), list(range(A)))
         attn_len = min(_bucket_len(bucket + self.chunk_steps, 128),
                        self.ctx_len)
         active = torch.zeros((self.n_slots,), dtype=torch.bool, device=dev)
         active[0] = True
-        buf, *_ = llm_generate_chunk_batched(
-            eng.llm_params, self.last_logits, self.cache, active,
-            self._slot_seed, self._slot_drawn, self._slot_temp,
-            self._stop_ids, self.cfg, self.chunk_steps,
-            0 if attn_len >= self.ctx_len else attn_len)
-        buf.cpu()
+        self._chunk(active, 0 if attn_len >= self.ctx_len else attn_len).cpu()
         n0 = cfgE.holdback_codes + eng._first_commit + cfgE.stream_check_interval
         voices = [VoiceModel(embedding=np.zeros(eng.codec_cfg.adaln_dim,
                                                 np.float32))] * self.n_slots
@@ -288,11 +357,10 @@ class ContinuousBatcher:
             for i, (_, _, ids) in enumerate(admit):
                 toks[i, :len(ids)] = ids
                 n_real[i] = len(ids)
-            slots = torch.tensor([s for s, _, _ in admit], dtype=torch.int64,
-                                 device=dev)
-            last, self.cache = llm_prefill_slots(
-                eng.llm_params, torch.from_numpy(toks).to(dev),
-                torch.from_numpy(n_real), self.cache, slots, self.cfg)
+            slot_list = [s for s, _, _ in admit]
+            slots = torch.tensor(slot_list, dtype=torch.int64, device=dev)
+            last = self._prefill(torch.from_numpy(toks).to(dev),
+                                 torch.from_numpy(n_real), slot_list)
             self.last_logits[slots] = last
             self._active_dev[slots] = True
             cfgE = eng.config
@@ -390,13 +458,7 @@ class ContinuousBatcher:
         self._admit()
         dispatched = False
         if np.any(self.active):
-            attn_len = self._attn_len()
-            (buf, self._active_dev, self.last_logits, self.cache,
-             self._slot_drawn) = llm_generate_chunk_batched(
-                self.engine.llm_params, self.last_logits, self.cache,
-                self._active_dev, self._slot_seed, self._slot_drawn,
-                self._slot_temp, self._stop_ids, self.cfg, self.chunk_steps,
-                attn_len)
+            buf = self._chunk(self._active_dev, self._attn_len())
             self.stage["device_steps"] += self.chunk_steps
             self._fill_ub[self.active] += self.chunk_steps
             self._inflight.append((_Readback(buf, self._active_dev),
@@ -557,14 +619,19 @@ class ContinuousBatcher:
         state = _upload(np.array(
             [[len(r.codes), r.committed, r.n_tokens, r.token_budget]
              if r else [0, 0, 0, 0] for r in reqs], np.int32).T.copy(), dev)
-        (buf, active, self.last_logits, self.cache, self._slot_drawn,
-         self._codes_buf, _, _, emit, target) = _fused_batch_step(
-            eng.llm_params, self.last_logits, self.cache,
-            _upload(self.active, dev), self._slot_seed, self._slot_drawn,
-            self._slot_temp, self._stop_ids, eng._code_table_dev,
-            self._codes_buf, state[0], state[1], state[2], state[3],
-            self.cfg, self.chunk_steps, cfgE.holdback_codes,
+        L, G = self._local, self._gathered
+        (buf, active, last, self.cache, drawn, codes_buf, _, _, emit,
+         target) = _fused_batch_step(
+            eng.llm_params, L(self.last_logits), self.cache,
+            L(_upload(self.active, dev)), L(self._slot_seed),
+            L(self._slot_drawn), L(self._slot_temp), self._stop_ids,
+            eng._code_table_dev, L(self._codes_buf), L(state[0]),
+            L(state[1]), L(state[2]), L(state[3]), self.cfg,
+            self.chunk_steps, cfgE.holdback_codes,
             cfgE.min_commit_step_codes, eng._first_commit, self._attn_len())
+        buf, active, emit, target = G(buf), G(active), G(emit), G(target)
+        self.last_logits, self._slot_drawn = G(last), G(drawn)
+        self._codes_buf = G(codes_buf)
         self.stage["device_steps"] += self.chunk_steps
         self._fill_ub[self.active] += self.chunk_steps
         t0 = time.perf_counter()

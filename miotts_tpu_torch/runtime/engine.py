@@ -61,9 +61,11 @@ import torch
 from ..gguf import GGUFReader, load_voice_embedding
 from ..models.codec import (codec_decode_spec, codec_fast, exact_f32,
                             load_codec_params)
-from ..models.llm import (LLMConfig, init_kv_cache, llm_generate_chunk,
-                          llm_generate_chunk_batched, llm_generate_chunk_spec,
-                          llm_prefill, load_llm_params, sample_token)
+from ..models.llm import (LLMConfig, init_kv_cache, kv_heads,
+                          llm_generate_chunk, llm_generate_chunk_batched,
+                          llm_generate_chunk_spec, llm_prefill,
+                          load_llm_params, sample_token)
+from ..ops.collective import Shard
 from ..ops.istft import spec_to_audio_bucketed
 from ..ops.qmat import QdotRoute, QTensor, with_route
 from ..text import build_prompt, normalize_tts_text, parse_speech_tokens
@@ -99,6 +101,8 @@ def _leaves(tree):
     elif isinstance(tree, list):
         for v in tree:
             yield from _leaves(v)
+    elif isinstance(tree, Shard):
+        yield from _leaves(tree.local)
     elif tree is not None:
         yield tree
 
@@ -566,7 +570,8 @@ class TTSEngine:
         # the cache-size bucket rule of generate_tokens
         s_cache = self._cache_len(bucket_p, cfgE.max_tokens)
         cache = init_kv_cache(cfg, 1, s_cache, dtype=self.dtype, device=dev,
-                              quantized=cfgE.quantized_kv)
+                              quantized=cfgE.quantized_kv,
+                              n_kv_heads=kv_heads(self.llm_params, cfg))
         toks = torch.zeros((1, bucket_p), dtype=torch.int64, device=dev)
         n_real = torch.tensor([8], dtype=torch.int32)
         last, cache = llm_prefill(self.llm_params, toks, n_real, cache, cfg)
@@ -715,10 +720,12 @@ class TTSEngine:
         toks = torch.zeros((1, bucket), dtype=torch.int64)
         toks[0, :n] = torch.tensor(ids, dtype=torch.int64)
         s_cache = self._cache_len(bucket, max_tok)
-        if self._cache is None or self._cache["k"].shape[3] != s_cache:
-            self._cache = init_kv_cache(self.llm_cfg, 1, s_cache,
-                                        dtype=self.dtype, device=dev,
-                                        quantized=cfgE.quantized_kv)
+        heads = kv_heads(self.llm_params, self.llm_cfg)
+        if (self._cache is None or self._cache["k"].shape[3] != s_cache
+                or self._cache["k"].shape[2] != heads):
+            self._cache = init_kv_cache(
+                self.llm_cfg, 1, s_cache, dtype=self.dtype, device=dev,
+                quantized=cfgE.quantized_kv, n_kv_heads=heads)
         cache = dict(self._cache,
                      fill=torch.zeros((1,), dtype=torch.int32, device=dev))
         if "conv" in cache:

@@ -235,11 +235,16 @@ def test_admit_wave_staggers_and_preserves_output(engine):
 
 
 def test_unported_modes_raise(engine):
-    """Sharded serving is not ported and raises; the fused batch step is
+    """Sharded serving is ported (tests/test_torch_parallel_serving.py) and
+    refuses an engine whose weights are not sharded over the mesh's
+    'model' axis (a stand-in for a (1, 2) DeviceMesh: the check reads its
+    shape before any collective); the fused batch step is ported
     (tests/test_torch_fused_batching.py)."""
+    import types
     eng, _ = engine
-    with pytest.raises(NotImplementedError):
-        tb.ContinuousBatcher(eng, n_slots=2, mesh=object())
+    mesh = types.SimpleNamespace(shape=(1, 2), mesh_dim_names=("data", "model"))
+    with pytest.raises(ValueError, match="shard_llm_params"):
+        tb.ContinuousBatcher(eng, n_slots=2, mesh=mesh)
     assert tb.ContinuousBatcher(eng, n_slots=2, fused=True).use_fused
 
 
