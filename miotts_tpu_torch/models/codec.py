@@ -49,6 +49,7 @@ import torch.nn.functional as F
 
 from ..ops.istft import (make_synthesis_basis, spec_to_audio,
                          spec_to_audio_bucketed)
+from ..runtime.profile import tracer
 
 
 @dataclass(frozen=True)
@@ -418,7 +419,7 @@ def codec_decode_spec(params: dict, codes, voice_emb, cfg: CodecConfig,
         n_real = T
     n_real = torch.as_tensor(n_real, device=codes.device).long().reshape(-1)
     n_real = n_real.expand(B)
-    with exact_f32(tf32=codec_fast(cfg)):
+    with tracer.span("codec.net"), exact_f32(tf32=codec_fast(cfg)):
         log_mag, phase = _codec_forward(params, codes, voice_emb, cfg, n_real)
     if single:
         return log_mag[0], phase[0]

@@ -62,6 +62,7 @@ from ..gguf.quants import is_quantized
 from ..ops.collective import ModelAxis, Shard, all_gather, psum
 from ..ops.decode_attn import decode_attention, decode_attention_batched
 from ..ops.qmat import QTensor, concat_qtensors, qdot, qtensor_from_raw
+from ..runtime.profile import tracer
 
 # Per-arch behaviour toggles (llama.cpp build_* graph equivalents).
 _ARCH_TABLE = {
@@ -599,14 +600,16 @@ def _block_forward(x, blk, lcache: dict, fill, pos, cfg: LLMConfig,
 
 def _ffn(x, blk, cfg: LLMConfig):
     """x + the SwiGLU feed-forward of ffn_norm(x)."""
-    h = _rms_norm(x, blk["ffn_norm"], cfg.rms_eps)
-    if "w_gateup" in blk:
-        gu = _linear(h, blk["w_gateup"])
-        ff = gu.shape[-1] // 2
-        gate, up = F.silu(gu[..., :ff]), gu[..., ff:]
-    else:
-        gate, up = F.silu(_linear(h, blk["w_gate"])), _linear(h, blk["w_up"])
-    return x + _linear((gate * up).to(x.dtype), blk["w_down"])
+    with tracer.span("llm.ffn"):
+        h = _rms_norm(x, blk["ffn_norm"], cfg.rms_eps)
+        if "w_gateup" in blk:
+            gu = _linear(h, blk["w_gateup"])
+            ff = gu.shape[-1] // 2
+            gate, up = F.silu(gu[..., :ff]), gu[..., ff:]
+        else:
+            gate, up = (F.silu(_linear(h, blk["w_gate"])),
+                        _linear(h, blk["w_up"]))
+        return x + _linear((gate * up).to(x.dtype), blk["w_down"])
 
 
 def _conv_block_forward(x, blk, state, advance, cfg: LLMConfig):
@@ -645,12 +648,13 @@ def _conv_block_forward(x, blk, state, advance, cfg: LLMConfig):
 
 def _logits(params, x, cfg: LLMConfig):
     """Final norm + output head -> f32 logits."""
-    x = _rms_norm(x, params["output_norm"], cfg.rms_eps)
-    out_w = params.get("output")
-    if out_w is None:
-        # tied embeddings: a plain product outside any kernel, f32 sums
-        return x.float() @ params["token_embd"].float().T
-    return _linear(x, out_w).float()
+    with tracer.span("llm.head"):
+        x = _rms_norm(x, params["output_norm"], cfg.rms_eps)
+        out_w = params.get("output")
+        if out_w is None:
+            # tied embeddings: a plain product outside any kernel, f32 sums
+            return x.float() @ params["token_embd"].float().T
+        return _linear(x, out_w).float()
 
 
 @torch.no_grad()
@@ -670,8 +674,9 @@ def llm_forward(params: dict, tokens, pos, cache: dict, cfg: LLMConfig,
     if S == 1 and "layers" not in params:
         kvs = []
         for li, blk in enumerate(params["blocks"]):
-            x, kv = _block_forward(x, blk, _layer(cache, li), fill, pos, cfg,
-                                   defer_write=True, tp=tp)
+            with tracer.span("llm.attn"):
+                x, kv = _block_forward(x, blk, _layer(cache, li), fill, pos,
+                                       cfg, defer_write=True, tp=tp)
             kvs.append(kv)
         # ONE write per cache field for every layer's new k/v: dims 1 (batch)
         # and 3 (position) are indexed, so the update is [B, L, H_kv(, D)];
@@ -687,12 +692,14 @@ def llm_forward(params: dict, tokens, pos, cache: dict, cfg: LLMConfig,
         attn_i = conv_i = 0
         for kind, blk in _layer_plan(params, cfg):
             if kind == "attn":
-                x, _ = _block_forward(x, blk, _layer(cache, attn_i), fill,
-                                      pos, cfg, tp=tp)
+                with tracer.span("llm.attn"):
+                    x, _ = _block_forward(x, blk, _layer(cache, attn_i), fill,
+                                          pos, cfg, tp=tp)
                 attn_i += 1
             else:
-                x, state = _conv_block_forward(x, blk, cache["conv"][conv_i],
-                                               advance, cfg)
+                with tracer.span("llm.conv"):
+                    x, state = _conv_block_forward(
+                        x, blk, cache["conv"][conv_i], advance, cfg)
                 cache["conv"][conv_i] = state
                 conv_i += 1
     cache["fill"] = torch.maximum(fill, (pos[:, -1] + 1).to(fill.dtype))
@@ -809,17 +816,19 @@ def llm_generate_chunk(params: dict, last_logits, cache: dict,
         done = torch.zeros((), dtype=torch.bool, device=dev)
     last = last_logits
     for i in range(n_steps):
-        tok = sample_token(last, temperature, generator)
-        done = done | (tok[0] == stop_ids).any()
-        active = ~done
-        buf[i] = torch.where(active, tok[0], buf[i])
-        step = active.long()
-        count = count + step
-        fill = cache["fill"]
-        logits, cache = llm_forward(params, tok[:, None], fill[:, None],
-                                    cache, cfg, advance=step[None])
-        cache["fill"] = torch.where(active, cache["fill"], fill)
-        last = torch.where(active, logits[:, 0], last)
+        with tracer.span("llm.step"):
+            with tracer.span("llm.sample"):
+                tok = sample_token(last, temperature, generator)
+                done = done | (tok[0] == stop_ids).any()
+            active = ~done
+            buf[i] = torch.where(active, tok[0], buf[i])
+            step = active.long()
+            count = count + step
+            fill = cache["fill"]
+            logits, cache = llm_forward(params, tok[:, None], fill[:, None],
+                                        cache, cfg, advance=step[None])
+            cache["fill"] = torch.where(active, cache["fill"], fill)
+            last = torch.where(active, logits[:, 0], last)
     return buf, count, done, last, cache
 
 
@@ -1007,7 +1016,9 @@ def llm_prefill_slots(params: dict, tokens, n_real, cache: dict, slots,
     pos = torch.arange(S, device=dev).expand(A, S)
     slots = slots.to(device=dev, dtype=torch.long)
     n_real = n_real.to(device=dev, dtype=torch.int32)
-    logits, sub = llm_forward(params, tokens, pos, sub, cfg, advance=n_real)
+    with tracer.span("llm.prefill"):
+        logits, sub = llm_forward(params, tokens, pos, sub, cfg,
+                                  advance=n_real)
     for k in sub:
         if k == "conv":
             cache[k][:, slots] = sub[k]
@@ -1033,14 +1044,16 @@ def _decode_core(params, tok, pos, cache, cfg: LLMConfig, chunk_buf,
     for kind, blk in _layer_plan(params, cfg):
         if kind == "attn":
             li = len(kv_list)
-            x, kv = _block_forward(x, blk, _layer(cache, li), cache["fill"],
-                                   pos, cfg, defer_write=True,
-                                   chunk_buf=(k_buf[li], v_buf[li], valid),
-                                   tp=params.get("tp"))
+            with tracer.span("llm.attn"):
+                x, kv = _block_forward(
+                    x, blk, _layer(cache, li), cache["fill"], pos, cfg,
+                    defer_write=True, chunk_buf=(k_buf[li], v_buf[li], valid),
+                    tp=params.get("tp"))
             kv_list.append(kv)
         else:
-            x, st = _conv_block_forward(x, blk, conv_state[len(conv_list)],
-                                        advance, cfg)
+            with tracer.span("llm.conv"):
+                x, st = _conv_block_forward(x, blk, conv_state[len(conv_list)],
+                                            advance, cfg)
             conv_list.append(st)
     kvs = {key: torch.stack([kv[key] for kv in kv_list]) for key in ("k", "v")}
     new_conv = torch.stack(conv_list) if conv_list else None
@@ -1153,49 +1166,52 @@ def llm_generate_chunk_batched(params: dict, last_logits, cache: dict,
         rows = torch.arange(B, device=dev)
     last = last_logits
     for i in range(n_steps):
-        tok = sample_tokens_slots(last, temperature, seed, drawn)
-        drawn = drawn + active.long()
-        is_stop = (tok[:, None] == stop_ids[None, :]).any(dim=-1)
-        active = active & ~is_stop
-        if codes is not None:
-            active = active & (n_tokens < codes["max_toks"])
-            n_tokens = n_tokens + active.int()
-            code = table[tok.clamp(0, table.shape[0] - 1)].int()
-            col = n_codes.clamp(max=bucket - 1).long()
-            write = active & (code >= 0) & (n_codes < bucket)
-            code_buf[rows, col] = torch.where(write, code,
-                                              code_buf[rows, col])
-            n_codes = n_codes + write.int()
-        buf[:, i] = torch.where(active, tok, -1)
-        pos = torch.where(active, fill0 + adv, s_max - 1)[:, None]
-        step = active.int()
-        last, kvs, conv = _decode_core(params, tok, pos, view, cfg,
-                                       (k_buf, v_buf, valid), conv, step)
-        k_buf[:, :, :, i] = kvs["k"].to(bdt)
-        v_buf[:, :, :, i] = kvs["v"].to(bdt)
-        valid[:, i] = active
-        adv = adv + step
+        with tracer.span("llm.step"):
+            with tracer.span("llm.sample"):
+                tok = sample_tokens_slots(last, temperature, seed, drawn)
+                drawn = drawn + active.long()
+                is_stop = (tok[:, None] == stop_ids[None, :]).any(dim=-1)
+                active = active & ~is_stop
+            if codes is not None:
+                active = active & (n_tokens < codes["max_toks"])
+                n_tokens = n_tokens + active.int()
+                code = table[tok.clamp(0, table.shape[0] - 1)].int()
+                col = n_codes.clamp(max=bucket - 1).long()
+                write = active & (code >= 0) & (n_codes < bucket)
+                code_buf[rows, col] = torch.where(write, code,
+                                                  code_buf[rows, col])
+                n_codes = n_codes + write.int()
+            buf[:, i] = torch.where(active, tok, -1)
+            pos = torch.where(active, fill0 + adv, s_max - 1)[:, None]
+            step = active.int()
+            last, kvs, conv = _decode_core(params, tok, pos, view, cfg,
+                                           (k_buf, v_buf, valid), conv, step)
+            k_buf[:, :, :, i] = kvs["k"].to(bdt)
+            v_buf[:, :, :, i] = kvs["v"].to(bdt)
+            valid[:, i] = active
+            adv = adv + step
 
     # ONE merge scatter: slot b's column j -> position fill0[b] + j while
     # j < adv[b], else the parked last position
-    j_idx = torch.arange(n_steps, device=dev)
-    tpos = torch.where(j_idx[None, :] < adv[:, None],
-                       fill0[:, None].long() + j_idx[None, :], s_max - 1)
-    b_idx = torch.arange(B, device=dev)[:, None]
-    if "k_scale" in cache:
-        kq, ks = _kv_quantize(k_buf.float())
-        vq, vs = _kv_quantize(v_buf.float())
-        updates = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
-    else:
-        updates = {"k": k_buf, "v": v_buf}
-    for name, upd in updates.items():
-        # [L, B, H, W(, D)] -> [B, W, L, H(, D)]: the advanced indices
-        # (b, tpos) at cache dims 1 and 3 put their broadcast dims first
-        upd = upd.movedim(1, 0).movedim(3, 1)
-        cache[name][:, b_idx, :, tpos] = upd.to(cache[name].dtype)
-    if conv is not None:
-        cache["conv"].copy_(conv)
-    cache["fill"] = fill0 + adv
+    with tracer.span("llm.merge"):
+        j_idx = torch.arange(n_steps, device=dev)
+        tpos = torch.where(j_idx[None, :] < adv[:, None],
+                           fill0[:, None].long() + j_idx[None, :], s_max - 1)
+        b_idx = torch.arange(B, device=dev)[:, None]
+        if "k_scale" in cache:
+            kq, ks = _kv_quantize(k_buf.float())
+            vq, vs = _kv_quantize(v_buf.float())
+            updates = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+        else:
+            updates = {"k": k_buf, "v": v_buf}
+        for name, upd in updates.items():
+            # [L, B, H, W(, D)] -> [B, W, L, H(, D)]: the advanced indices
+            # (b, tpos) at cache dims 1 and 3 put their broadcast dims first
+            upd = upd.movedim(1, 0).movedim(3, 1)
+            cache[name][:, b_idx, :, tpos] = upd.to(cache[name].dtype)
+        if conv is not None:
+            cache["conv"].copy_(conv)
+        cache["fill"] = fill0 + adv
     if codes is not None:
         codes.update(n_codes=n_codes, n_tokens=n_tokens)
     return buf, active, last, cache, drawn

@@ -19,6 +19,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..runtime.profile import tracer
+
 
 def make_synthesis_basis(n_fft: int, win_length: int | None = None):
     """Inverse-rDFT bases and Hann window (host, once), float32 numpy:
@@ -107,11 +109,12 @@ def spec_to_audio_bucketed(log_mag, phase, cos_basis, sin_basis, hann,
     [B, S, n_freq] with n_real_codes [B]); the frame mask is built on the
     device.  Only the first n_real_codes * frames_per_code * hop samples of
     a row are valid."""
-    S = log_mag.shape[-2]
-    n = torch.as_tensor(n_real_codes, device=log_mag.device)
-    if log_mag.dim() == 3:
-        n = n.reshape(-1, 1)
-    frame_mask = (torch.arange(S, device=log_mag.device)
-                  < n * frames_per_code).to(torch.float32)
-    return spec_to_audio(log_mag, phase, cos_basis, sin_basis, hann,
-                         hop_length, frame_mask)
+    with tracer.span("codec.istft"):
+        S = log_mag.shape[-2]
+        n = torch.as_tensor(n_real_codes, device=log_mag.device)
+        if log_mag.dim() == 3:
+            n = n.reshape(-1, 1)
+        frame_mask = (torch.arange(S, device=log_mag.device)
+                      < n * frames_per_code).to(torch.float32)
+        return spec_to_audio(log_mag, phase, cos_basis, sin_basis, hann,
+                             hop_length, frame_mask)

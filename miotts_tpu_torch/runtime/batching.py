@@ -57,6 +57,7 @@ from ..ops.collective import all_gather, psum
 from ..text import build_prompt, normalize_tts_text
 from .engine import (Options, TTSEngine, VoiceModel, _bucket_len, _Readback,
                      _fused_batch_step, _round_up, _upload, emit_chunks)
+from .profile import tracer
 
 
 @dataclass
@@ -77,6 +78,9 @@ class Request:
     done: bool = False
     failed: bool = False
     submitted_at: float = 0.0
+    # the start and the end of the admission wave that prefilled it
+    admitted_at: float = 0.0
+    prefilled_at: float = 0.0
     first_audio_at: float = -1.0
     finished_at: float = 0.0
     emitted_samples: int = 0
@@ -167,11 +171,18 @@ class ContinuousBatcher:
         self._pending: list = []
         self._depth = max(1, pipeline_depth)
         self._inflight: deque = deque()
-        # coarse wall-clock stage accounting, read by benches and /stats
+        # coarse wall-clock stage accounting, read by benches and /stats;
+        # the _sec sums are the durations of the spans of the same names
+        # (sched.admit, sched.readback, sched.flush).  codes_kept: codes
+        # appended to requests; codes_decoded: codes fed to codec decodes
+        # (a full-prefix decode re-decodes every committed code);
+        # codes_committed: codes whose audio went out.
         self.stage = {"admit_sec": 0.0, "llm_wait_sec": 0.0,
                       "codec_sync_sec": 0.0, "codec_dispatch_sec": 0.0,
                       "flush_wait_sec": 0.0, "chunks": 0, "decodes": 0,
-                      "prefills": 0, "device_steps": 0}
+                      "prefills": 0, "device_steps": 0, "codes_kept": 0,
+                      "codes_decoded": 0, "codes_committed": 0,
+                      "emitted_samples": 0}
 
     def _reset_device_state(self) -> None:
         """Fresh cache, logits and per-slot sampling state on the device:
@@ -347,39 +358,46 @@ class ContinuousBatcher:
                 admit.append((slot, req, ids))
             if not admit:
                 return
-            t0 = time.perf_counter()
-            dev = self.device
-            bucket = _round_up(max(len(ids) for _, _, ids in admit),
-                               eng.config.prompt_bucket)
-            A = len(admit)
-            toks = np.zeros((A, bucket), np.int64)
-            n_real = np.zeros((A,), np.int32)
-            for i, (_, _, ids) in enumerate(admit):
-                toks[i, :len(ids)] = ids
-                n_real[i] = len(ids)
-            slot_list = [s for s, _, _ in admit]
-            slots = torch.tensor(slot_list, dtype=torch.int64, device=dev)
-            last = self._prefill(torch.from_numpy(toks).to(dev),
-                                 torch.from_numpy(n_real), slot_list)
-            self.last_logits[slots] = last
-            self._active_dev[slots] = True
-            cfgE = eng.config
-            self._slot_temp[slots] = torch.tensor(
-                [r.options.temperature if r.options.temperature >= 0
-                 else cfgE.temperature for _, r, _ in admit],
-                dtype=torch.float32).to(dev)
-            self._slot_seed[slots] = torch.tensor(
-                [r.options.seed if r.options.seed >= 0 else cfgE.seed
-                 for _, r, _ in admit], dtype=torch.int64).to(dev)
-            self._slot_drawn[slots] = 0
-            for slot, req, ids in admit:
-                self.active[slot] = True
-                self.slot_req[slot] = req
-                req.slot = slot
-                self._fill_ub[slot] = len(ids)
-            self._dirty_codes = True
-            self.stage["admit_sec"] += time.perf_counter() - t0
+            with tracer.timed("sched.admit") as wave:
+                dev = self.device
+                bucket = _round_up(max(len(ids) for _, _, ids in admit),
+                                   eng.config.prompt_bucket)
+                A = len(admit)
+                toks = np.zeros((A, bucket), np.int64)
+                n_real = np.zeros((A,), np.int32)
+                for i, (_, _, ids) in enumerate(admit):
+                    toks[i, :len(ids)] = ids
+                    n_real[i] = len(ids)
+                slot_list = [s for s, _, _ in admit]
+                slots = torch.tensor(slot_list, dtype=torch.int64, device=dev)
+                last = self._prefill(torch.from_numpy(toks).to(dev),
+                                     torch.from_numpy(n_real), slot_list)
+                self.last_logits[slots] = last
+                self._active_dev[slots] = True
+                cfgE = eng.config
+                self._slot_temp[slots] = torch.tensor(
+                    [r.options.temperature if r.options.temperature >= 0
+                     else cfgE.temperature for _, r, _ in admit],
+                    dtype=torch.float32).to(dev)
+                self._slot_seed[slots] = torch.tensor(
+                    [r.options.seed if r.options.seed >= 0 else cfgE.seed
+                     for _, r, _ in admit], dtype=torch.int64).to(dev)
+                self._slot_drawn[slots] = 0
+                for slot, req, ids in admit:
+                    self.active[slot] = True
+                    self.slot_req[slot] = req
+                    req.slot = slot
+                    self._fill_ub[slot] = len(ids)
+                self._dirty_codes = True
+            self.stage["admit_sec"] += wave.seconds
             self.stage["prefills"] += 1
+            for _, req, _ in admit:
+                req.admitted_at = wave.start * 1e-9
+                req.prefilled_at = wave.end * 1e-9
+                tracer.add("req.queue", int(req.submitted_at * 1e9),
+                           wave.start, req.req_id, parent=-1)
+                tracer.add("req.prefill", wave.start, wave.end, req.req_id,
+                           parent=wave.index)
         finally:
             self._admitting -= len(admit)
 
@@ -426,10 +444,14 @@ class ContinuousBatcher:
 
         def send(chunk, is_last):
             if req.first_audio_at < 0:
-                req.first_audio_at = time.perf_counter()
+                now = time.perf_counter_ns()
+                req.first_audio_at = now * 1e-9
+                tracer.add("req.first_audio", int(req.prefilled_at * 1e9),
+                           now, req.req_id)
             if not req.callback(chunk, sr, is_last):
                 return False
             req.emitted_samples += chunk.size
+            self.stage["emitted_samples"] += chunk.size
             return True
 
         ok, req.tail = emit_chunks(audio, begin, end, is_final, req.tail,
@@ -442,9 +464,11 @@ class ContinuousBatcher:
         -> enqueue a batched decode chunk -> emit last step's deferred
         audio -> consume the oldest finished chunk (distribute tokens,
         commit, emit, finish)."""
-        if self.use_fused:
-            return self._step_fused()
-        return self._step_unfused()
+        tracer.follow_profiler()
+        with tracer.span("sched.step"):
+            if self.use_fused:
+                return self._step_fused()
+            return self._step_unfused()
 
     def _attn_len(self) -> int:
         """The attention length of the next chunk: every active slot's fill
@@ -458,45 +482,49 @@ class ContinuousBatcher:
         self._admit()
         dispatched = False
         if np.any(self.active):
-            buf = self._chunk(self._active_dev, self._attn_len())
-            self.stage["device_steps"] += self.chunk_steps
-            self._fill_ub[self.active] += self.chunk_steps
-            self._inflight.append((_Readback(buf, self._active_dev),
-                                   list(self.slot_req)))
+            with tracer.span("sched.dispatch"):
+                buf = self._chunk(self._active_dev, self._attn_len())
+                self.stage["device_steps"] += self.chunk_steps
+                self._fill_ub[self.active] += self.chunk_steps
+                self._inflight.append((_Readback(buf, self._active_dev),
+                                       list(self.slot_req)))
             dispatched = True
         self._flush_pending()
         keep = self._depth - 1 if dispatched else 0
         while len(self._inflight) > keep:
-            self._process_chunk(*self._inflight.popleft())
+            with tracer.span("sched.process"):
+                self._process_chunk(*self._inflight.popleft())
 
     def _flush_pending(self) -> None:
         """Read back and emit deferred (pipelined) codec decodes."""
-        t0 = time.perf_counter()
-        for rb, items in self._pending:
-            audio = rb.get()[0]
-            if audio.dtype == np.int16:
-                audio = audio.astype(np.float32) / 32767.0
-            for req, row, off, n in items:
-                if req.done or n <= 0:
-                    continue
-                if not self._emit_samples(req, audio[row, off:off + n], 0, n,
-                                          False):
-                    self._finish(req, False)
-        if self._pending:
-            self.stage["flush_wait_sec"] += time.perf_counter() - t0
+        if not self._pending:
+            return
+        with tracer.timed("sched.flush") as flush:
+            for rb, items in self._pending:
+                audio = rb.get()[0]
+                if audio.dtype == np.int16:
+                    audio = audio.astype(np.float32) / 32767.0
+                for req, row, off, n in items:
+                    if req.done or n <= 0:
+                        continue
+                    if not self._emit_samples(req, audio[row, off:off + n],
+                                              0, n, False):
+                        self._finish(req, False)
+        self.stage["flush_wait_sec"] += flush.seconds
         self._pending = []
 
     def _process_chunk(self, rb: _Readback, snapshot) -> None:
         """Consume one chunk's results.  `snapshot` is the per-slot request
         list at dispatch time: a slot finished or re-admitted since then
         drops its stale tokens here."""
-        t0 = time.perf_counter()
-        buf, still_active = rb.get()
-        self.stage["llm_wait_sec"] += time.perf_counter() - t0
+        with tracer.timed("sched.readback") as wait:
+            buf, still_active = rb.get()
+        self.stage["llm_wait_sec"] += wait.seconds
         self.stage["chunks"] += 1
 
         table = self._table
         decode_work: list[tuple[Request, int, bool]] = []
+        kept = 0
         for slot in range(self.n_slots):
             req = snapshot[slot]
             if req is None or req.done or self.slot_req[slot] is not req:
@@ -510,6 +538,7 @@ class ContinuousBatcher:
                 code = table[tid] if 0 <= tid < len(table) else -1
                 if code >= 0:
                     req.codes.append(int(code))
+                    kept += 1
             is_final = (not still_active[slot]
                         or req.n_tokens >= req.token_budget)
             action, val = self._emit_policy(req, is_final)
@@ -520,8 +549,10 @@ class ContinuousBatcher:
                   if action == "final_cb" else val)
             if is_final or not ok:
                 self._finish(req, ok)
+        self.stage["codes_kept"] += kept
         if decode_work:
-            self._decode_and_emit(decode_work)
+            with tracer.span("sched.decode_emit"):
+                self._decode_and_emit(decode_work)
 
     def _decode_and_emit(self, decode_work) -> None:
         """ONE batched codec decode per group of committing streams.  With
@@ -552,7 +583,9 @@ class ContinuousBatcher:
                 self.stage["codec_dispatch_sec"] += time.perf_counter() - t0
                 self.stage["decodes"] += 1
                 items = []
-                for row, (req, target, _, _) in enumerate(deferred):
+                for row, (req, target, _, s) in enumerate(deferred):
+                    self.stage["codes_decoded"] += len(req.codes) - s
+                    self.stage["codes_committed"] += target - req.committed
                     req.committed = target
                     items.append((req, row, offs[row], n_samp[row]))
                 self._pending.append((eng.codec_readback(audio), items))
@@ -566,11 +599,14 @@ class ContinuousBatcher:
             [(t - s) * spt for _, t, _, s in sync_work])
         self.stage["codec_sync_sec"] += time.perf_counter() - t0
         self.stage["decodes"] += 1
+        self.stage["codes_decoded"] += sum(len(r.codes) - s
+                                           for r, _, _, s in sync_work)
         for (req, target, is_final, _), seg in zip(sync_work, segs):
             if seg.size == 0:
                 ok = (req.callback(None, eng.sample_rate, True)
                       if is_final else True)
             else:
+                self.stage["codes_committed"] += target - req.committed
                 req.committed = target
                 ok = self._emit_samples(req, seg, 0, seg.size, is_final)
             if is_final or not ok:
@@ -590,14 +626,27 @@ class ContinuousBatcher:
         a request whose budget ends with a chunk ends one chunk later than
         on the unfused path, with the same tokens, its last commit and its
         final flush apart where the unfused path flushes once."""
-        eng = self.engine
-        cfgE = eng.config
         self._admit()
         if not np.any(self.active):
             return
+        with tracer.span("sched.dispatch"):
+            buf, active, emit, target = self._dispatch_fused()
+        with tracer.timed("sched.readback") as wait:
+            h = _Readback(torch.cat([buf, torch.stack(
+                [active.long(), emit.long(), target.long()], 1)], 1)).get()[0]
+        self.stage["llm_wait_sec"] += wait.seconds
+        self.stage["chunks"] += 1
+        with tracer.span("sched.process"):
+            self._process_fused(h)
+
+    def _dispatch_fused(self):
+        """Enqueue one fused chunk (`_fused_batch_step`) over every slot;
+        returns its tokens, active bits, emit bits and targets, gathered
+        over 'data'."""
+        eng = self.engine
+        cfgE = eng.config
         dev = self.device
         B = self.n_slots
-        spt = eng.codec_cfg.samples_per_token
         reqs = self.slot_req
         # the device code buffer, rebuilt from the host mirrors on
         # admission churn or when the bucket must grow
@@ -634,17 +683,23 @@ class ContinuousBatcher:
         self._codes_buf = G(codes_buf)
         self.stage["device_steps"] += self.chunk_steps
         self._fill_ub[self.active] += self.chunk_steps
-        t0 = time.perf_counter()
-        h = _Readback(torch.cat([buf, torch.stack(
-            [active.long(), emit.long(), target.long()], 1)], 1)).get()[0]
-        self.stage["llm_wait_sec"] += time.perf_counter() - t0
-        self.stage["chunks"] += 1
+        return buf, active, emit, target
+
+    def _process_fused(self, h: np.ndarray) -> None:
+        """Distribute a fused chunk's read-back outputs `h` (tokens, then
+        the active bits, emit bits and targets as columns), decode the
+        emitting rows and flush the slots that ended."""
+        eng = self.engine
+        B = self.n_slots
+        spt = eng.codec_cfg.samples_per_token
+        reqs = self.slot_req
         n = self.chunk_steps
         buf_h, active_h, emit_h, target_h = (h[:, :n], h[:, n], h[:, n + 1],
                                              h[:, n + 2])
 
         table = self._table
         emitting, ending = [], []
+        kept = 0
         for slot in range(B):
             req = reqs[slot]
             if not self.active[slot] or req is None:
@@ -655,25 +710,30 @@ class ContinuousBatcher:
                 code = table[tid] if 0 <= tid < len(table) else -1
                 if code >= 0:
                     req.codes.append(int(code))
+                    kept += 1
             if emit_h[slot]:
                 emitting.append((slot, req, int(target_h[slot])))
             elif not active_h[slot]:
                 ending.append(req)
+        self.stage["codes_kept"] += kept
         if emitting:
-            t0 = time.perf_counter()
-            segs = eng.decode_code_rows_sliced(
-                self._codes_buf, self._embs, [s for s, _, _ in emitting],
-                [len(r.codes) for _, r, _ in emitting],
-                [r.committed * spt for _, r, _ in emitting],
-                [t * spt for _, _, t in emitting])
-            self.stage["codec_sync_sec"] += time.perf_counter() - t0
-            self.stage["decodes"] += 1
-            for (_, req, target), seg in zip(emitting, segs):
-                if not self._emit_segment(req, seg, target):
-                    self._finish(req, False)
-                    self._dirty_codes = True
+            with tracer.span("sched.decode_emit"):
+                n_codes = [len(r.codes) for _, r, _ in emitting]
+                t0 = time.perf_counter()
+                segs = eng.decode_code_rows_sliced(
+                    self._codes_buf, self._embs, [s for s, _, _ in emitting],
+                    n_codes, [r.committed * spt for _, r, _ in emitting],
+                    [t * spt for _, _, t in emitting])
+                self.stage["codec_sync_sec"] += time.perf_counter() - t0
+                self.stage["decodes"] += 1
+                self.stage["codes_decoded"] += sum(n_codes)
+                for (_, req, target), seg in zip(emitting, segs):
+                    if not self._emit_segment(req, seg, target):
+                        self._finish(req, False)
+                        self._dirty_codes = True
         if ending:
-            self._final_flush(ending)
+            with tracer.span("sched.flush"):
+                self._final_flush(ending)
 
     def _emit_segment(self, req: Request, seg: np.ndarray,
                       target: int) -> bool:
@@ -682,6 +742,7 @@ class ContinuousBatcher:
         crossfade of _emit_samples), and commit up to `target`."""
         if seg.size == 0:
             return True
+        self.stage["codes_committed"] += target - req.committed
         req.committed = target
         return self._emit_samples(req, seg, 0, seg.size, False)
 
@@ -709,7 +770,9 @@ class ContinuousBatcher:
                 [t * spt for _, t in work], i16=False)
             self.stage["codec_sync_sec"] += time.perf_counter() - t0
             self.stage["decodes"] += 1
+            self.stage["codes_decoded"] += sum(len(r.codes) for r, _ in work)
             for (req, target), seg in zip(work, segs):
+                self.stage["codes_committed"] += target - req.committed
                 req.committed = target
                 results[req.req_id] = self._emit_samples(req, seg, 0,
                                                          seg.size, True)

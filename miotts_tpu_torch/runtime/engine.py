@@ -70,7 +70,7 @@ from ..ops.istft import spec_to_audio_bucketed
 from ..ops.qmat import QdotRoute, QTensor, with_route
 from ..text import build_prompt, normalize_tts_text, parse_speech_tokens
 from ..text.tokenizer import Tokenizer
-from .profile import StreamProfile
+from .profile import StreamProfile, tracer
 
 # tokens per on-device generation chunk (one host read per chunk)
 OFFLINE_CHUNK = 64
@@ -1046,12 +1046,15 @@ class TTSEngine:
         audio[b, starts[b] : starts[b] + emit_len] (starts pre-clamped to
         [0, total - emit_len]), as int16 with `to_i16` (scale, clamp,
         truncate: audio.wav.f32_to_s16's semantics), else f32."""
-        audio = self._codec_audio(codes_b, embs_b, n_real_b)
-        idx = starts_b[:, None] + torch.arange(emit_len, device=audio.device)
-        out = audio.gather(1, idx)
-        if to_i16:
-            out = torch.clamp(out * 32767.0, -32768, 32767).to(torch.int16)
-        return out
+        with tracer.span("codec.decode"):
+            audio = self._codec_audio(codes_b, embs_b, n_real_b)
+            idx = (starts_b[:, None]
+                   + torch.arange(emit_len, device=audio.device))
+            out = audio.gather(1, idx)
+            if to_i16:
+                out = torch.clamp(out * 32767.0, -32768,
+                                  32767).to(torch.int16)
+            return out
 
     def decode_codes_batch_sliced_async(self, codes_list: list, voices: list,
                                         begins: list, ends: list,

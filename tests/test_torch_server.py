@@ -80,8 +80,9 @@ def test_stats_endpoint(server):
     assert r.status == 200
     body = json.loads(r.read())
     for key in ("chunks", "decodes", "prefills", "llm_wait_sec",
-                "codec_sync_sec", "device_steps", "pending", "active_slots",
-                "n_slots"):
+                "codec_sync_sec", "device_steps", "codes_kept",
+                "codes_decoded", "codes_committed", "emitted_samples",
+                "pending", "active_slots", "n_slots"):
         assert key in body
 
 
