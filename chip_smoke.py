@@ -1548,7 +1548,7 @@ def phase_main_path(torch, qmat, paths: dict, out_dir: str, card: str) -> dict:
 def device_profile(torch, fn, label: str, card: str) -> dict:
     """torch.profiler over fn() (which returns the decode steps it ran):
     device time by kernel, the device-busy share of the wall time and host
-    kernel launches per step."""
+    kernel and graph launches per step."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1562,11 +1562,15 @@ def device_profile(torch, fn, label: str, card: str) -> dict:
     def dev_us(e):
         return getattr(e, "self_device_time_total", None) or \
             getattr(e, "self_cuda_time_total", 0)
-    kernels = sorted((e for e in events if dev_us(e) > 0), key=dev_us,
-                     reverse=True)
+    # the device's own events: a CUDA graph's kernels are also charged to
+    # the host's cudaGraphLaunch, which would count them twice
+    kernels = sorted((e for e in events if dev_us(e) > 0
+                      and e.device_type != torch.autograd.DeviceType.CPU),
+                     key=dev_us, reverse=True)
     busy_s = sum(dev_us(e) for e in kernels) * 1e-6
     launches = sum(e.count for e in events if e.key in (
-        "cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
+        "cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
+        "cudaGraphLaunch"))
     # the 12 largest by device time, and every kernel of the port
     shown = kernels[:12] + [e for e in kernels[12:]
                             if "qdot" in e.key or "decode_attn" in e.key]
@@ -1574,7 +1578,10 @@ def device_profile(torch, fn, label: str, card: str) -> dict:
                busy_share=busy_s / wall if busy_s else None,
                host_launches_per_step=launches / steps,
                top=[dict(name=e.key[:80], count=e.count, ms=dev_us(e) * 1e-3)
-                    for e in shown])
+                    for e in shown],
+               # kernels the device ran, launched eagerly or by a graph
+               device_kernels={k: sum(e.count for e in kernels if k in e.key)
+                               for k in ("qdot", "decode_attn_kernel")})
     if not busy_s:
         log(f"profile {label}: the profiler reported no device time "
             f"(not measured)")
@@ -1609,13 +1616,17 @@ def serve_requests(torch, batcher, voice, n_req: int, Options,
                    keep: bool = False, max_tokens: int = SERVE_TOKENS,
                    temperature: float = 0.8) -> dict:
     """Submit n_req requests (bench_batch.py's mix) and run to completion;
-    checks every request's audio and the launches: K6 once per attention
-    layer and the quantized linears 4 per layer plus the head per batched
-    step (also per prefill wave), through K1, or through K1v alone where
-    the engine's route is MIOTTS_QDOT_BF16 on bf16 activations; K5 never.
-    Returns the run's numbers; with `keep`, also "per_request": {i: codes,
-    n_tokens, pcm, and whether the last callback was is_last with
-    samples} (not JSON: pop it before the details line)."""
+    checks every request's audio, that a batcher with chunk graphs
+    replays every device step (graph_steps == device_steps) and one
+    without replays none, and the host's launches: K6 once per attention
+    layer and the quantized linears 4 per layer plus the head per eager
+    batched step and per prefill wave, through K1, or through K1v alone
+    where the engine's route is MIOTTS_QDOT_BF16 on bf16 activations; K5
+    never.  (A replay launches nothing from the host: profile_serving
+    counts its kernels on the device.)  Returns the run's numbers; with
+    `keep`, also "per_request": {i: codes, n_tokens, pcm, and whether the
+    last callback was is_last with samples} (not JSON: pop it before the
+    details line)."""
     import numpy as np
     from miotts_tpu_torch.ops import decode_attn, qmat
     eng = batcher.engine
@@ -1677,14 +1688,19 @@ def serve_requests(torch, batcher, voice, n_req: int, Options,
         if not r.failed and g["samples"] != len(r.codes) * spt:
             raise AssertionError(f"serving: request {i} emitted {g['samples']}"
                                  f" samples for {len(r.codes)} codes")
-    steps = st["device_steps"]
+    graphed = st["graph_steps"]
+    if graphed != (st["device_steps"] if batcher._graphs is not None else 0):
+        raise AssertionError(f"serving: {graphed} of {st['device_steps']} "
+                             f"device steps replayed, graphs "
+                             f"{sorted(batcher._graphs or ())}")
+    steps = st["device_steps"] - graphed
     if k6 != attn_layers * steps:
         raise AssertionError(f"serving: attention kernel launches {k6} != "
-                             f"{attn_layers} x {steps} device steps")
+                             f"{attn_layers} x {steps} eager device steps")
     linears, other = (qv, qd) if k1v_route else (qd, qv)
     if linears != qdot_per_step * (steps + st["prefills"]) or other:
         raise AssertionError(f"serving: K1 / K1v launches {qd} / {qv}: want "
-                             f"{qdot_per_step} x ({steps} steps + "
+                             f"{qdot_per_step} x ({steps} eager steps + "
                              f"{st['prefills']} prefills) through "
                              f"{'K1v' if k1v_route else 'K1'} alone")
     if k5:
@@ -1708,6 +1724,42 @@ def serve_requests(torch, batcher, voice, n_req: int, Options,
                 failed=sum(g["req"].failed for g in got.values()),
                 attn_launches=k6, k5_launches=k5, qdot_launches=qd,
                 qdot_bf16_launches=qv, stage=st)
+
+
+def profile_serving(torch, batcher, voice, Options, label: str,
+                    card: str) -> dict:
+    """device_profile of n_slots requests x PROFILE_TOKENS on `batcher`,
+    with the stage's change over the run ("stage"), and the check that
+    the device ran, replayed or not, K6 once per attention layer a device
+    step and the quantized linears' kernels 4 per layer plus the head a
+    device step and a prefill wave."""
+    st0 = dict(batcher.stage)
+
+    def run():
+        for i in range(batcher.n_slots):
+            batcher.submit(f"profiled utterance number {i}", voice,
+                           lambda *a: True,
+                           Options(max_tokens=PROFILE_TOKENS, temperature=0.8,
+                                   seed=i))
+        batcher.run_until_done(max_iters=1000)
+        return batcher.stage["device_steps"] - st0["device_steps"]
+    out = device_profile(torch, run, label, card)
+    st = out["stage"] = {k: v - st0[k] for k, v in batcher.stage.items()}
+    if not out["device_busy_s"]:
+        return out
+    cfg = batcher.engine.llm_cfg
+    steps = st["device_steps"]
+    want = {"decode_attn_kernel": len(cfg.attn_layer_idx) * steps,
+            "qdot": (4 * cfg.n_layers + 1) * (steps + st["prefills"])}
+    if out["device_kernels"] != want:
+        raise AssertionError(f"profile {label}: device kernels "
+                             f"{out['device_kernels']}, want {want} for "
+                             f"{steps} device steps ({st['graph_steps']} "
+                             f"replayed) + {st['prefills']} prefills")
+    log(f"profile {label}: device kernels {out['device_kernels']} = "
+        f"{steps} device steps ({st['graph_steps']} replayed) + "
+        f"{st['prefills']} prefills")
+    return out
 
 
 def phase_serving(torch, paths: dict, card: str) -> dict:
@@ -1751,19 +1803,9 @@ def phase_serving(torch, paths: dict, card: str) -> dict:
     # cache
     batcher = ContinuousBatcher(eng, n_slots=SLOTS, chunk_steps=CHUNK)
     batcher.warmup(prompt_len=16)
-
-    def run():
-        for i in range(SLOTS):
-            batcher.submit(f"profiled utterance number {i}", voice,
-                           lambda *a: True,
-                           Options(max_tokens=PROFILE_TOKENS, temperature=0.8,
-                                   seed=i))
-        batcher.run_until_done(max_iters=1000)
-        return batcher.stage["device_steps"]
-    out["profile"] = device_profile(torch, run,
-                                    f"serving 64 x {PROFILE_TOKENS} tokens",
-                                    card)
-    out["profile"]["stage"] = dict(batcher.stage)
+    out["profile"] = profile_serving(torch, batcher, voice, Options,
+                                     f"serving 64 x {PROFILE_TOKENS} tokens",
+                                     card)
     del batcher
     out["engine"] = eng
     out["voice"] = voice
@@ -1975,18 +2017,9 @@ def phase_lfm2_serving(torch, eng, voice, card: str) -> dict:
          for k, v in st.items()}))
 
     # where a batched LFM2 step's time goes: 16 requests x PROFILE_TOKENS
-    def run():
-        steps0 = batcher.stage["device_steps"]
-        for i in range(LFM2_SLOTS):
-            batcher.submit(f"profiled utterance number {i}", voice,
-                           lambda *a: True,
-                           Options(max_tokens=PROFILE_TOKENS, temperature=0.8,
-                                   seed=i))
-        batcher.run_until_done(max_iters=1000)
-        return batcher.stage["device_steps"] - steps0
-    res["profile"] = device_profile(torch, run, f"lfm2 serving 16 x "
-                                    f"{PROFILE_TOKENS} tokens",
-                                    card)
+    res["profile"] = profile_serving(torch, batcher, voice, Options,
+                                     f"lfm2 serving 16 x {PROFILE_TOKENS} "
+                                     f"tokens", card)
     res["after"] = lfm2_serving_after(torch, eng, voice, card, res)
     return res
 
@@ -2004,19 +2037,9 @@ def lfm2_serving_after(torch, eng, voice, card: str, default: dict) -> dict:
     batcher.warmup(prompt_len=16)
     res = serve_requests(torch, batcher, voice, LFM2_AFTER_REQ, Options)
     st = res["stage"]
-
-    def run():
-        steps0 = batcher.stage["device_steps"]
-        for i in range(LFM2_SLOTS):
-            batcher.submit(f"profiled utterance number {i}", voice,
-                           lambda *a: True,
-                           Options(max_tokens=PROFILE_TOKENS, temperature=0.8,
-                                   seed=i))
-        batcher.run_until_done(max_iters=1000)
-        return batcher.stage["device_steps"] - steps0
-    res["profile"] = device_profile(
-        torch, run, f"lfm2 serving (after) 16 x {PROFILE_TOKENS} tokens",
-        card)
+    res["profile"] = profile_serving(
+        torch, batcher, voice, Options,
+        f"lfm2 serving (after) 16 x {PROFILE_TOKENS} tokens", card)
     log(f"lfm2 serving[after]: {LFM2_AFTER_REQ} requests x {SERVE_TOKENS} "
         f"tokens on {LFM2_SLOTS} slots, wall {res['wall_s']:.4f} s, "
         f"aggregate x_realtime {res['aggregate_x_realtime']:.4f} (default "

@@ -1117,9 +1117,9 @@ def llm_generate_chunk_batched(params: dict, last_logits, cache: dict,
     cache).  A slot that stops never resumes within a chunk, so its valid
     columns are its first `adv` ones, positions fill0 .. fill0 + adv - 1.
     Columns past adv park at the last cache position, which fill never
-    covers before the sequence itself rewrites it.  A hybrid model's conv
-    state is small and rides the loop (advancing only while the slot is
-    active); it is written back with the merge.
+    covers before the sequence itself rewrites it, and write zeros there.
+    A hybrid model's conv state is small and rides the loop (advancing
+    only while the slot is active); it is written back with the merge.
 
     `attn_len` (0 = full): attention reads only the first attn_len cache
     positions (a strided view, never a copy); the caller guarantees every
@@ -1131,8 +1131,11 @@ def llm_generate_chunk_batched(params: dict, last_logits, cache: dict,
     last_logits [B, V]; active bool [B]; seed / drawn int64 [B] (the
     sampler's per-slot state, see sample_tokens_slots; `drawn` advances
     only while the slot is active); temperature f32 [B]; stop_ids [n_stop].
-    Updates `cache` in place.  Returns (buf [B, n_steps] int64 (-1 where
-    the slot was inactive or stopped), active, last_logits, cache, drawn).
+    Updates `cache` in place, `fill` included.  Returns (buf [B, n_steps]
+    int64 (-1 where the slot was inactive or stopped), active, last_logits,
+    cache, drawn).  Every shape is fixed by (B, n_steps, attn_len) and
+    nothing waits on the host, so a CUDA graph can capture the whole chunk
+    when every input is on the device (runtime/batching.ContinuousBatcher).
 
     `codes` (the fused batch step, runtime/engine._fused_batch_step): the
     per-slot state {"table": token -> code [V'] (-1 for none), "buf":
@@ -1192,11 +1195,14 @@ def llm_generate_chunk_batched(params: dict, last_logits, cache: dict,
             adv = adv + step
 
     # ONE merge scatter: slot b's column j -> position fill0[b] + j while
-    # j < adv[b], else the parked last position
+    # j < adv[b], else zeros to the parked last position (the scatter's
+    # duplicate indices there then agree, so the merge is the same bits on
+    # every run)
     with tracer.span("llm.merge"):
         j_idx = torch.arange(n_steps, device=dev)
-        tpos = torch.where(j_idx[None, :] < adv[:, None],
-                           fill0[:, None].long() + j_idx[None, :], s_max - 1)
+        real = j_idx[None, :] < adv[:, None]                   # [B, W]
+        tpos = torch.where(real, fill0[:, None].long() + j_idx[None, :],
+                           s_max - 1)
         b_idx = torch.arange(B, device=dev)[:, None]
         if "k_scale" in cache:
             kq, ks = _kv_quantize(k_buf.float())
@@ -1208,10 +1214,12 @@ def llm_generate_chunk_batched(params: dict, last_logits, cache: dict,
             # [L, B, H, W(, D)] -> [B, W, L, H(, D)]: the advanced indices
             # (b, tpos) at cache dims 1 and 3 put their broadcast dims first
             upd = upd.movedim(1, 0).movedim(3, 1)
+            upd = torch.where(real.view(B, n_steps, *[1] * (upd.dim() - 2)),
+                              upd, 0)
             cache[name][:, b_idx, :, tpos] = upd.to(cache[name].dtype)
         if conv is not None:
             cache["conv"].copy_(conv)
-        cache["fill"] = fill0 + adv
+        cache["fill"].copy_(fill0 + adv)
     if codes is not None:
         codes.update(n_codes=n_codes, n_tokens=n_tokens)
     return buf, active, last, cache, drawn

@@ -50,6 +50,7 @@ value and scale rows in the GEMV's split (`_gemv_plan`), staged by
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import os
 from dataclasses import dataclass, replace
@@ -606,8 +607,11 @@ def _sm_count(device: torch.device) -> int:
 
 
 # per device: the tile kernels' split-K tickets, one int32 per output tile,
-# zeroed once here and reset to 0 by the block that uses them last
+# zeroed once here and reset to 0 by the block that uses them last.  An
+# array outgrown by a larger launch stays allocated (_OUTGROWN): a CUDA
+# graph captured before (runtime/batching.py) still launches on it.
 _TICKETS: dict = {}
+_OUTGROWN: list = []
 
 
 def _tickets(device, n: int) -> torch.Tensor:
@@ -616,6 +620,8 @@ def _tickets(device, n: int) -> torch.Tensor:
     the port launches on one stream a device."""
     t = _TICKETS.get(device)
     if t is None or t.numel() < n:
+        if t is not None:
+            _OUTGROWN.append(t)
         t = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
         _TICKETS[device] = t
     return t
@@ -895,6 +901,33 @@ def _qdot_routed(x: torch.Tensor, w: QTensor,
     return _qdot_cuda(x, w, **kw) if x.is_cuda else qdot_plain(x, w, **kw)
 
 
+# the list `recording` yields while its block runs, else None
+_RECORDED: list | None = None
+
+
+@contextlib.contextmanager
+def recording():
+    """Within the block, each quantized product `qdot` makes appends its
+    (FLOPs, bytes) to the list yielded: 2 M K N, and the weight's values,
+    scales and mins as held, x and y, each once.  A CUDA graph's capture
+    (runtime/batching.py) counts the work of its linears so, since a
+    replay makes no call."""
+    global _RECORDED
+    outer, _RECORDED = _RECORDED, []
+    try:
+        yield _RECORDED
+    finally:
+        _RECORDED = outer
+
+
+def _work(x: torch.Tensor, w: QTensor, y: torch.Tensor) -> tuple[int, int]:
+    """(FLOPs, bytes) of y [M, N] = x [M, K] @ w^T."""
+    (M, K), N = x.shape, y.shape[1]
+    held = sum(t.nbytes for t in (w.values, w.scales, w.mins)
+               if t is not None)
+    return 2 * M * K * N, held + x.nbytes + y.nbytes
+
+
 def qdot(x: torch.Tensor, w, out_f32: bool = False) -> torch.Tensor:
     """x [..., K] @ W^T -> [..., N] for W a dense [N, K] tensor (GGUF Linear
     layout) or a QTensor.  The single matmul entry point of the LLM.
@@ -907,6 +940,8 @@ def qdot(x: torch.Tensor, w, out_f32: bool = False) -> torch.Tensor:
         if m == 1 and w.route.m8:
             x2 = torch.cat([x2, x2.new_zeros((7, x2.shape[1]))])
         y = _qdot_routed(x2, w, out_f32)[:m]
+        if _RECORDED is not None:
+            _RECORDED.append(_work(x2[:m], w, y))
         n = w.shape[0]
         if n != y.shape[1]:
             y = y[:, :n]

@@ -38,6 +38,16 @@ admissions into its own slots (the wave's last logits summed over 'data',
 zeros elsewhere) and runs each chunk on its own rows; the chunk's outputs
 are gathered over 'data', so every rank reads every slot and decodes
 every request's audio.  Both the unfused and the fused step take a mesh.
+
+CUDA graphs of the unfused chunk (`chunk_graphs_engage`: on a CUDA device,
+unsharded, unfused): the first warmup() captures the whole chunk, every
+step of it and its merge, once per attention length the chunk can take
+(`_graph_lens`), and `_chunk` replays the graph of the chunk's length, one
+host launch in place of the chunk's ~1200 a step.  The graphs read and
+write the serving state where it lives: the cache, the logits and the
+per-slot sampling state are allocated once and updated in place, by the
+chunk, by admission and by finishing alike.  Everywhere else the same
+code runs eagerly.
 """
 
 from __future__ import annotations
@@ -53,11 +63,19 @@ import torch
 
 from ..models.llm import (init_kv_cache, llm_generate_chunk_batched,
                           llm_prefill_slots)
+from ..ops import qmat
 from ..ops.collective import all_gather, psum
 from ..text import build_prompt, normalize_tts_text
 from .engine import (Options, TTSEngine, VoiceModel, _bucket_len, _Readback,
                      _fused_batch_step, _round_up, _upload, emit_chunks)
 from .profile import tracer
+
+
+def chunk_graphs_engage(device: torch.device, mesh, fused: bool) -> bool:
+    """Whether a batcher replays its unfused chunk as CUDA graphs: on a
+    CUDA device, unsharded (gloo's collectives cannot be captured) and on
+    the unfused path; the fused step, the CPU and a mesh run eagerly."""
+    return device.type == "cuda" and mesh is None and not fused
 
 
 @dataclass
@@ -165,7 +183,14 @@ class ContinuousBatcher:
         self._admitting = 0
         self._stop_ids = engine._stop_ids
         self._table = engine.code_table
+        self.cache = None
         self._reset_device_state()
+        # {attn_len: (graph, its token buffer, its quantized linears'
+        # (FLOPs, bytes))}, captured by the first warmup() where
+        # chunk_graphs_engage, against the state whose addresses _graph_key
+        # holds
+        self._graphs: dict | None = None
+        self._graph_key: tuple = ()
         # deferred codec emissions: [(readback, items)] with items
         # [(req, row, sample_offset, n_samples)]
         self._pending: list = []
@@ -176,20 +201,36 @@ class ContinuousBatcher:
         # (sched.admit, sched.readback, sched.flush).  codes_kept: codes
         # appended to requests; codes_decoded: codes fed to codec decodes
         # (a full-prefix decode re-decodes every committed code);
-        # codes_committed: codes whose audio went out.
+        # codes_committed: codes whose audio went out.  graph_steps: device
+        # steps run by a graph's replay; graph_captures: graphs captured;
+        # graph_qdot_flops / graph_qdot_bytes: the replays' quantized
+        # linears (ops/qmat.recording), which no launch counter sees.
         self.stage = {"admit_sec": 0.0, "llm_wait_sec": 0.0,
                       "codec_sync_sec": 0.0, "codec_dispatch_sec": 0.0,
                       "flush_wait_sec": 0.0, "chunks": 0, "decodes": 0,
                       "prefills": 0, "device_steps": 0, "codes_kept": 0,
                       "codes_decoded": 0, "codes_committed": 0,
-                      "emitted_samples": 0}
+                      "emitted_samples": 0, "graph_steps": 0,
+                      "graph_captures": 0, "graph_qdot_flops": 0,
+                      "graph_qdot_bytes": 0}
 
     def _reset_device_state(self) -> None:
         """Fresh cache, logits and per-slot sampling state on the device:
         temperature, seed and the count of draws made (see
-        models/llm.sample_tokens_slots)."""
+        models/llm.sample_tokens_slots).  Allocated by the first call and
+        reset in place by every later one, so the chunk graphs keep reading
+        and writing the same tensors."""
         dev, B = self.device, self.n_slots
         cfgE = self.engine.config
+        if self.cache is not None:
+            for t in self.cache.values():
+                t.zero_()
+            self.last_logits.zero_()
+            self._slot_temp.fill_(cfgE.temperature)
+            self._slot_seed.fill_(cfgE.seed)
+            self._slot_drawn.zero_()
+            self._active_dev.copy_(torch.from_numpy(self.active))
+            return
         dtype = (torch.bfloat16 if cfgE.llm_dtype == "bfloat16"
                  else torch.float32)
         self.cache = init_kv_cache(self.cfg, B, self.ctx_len, dtype=dtype,
@@ -215,19 +256,81 @@ class ContinuousBatcher:
         return (t if self._rows is None
                 else all_gather(t, 0, self._data_group))
 
-    def _chunk(self, active, attn_len: int):
-        """One unfused chunk on this rank's slots; returns the tokens
-        [n_slots, chunk_steps] and updates the per-slot state, all slots."""
+    def _chunk(self, attn_len: int) -> torch.Tensor:
+        """One unfused chunk of the slots `_active_dev` marks; returns the
+        tokens [n_slots, chunk_steps] and updates the serving state in
+        place.  With captured graphs: the replay of `attn_len`'s graph
+        inside one `llm.step` span, and a clone of its token buffer, which
+        the next replay overwrites."""
+        if self._graphs is None:
+            return self._run_chunk(attn_len)
+        if self._graph_key != self._state_key():
+            raise RuntimeError("the serving state was reallocated after "
+                               "its chunk graphs were captured")
+        graph, tokens, _ = self._graphs[attn_len]
+        with tracer.span("llm.step"):
+            graph.replay()
+        return tokens.clone()
+
+    def _run_chunk(self, attn_len: int) -> torch.Tensor:
+        """The chunk itself, eager or under capture: this rank's slots
+        through `llm_generate_chunk_batched`, its outputs gathered and
+        copied into the serving state."""
         L = self._local
-        buf, active, last, self.cache, drawn = llm_generate_chunk_batched(
+        buf, active, last, _, drawn = llm_generate_chunk_batched(
             self.engine.llm_params, L(self.last_logits), self.cache,
-            L(active), L(self._slot_seed), L(self._slot_drawn),
+            L(self._active_dev), L(self._slot_seed), L(self._slot_drawn),
             L(self._slot_temp), self._stop_ids, self.cfg, self.chunk_steps,
             attn_len)
         G = self._gathered
-        self._active_dev, self.last_logits = G(active), G(last)
-        self._slot_drawn = G(drawn)
+        self._active_dev.copy_(G(active))
+        self.last_logits.copy_(G(last))
+        self._slot_drawn.copy_(G(drawn))
         return G(buf)
+
+    def _graph_lens(self) -> list[int]:
+        """Every attention length `_attn_len` can return."""
+        return sorted({self._attn_bucket(n)
+                       for n in range(1, self.ctx_len + 1)})
+
+    def _state_key(self) -> tuple:
+        """The addresses of what the chunk graphs read and write."""
+        return tuple(t.data_ptr() for t in (
+            *self.cache.values(), self.last_logits, self._active_dev,
+            self._slot_seed, self._slot_drawn, self._slot_temp,
+            self._stop_ids))
+
+    def _capture_graphs(self) -> None:
+        """One CUDA graph of the unfused chunk per attention length, all
+        in one memory pool (one replays at a time), captured on a side
+        stream against the serving state.  As PyTorch's recipe asks, each
+        length first runs eagerly on that stream, so that the split-K
+        tickets, cuBLAS's workspace and the kernels' attributes come to be
+        outside the capture; those runs change the serving state, which
+        warmup() resets.  The tracer records nothing meanwhile.  A capture
+        counts each kernel wrapper's call once, as an eager run does; a
+        replay counts none."""
+        dev = self.device
+        lens = self._graph_lens()
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        graphs = {}
+        with tracer.paused():
+            with torch.cuda.stream(stream):
+                for n in lens:
+                    self._run_chunk(n)
+            torch.cuda.current_stream(dev).wait_stream(stream)
+            pool = torch.cuda.graph_pool_handle()
+            for n in lens:
+                graph = torch.cuda.CUDAGraph()
+                with qmat.recording() as work, \
+                        torch.cuda.graph(graph, pool=pool, stream=stream):
+                    tokens = self._run_chunk(n)
+                graphs[n] = (graph, tokens, (sum(f for f, _ in work),
+                                             sum(b for _, b in work)))
+        self._graphs = graphs
+        self._graph_key = self._state_key()
+        self.stage["graph_captures"] += len(lens)
 
     def _prefill(self, toks: torch.Tensor, n_real: torch.Tensor,
                  slots: list[int]) -> torch.Tensor:
@@ -258,7 +361,9 @@ class ContinuousBatcher:
         """Run each serving shape once before traffic (the batched slot
         prefill at A = 1 and A = n_slots, a chunk, the batched sliced codec
         decode at the first-commit shape), so the first admission wave does
-        not pay kernel builds, library handles and allocator growth.
+        not pay kernel builds, library handles and allocator growth.  The
+        first call also captures the chunk graphs where they engage
+        (`chunk_graphs_engage`), so no capture falls inside serving.
         Serving state is re-initialized afterwards."""
         eng = self.engine
         cfgE = eng.config
@@ -268,11 +373,12 @@ class ContinuousBatcher:
             self._prefill(torch.zeros((A, bucket), dtype=torch.int64,
                                       device=dev),
                           torch.ones((A,), dtype=torch.int32), list(range(A)))
-        attn_len = min(_bucket_len(bucket + self.chunk_steps, 128),
-                       self.ctx_len)
-        active = torch.zeros((self.n_slots,), dtype=torch.bool, device=dev)
-        active[0] = True
-        self._chunk(active, 0 if attn_len >= self.ctx_len else attn_len).cpu()
+        if self._graphs is None and chunk_graphs_engage(dev, self.mesh,
+                                                        self.use_fused):
+            self._capture_graphs()
+        self._active_dev.zero_()
+        self._active_dev[0] = True
+        self._chunk(self._attn_bucket(bucket + self.chunk_steps)).cpu()
         n0 = cfgE.holdback_codes + eng._first_commit + cfgE.stream_check_interval
         voices = [VoiceModel(embedding=np.zeros(eng.codec_cfg.adaln_dim,
                                                 np.float32))] * self.n_slots
@@ -470,21 +576,32 @@ class ContinuousBatcher:
                 return self._step_fused()
             return self._step_unfused()
 
+    def _attn_bucket(self, need: int) -> int:
+        """The attention length that covers `need` cache positions: its
+        geometric bucket from 128, 0 (the whole cache) from ctx_len on."""
+        attn_len = min(_bucket_len(need, 128), self.ctx_len)
+        return 0 if attn_len >= self.ctx_len else attn_len
+
     def _attn_len(self) -> int:
         """The attention length of the next chunk: every active slot's fill
         stays under fill_ub, so reading only the first attn_len cache
-        positions is exact (0 = the whole cache)."""
-        need = int(self._fill_ub[self.active].max()) + self.chunk_steps
-        attn_len = min(_bucket_len(need, 128), self.ctx_len)
-        return 0 if attn_len >= self.ctx_len else attn_len
+        positions is exact."""
+        return self._attn_bucket(int(self._fill_ub[self.active].max())
+                                 + self.chunk_steps)
 
     def _step_unfused(self) -> None:
         self._admit()
         dispatched = False
         if np.any(self.active):
             with tracer.span("sched.dispatch"):
-                buf = self._chunk(self._active_dev, self._attn_len())
+                attn_len = self._attn_len()
+                buf = self._chunk(attn_len)
                 self.stage["device_steps"] += self.chunk_steps
+                if self._graphs is not None:
+                    flops, nbytes = self._graphs[attn_len][2]
+                    self.stage["graph_steps"] += self.chunk_steps
+                    self.stage["graph_qdot_flops"] += flops
+                    self.stage["graph_qdot_bytes"] += nbytes
                 self._fill_ub[self.active] += self.chunk_steps
                 self._inflight.append((_Readback(buf, self._active_dev),
                                        list(self.slot_req)))
@@ -679,7 +796,8 @@ class ContinuousBatcher:
             self.chunk_steps, cfgE.holdback_codes,
             cfgE.min_commit_step_codes, eng._first_commit, self._attn_len())
         buf, active, emit, target = G(buf), G(active), G(emit), G(target)
-        self.last_logits, self._slot_drawn = G(last), G(drawn)
+        self.last_logits.copy_(G(last))
+        self._slot_drawn.copy_(G(drawn))
         self._codes_buf = G(codes_buf)
         self.stage["device_steps"] += self.chunk_steps
         self._fill_ub[self.active] += self.chunk_steps

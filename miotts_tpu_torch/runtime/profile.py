@@ -131,6 +131,16 @@ class Tracer:
         elif self._followed:
             self.stop()
 
+    @contextlib.contextmanager
+    def paused(self):
+        """Records nothing inside the block: a CUDA graph's capture runs
+        the program's code with no work done on the device."""
+        on, self.on = self.on, False
+        try:
+            yield
+        finally:
+            self.on = on
+
     def span(self, name: str):
         """`with tracer.span(name):` records the block while on."""
         if not self.on:

@@ -82,7 +82,8 @@ def test_stats_endpoint(server):
     for key in ("chunks", "decodes", "prefills", "llm_wait_sec",
                 "codec_sync_sec", "device_steps", "codes_kept",
                 "codes_decoded", "codes_committed", "emitted_samples",
-                "pending", "active_slots", "n_slots"):
+                "graph_steps", "graph_captures", "graph_qdot_flops",
+                "graph_qdot_bytes", "pending", "active_slots", "n_slots"):
         assert key in body
 
 

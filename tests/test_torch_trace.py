@@ -28,7 +28,8 @@ STAGE_KEYS = ["admit_sec", "llm_wait_sec", "codec_sync_sec",
               "codec_dispatch_sec", "flush_wait_sec", "chunks", "decodes",
               "prefills", "device_steps"]
 COUNTERS = ["codes_kept", "codes_decoded", "codes_committed",
-            "emitted_samples"]
+            "emitted_samples", "graph_steps", "graph_captures",
+            "graph_qdot_flops", "graph_qdot_bytes"]
 
 
 @pytest.fixture(scope="module")
