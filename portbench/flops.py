@@ -43,37 +43,33 @@ def attention_step(keys: list, n_heads: int, n_kv_heads: int,
     return flops, nbytes
 
 
+def attention_params(s) -> int:
+    """A GQA block's q, k, v and output projections."""
+    D, hd = s.dim, s.head_dim
+    return D * (s.n_heads * hd + 2 * s.n_kv_heads * hd) + s.n_heads * hd * D
+
+
 def matmul_params(s) -> int:
     """Parameters a token meets in matrix products: every linear and the
-    output head (tied or not); the embedding gather is none."""
-    D, H, Hk, hd, ff = s.dim, s.n_heads, s.n_kv_heads, s.head_dim, s.ff
-    attn = D * (H * hd + 2 * Hk * hd) + H * hd * D
-    conv = 3 * D * D + D * D
-    ffn = 3 * D * ff
-    n = 0
-    for i in range(s.n_layers):
-        is_conv = s.layer_types is not None and s.layer_types[i] == "conv"
-        n += (conv if is_conv else attn) + ffn
-    return n + s.n_vocab * D
+    output head (tied or not), as its architecture counts them; the
+    embedding gather is none."""
+    return s.impl.matmul_params(s)
 
 
 def token_flops(s, position: int) -> int:
     """Model FLOPs of one token at `position` (0-based): 2 x matmul
     parameters, attention over position + 1 keys in each attention layer
-    (scores and values), the conv taps of each conv layer."""
-    n_attn = len(s.attn_layers)
-    n_conv = s.n_layers - n_attn
+    (scores and values), and the architecture's other work (the conv
+    taps of each conv layer)."""
     return (2 * matmul_params(s)
-            + 4 * s.n_heads * s.head_dim * (position + 1) * n_attn
-            + 2 * s.conv_l * s.dim * n_conv)
+            + 4 * s.n_heads * s.head_dim * (position + 1) * len(s.attn_layers)
+            + s.impl.extra_token_flops(s))
 
 
 def span_flops(s, start: int, count: int) -> int:
     """token_flops summed over positions start .. start + count - 1."""
     if count <= 0:
         return 0
-    n_attn = len(s.attn_layers)
     pos_sum = count * start + count * (count + 1) // 2
-    return ((2 * matmul_params(s) + 2 * s.conv_l * s.dim
-             * (s.n_layers - n_attn)) * count
-            + 4 * s.n_heads * s.head_dim * n_attn * pos_sum)
+    return ((2 * matmul_params(s) + s.impl.extra_token_flops(s)) * count
+            + 4 * s.n_heads * s.head_dim * len(s.attn_layers) * pos_sum)

@@ -5,6 +5,8 @@ request, and judged against the plain reference.
 Everything that belongs to one configuration, traffic mix or per-layer
 metric sits in a file of its own, found by name:
   configs/<config>.json      the model as it is run (weights.shape_of)
+  archs/<model_type>.py      its architecture: seeded tensors, GGUF KVs,
+                             the reference's layer, FLOPs, weight parts
   workloads/<cell>.json      the cell: its config, traffic kind and
                              parameters, slots, chunk, limits, why
   traffic/<kind>.py          a Driver that says when each request is due
@@ -135,27 +137,22 @@ class Observer:
         self.qdot_calls: list = []
         self.tracing = False
         self._dispatched: list = []
-        self._bytes = self._weight_bytes(engine, model)
+        self._bytes = self._weight_bytes(engine, model, shape)
         self._wrap()
 
     @staticmethod
-    def _weight_bytes(engine, model) -> dict:
+    def _weight_bytes(engine, model, shape) -> dict:
         """id(QTensor) -> its GGUF bytes, for the fused weights the loader
-        builds (q/k/v, gate/up) and the others; {} where the layout is not
-        the one known here."""
+        builds (the architecture's weight_parts) and the output head; {}
+        where the layout is not the one known here."""
         p = engine.llm_params
         nb = {n: t.payload.nbytes for n, t in model.tensors.items()}
+        parts = shape.impl.weight_parts(shape)
         out = {}
         try:
             blocks = p.get("blocks") or p.get("layers")
             for i, blk in enumerate(blocks):
                 pre = f"blk.{i}."
-                parts = {"wqkv": ("attn_q", "attn_k", "attn_v"),
-                         "wo": ("attn_output",),
-                         "w_gateup": ("ffn_gate", "ffn_up"),
-                         "w_down": ("ffn_down",),
-                         "in_proj": ("shortconv.in_proj",),
-                         "out_proj": ("shortconv.out_proj",)}
                 for key, names in parts.items():
                     if key in blk:
                         out[id(blk[key])] = sum(nb[pre + n + ".weight"]
@@ -304,7 +301,7 @@ def run(name: str, seed: int, seconds: float, trace: bool,
     for key in [k for k in os.environ if k.startswith("MIOTTS_")]:
         del os.environ[key]
     wl = workload(name, root)
-    shape = weights.shape_of(config(wl["config"], root))
+    shape = weights.shape_of(config(wl["config"], root), root)
     dev = torch.device(device)
     cuda = dev.type == "cuda"
     split = {}
@@ -364,7 +361,7 @@ def run(name: str, seed: int, seconds: float, trace: bool,
         def on_finish(r):
             rec.finished = time.perf_counter()
             rec.failed, rec.handle = bool(r.failed), r
-            driver.finished(req, rec.finished)
+            driver.finished(req, rec.finished - held[0])
 
         rec.req_id = batcher.submit(
             req.text, voice, callback,
@@ -372,6 +369,16 @@ def run(name: str, seed: int, seconds: float, trace: bool,
                     seed=req.seed), on_finish=on_finish)
         obs.prompt_len[rec.req_id] = len(prompt_ids(req.text))
         records.append(rec)
+
+    # The traffic's clock stands still while the harness holds the loop to
+    # start or read the profiler: an open loop's arrivals would pile up
+    # behind the hold, and the traced window would serve a burst that the
+    # untraced one never sees.  Untraced, it is the host's clock.
+    held = [0.0]
+
+    def poll() -> None:
+        for req, due in driver.poll(time.perf_counter() - held[0]):
+            submit(req, due + held[0])
 
     # no collector pauses inside the lead-in, the window or the drain
     gc.collect()
@@ -383,18 +390,19 @@ def run(name: str, seed: int, seconds: float, trace: bool,
     win_start = prof = view = host0 = None
     stage0 = stage1 = None
     while True:
+        poll()
         now = time.perf_counter()
-        for req, due in driver.poll(now):
-            submit(req, due)
         if win_start is None:
             if not driver.in_lead_in(now):
                 split["lead_in_s"] = now - t
                 if trace:
                     prof = _start_profile(cuda)
                     obs.tracing = True
+                    held[0] += time.perf_counter() - now
                 now = time.perf_counter()
                 win_start, counting["on"] = now, True
                 stage0 = dict(batcher.stage)
+                waiting = [len(batcher.waiting)]
                 host0 = _host_clocks()
             elif now - t > LEAD_IN_LIMIT_S:
                 raise RuntimeError(
@@ -404,19 +412,20 @@ def run(name: str, seed: int, seconds: float, trace: bool,
             break
         batcher.step()
     win_end = time.perf_counter()
+    waiting.append(len(batcher.waiting))
     counting["on"] = False
     host = _host_share(host0, _host_clocks())
     if obs.tracing:
         stage1, view = _stop_profile(prof, obs, batcher, cuda,
                                      win_end - win_start, stage0)
+        held[0] += time.perf_counter() - win_end
     due_in = [r for r in records if win_start <= r.due < win_end]
     # a request due in the window is timed to its first audio, however
     # late: the traffic goes on until each has it (or has failed)
     cutoff = win_end + DRAIN_LIMIT_S
     while time.perf_counter() < cutoff and any(
             r.first_audio is None and not r.failed for r in due_in):
-        for req, due in driver.poll(time.perf_counter()):
-            submit(req, due)
+        poll()
         batcher.step()
     drained = time.perf_counter()
     gc.enable()
@@ -434,7 +443,9 @@ def run(name: str, seed: int, seconds: float, trace: bool,
     log(f"portbench: window {window_s:.3f} s (+{drained - win_end:.3f} s "
         f"to the last first audio), {len(due_in)} requests due, "
         f"{sum(r.finished is not None for r in due_in)} finished, "
-        f"{failed} failed; traffic {json.dumps(driver.report())}")
+        f"{failed} failed; waiting for a slot {waiting[0]} at the open, "
+        f"{waiting[1]} at the close; traffic clock held {held[0]:.3f} s "
+        f"for the profiler; traffic {json.dumps(driver.report())}")
     log(f"portbench: host in the window {json.dumps(host)}")
     if len(ttfa) < 200:
         log(f"portbench: only {len(ttfa)} requests in the window: the 95th "

@@ -1,12 +1,14 @@
-"""qdot_roofline with the quantized linears of the batcher's replayed CUDA
-graphs counted too: a replay calls no Python `qdot`, so their work comes
-from the program's counters (ContinuousBatcher.stage's graph_qdot_flops
-and graph_qdot_bytes, runtime/batching.py: 2 M K N, and the weight as the
-program holds it, x and y, each once).  Eager calls count as in
-qdot_roofline, one least time each; the replays' linears all run at
-M = n_slots, so their least time is that of their summed FLOPs and bytes.
-Held against every qdot kernel's device time.  A program without the
-counters gives None."""
+"""The quantized linears' least time (FLOPs at the bf16 peak or bytes at
+HBM bandwidth) over their kernels' device time: K1's tile and GEMV, K1v,
+K2-K4 (ops/qmat.py).  Eager calls (the prefill's) are counted through
+the program's `qdot` (the harness's Observer), one least time each,
+weights at their GGUF size.  A replay of the batcher's CUDA graphs calls
+no Python `qdot`, so its linears come from the program's counters
+(ContinuousBatcher.stage's graph_qdot_flops and graph_qdot_bytes,
+runtime/batching.py: 2 M K N, and the weight as the program holds it, x
+and y, each once); they all run at M = n_slots, so their least time is
+that of their summed FLOPs and bytes.  Held against every qdot kernel's
+device time.  A program without the counters gives None."""
 from portbench import flops
 
 UNIT, BETTER, SOURCE = "%", "higher", "device_trace"

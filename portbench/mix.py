@@ -11,11 +11,19 @@ runs at about 8 characters and 25 codes a second).  A share
 `greedy_share` of requests is greedy (temperature 0); the rest sample at
 `temperature`.  Request k of client c depends on (seed, c, k) alone, so
 the same seed gives the same requests in any order of arrival.
+
+With `strata` = B, each client's requests come in blocks of B whose
+lengths and greedy picks are one fixed set for every seed: the B
+lognormal quantiles at (i + 0.5) / B, clipped, and exactly round(B *
+greedy_share) greedy requests, in an order drawn from (seed, client,
+block).  Every seed then sends the same work, in another order; texts
+and sampling seeds stay drawn per request.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from statistics import NormalDist
 
 import numpy as np
 
@@ -57,9 +65,23 @@ class Mix:
         self.p, self.seed = params, seed
 
     def chars(self, rng: np.random.Generator) -> int:
+        return self._length(rng.standard_normal())
+
+    def _length(self, z: float) -> int:
         p = self.p
-        n = p["chars_median"] * np.exp(p["chars_sigma"] * rng.standard_normal())
+        n = p["chars_median"] * np.exp(p["chars_sigma"] * z)
         return int(np.clip(round(n), p["chars_min"], p["chars_max"]))
+
+    def _stratum(self, client: int, index: int) -> tuple[int, bool]:
+        """Request `index`'s length and greediness from its block's fixed
+        set (`strata`)."""
+        b = self.p["strata"]
+        rng = np.random.default_rng([self.seed, client, index // b, 0x57A7])
+        place = int(rng.permutation(b)[index % b])
+        pick = int(rng.permutation(b)[index % b])
+        z = NormalDist().inv_cdf((place + 0.5) / b)
+        return (self._length(z),
+                pick < round(b * self.p["greedy_share"]))
 
     def request(self, client: int, index: int,
                 lead_in_tokens: int = 0) -> Request:
@@ -67,8 +89,13 @@ class Mix:
         lead-in request of that budget (it counts in nothing)."""
         rng = np.random.default_rng([self.seed, client, index])
         n = self.chars(rng)
-        text = sentence(rng, n)
-        greedy = rng.random() < self.p["greedy_share"]
+        if self.p.get("strata"):
+            n, greedy = self._stratum(client, index)
+            text = sentence(rng, n)
+            rng.random()
+        else:
+            text = sentence(rng, n)
+            greedy = rng.random() < self.p["greedy_share"]
         budget = (lead_in_tokens if lead_in_tokens
                   else int(round(self.p["codes_per_char"] * n)))
         return Request(client=client, index=index, text=text, n_chars=n,

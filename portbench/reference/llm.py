@@ -1,12 +1,8 @@
-"""The plain reference of the two LLM layouts, in float32 with TF32 off.
-
-qwen2 (dense): pre-norm blocks of RMSNorm, GQA attention with q/k/v bias
-and half-split (neox) RoPE, SwiGLU; a final RMSNorm and the output head.
-lfm2 (hybrid, HF Lfm2): the same frame, where a layer is either GQA
-attention with per-head RMSNorm of q and k (no bias) or a gated short
-convolution: (B, C, x) = in_proj(h); y = C * causal_depthwise_conv(B * x)
-over conv_L_cache taps; out_proj(y).  Tied embeddings where the file has
-no output head.
+"""The plain reference of the LLM, in float32 with TF32 off: the embedding,
+each layer as its architecture says (archs/<model_type>.py, `layer`, built
+from the helpers here: RMSNorm, half-split (neox) RoPE, GQA attention, the
+gated short convolution, SwiGLU), a final RMSNorm and the output head (the
+embedding where the file has none).
 
 A whole causal forward over each sequence (no KV cache, no batching of
 requests beyond zero padding at the end), one layer at a time: the
@@ -26,11 +22,11 @@ import torch.nn.functional as F
 from .dequant import dequantize
 
 
-def _rms(x, w, eps):
+def rms(x, w, eps):
     return x * torch.rsqrt(x.square().mean(-1, keepdim=True) + eps) * w
 
 
-def _rope(x, theta):
+def rope(x, theta):
     """x [B, S, H, D], positions 0..S-1; rotates the pairs (i, i + D/2)."""
     S, D = x.shape[1], x.shape[-1]
     inv = theta ** (-torch.arange(0, D, 2, dtype=torch.float64,
@@ -42,7 +38,7 @@ def _rope(x, theta):
     return torch.cat([a * cos - b * sin, a * sin + b * cos], dim=-1)
 
 
-class _Weights:
+class Weights:
     """Dequantizes the file's tensors on demand onto `device`."""
 
     def __init__(self, tensors: dict, device):
@@ -57,22 +53,25 @@ class _Weights:
         return name in self.t
 
 
-def _attention(h, W, p, s, lin, mask):
+def attention(h, W, p, s, lin, mask, bias=False, qk_norm=False):
+    """Causal GQA self-attention over the whole sequence: q/k/v (with their
+    bias), per-head RMSNorm of q and k, RoPE, softmax, the output
+    projection."""
     B, S, _ = h.shape
     H, Hk, D = s.n_heads, s.n_kv_heads, s.head_dim
     q = lin(h, W(p + "attn_q.weight"))
     k = lin(h, W(p + "attn_k.weight"))
     v = lin(h, W(p + "attn_v.weight"))
-    if s.qkv_bias:
+    if bias:
         q = q + W(p + "attn_q.bias")
         k = k + W(p + "attn_k.bias")
         v = v + W(p + "attn_v.bias")
     q, k, v = (q.reshape(B, S, H, D), k.reshape(B, S, Hk, D),
                v.reshape(B, S, Hk, D))
-    if s.qk_norm:
-        q = _rms(q, W(p + "attn_q_norm.weight"), s.eps)
-        k = _rms(k, W(p + "attn_k_norm.weight"), s.eps)
-    q, k = _rope(q, s.theta), _rope(k, s.theta)
+    if qk_norm:
+        q = rms(q, W(p + "attn_q_norm.weight"), s.eps)
+        k = rms(k, W(p + "attn_k_norm.weight"), s.eps)
+    q, k = rope(q, s.theta), rope(k, s.theta)
     k = k.repeat_interleave(H // Hk, dim=2)
     v = v.repeat_interleave(H // Hk, dim=2)
     sc = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(D)
@@ -81,7 +80,9 @@ def _attention(h, W, p, s, lin, mask):
     return lin(o, W(p + "attn_output.weight"))
 
 
-def _short_conv(h, W, p, s, lin):
+def short_conv(h, W, p, lin):
+    """LFM2's gated short convolution: (B, C, x) = in_proj(h);
+    out_proj(C * causal_depthwise_conv(B * x))."""
     bcx = lin(h, W(p + "shortconv.in_proj.weight"))
     b, c, x = bcx.chunk(3, dim=-1)
     bx = b * x                                          # [B, S, dim]
@@ -91,6 +92,13 @@ def _short_conv(h, W, p, s, lin):
     S = bx.shape[1]
     conv = sum(padded[:, i:i + S] * w[:, i] for i in range(L))
     return lin(c * conv, W(p + "shortconv.out_proj.weight"))
+
+
+def swiglu(h, W, p, lin):
+    """down(silu(gate(h)) * up(h))."""
+    g = lin(h, W(p + "ffn_gate.weight"))
+    u = lin(h, W(p + "ffn_up.weight"))
+    return lin(F.silu(g) * u, W(p + "ffn_down.weight"))
 
 
 @torch.no_grad()
@@ -110,7 +118,7 @@ def forward_logits(tensors: dict, s, seqs: list, device,
 
 
 def _forward(tensors, s, seqs, device, act):
-    W = _Weights(tensors, device)
+    W = Weights(tensors, device)
     B, S = len(seqs), max(len(q) for q in seqs)
     ids = torch.zeros((B, S), dtype=torch.long, device=device)
     for i, q in enumerate(seqs):
@@ -123,16 +131,8 @@ def _forward(tensors, s, seqs, device, act):
     emb = W("token_embd.weight")
     x = emb[ids]
     for i in range(s.n_layers):
-        p = f"blk.{i}."
-        h = _rms(x, W(p + "attn_norm.weight"), s.eps)
-        conv = s.layer_types is not None and s.layer_types[i] == "conv"
-        x = x + (_short_conv(h, W, p, s, lin) if conv
-                 else _attention(h, W, p, s, lin, mask))
-        h = _rms(x, W(p + "ffn_norm.weight"), s.eps)
-        g = lin(h, W(p + "ffn_gate.weight"))
-        u = lin(h, W(p + "ffn_up.weight"))
-        x = x + lin(F.silu(g) * u, W(p + "ffn_down.weight"))
-    x = _rms(x, W("output_norm.weight"), s.eps)
+        x = s.impl.layer(x, W, f"blk.{i}.", i, s, lin, mask)
+    x = rms(x, W("output_norm.weight"), s.eps)
     head = W("output.weight") if W.has("output.weight") else emb
     logits = lin(x, head)
     return [logits[i, :len(q)] for i, q in enumerate(seqs)]

@@ -31,16 +31,18 @@ def main() -> int:
     ap.add_argument("--seconds", type=float, default=10.0)
     ap.add_argument("--trace", type=int, choices=(0, 1), default=0)
     ap.add_argument("--list", action="store_true",
-                    help="print the cells and per-layer metrics found")
+                    help="print the cells, architectures and per-layer "
+                    "metrics found")
     args = ap.parse_args()
     # build and kernel caches stay inside the checkout, at fixed paths
     os.environ.setdefault("CUDA_CACHE_PATH",
                           str(ROOT / "build" / "portbench" / "nv_cache"))
     sys.path.insert(0, str(ROOT))
-    from portbench import harness
+    from portbench import harness, weights
 
     if args.list:
         print(json.dumps({"workloads": harness.workloads(),
+                          "archs": weights.archs(),
                           "per_layer": sorted(harness.metric_modules())}))
         return 0
     import torch

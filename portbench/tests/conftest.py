@@ -32,6 +32,10 @@ TINY_LFM2 = {
     "rope_theta": 1e6, "max_position_embeddings": 2048,
     "tie_embedding": True, "vocab_size": 259 + 2048,
     "quant": {"default": "Q8_0"}, "n_speech_codes": 2048, "reduced": []}
+# llama.cpp's per-layer Q4_K_M mix: attn_v and ffn_down in Q6_K on layers 2
+# and 3 of 4 (use_more_bits), Q4_K on 0 and 1; the untied head in Q6_K
+TINY_Q4_K_M = dict(TINY_DENSE, name="tiny-q4km", num_hidden_layers=4,
+                   quant={"default": "Q4_K", "mix": "Q4_K_M"})
 TINY_CODEC = {"prenet_layers": 1, "prenet_dim": 64, "prenet_heads": 4,
               "prenet_ff": 96, "prenet_window": 9, "decoder_layers": 1,
               "decoder_dim": 32, "decoder_heads": 2, "decoder_ff": 48,
@@ -65,8 +69,12 @@ def write_cell(root: Path, name: str, config: dict, cell: dict) -> None:
 
 @pytest.fixture
 def tiny_root(tmp_path):
-    """A folder holding the tiny dense and LFM2 cells."""
+    """A folder holding the tiny dense and LFM2 cells, closed loop, and
+    the dense one under Poisson arrivals."""
     write_cell(tmp_path, "tiny-dense.closed", TINY_DENSE,
                tiny_cell(TINY_DENSE))
     write_cell(tmp_path, "tiny-lfm2.closed", TINY_LFM2, tiny_cell(TINY_LFM2))
+    write_cell(tmp_path, "tiny-dense.poisson", TINY_DENSE, tiny_cell(
+        TINY_DENSE, traffic="poisson",
+        traffic_params={"rate_per_s": 4.0, "lead_in_s": 0.5}))
     return tmp_path

@@ -13,7 +13,7 @@ from portbench import flops, stats, weights
 from portbench.harness import Chunk, LayerContext
 from portbench.metrics import (attn_roofline, device_idle_share,
                                host_launches_per_step, llm_step_mfu,
-                               qdot_roofline, slot_occupancy)
+                               qdot_all_roofline, slot_occupancy)
 from portbench.trace import TraceView
 
 CONFIGS = Path(__file__).resolve().parents[1] / "configs"
@@ -56,7 +56,7 @@ def test_matmul_parameters_of_both_configurations():
     # LFM2: 6 x 10485760 (attention) + 10 x 16777216 (conv) + 16 x 50331648
     # (ffn 8192) + 13059 x 2048
     s = shape("lfm2-1.2b-q8_0")
-    assert s.ff == 8192 and s.attn_layers == [2, 5, 8, 10, 12, 14]
+    assert s.sizes["ff"] == 8192 and s.attn_layers == [2, 5, 8, 10, 12, 14]
     assert flops.matmul_params(s) == 1062737920
 
 
@@ -102,10 +102,11 @@ def test_readers_on_a_made_up_trace():
             ("Memcpy HtoD", 500_000_000, 500_001_000, 3)]
     view = _view(kern, [(0, 1), (1, 2)])
     ctx = _ctx(trace=view, qdot_calls=[(64, 2560, 2560, wb)],
-               stage={"device_steps": 2},
+               stage={"device_steps": 2, "graph_qdot_flops": 0,
+                      "graph_qdot_bytes": 0},
                chunks=[Chunk(fill0=[10, 30], active_steps=[2, 1],
                              kept_codes=3, spans=[(10, 2), (30, 1)])])
-    assert qdot_roofline.read(ctx) == pytest.approx(100 * least / 2e-6)
+    assert qdot_all_roofline.read(ctx) == pytest.approx(100 * least / 2e-6)
     a = sum(flops.least_time(*flops.attention_step(k, 32, 8, 80), H100)
             for k in ([10, 30], [10])) * 32
     assert attn_roofline.read(ctx) == pytest.approx(100 * a / 1e-6)
@@ -119,12 +120,13 @@ def test_readers_on_a_made_up_trace():
 
 def test_readers_find_nothing_and_say_so():
     ctx = _ctx(trace=_view([]))
-    for mod in (qdot_roofline, attn_roofline, slot_occupancy,
+    for mod in (qdot_all_roofline, attn_roofline, slot_occupancy,
                 host_launches_per_step, device_idle_share, llm_step_mfu):
         assert mod.read(ctx) is None
     bad = _ctx(trace=_view([("void qdot_tile_kernel", 0, 10, 1)]),
+               stage={"graph_qdot_flops": 0, "graph_qdot_bytes": 0},
                qdot_calls=[(1, 2560, 2560, None)])
-    assert qdot_roofline.read(bad) is None
+    assert qdot_all_roofline.read(bad) is None
 
 
 def test_trace_attributes_launches_to_ranges():

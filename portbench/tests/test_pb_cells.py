@@ -25,7 +25,8 @@ def run(root, name="tiny-dense.closed", **kw):
     return harness.run(name, SEED, 1.5, False, device="cpu", root=root, **kw)
 
 
-@pytest.mark.parametrize("name", ["tiny-dense.closed", "tiny-lfm2.closed"])
+@pytest.mark.parametrize("name", ["tiny-dense.closed", "tiny-lfm2.closed",
+                                  "tiny-dense.poisson"])
 def test_a_sound_run_is_correct_and_the_control_is_not(tiny_root, name):
     r = run(tiny_root, name, control=True)
     assert r["correct"], r["compared"]
@@ -90,14 +91,27 @@ def _audio_altered(monkeypatch):
     monkeypatch.setattr(TTSEngine, "_codec_audio_sliced", louder)
 
 
+@pytest.mark.parametrize("name", ["tiny-dense.closed", "tiny-dense.poisson"])
 @pytest.mark.parametrize("fault", [_alter_token, _state_unchanged,
                                    _half_batch, _audio_altered],
                          ids=["token_altered", "state_unchanged",
                               "half_batch", "audio_altered"])
-def test_each_fault_makes_the_run_incorrect(tiny_root, monkeypatch, fault):
+def test_each_fault_makes_the_run_incorrect(tiny_root, monkeypatch, fault,
+                                            name):
     fault(monkeypatch)
-    r = run(tiny_root)
+    r = run(tiny_root, name)
     assert not r["correct"], r["compared"]
+
+
+def test_a_traced_open_loop_serves_no_burst(tiny_root):
+    """Poisson arrivals do not pile up while the profiler starts (seconds
+    on the CPU): without the held traffic clock they reach the traced
+    window at once and wait ~0.8 s for a slot here; with it, the next
+    admission wave."""
+    r = harness.run("tiny-dense.poisson", SEED, 2.0, True, device="cpu",
+                    root=tiny_root)
+    assert r["correct"], r["compared"]
+    assert r["metrics"]["queue_wait_p95_s"]["value"] < 0.4
 
 
 NEW_METRIC = '''"""A reader added as a file: chunks traced."""
@@ -177,6 +191,6 @@ def test_a_tiny_cell_on_the_card(tiny_root):
     t = harness.run("tiny-dense.closed", SEED, 2.0, True, root=tiny_root)
     assert t["correct"], t["compared"]
     assert t["device"]["busy_s"] > 0
-    assert {"qdot_roofline", "attn_roofline", "device_idle_share",
+    assert {"qdot_all_roofline", "attn_roofline", "device_idle_share",
             "host_launches_per_step"} <= set(t["metrics"])
-    assert t["metrics"]["qdot_roofline"]["value"] <= 105
+    assert t["metrics"]["qdot_all_roofline"]["value"] <= 105

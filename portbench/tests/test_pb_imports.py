@@ -51,7 +51,11 @@ def test_no_module_of_the_benchmark_loads_jax_or_the_jax_package():
 
 
 def test_the_reference_loads_nothing_of_the_program():
-    loaded = top_level_after_import(benchmark_modules("reference"))
+    """The reference and the architectures' files, whose `layer` is the
+    reference's."""
+    mods = benchmark_modules("reference") + benchmark_modules("archs")
+    assert "portbench.archs.lfm2" in mods
+    loaded = top_level_after_import(mods)
     assert "portbench" in loaded
     assert "miotts_tpu_torch" not in loaded
     assert not loaded & {"jax", "jaxlib", "flax", "miotts_tpu"}

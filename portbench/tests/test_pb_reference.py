@@ -13,7 +13,7 @@ from portbench.reference import codec as ref_codec
 from portbench.reference import dequant, serving
 from portbench.reference.llm import forward_logits
 
-from .conftest import TINY_CODEC, TINY_DENSE, TINY_LFM2
+from .conftest import TINY_CODEC, TINY_DENSE, TINY_LFM2, TINY_Q4_K_M
 
 
 @pytest.mark.parametrize("cfg", [TINY_DENSE, TINY_LFM2],
@@ -28,8 +28,8 @@ def test_loader_reads_the_files_and_reference_dequantizes_alike(cfg):
         c = LLMConfig.from_gguf(r)
         assert (c.n_layers, c.dim, c.n_heads, c.n_kv_heads, c.head_dim,
                 c.ff_dim, c.n_vocab) == (s.n_layers, s.dim, s.n_heads,
-                                         s.n_kv_heads, s.head_dim, s.ff,
-                                         s.n_vocab)
+                                         s.n_kv_heads, s.head_dim,
+                                         s.sizes["ff"], s.n_vocab)
         assert c.tie_embedding == s.tie
         load_llm_params(r, c, dtype=torch.float32, device="cpu")
         formats = set()
@@ -48,8 +48,8 @@ def test_loader_reads_the_files_and_reference_dequantizes_alike(cfg):
     assert formats == ({0, 12, 14} if cfg is TINY_DENSE else {0, 8})
 
 
-@pytest.mark.parametrize("cfg", [TINY_DENSE, TINY_LFM2],
-                         ids=["dense", "lfm2"])
+@pytest.mark.parametrize("cfg", [TINY_DENSE, TINY_LFM2, TINY_Q4_K_M],
+                         ids=["dense", "lfm2", "q4_k_m"])
 def test_reference_llm_matches_the_program_in_f32(cfg):
     from miotts_tpu_torch.gguf import GGUFReader
     from miotts_tpu_torch.models.llm import (LLMConfig, init_kv_cache,

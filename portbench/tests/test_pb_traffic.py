@@ -93,3 +93,56 @@ def test_poisson_arrivals_are_seeded_and_report_lateness():
     assert rep["sent"] == len(got)
     assert 0 <= rep["late_p50_s"] <= rep["late_p95_s"] <= rep["late_max_s"] < 0.25
     assert a.in_lead_in(100.5) and not a.in_lead_in(101.0)
+
+
+def _digest(reqs) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    for r in reqs:
+        h.update(repr((r.text, r.n_chars, r.max_tokens, r.temperature,
+                       r.seed)).encode())
+    return h.hexdigest()
+
+
+def test_without_strata_the_draws_are_the_closed_cells_own():
+    """Values from the code before `strata` came in: a cell that does not
+    name it sends the same requests at the same times."""
+    import hashlib
+    m = Mix(PARAMS, BIG_SEED)
+    assert _digest(m.request(c, k) for c in range(4) for k in range(50)) \
+        == "3b3ec8b93e347cbdd14cdd2727b5404b0be101ca766a9fa7e1d9484629ce9ea3"
+    d = poisson.Driver({"rate_per_s": 14.4, "lead_in_s": 10,
+                        "horizon_s": 30.0}, m)
+    assert len(d.arrivals) == 664
+    assert hashlib.sha256(d.arrivals.tobytes()).hexdigest() == \
+        "34cfca8c3ec0ea8a7c4c55681b5ad4bfccc541ee1bdbfe0c5c488433ddf56b70"
+
+
+def test_strata_give_every_seed_the_same_work_in_another_order():
+    b, rate = 32, 14.4
+    p = {"rate_per_s": rate, "lead_in_s": 10, "horizon_s": 30.0,
+         "strata": b}
+    mp = dict(PARAMS, strata=b)
+    sets = []
+    for seed in (BIG_SEED, BIG_SEED + 1):
+        m = Mix(mp, seed)
+        d = poisson.Driver(p, m)
+        gaps = np.diff(np.concatenate([[0.0], d.arrivals]))
+        blocks = gaps[:len(gaps) // b * b].reshape(-1, b)
+        assert np.allclose(blocks.sum(axis=1), b / rate)
+        assert np.allclose(np.sort(blocks, axis=1), np.sort(blocks[0]))
+        reqs = [m.request(0, k) for k in range(4 * b)]
+        n = np.array([r.n_chars for r in reqs]).reshape(4, b)
+        greedy = np.array([r.temperature == 0 for r in reqs]).reshape(4, b)
+        assert (np.sort(n, axis=1) == np.sort(n[0])).all()
+        assert (greedy.sum(axis=1) == round(b * PARAMS["greedy_share"])).all()
+        assert 8 <= n.min() and n.max() <= 120
+        assert 36 <= np.median(n) <= 44
+        for r in reqs:
+            assert len(r.text) == r.n_chars
+            assert r.max_tokens == round(3.1 * r.n_chars)
+        sets.append((np.sort(n[0]), np.sort(blocks[0]), n, blocks))
+    (na, ga, order_a, blk_a), (nb, gb, order_b, blk_b) = sets
+    assert (na == nb).all() and np.allclose(ga, gb)
+    assert not (order_a == order_b).all()
+    assert not np.allclose(blk_a, blk_b)

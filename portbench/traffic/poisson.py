@@ -2,7 +2,13 @@
 independent users, whatever the system does; request k of the mix is the
 k-th arrival (client 0).
 
-Arrival times come from the seed alone.  The first `lead_in_s` seconds of
+Arrival times come from the seed alone.  With `strata` = B, the gaps
+come in blocks of B that are one fixed set for every seed: the B
+exponential quantiles at (i + 0.5) / B, scaled to a mean of 1 /
+`rate_per_s`, in an order drawn from the seed.  Each block then spans
+exactly B / `rate_per_s` seconds: every seed offers the same arrivals,
+bunched in another order, and a window holds the same count give or
+take a block's part.  The first `lead_in_s` seconds of
 arrivals are the lead-in, which counts in nothing.  A request is due at
 its arrival time, and is sent at the first poll at or after it: `report`
 gives how late the generator ran (the send time less the due time) as a
@@ -21,7 +27,15 @@ class Driver:
         self.mix = mix
         rng = np.random.default_rng([mix.seed, 0x9015])
         n = int(self.rate * self.horizon * 1.5) + 16
-        self.arrivals = np.cumsum(rng.exponential(1.0 / self.rate, n))
+        b = params.get("strata")
+        if b:
+            q = -np.log1p(-(np.arange(b) + 0.5) / b)
+            q = q / q.mean() / self.rate
+            gaps = np.concatenate([q[rng.permutation(b)]
+                                   for _ in range(n // b + 1)])
+        else:
+            gaps = rng.exponential(1.0 / self.rate, n)
+        self.arrivals = np.cumsum(gaps)
         self.k = 0
         self.t0 = 0.0
         self.late: list[float] = []

@@ -15,15 +15,24 @@ scale stays a normal number:
 Every d also takes a factor in [0.75, 1.25] per block.  Float tensors
 (norms, biases, the conv taps, the codec) come from one normal draw.
 
+The LLM's tensors and metadata are its architecture's
+(archs/<model_type>.py).  A matrix's format is the configuration's
+`quant` for its role, else quant["default"]; quant["mix"] names a
+per-layer rule (MIXES: llama.cpp's Q4_K_M) for the roles it chooses.
+
 The files go to `os.memfd_create` memory files, read through
 /proc/self/fd/<n>: a run writes nothing to disk for its weights.
 """
 
 from __future__ import annotations
 
+import importlib
+import importlib.util
 import os
+from collections import Counter
 from contextlib import contextmanager
 from dataclasses import dataclass, field
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -31,77 +40,188 @@ import torch
 from . import gguf_writer as gw
 
 FORMATS = {"Q8_0": gw.GGML_Q8_0, "Q4_K": gw.GGML_Q4_K, "Q6_K": gw.GGML_Q6_K}
+F32 = "F32"            # the role of a tensor stored as f32, unquantized
 # rms of a block's values in units of d (see the module docstring)
 _RMS_IN_D = {gw.GGML_Q8_0: 73.6, gw.GGML_Q4_K: 89.8, gw.GGML_Q6_K: 82.6}
 N_BYTE_TOKENS, SPECIALS = 256, ("<|startoftext|>", "<|im_start|>",
                                 "<|im_end|>")
+PB = Path(__file__).resolve().parent
 
 
 @dataclass
 class Shape:
-    """The model as the program runs it, read from a configuration file."""
-    arch: str
+    """The model as the program runs it, read from a configuration file:
+    the sizes every architecture has, which the judge and the readers use,
+    and in `sizes` what one architecture adds (archs/<model_type>.py)."""
+    arch: str                       # the configuration's model_type
     n_layers: int
     dim: int
     n_heads: int
     n_kv_heads: int
     head_dim: int
-    ff: int
     n_vocab: int
     n_speech: int
     eps: float
     theta: float
     n_ctx: int
-    qkv_bias: bool
-    qk_norm: bool
     tie: bool
-    conv_l: int
-    layer_types: tuple | None       # "attn" / "conv" per layer, or None
-    quant: dict = field(default_factory=dict)
-
-    def fmt(self, role: str) -> int:
-        return FORMATS[self.quant.get(role, self.quant["default"])]
-
-    @property
-    def attn_layers(self) -> list[int]:
-        return [i for i in range(self.n_layers)
-                if self.layer_types is None or self.layer_types[i] == "attn"]
+    quant: dict
+    attn_layers: list               # the layers that attend over a cache
+    sizes: dict = field(default_factory=dict)
+    impl: object = field(default=None, repr=False, compare=False)
 
 
-def _lfm2_ff(c: dict) -> int:
-    """LFM2's feed-forward width: with block_auto_adjust_ff_dim, 2/3 of
-    intermediate_size times block_ffn_dim_multiplier, rounded up to
-    block_multiple_of (HF Lfm2MLP)."""
-    ff = c["intermediate_size"]
-    if c.get("block_auto_adjust_ff_dim"):
-        ff = int(2 * ff / 3)
-        ff = int(c.get("block_ffn_dim_multiplier", 1.0) * ff)
-        m = c.get("block_multiple_of", 256)
-        ff = m * ((ff + m - 1) // m)
-    return ff
+def arch(model_type: str, root: Path = PB):
+    """The architecture module of `model_type`: <root>/archs/<model_type>.py,
+    else the benchmark's own archs/<model_type>.py."""
+    path = root / "archs" / f"{model_type}.py"
+    if not path.is_file():
+        own = PB / "archs" / f"{model_type}.py"
+        if not own.is_file():
+            raise FileNotFoundError(
+                f"model_type {model_type!r} has no architecture file: "
+                f"{path} is missing")
+        path = own
+    if path.parent == PB / "archs":
+        return importlib.import_module(f"portbench.archs.{model_type}")
+    spec = importlib.util.spec_from_file_location(
+        f"portbench.archs.{model_type}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
-def shape_of(c: dict) -> Shape:
-    """A configuration file's dict -> Shape."""
-    lfm2 = c["model_type"] == "lfm2"
+def archs(root: Path = PB) -> list:
+    """The architecture files found under <root>/archs, by model_type."""
+    return sorted(p.stem for p in (root / "archs").glob("*.py")
+                  if p.stem != "__init__")
+
+
+def shape_of(c: dict, root: Path = PB) -> Shape:
+    """A configuration file's dict -> Shape, by its model_type's
+    architecture file."""
+    mod = arch(c["model_type"], root)
+    s = mod.shape_of(c)
+    s.impl = mod
+    return s
+
+
+def shape_from(c: dict, attn_layers: list, **sizes) -> Shape:
+    """The sizes every architecture reads from a config.json alike, with
+    the architecture's own `sizes`."""
     heads = c["num_attention_heads"]
-    types = None
-    if lfm2:
-        types = tuple("attn" if t == "full_attention" else "conv"
-                      for t in c["layer_types"])
     return Shape(
         arch=c["model_type"], n_layers=c["num_hidden_layers"],
         dim=c["hidden_size"], n_heads=heads,
         n_kv_heads=c["num_key_value_heads"],
         head_dim=c.get("head_dim") or c["hidden_size"] // heads,
-        ff=_lfm2_ff(c) if lfm2 else c["intermediate_size"],
         n_vocab=c["vocab_size"], n_speech=c["n_speech_codes"],
         eps=float(c.get("norm_eps", c.get("rms_norm_eps", 1e-6))),
         theta=float(c["rope_theta"]), n_ctx=c["max_position_embeddings"],
-        qkv_bias=not lfm2, qk_norm=lfm2,
         tie=bool(c.get("tie_embedding", c.get("tie_word_embeddings"))),
-        conv_l=c.get("conv_L_cache", 3), layer_types=types,
-        quant=dict(c["quant"]))
+        quant=dict(c["quant"]), attn_layers=list(attn_layers), sizes=sizes)
+
+
+def use_more_bits(i: int, n: int) -> bool:
+    """llama.cpp's use_more_bits: the first and last eighth of n layers
+    and every third layer between them."""
+    return i < n // 8 or i >= 7 * n // 8 or (i - n // 8) % 3 == 2
+
+
+def _mix_kind(role: str, tie: bool) -> str | None:
+    """The kind of tensor llama.cpp's per-layer mixes choose by (tensor
+    names matched as llama_tensor_get_type matches them)."""
+    if role == "attn_v":
+        return "attn_v"
+    if role.startswith("ffn_down"):
+        return "ffn_down"
+    if role == "output" or (tie and role == "token_embd"):
+        return "head"
+    return None
+
+
+def _q4_k_m(kind: str, i: int, n: int) -> str:
+    """llama.cpp's Q4_K_M for the i-th of n tensors of a kind: attn_v and
+    ffn_down in Q6_K where use_more_bits, else Q4_K; the head in Q6_K."""
+    return "Q6_K" if kind == "head" or use_more_bits(i, n) else "Q4_K"
+
+
+# per-layer quantization rules, by the name a configuration's quant gives
+# under "mix"; roles the rule does not choose take their own format or
+# the default
+MIXES = {"Q4_K_M": _q4_k_m}
+
+
+def resolve(s: Shape, specs: list) -> list:
+    """An architecture's (name, shape, role, sigma, offset) in file order ->
+    (name, shape, ggml_type, sigma, offset): role F32 as f32; a role that
+    the quant's mix chooses by its index among the tensors of its kind;
+    any other by quant[role], else quant["default"]."""
+    mix = MIXES[s.quant["mix"]] if "mix" in s.quant else None
+    kinds = [_mix_kind(sp[2], s.tie) if mix and sp[2] != F32 else None
+             for sp in specs]
+    total, seen = Counter(k for k in kinds if k), Counter()
+    out = []
+    for (name, shape, role, sigma, offset), kind in zip(specs, kinds):
+        if role == F32:
+            fmt = gw.GGML_F32
+        elif kind:
+            if role in s.quant:
+                raise ValueError(f"quant gives {role} a format and the mix "
+                                 f"{s.quant['mix']} chooses it too")
+            fmt = FORMATS[mix(kind, seen[kind], total[kind])]
+            seen[kind] += 1
+        else:
+            fmt = FORMATS[s.quant.get(role, s.quant["default"])]
+        out.append((name, shape, fmt, sigma, offset))
+    return out
+
+
+def mat(name: str, role: str, rows: int, cols: int) -> tuple:
+    """A weight matrix [rows, cols] whose values spread 1 / sqrt(cols)."""
+    return (name, (rows, cols), role, 1.0 / np.sqrt(cols), 0.0)
+
+
+def vec(name: str, n: int, sigma: float, offset: float = 0.0,
+        cols: int | None = None) -> tuple:
+    """An f32 tensor [n] (or [n, cols]): offset + sigma * N(0, 1)."""
+    return (name, (n,) if cols is None else (n, cols), F32, sigma, offset)
+
+
+def attention_specs(p: str, s: Shape, bias: bool = False,
+                    qk_norm: bool = False) -> list:
+    """A GQA block's tensors (after its norm), in llama.cpp's order."""
+    qd, kvd = s.n_heads * s.head_dim, s.n_kv_heads * s.head_dim
+    out = [mat(p + "attn_q.weight", "attn_q", qd, s.dim),
+           mat(p + "attn_k.weight", "attn_k", kvd, s.dim),
+           mat(p + "attn_v.weight", "attn_v", kvd, s.dim),
+           mat(p + "attn_output.weight", "attn_output", s.dim, qd)]
+    if bias:
+        out += [vec(p + nm + ".bias", n, 0.1)
+                for nm, n in (("attn_q", qd), ("attn_k", kvd),
+                              ("attn_v", kvd))]
+    if qk_norm:
+        out += [vec(p + "attn_q_norm.weight", s.head_dim, 0.1, 1.0),
+                vec(p + "attn_k_norm.weight", s.head_dim, 0.1, 1.0)]
+    return out
+
+
+def ffn_specs(p: str, s: Shape, ff: int) -> list:
+    """A SwiGLU feed-forward's norm and matrices."""
+    return [vec(p + "ffn_norm.weight", s.dim, 0.1, 1.0),
+            mat(p + "ffn_gate.weight", "ffn_gate", ff, s.dim),
+            mat(p + "ffn_up.weight", "ffn_up", ff, s.dim),
+            mat(p + "ffn_down.weight", "ffn_down", s.dim, ff)]
+
+
+def base_kv(s: Shape, ff: int) -> list:
+    """The metadata KVs every architecture writes alike."""
+    a = s.impl.GGUF_ARCH
+    return [(f"{a}.block_count", s.n_layers), (f"{a}.embedding_length", s.dim),
+            (f"{a}.feed_forward_length", ff),
+            (f"{a}.attention.key_length", s.head_dim),
+            (f"{a}.attention.layer_norm_rms_epsilon", s.eps),
+            (f"{a}.context_length", s.n_ctx), (f"{a}.rope.freq_base", s.theta)]
 
 
 @dataclass
@@ -221,76 +341,39 @@ def vocab(shape: Shape) -> tuple[list[str], list[int]]:
     return tokens, types
 
 
+def llm_specs(s: Shape) -> list:
+    """The LLM file's tensors, (name, shape, ggml_type, sigma, offset) in
+    file order: token_embd, the architecture's layers, output_norm and an
+    untied head."""
+    specs = [mat("token_embd.weight", "token_embd", s.n_vocab, s.dim)]
+    specs += s.impl.tensor_specs(s)
+    specs.append(vec("output_norm.weight", s.dim, 0.1, 1.0))
+    if not s.tie:
+        specs.append(mat("output.weight", "output", s.n_vocab, s.dim))
+    return resolve(s, specs)
+
+
+def llm_kv(s: Shape) -> list:
+    """The LLM file's metadata: its architecture's KVs, then the
+    tokenizer's."""
+    tokens, types = vocab(s)
+    return ([("general.architecture", s.impl.GGUF_ARCH)] + s.impl.gguf_kv(s)
+            + [("tokenizer.ggml.model", "gpt2"),
+               # the pre-tokenizer's regex (the program's tokenizer keys on
+               # it), whatever the architecture
+               ("tokenizer.ggml.pre", "qwen2"),
+               ("tokenizer.ggml.tokens", tokens),
+               ("tokenizer.ggml.token_type", types),
+               ("tokenizer.ggml.merges", []),
+               ("tokenizer.ggml.eos_token_id", tokens.index("<|im_end|>"))])
+
+
 def make_llm(shape: Shape, seed: int, device) -> Model:
     """The seeded LLM file (llama.cpp tensor names and tokenizer KVs)."""
-    a, D = shape.arch, shape.dim
-    qd, kvd = shape.n_heads * shape.head_dim, shape.n_kv_heads * shape.head_dim
-    specs = []
-
-    def mat(name, role, rows, cols):
-        specs.append((name, (rows, cols), shape.fmt(role),
-                      1.0 / np.sqrt(cols), 0.0))
-
-    def vec(name, n, sigma, offset=0.0, cols=None):
-        specs.append((name, (n,) if cols is None else (n, cols),
-                      gw.GGML_F32, sigma, offset))
-
-    mat("token_embd.weight", "token_embd", shape.n_vocab, D)
-    for i in range(shape.n_layers):
-        p = f"blk.{i}."
-        vec(p + "attn_norm.weight", D, 0.1, 1.0)
-        if shape.layer_types is not None and shape.layer_types[i] == "conv":
-            vec(p + "shortconv.conv.weight", D, 0.5, cols=shape.conv_l)
-            mat(p + "shortconv.in_proj.weight", "in_proj", 3 * D, D)
-            mat(p + "shortconv.out_proj.weight", "out_proj", D, D)
-        else:
-            mat(p + "attn_q.weight", "attn_q", qd, D)
-            mat(p + "attn_k.weight", "attn_k", kvd, D)
-            mat(p + "attn_v.weight", "attn_v", kvd, D)
-            mat(p + "attn_output.weight", "attn_output", D, qd)
-            if shape.qkv_bias:
-                for nm, n in (("attn_q", qd), ("attn_k", kvd),
-                              ("attn_v", kvd)):
-                    vec(p + nm + ".bias", n, 0.1)
-            if shape.qk_norm:
-                vec(p + "attn_q_norm.weight", shape.head_dim, 0.1, 1.0)
-                vec(p + "attn_k_norm.weight", shape.head_dim, 0.1, 1.0)
-        vec(p + "ffn_norm.weight", D, 0.1, 1.0)
-        mat(p + "ffn_gate.weight", "ffn_gate", shape.ff, D)
-        mat(p + "ffn_up.weight", "ffn_up", shape.ff, D)
-        mat(p + "ffn_down.weight", "ffn_down", D, shape.ff)
-    vec("output_norm.weight", D, 0.1, 1.0)
-    if not shape.tie:
-        mat("output.weight", "output", shape.n_vocab, D)
-
     gen = torch.Generator(device=device)
     gen.manual_seed(seed % (1 << 63))
-    tensors = _draw(specs, gen, device)
-    tokens, types = vocab(shape)
-    kv = [("general.architecture", a), (f"{a}.block_count", shape.n_layers),
-          (f"{a}.embedding_length", D),
-          (f"{a}.feed_forward_length", shape.ff),
-          (f"{a}.attention.key_length", shape.head_dim),
-          (f"{a}.attention.layer_norm_rms_epsilon", shape.eps),
-          (f"{a}.context_length", shape.n_ctx),
-          (f"{a}.rope.freq_base", shape.theta)]
-    if shape.layer_types is None:
-        kv += [(f"{a}.attention.head_count", shape.n_heads),
-               (f"{a}.attention.head_count_kv", shape.n_kv_heads)]
-    else:
-        kv += [(f"{a}.attention.head_count",
-                [shape.n_heads if t == "attn" else 0
-                 for t in shape.layer_types]),
-               (f"{a}.attention.head_count_kv",
-                [shape.n_kv_heads if t == "attn" else 0
-                 for t in shape.layer_types]),
-               (f"{a}.shortconv.l_cache", shape.conv_l)]
-    kv += [("tokenizer.ggml.model", "gpt2"), ("tokenizer.ggml.pre", "qwen2"),
-           ("tokenizer.ggml.tokens", tokens),
-           ("tokenizer.ggml.token_type", types),
-           ("tokenizer.ggml.merges", []),
-           ("tokenizer.ggml.eos_token_id", tokens.index("<|im_end|>"))]
-    return Model(kv=kv, tensors=tensors)
+    return Model(kv=llm_kv(shape), tensors=_draw(llm_specs(shape), gen,
+                                                 device))
 
 
 # The codec's hyperparameters (MioCodec, the program's CodecConfig defaults)
