@@ -217,6 +217,28 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      tokens = the CPU plain path's, logits within 1e-4; (d) 4 greedy
      requests of 20 tokens on phase 7's 64-slot batcher (K1's tile at
      M = 64) at bf16 against f32 scales: the same codes or a near tie.
+ 27. the expert kernels (ops/csrc/moe.cu) at LFM2-8B-A1B's widths (dim
+     2048, 32 experts of 1792, 4 a token): moe_route, moe_gateup, moe_down
+     and moe_combine against their plain versions at M = 1, 64 and 1024
+     (routing exact, act within a bf16 rounding, y 1e-5, combine bit for
+     bit), each timed beside its bound (bytes at 3.35 TB/s: the experts
+     the rows chose, read once), its plain version and, where the
+     installed torch has torch._grouped_mm, the grouped bf16 product over
+     dequantized experts (timed only; the port never calls it); then a
+     depth-cut LFM2-8B-A1B at full width (conv, conv, attn, conv: the two
+     dense layers and two expert layers, Q8_0, written by the port's
+     writer) in bf16 on the card against reference/lfm2_moe.py in f32 on
+     the card: a prefill and 16 greedy steps, the kernels' launches 2 a
+     forward each, every step's logits within 0.25 of their scale (routing
+     near ties part bf16 from f32), the tokens' agreement printed; then the
+     same file behind a tiny codec in ContinuousBatcher(64 slots, 20-step
+     chunks, its CUDA graphs) under torch.profiler: 64 requests in one
+     admission wave; every device step replayed from a graph; each expert
+     kernel run by the device once an expert layer a device step and a
+     prefill wave (the launches the kernels line prints); over the chunks
+     that follow with every slot busy and no admission, the stage's
+     moe_pairs 64 x 4 a layer step and moe_expert_reads within 1 % of 32
+     a layer step (the counters the graphs sum on the device).
 
 Kernel times are device times: the calls are captured in a CUDA graph and
 replayed between CUDA events, cycling over weight (or KV-cache) copies
@@ -1545,10 +1567,12 @@ def phase_main_path(torch, qmat, paths: dict, out_dir: str, card: str) -> dict:
     return res
 
 
-def device_profile(torch, fn, label: str, card: str) -> dict:
+def device_profile(torch, fn, label: str, card: str,
+                   count=("qdot", "decode_attn_kernel")) -> dict:
     """torch.profiler over fn() (which returns the decode steps it ran):
-    device time by kernel, the device-busy share of the wall time and host
-    kernel and graph launches per step."""
+    device time by kernel, the device-busy share of the wall time, host
+    kernel and graph launches per step, and the device's kernels whose
+    names hold each of `count`."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1581,7 +1605,7 @@ def device_profile(torch, fn, label: str, card: str) -> dict:
                     for e in shown],
                # kernels the device ran, launched eagerly or by a graph
                device_kernels={k: sum(e.count for e in kernels if k in e.key)
-                               for k in ("qdot", "decode_attn_kernel")})
+                               for k in count})
     if not busy_s:
         log(f"profile {label}: the profiler reported no device time "
             f"(not measured)")
@@ -4941,11 +4965,347 @@ def nccl_world1(torch, f32, ref_tokens: list) -> dict:
 
 # every phase (3 runs 3-5), and what a phase needs run before it
 ALL_PHASES = (2, 3, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20,
-              21, 22, 23, 24, 25, 26)
+              21, 22, 23, 24, 25, 26, 27)
 PHASE_NEEDS = {9: {7}, 12: {11}, 20: {11}, 21: {15}, 22: {7}, 23: {3, 11},
                24: {3, 15}, 25: {3, 15}, 26: {3}}
 MODEL_PHASES = {3, 7, 8, 9, 11, 12, 13, 15, 16, 19, 20, 21, 22,
                 23, 24, 25, 26}              # the 0.1B files, codec
+
+
+# phase 27: LFM2-8B-A1B's expert layer (dim, expert width, experts, top-k),
+# its 22 expert layers, the rows of a single stream, the 64-slot decode step
+# and a prefill wave; the depth-cut model's layers and greedy steps
+MOE_SHAPE = (2048, 1792, 32, 4)
+MOE_LAYERS = 22
+MOE_MS = (1, 64, 1024)
+MOE_COPIES = 4                 # expert layers cycled in the timings (> L2)
+MOE_CUT_TYPES = ("conv", "conv", "attn", "conv")
+MOE_CUT_STEPS = 16
+MOE_CUT_TOL = 0.25             # logits, of their scale: a routing near tie
+#                                moved one step to 0.122 (the rest <= 0.018)
+MOE_KERNELS = ("moe_route", "moe_gateup", "moe_down", "moe_combine")
+
+
+def moe_stack(torch, moe, rng, E, N, K):
+    """A random Q8_0 stack [E, N, K] through the loader's repack: values in
+    [-127, 127], scales spreading a weight about 1 / sqrt(K)."""
+    import numpy as np
+    from miotts_tpu_torch.gguf import GGML_Q8_0
+    raw = np.empty((E, N, K // 32, 34), np.uint8)
+    raw[..., 2:] = rng.integers(-127, 128, (E, N, K // 32, 32),
+                                dtype=np.int8).view(np.uint8)
+    d = (rng.uniform(0.75, 1.25, (E, N, K // 32)) / 73.6
+         / np.sqrt(K)).astype(np.float16)
+    raw[..., :2] = d.view(np.uint8).reshape(E, N, K // 32, 2)
+    return moe.stack_from_raw(raw.reshape(-1), GGML_Q8_0, (E, N, K), "cuda")
+
+
+def moe_layer(torch, moe, seed: int):
+    import numpy as np
+    D, F, E, k = MOE_SHAPE
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).cuda()  # noqa: E731
+    return moe.MoeLayer(
+        router=t(rng.standard_normal((E, D)) / np.sqrt(D)),
+        bias=t(rng.standard_normal(E) * 0.02),
+        gateup=moe_stack(torch, moe, rng, E, 2 * F, D),
+        down=moe_stack(torch, moe, rng, E, D, F), top_k=k, scale=1.0,
+        norm=True, counters=torch.zeros(2, dtype=torch.int64, device="cuda"))
+
+
+def moe_grouped_library(torch, moe, x, layer, rt):
+    """torch._grouped_mm, gate/up and down, over the layer's experts
+    dequantized to bf16 (the pairs' rows in routed order); None where the
+    installed torch has no such call or refuses the shapes (logged)."""
+    fn = getattr(torch, "_grouped_mm", None)
+    if fn is None:
+        log("moe library: this torch has no torch._grouped_mm")
+        return None
+    E = layer.gateup.shape[0]
+    gu = torch.stack([layer.gateup.dequant(e) for e in range(E)]).to(
+        torch.bfloat16)
+    dn = torch.stack([layer.down.dequant(e) for e in range(E)]).to(
+        torch.bfloat16)
+    k = rt.ids.shape[1]
+    rows = x[rt.order.long() // k]
+    offs = rt.offsets[1:].to(torch.int32).contiguous()
+    F = gu.shape[1] // 2
+
+    def call():
+        h = fn(rows, gu.transpose(1, 2), offs=offs)
+        a = (torch.nn.functional.silu(h[:, :F].float())
+             * h[:, F:].float()).to(torch.bfloat16)
+        return fn(a, dn.transpose(1, 2), offs=offs)
+    try:
+        call()
+    except RuntimeError as err:
+        log(f"moe library: torch._grouped_mm refused: {err}")
+        return None
+    return call
+
+
+def moe_kernel_rows(torch, moe, card: str) -> list[dict]:
+    """Each expert kernel against its plain version and timed at the cell's
+    widths (see phase 27)."""
+    import numpy as np
+    D, F, E, k = MOE_SHAPE
+    layers = [moe_layer(torch, moe, seed) for seed in range(MOE_COPIES)]
+    rows = []
+    for M in MOE_MS:
+        gen = torch.Generator(device="cuda").manual_seed(M)
+        x = torch.randn((M, D), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        logits = [x.float() @ L.router.T for L in layers]
+        rts = [moe.moe_route(lg, L.bias, k, 1.0, True)
+               for lg, L in zip(logits, layers)]
+        want = moe.moe_route_plain(logits[0], layers[0].bias, k, 1.0, True)
+        for f in ("ids", "offsets", "order", "pos"):
+            if not torch.equal(getattr(rts[0], f).long(),
+                               getattr(want, f).long()):
+                raise AssertionError(f"moe_route M={M}: {f} differs")
+        acts = [moe.moe_gateup(x, L.gateup, r) for L, r in zip(layers, rts)]
+        ys = [moe.moe_down(a, L.down, r)
+              for a, L, r in zip(acts, layers, rts)]
+        act_p = moe.moe_gateup_plain(x, layers[0].gateup, rts[0])
+        y_p = moe.moe_down_plain(acts[0], layers[0].down, rts[0])
+        out = moe.moe_combine(ys[0], rts[0], torch.bfloat16)
+        errs = {"route_wts": rel_err(rts[0].wts, want.wts),
+                "gateup": rel_err(acts[0].float(), act_p.float()),
+                "down": rel_err(ys[0], y_p),
+                "combine": rel_err(out.float(), moe.moe_combine_plain(
+                    ys[0], rts[0], torch.bfloat16).float())}
+        if (errs["route_wts"] > 2e-6 or errs["gateup"] > 2 ** -7
+                or errs["down"] > 1e-5 or errs["combine"] > 0):
+            raise AssertionError(f"moe kernels M={M} against plain: {errs}")
+        reads = float(np.mean([
+            int((torch.bincount(r.ids.reshape(-1).long(), minlength=E) > 0)
+                .sum()) for r in rts]))
+        P = M * k
+        stack = reads * 3 * D * F * 34 / 32          # GGUF bytes read
+        calls = {
+            "moe_route": (lambda i: moe.moe_route(
+                logits[i % MOE_COPIES], layers[i % MOE_COPIES].bias, k, 1.0,
+                True), M * E * 4 + P * 20),
+            "moe_gateup": (lambda i: moe.moe_gateup(
+                x, layers[i % MOE_COPIES].gateup, rts[i % MOE_COPIES]),
+                stack * 2 / 3 + M * D * 2 + P * F * 2),
+            "moe_down": (lambda i: moe.moe_down(
+                acts[i % MOE_COPIES], layers[i % MOE_COPIES].down,
+                rts[i % MOE_COPIES]), stack / 3 + P * F * 2 + P * D * 4),
+            "moe_combine": (lambda i: moe.moe_combine(
+                ys[i % MOE_COPIES], rts[i % MOE_COPIES], torch.bfloat16),
+                P * D * 4 + M * D * 2 + P * 12)}
+        plain = {
+            "moe_route": lambda: moe.moe_route_plain(
+                logits[0], layers[0].bias, k, 1.0, True),
+            "moe_gateup": lambda: moe.moe_gateup_plain(
+                x, layers[0].gateup, rts[0]),
+            "moe_down": lambda: moe.moe_down_plain(
+                acts[0], layers[0].down, rts[0]),
+            "moe_combine": lambda: moe.moe_combine_plain(
+                ys[0], rts[0], torch.bfloat16)}
+        lib = moe_grouped_library(torch, moe, x, layers[0], rts[0])
+        for name, (fn, nbytes) in calls.items():
+            row = dict(kernel=name, M=M, experts_read=reads,
+                       err=errs[name[4:]] if name != "moe_route"
+                       else errs["route_wts"],
+                       ms=graph_ms(torch, fn, 2 * MOE_COPIES),
+                       eager_ms=time_ms(torch, fn, 2 * MOE_COPIES),
+                       plain_ms=time_ms(torch, lambda i: plain[name](), 2, 1),
+                       bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                       library_ms=None)
+            rows.append(row)
+        if lib is not None:
+            rows[-3]["library_ms"] = time_ms(torch, lambda i: lib(), 3, 1)
+        log(f"moe M={M}: " + ", ".join(
+            f"{r['kernel']} {r['ms']:.4f} ms (bound {r['bound_ms']:.4f}, "
+            f"plain {r['plain_ms']:.3f}, library {r['library_ms']})"
+            for r in rows[-4:]) + f"; {reads} experts read; {card}")
+    return rows
+
+
+def moe_cut_model(torch, d: str):
+    """The depth-cut LFM2-8B-A1B (MOE_CUT_TYPES at full width, Q8_0)
+    written by the port's writer, its routers and expert biases drawn as
+    the benchmark's cell draws them (N(0, 1 / dim), N(0, 0.02^2)); returns
+    its path and config."""
+    import numpy as np
+    from miotts_tpu_torch.gguf import GGML_Q8_0
+    from miotts_tpu_torch.models.llm import _ARCH_TABLE, MoeLLMConfig
+    from miotts_tpu_torch.models.synthetic import write_synthetic_llm
+    D, F, E, k = MOE_SHAPE
+    cfg = MoeLLMConfig(
+        arch="lfm2moe", n_layers=len(MOE_CUT_TYPES), dim=D, n_heads=32,
+        n_kv_heads=8, head_dim=64, ff_dim=7168, n_vocab=256 + 3 + N_SPEECH,
+        n_ctx=128000, rope_theta=1e6, rms_eps=1e-5,
+        layer_types=MOE_CUT_TYPES, conv_l_cache=3, n_experts=E,
+        n_experts_used=k, expert_ff_dim=F, n_dense_layers=2,
+        **_ARCH_TABLE["lfm2moe"])
+    path = os.path.join(d, "lfm2moe_cut.gguf")
+    rng = np.random.default_rng(27)
+    routing = {}
+    for i in cfg.moe_layer_idx:
+        routing[f"blk.{i}.ffn_gate_inp.weight"] = (
+            rng.standard_normal((E, D)) / np.sqrt(D))
+        routing[f"blk.{i}.exp_probs_b.bias"] = rng.standard_normal(E) * 0.02
+    write_synthetic_llm(path, cfg=cfg, quant_type=GGML_Q8_0, seed=27,
+                        weights=routing)
+    return path, cfg
+
+
+def phase_moe(torch, d: str, card: str) -> dict:
+    """Phase 27 (see the module docstring)."""
+    from miotts_tpu_torch.gguf import GGUFReader
+    from miotts_tpu_torch.models import llm as tl
+    from miotts_tpu_torch.ops import moe
+    from miotts_tpu_torch.reference import lfm2_moe as ref
+    res = {"rows": moe_kernel_rows(torch, moe, card)}
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    path, cfg = moe_cut_model(torch, d)
+    res["write_s"] = time.perf_counter() - t0
+    with GGUFReader(path) as r:
+        params, _ = tl.load_llm_params(r, tl.LLMConfig.from_gguf(r),
+                                       dtype=torch.bfloat16, device="cuda")
+    before = {n: getattr(moe, n).kernel_launches for n in MOE_KERNELS}
+    prompt = [257, 258] + list(range(40, 80)) + [300, 301, 302]
+    cache = tl.init_kv_cache(cfg, 1, 256, dtype=torch.bfloat16,
+                             device="cuda")
+    last, cache = tl.llm_prefill(
+        params, torch.tensor([prompt], device="cuda"),
+        torch.tensor([len(prompt)]), cache, cfg)
+    got, toks = [last[0].float()], []
+    for _ in range(MOE_CUT_STEPS):
+        toks.append(int(got[-1].argmax()))
+        lg, cache = tl.llm_decode_step(
+            params, torch.tensor([toks[-1]], device="cuda"), cache, cfg)
+        got.append(lg[0].float())
+    torch.cuda.synchronize()
+    launches = {n: getattr(moe, n).kernel_launches - before[n]
+                for n in MOE_KERNELS}
+    want_launches = 2 * (1 + MOE_CUT_STEPS)
+    if any(v != want_launches for v in launches.values()):
+        raise AssertionError(f"moe launches {launches}, want "
+                             f"{want_launches} each")
+    del params, cache
+    torch.cuda.empty_cache()
+    res["serving"] = moe_serving_counts(torch, path, d, card)
+    torch.cuda.empty_cache()
+    kv, tensors = ref.read_gguf(path)
+    os.remove(path)
+    want = ref.forward(ref.Model(kv, tensors, device="cuda"),
+                       [prompt + toks])[0][len(prompt) - 1:]
+    errs = [rel_err(g, w) for g, w in zip(got, want)]
+    agree = sum(int(w.argmax()) == t for w, t in zip(want[:-1], toks))
+    res.update(launches=launches, step_rel_err=errs, tokens=toks,
+               tokens_agree=agree)
+    log(f"moe depth-cut model: launches {launches}, logits rel err max "
+        f"{max(errs):.4f} (prefill {errs[0]:.4f}), greedy tokens agreeing "
+        f"with the f32 reference {agree} of {MOE_CUT_STEPS}")
+    if max(errs) > MOE_CUT_TOL:
+        raise AssertionError(f"moe depth-cut logits {max(errs)} > "
+                             f"{MOE_CUT_TOL} of their scale")
+    return res
+
+
+def moe_serving_counts(torch, path: str, d: str, card: str) -> dict:
+    """Phase 27's batcher run (see the module docstring), under the
+    profiler: every device step replayed from a chunk graph; each expert
+    kernel run by the device, replayed or not, once an expert layer a
+    device step and a prefill wave; the stage's expert counters over full,
+    admission-free chunks, a layer step at a time."""
+    import numpy as np
+    from miotts_tpu_torch.models.synthetic import write_synthetic_codec
+    from miotts_tpu_torch.runtime.batching import ContinuousBatcher
+    from miotts_tpu_torch.runtime.engine import (EngineConfig, Options,
+                                                 TTSEngine, VoiceModel)
+    D, F, E, k = MOE_SHAPE
+    codec = os.path.join(d, "moe_codec.gguf")
+    ccfg = write_synthetic_codec(codec, n_codes=N_SPEECH, seed=2)
+    eng = TTSEngine(EngineConfig(model_path=path, codec_path=codec,
+                                 device="cuda"))
+    b = ContinuousBatcher(eng, n_slots=64, chunk_steps=20)
+    b.warmup(64)
+    voice = VoiceModel(embedding=np.zeros(ccfg.adaln_dim, np.float32))
+    keys = ("chunks", "prefills", "moe_pairs", "moe_expert_reads")
+    seen = []
+    st0 = dict(b.stage)
+
+    def run():
+        for i in range(64):
+            b.submit(f"expert counters {i}", voice, lambda s, sr, last: True,
+                     Options(max_tokens=160, temperature=0.8, seed=i))
+        while b.pending:
+            b.step()
+            seen.append([b.stage[key] for key in keys]
+                        + [int(b.active.sum())])
+        return b.stage["device_steps"] - st0["device_steps"]
+    prof = device_profile(torch, run, "moe serving", card, count=MOE_KERNELS)
+    st = {key: v - st0[key] for key, v in b.stage.items()}
+    n_moe = len(eng.llm_cfg.moe_layer_idx)
+    if st["graph_steps"] != st["device_steps"]:
+        raise AssertionError(f"moe serving: {st['graph_steps']} of "
+                             f"{st['device_steps']} device steps replayed")
+    forwards = st["device_steps"] + st["prefills"]
+    launches = prof["device_kernels"]
+    if prof["device_busy_s"] and launches != {
+            name: n_moe * forwards for name in MOE_KERNELS}:
+        raise AssertionError(f"moe serving: device kernels {launches}, want "
+                             f"{n_moe} x ({st['device_steps']} device steps "
+                             f"+ {st['prefills']} prefills) each")
+    # after the one admission wave and once a chunk's counters are read
+    full = [r for r in seen if r[1] == st0["prefills"] + 1 and r[4] == 64
+            and r[0] > st0["chunks"]]
+    if len(full) < 2 or full[-1][0] <= full[0][0]:
+        raise AssertionError(f"moe serving: too few full chunks {seen}")
+    steps = (full[-1][0] - full[0][0]) * b.chunk_steps * n_moe
+    pairs = (full[-1][2] - full[0][2]) / steps
+    reads = (full[-1][3] - full[0][3]) / steps
+    out = dict(layer_steps=steps, pairs_per_layer_step=pairs,
+               reads_per_layer_step=reads,
+               graph_step_share=st["graph_steps"] / st["device_steps"],
+               device_steps=st["device_steps"], prefills=st["prefills"],
+               moe_layers=n_moe,
+               launches=launches if prof["device_busy_s"] else None,
+               launches_per_step={
+                   name: launches[name] / forwards for name in MOE_KERNELS}
+               if prof["device_busy_s"] else None)
+    log(f"moe serving: {out}")
+    if pairs != 64 * k or abs(reads - E) > 0.01 * E:
+        raise AssertionError(f"moe serving counters: {out}")
+    return out
+
+
+def moe_entries(res: dict) -> list[dict]:
+    """The kernels line's entries of the expert kernels: a 64-slot decode
+    step's work (22 expert layers at M = 64), and the launches the device
+    ran in the depth-cut model's 64-slot serving (its expert layers, graph
+    replays and prefill waves)."""
+    out = []
+    srv = res["serving"]
+    for name in MOE_KERNELS:
+        row = next(r for r in res["rows"] if r["kernel"] == name
+                   and r["M"] == 64)
+        per_step = (None if srv["launches_per_step"] is None
+                    else srv["launches_per_step"][name])
+        out.append(dict(
+            name=name, route="cuda", source="miotts_tpu_torch/ops/csrc/moe.cu",
+            replaces="none (the JAX package has no expert layer)",
+            launches=None if srv["launches"] is None
+            else srv["launches"][name],
+            launches_per_step=per_step,
+            launches_per_layer_step=None if per_step is None
+            else per_step / srv["moe_layers"],
+            rel_err=max(r["err"] for r in res["rows"]
+                        if r["kernel"] == name),
+            **{k: (None if row[k] is None else MOE_LAYERS * row[k])
+               for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+            unit="times: one LFM2-8B-A1B 64-slot decode step of the "
+                 "kernel's work (22 expert layers at M = 64, bf16 x); "
+                 "launches: the device's, in 64-slot serving of the "
+                 "depth-cut model (2 expert layers), a forward (device "
+                 "step or prefill wave)"))
+    return out
 
 
 def parse_phases(argv) -> set:
@@ -5135,6 +5495,9 @@ def main(argv=None) -> int:
                 main_eng, main_voice, done)
         if run & {24, 25, 26}:
             del main_eng, main_voice
+        if 27 in run:
+            res["moe"] = phase_moe(torch, d, card)
+            done("27")
         if 15 in run:
             res["q4km_offline"].pop("engine", None)
         torch.cuda.empty_cache()
@@ -5436,7 +5799,8 @@ def main(argv=None) -> int:
     log("details " + json.dumps(res))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [qdot_entry, attn_entry, k5_entry]
-                      + variant_entries + [bf16_entry, k7_entry, k8_entry]}))
+                      + variant_entries + [bf16_entry, k7_entry, k8_entry]
+                      + moe_entries(res["moe"])}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,9 +3,12 @@
 
 llama / qwen2 / qwen3 / mio: RMSNorm + SwiGLU + GQA + RoPE, with per-arch
 toggles for QKV bias, QK-norm and the RoPE style.  lfm2: the hybrid of
-LFM2, gated short-conv layers between QK-norm attention layers.  Quantized
+LFM2, gated short-conv layers between QK-norm attention layers.  lfm2moe
+(LFM2-8B-A1B): LFM2's layers, whose feed-forward past the leading dense
+ones is a sigmoid-routed set of SwiGLU experts (ops/moe.py).  Quantized
 weights stay packed (ops/qmat.QTensor) and every linear goes through
-`qdot`, which on a GPU is the hand-written CUDA kernel.
+`qdot`, which on a GPU is the hand-written CUDA kernel; the experts go
+through ops/moe.py's kernels.
 
 The semantics follow the JAX package step for step:
   * The KV cache is a dense [L, B, H_kv, S_max, D] buffer plus `fill` [B];
@@ -61,6 +64,8 @@ import torch.nn.functional as F
 from ..gguf.quants import is_quantized
 from ..ops.collective import ModelAxis, Shard, all_gather, psum
 from ..ops.decode_attn import decode_attention, decode_attention_batched
+from ..ops.moe import (MoeLayer, check_stack, concat_stacks, moe_ffn,
+                       stack_from_raw)
 from ..ops.qmat import QTensor, concat_qtensors, qdot, qtensor_from_raw
 from ..runtime.profile import tracer
 
@@ -72,7 +77,11 @@ _ARCH_TABLE = {
     "mio": dict(rope_style="neox", qkv_bias=True, qk_norm=False),
     # hybrid gated-short-conv / attention layers; per-head q/k RMS norms
     "lfm2": dict(rope_style="neox", qkv_bias=False, qk_norm=True),
+    # lfm2's layers; past the leading dense ones, a routed expert FFN
+    "lfm2moe": dict(rope_style="neox", qkv_bias=False, qk_norm=True),
 }
+# llama.cpp's expert_gating_func values: the port routes by sigmoid alone
+_GATING_SIGMOID = 2
 
 
 @dataclass(frozen=True)
@@ -99,6 +108,11 @@ class LLMConfig:
     conv_bias: bool = False
 
     @property
+    def moe_layer_idx(self) -> tuple[int, ...]:
+        """The layers whose feed-forward is routed experts (MoeLLMConfig)."""
+        return ()
+
+    @property
     def attn_layer_idx(self) -> tuple[int, ...]:
         if self.layer_types is None:
             return tuple(range(self.n_layers))
@@ -115,7 +129,7 @@ class LLMConfig:
         arch = str(reader.kv.get("general.architecture", "qwen2"))
         if arch not in _ARCH_TABLE:
             raise ValueError(f"unsupported LLM architecture {arch!r} "
-                             f"(llama/qwen2/qwen3/mio/lfm2)")
+                             f"(llama/qwen2/qwen3/mio/lfm2/lfm2moe)")
         p = arch + "."
         g = lambda k, d: int(reader.kv.get(p + k, d))
         gf = lambda k, d: float(reader.kv.get(p + k, d))
@@ -132,6 +146,22 @@ class LLMConfig:
                 else int(kvc))
         n_vocab = (len(reader.kv.get("tokenizer.ggml.tokens", []))
                    or g("vocab_size", 32000))
+        experts = {}
+        if g("expert_count", 0):
+            if g("expert_gating_func", _GATING_SIGMOID) != _GATING_SIGMOID:
+                raise ValueError(
+                    f"{arch}: expert_gating_func "
+                    f"{g('expert_gating_func', 0)} is not sigmoid "
+                    f"({_GATING_SIGMOID}); the port routes by sigmoid only")
+            cls = MoeLLMConfig
+            experts = dict(
+                n_experts=g("expert_count", 0),
+                n_experts_used=g("expert_used_count", 0),
+                expert_ff_dim=g("expert_feed_forward_length", 0),
+                n_dense_layers=g("leading_dense_block_count", 0),
+                expert_scale=gf("expert_weights_scale", 1.0),
+                expert_norm=bool(reader.kv.get(p + "expert_weights_norm",
+                                               True)))
         return cls(
             arch=arch,
             n_layers=g("block_count", 24),
@@ -147,8 +177,27 @@ class LLMConfig:
             tie_embedding=not reader.has_tensor("output.weight"),
             layer_types=layer_types,
             conv_l_cache=g("shortconv.l_cache", 3),
+            **experts,
             **_ARCH_TABLE[arch],
         )
+
+
+@dataclass(frozen=True)
+class MoeLLMConfig(LLMConfig):
+    """An expert model's config (lfm2moe): `n_experts` experts of width
+    `expert_ff_dim`, `n_experts_used` a token, in every layer from
+    `n_dense_layers` on; the weights normalised over the chosen
+    (`expert_norm`), times `expert_scale`."""
+    n_experts: int = 0
+    n_experts_used: int = 0
+    expert_ff_dim: int = 0
+    n_dense_layers: int = 0
+    expert_scale: float = 1.0
+    expert_norm: bool = True
+
+    @property
+    def moe_layer_idx(self) -> tuple[int, ...]:
+        return tuple(range(self.n_dense_layers, self.n_layers))
 
 
 # ---------------------------------------------------------------------------
@@ -185,7 +234,7 @@ def fuse_block(blk: dict, cfg: LLMConfig) -> dict:
         if cfg.qkv_bias:
             blk["bqkv"] = torch.cat([blk.pop("bq"), blk.pop("bk"),
                                      blk.pop("bv")])
-    if same(("w_gate", "w_up")):
+    if "w_gate" in blk and same(("w_gate", "w_up")):
         blk["w_gateup"] = concat_qtensors([blk.pop("w_gate"), blk.pop("w_up")])
     return blk
 
@@ -196,10 +245,38 @@ _CONV_MATS = (("in_proj", "shortconv.in_proj"),
               ("out_proj", "shortconv.out_proj"))
 _FFN_MATS = (("w_gate", "ffn_gate"), ("w_up", "ffn_up"),
              ("w_down", "ffn_down"))
+# an expert layer's tensors (llama.cpp's names)
+_MOE_TENSORS = dict(router="ffn_gate_inp.weight", bias="exp_probs_b.bias",
+                    gate="ffn_gate_exps.weight", up="ffn_up_exps.weight",
+                    down="ffn_down_exps.weight")
 # optional f32 biases of a conv layer: key -> tensor name
 _CONV_BIASES = (("conv_b", "shortconv.conv.bias"),
                 ("in_proj_b", "shortconv.in_proj.bias"),
                 ("out_proj_b", "shortconv.out_proj.bias"))
+
+
+def _load_moe(reader, p: str, cfg: LLMConfig, counters, device) -> MoeLayer:
+    """Expert layer p's router and bias (f32), its gate and up stacks fused
+    into one, and its down stack (ops/moe.stack_from_raw, Q8_0 only)."""
+    def stack(key):
+        name = p + _MOE_TENSORS[key]
+        info = reader.tensors[name]
+        try:
+            check_stack(info.ggml_type, info.shape)
+        except ValueError as err:
+            raise ValueError(f"{name}: {err}") from None
+        return stack_from_raw(reader.tensor_raw(name), info.ggml_type,
+                              info.shape, device)
+
+    def f32(key):
+        return torch.from_numpy(reader.tensor_f32(p + _MOE_TENSORS[key])).to(
+            device=device, dtype=torch.float32)
+
+    return MoeLayer(router=f32("router"), bias=f32("bias"),
+                    gateup=concat_stacks(stack("gate"), stack("up")),
+                    down=stack("down"), top_k=cfg.n_experts_used,
+                    scale=cfg.expert_scale, norm=cfg.expert_norm,
+                    counters=counters)
 
 
 def load_llm_params(reader, cfg: LLMConfig | None = None,
@@ -208,13 +285,19 @@ def load_llm_params(reader, cfg: LLMConfig | None = None,
     """LLM weights from GGUF (llama.cpp tensor naming) onto `device`, with
     q/k/v and gate/up fused: params["blocks"] for a dense model,
     params["layers"] for a hybrid one, whose conv layers carry conv_w
-    [dim, L] f32, in_proj / out_proj and any biases the file has."""
+    [dim, L] f32, in_proj / out_proj and any biases the file has.  An
+    expert layer (cfg.moe_layer_idx) carries blk["moe"], a MoeLayer, in
+    place of the SwiGLU's matrices; its counters are one int64 [2] tensor
+    shared by every expert layer (pairs computed, experts read)."""
     if cfg is None:
         cfg = LLMConfig.from_gguf(reader)
 
     def vec(name):
         return torch.from_numpy(reader.tensor_f32(name)).to(
             device=device, dtype=torch.float32)
+
+    moe_counters = (torch.zeros(2, dtype=torch.int64, device=device)
+                    if cfg.moe_layer_idx else None)
 
     params: dict = {
         # the embedding stays dense (a gather), dequantized on the host
@@ -230,8 +313,12 @@ def load_llm_params(reader, cfg: LLMConfig | None = None,
         attn = cfg.layer_types is None or cfg.layer_types[i] == "attn"
         blk = {"attn_norm": vec(p + "attn_norm.weight"),
                "ffn_norm": vec(p + "ffn_norm.weight")}
-        for key, name in (_ATTN_MATS if attn else _CONV_MATS) + _FFN_MATS:
+        moe = i in cfg.moe_layer_idx
+        for key, name in ((_ATTN_MATS if attn else _CONV_MATS)
+                          + (() if moe else _FFN_MATS)):
             blk[key] = _load_matrix(reader, p + name + ".weight", dtype, device)
+        if moe:
+            blk["moe"] = _load_moe(reader, p, cfg, moe_counters, device)
         if not attn:
             blk["conv_w"] = vec(p + "shortconv.conv.weight").reshape(cfg.dim,
                                                                      -1)
@@ -599,7 +686,12 @@ def _block_forward(x, blk, lcache: dict, fill, pos, cfg: LLMConfig,
 
 
 def _ffn(x, blk, cfg: LLMConfig):
-    """x + the SwiGLU feed-forward of ffn_norm(x)."""
+    """x + the SwiGLU feed-forward of ffn_norm(x), or, in an expert layer,
+    x + its routed experts' (ops/moe.moe_ffn)."""
+    if "moe" in blk:
+        with tracer.span("llm.moe"):
+            h = _rms_norm(x, blk["ffn_norm"], cfg.rms_eps)
+            return x + moe_ffn(h, blk["moe"])
     with tracer.span("llm.ffn"):
         h = _rms_norm(x, blk["ffn_norm"], cfg.rms_eps)
         if "w_gateup" in blk:

@@ -195,6 +195,19 @@ def synthetic_llm_config(n_speech: int = 64, tiny: bool = True,
     return LLMConfig(arch=arch, n_vocab=n_vocab, **toggles)
 
 
+def synthetic_lfm2moe_config(n_speech: int = 64) -> LLMConfig:
+    """A tiny lfm2moe: dim 64, layers conv / attn / conv / conv, the first
+    dense (ff 128), then 8 experts of width 64, 2 a token."""
+    from .llm import _ARCH_TABLE, MoeLLMConfig
+    return MoeLLMConfig(arch="lfm2moe", n_layers=4, dim=64, n_heads=4,
+                     n_kv_heads=2, head_dim=16, ff_dim=128,
+                        n_vocab=256 + 3 + n_speech, n_ctx=256,
+                        layer_types=("conv", "attn", "conv", "conv"),
+                        conv_l_cache=3, n_experts=8, n_experts_used=2,
+                        expert_ff_dim=64, n_dense_layers=1,
+                        **_ARCH_TABLE["lfm2moe"])
+
+
 def write_synthetic_llm(path: str, cfg: LLMConfig | None = None,
                         quant_type: int = GGML_F32, seed: int = 0,
                         n_speech: int = 64,
@@ -207,7 +220,12 @@ def write_synthetic_llm(path: str, cfg: LLMConfig | None = None,
 
     `mixed_k`: reproduce llama.cpp's Q4_K_M per-tensor mix — attn_v and
     ffn_down in Q6_K while the rest uses `quant_type` — so loader fusion
-    sees heterogeneous formats like real downloaded files."""
+    sees heterogeneous formats like real downloaded files.
+
+    An expert model (a MoeLLMConfig) writes llama.cpp's lfm2moe tensors in
+    its expert layers: the f32 router ffn_gate_inp [E, dim] and bias
+    exp_probs_b [E], and the stacks ffn_{gate,up}_exps [E, F, dim] and
+    ffn_down_exps [E, dim, F] in `quant_type`."""
     if cfg is None:
         cfg = synthetic_llm_config(n_speech=n_speech)
     else:
@@ -230,6 +248,8 @@ def write_synthetic_llm(path: str, cfg: LLMConfig | None = None,
 
     w = GGUFWriter(path)
     a = cfg.arch
+    # the JAX package's LLMConfig (some callers pass one) has no experts
+    moe_layers = getattr(cfg, "moe_layer_idx", ())
     w.add_kv("general.architecture", a)
     w.add_kv(f"{a}.block_count", cfg.n_layers)
     w.add_kv(f"{a}.embedding_length", cfg.dim)
@@ -248,6 +268,14 @@ def write_synthetic_llm(path: str, cfg: LLMConfig | None = None,
     w.add_kv(f"{a}.attention.layer_norm_rms_epsilon", cfg.rms_eps)
     w.add_kv(f"{a}.context_length", cfg.n_ctx)
     w.add_kv(f"{a}.rope.freq_base", cfg.rope_theta)
+    if moe_layers:
+        w.add_kv(f"{a}.expert_count", cfg.n_experts)
+        w.add_kv(f"{a}.expert_used_count", cfg.n_experts_used)
+        w.add_kv(f"{a}.expert_feed_forward_length", cfg.expert_ff_dim)
+        w.add_kv(f"{a}.leading_dense_block_count", cfg.n_dense_layers)
+        w.add_kv(f"{a}.expert_gating_func", 2)
+        w.add_kv(f"{a}.expert_weights_norm", cfg.expert_norm)
+        w.add_kv(f"{a}.expert_weights_scale", float(cfg.expert_scale))
     w.add_kv("tokenizer.ggml.model", "gpt2")
     w.add_kv("tokenizer.ggml.pre", "qwen2")
     w.add_array("tokenizer.ggml.tokens", tokens)
@@ -260,6 +288,26 @@ def write_synthetic_llm(path: str, cfg: LLMConfig | None = None,
 
     def mat(name, out_d, in_d, qtype=quant_type):
         w.add_tensor(name, get(name, out_d, in_d), qtype)
+
+    def ffn(p, i):
+        w.add_tensor(p + "ffn_norm.weight",
+                     get(p + "ffn_norm.weight", cfg.dim, ones=True), GGML_F32)
+        if i in moe_layers:
+            E, F = cfg.n_experts, cfg.expert_ff_dim
+            w.add_tensor(p + "ffn_gate_inp.weight",
+                         get(p + "ffn_gate_inp.weight", E, cfg.dim), GGML_F32)
+            w.add_tensor(p + "exp_probs_b.bias",
+                         get(p + "exp_probs_b.bias", E), GGML_F32)
+            for nm, shape in (("ffn_gate_exps", (E, F, cfg.dim)),
+                              ("ffn_up_exps", (E, F, cfg.dim)),
+                              ("ffn_down_exps", (E, cfg.dim, F))):
+                w.add_tensor(p + nm + ".weight",
+                             get(p + nm + ".weight", *shape), quant_type)
+            return
+        mat(p + "ffn_gate.weight", cfg.ff_dim, cfg.dim)
+        mat(p + "ffn_up.weight", cfg.ff_dim, cfg.dim)
+        mat(p + "ffn_down.weight", cfg.dim, cfg.ff_dim,
+            qtype=GGML_Q6_K if mixed_k else quant_type)
 
     # Embeddings stay f32 (gathered, not matmul'ed through qdot).
     w.add_tensor("token_embd.weight", get("token_embd.weight", cfg.n_vocab, cfg.dim,
@@ -274,12 +322,7 @@ def write_synthetic_llm(path: str, cfg: LLMConfig | None = None,
                              cfg.conv_l_cache), GGML_F32)
             mat(p + "shortconv.in_proj.weight", 3 * cfg.dim, cfg.dim)
             mat(p + "shortconv.out_proj.weight", cfg.dim, cfg.dim)
-            w.add_tensor(p + "ffn_norm.weight",
-                         get(p + "ffn_norm.weight", cfg.dim, ones=True), GGML_F32)
-            mat(p + "ffn_gate.weight", cfg.ff_dim, cfg.dim)
-            mat(p + "ffn_up.weight", cfg.ff_dim, cfg.dim)
-            mat(p + "ffn_down.weight", cfg.dim, cfg.ff_dim,
-                qtype=GGML_Q6_K if mixed_k else quant_type)
+            ffn(p, i)
             continue
         mat(p + "attn_q.weight", qd, cfg.dim)
         mat(p + "attn_k.weight", kvd, cfg.dim)
@@ -295,12 +338,7 @@ def write_synthetic_llm(path: str, cfg: LLMConfig | None = None,
                          get(p + "attn_q_norm.weight", cfg.head_dim, ones=True), GGML_F32)
             w.add_tensor(p + "attn_k_norm.weight",
                          get(p + "attn_k_norm.weight", cfg.head_dim, ones=True), GGML_F32)
-        w.add_tensor(p + "ffn_norm.weight",
-                     get(p + "ffn_norm.weight", cfg.dim, ones=True), GGML_F32)
-        mat(p + "ffn_gate.weight", cfg.ff_dim, cfg.dim)
-        mat(p + "ffn_up.weight", cfg.ff_dim, cfg.dim)
-        mat(p + "ffn_down.weight", cfg.dim, cfg.ff_dim,
-            qtype=GGML_Q6_K if mixed_k else quant_type)
+        ffn(p, i)
 
     w.add_tensor("output_norm.weight",
                  get("output_norm.weight", cfg.dim, ones=True), GGML_F32)

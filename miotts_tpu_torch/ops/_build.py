@@ -76,6 +76,19 @@ KERNELS = {
         "decode_attn_single_launch": [_P, _I] + [_P] * 7 + [_I] * 7
                                      + [_L] * 10 + [ctypes.c_float, _P],
     }),
+    "moe": ("moe.cu", {
+        # logits, bias, M, E, topk, scale, norm, ids, wts, offsets, order,
+        # pos, counters, stream
+        "moe_route_launch": [_P, _P, _I, _I, _I, ctypes.c_float, _I]
+                            + [_P] * 7,
+        # x, values, scales, offsets, order, act, M, K, F, E, topk, mt,
+        # stream
+        "moe_gateup_launch": [_P] * 6 + [_I] * 6 + [_P],
+        # act, values, scales, offsets, y, M, K, N, E, mt, stream
+        "moe_down_launch": [_P] * 5 + [_I] * 5 + [_P],
+        # y, wts, pos, out, M, N, topk, stream
+        "moe_combine_launch": [_P] * 4 + [_I] * 3 + [_P],
+    }),
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -169,7 +169,12 @@ def _model_axis(mesh) -> ModelAxis:
 
 def shard_llm_params(params: dict, mesh, cfg=None) -> dict:
     """This rank's slice of the LLM params under the TP layout, with
-    params["tp"] the model axis (`ModelAxis`)."""
+    params["tp"] the model axis (`ModelAxis`).  An expert (lfm2moe) model
+    is refused: its expert stacks have no sharded layout."""
+    if any("moe" in layer for layer in params.get("layers", ())):
+        raise ValueError("tensor-parallel sharding of an expert (lfm2moe) "
+                         "model is not supported: its expert layers have "
+                         "no sharded layout")
     out = {}
     for k, v in params.items():
         if k == "tp":

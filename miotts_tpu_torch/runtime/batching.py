@@ -205,6 +205,10 @@ class ContinuousBatcher:
         # steps run by a graph's replay; graph_captures: graphs captured;
         # graph_qdot_flops / graph_qdot_bytes: the replays' quantized
         # linears (ops/qmat.recording), which no launch counter sees.
+        # moe_pairs / moe_expert_reads: an expert model's token-expert
+        # products computed and experts read (one a layer step that routed
+        # a row to it), counted on the device by every expert layer, graph
+        # replays and prefills alike, since warmup() (0 without experts).
         self.stage = {"admit_sec": 0.0, "llm_wait_sec": 0.0,
                       "codec_sync_sec": 0.0, "codec_dispatch_sec": 0.0,
                       "flush_wait_sec": 0.0, "chunks": 0, "decodes": 0,
@@ -212,7 +216,20 @@ class ContinuousBatcher:
                       "codes_decoded": 0, "codes_committed": 0,
                       "emitted_samples": 0, "graph_steps": 0,
                       "graph_captures": 0, "graph_qdot_flops": 0,
-                      "graph_qdot_bytes": 0}
+                      "graph_qdot_bytes": 0, "moe_pairs": 0,
+                      "moe_expert_reads": 0}
+        self._moe_counters = next(
+            (layer["moe"].counters
+             for layer in engine.llm_params.get("layers", ())
+             if "moe" in layer), None)
+        self._moe_base = self._moe_read()
+
+    def _moe_read(self) -> list[int]:
+        """The expert counters as they stand (a host sync; [0, 0] without
+        experts)."""
+        if self._moe_counters is None:
+            return [0, 0]
+        return self._moe_counters.tolist()
 
     def _reset_device_state(self) -> None:
         """Fresh cache, logits and per-slot sampling state on the device:
@@ -387,6 +404,7 @@ class ContinuousBatcher:
                                       [0] * self.n_slots,
                                       [eng._first_commit * spt] * self.n_slots)
         self._reset_device_state()
+        self._moe_base = self._moe_read()
 
     @property
     def pending(self) -> int:
@@ -603,8 +621,14 @@ class ContinuousBatcher:
                     self.stage["graph_qdot_flops"] += flops
                     self.stage["graph_qdot_bytes"] += nbytes
                 self._fill_ub[self.active] += self.chunk_steps
-                self._inflight.append((_Readback(buf, self._active_dev),
-                                       list(self.slot_req)))
+                rb = _Readback(buf, self._active_dev)
+                if self._moe_counters is not None:
+                    # read with the tokens: the copy follows the chunk on
+                    # the stream, so it waits for nothing more.  A readback
+                    # of its own, so the chunk's stays (tokens, active),
+                    # which the benchmark's recorder unpacks as such.
+                    rb.moe = _Readback(self._moe_counters)
+                self._inflight.append((rb, list(self.slot_req)))
             dispatched = True
         self._flush_pending()
         keep = self._depth - 1 if dispatched else 0
@@ -636,6 +660,11 @@ class ContinuousBatcher:
         drops its stale tokens here."""
         with tracer.timed("sched.readback") as wait:
             buf, still_active = rb.get()
+            moe = getattr(rb, "moe", None)
+            if moe is not None:
+                pairs, reads = moe.get()[0].tolist()
+                self.stage["moe_pairs"] = pairs - self._moe_base[0]
+                self.stage["moe_expert_reads"] = reads - self._moe_base[1]
         self.stage["llm_wait_sec"] += wait.seconds
         self.stage["chunks"] += 1
 

@@ -102,7 +102,10 @@ class Tracer:
     attribute check.  start() / stop() belong to whoever reads the spans:
     `device_trace`, or a recording torch.profiler through
     `follow_profiler`, which the batcher calls once a scheduler step.
-    Counters live beside the work they count (ContinuousBatcher.stage)."""
+    Counters live beside the work they count (ContinuousBatcher.stage).
+    The LLM's layers open `llm.attn` / `llm.conv` around a mixer and
+    `llm.ffn`, or `llm.moe` in an expert layer, around the feed-forward
+    (models/llm.py), on the eager paths; a graph replay opens none."""
 
     def __init__(self):
         self.on = False

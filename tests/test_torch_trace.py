@@ -29,7 +29,8 @@ STAGE_KEYS = ["admit_sec", "llm_wait_sec", "codec_sync_sec",
               "prefills", "device_steps"]
 COUNTERS = ["codes_kept", "codes_decoded", "codes_committed",
             "emitted_samples", "graph_steps", "graph_captures",
-            "graph_qdot_flops", "graph_qdot_bytes"]
+            "graph_qdot_flops", "graph_qdot_bytes", "moe_pairs",
+            "moe_expert_reads"]
 
 
 @pytest.fixture(scope="module")
